@@ -42,6 +42,12 @@ class RasterConfig:
     dropped and counted); triangles spanning more than
     ``max_tiles_per_tri`` tiles go to the ``max_global_tris`` list that
     every tile walks.
+
+    The CUDA kernel takes fewer tiles than the plain version: tile_w <= 128
+    with 1, 2, 4, 8 or 16 rows a thread (8x16 and 8x128 are taken; 32x128,
+    64x64 and 8x256 are not). ``ops.raster_cuda.check_tile`` states the
+    rule, and ``rasterize_tiles`` raises ValueError on CUDA tensors for a
+    tile outside it.
     """
 
     tile_h: int = 8

@@ -34,7 +34,7 @@ def make_forward_pipeline(
     bloom: bool = True,
     shadows: bool = True,
     vignette: float = 0.18,  # 0 disables
-    device="cpu",
+    device="cuda",
 ) -> RenderPipeline:
     """The raster backbone of the forward frame; passes run in this order.
     ``taa`` and ``bloom`` keep the reference's defaults and must be False
@@ -57,7 +57,8 @@ def make_forward_pipeline(
 class Renderer:
     """Host frame loop: owns the pipeline, the persistent frame state and
     the camera's previous-frame bookkeeping. Nothing is read back from the
-    device per frame."""
+    device per frame. It runs on the card unless ``device`` asks for the CPU;
+    without a card the default raises, as torch does."""
 
     @property
     def scene_arrays(self):
@@ -71,7 +72,7 @@ class Renderer:
         self._scene_version = getattr(self, "_scene_version", -1) + 1
 
     def __init__(self, scene: Scene, camera: Camera, cfg: PipelineConfig,
-                 device="cpu", **pipeline_kw):
+                 device="cuda", **pipeline_kw):
         self.device = torch.device(device)
         self.scene = scene
         self.camera = camera

@@ -15,8 +15,9 @@ Four data-parallel stages over static-capacity pools:
 Stage 4 is the one hand-written kernel (csrc/raster_tiles.cu, wrapped by
 ops/raster_cuda.py). ``rasterize_tiles`` sends CUDA tensors to it and CPU
 tensors to ``rasterize_tiles_plain``, the plain torch version that tests
-and chip_smoke.py hold the kernel against. Stages 1-3 are torch ops and
-never read a value back to the host.
+and chip_smoke.py hold the kernel against. ``tile_rejects`` is the plain
+version of the kernel's exact tile-level rejection.
+Stages 1-3 are torch ops and never read a value back to the host.
 """
 
 from __future__ import annotations
@@ -420,6 +421,60 @@ def rasterize_tiles_plain(
     else:
         vis = tiled_to_image(vis, width, height, cfg)
     return vis, depth
+
+
+def tile_rejects(
+    setup: TriSetup,
+    tile_ids: torch.Tensor,
+    tri_ids: torch.Tensor,
+    width: int,
+    height: int,
+    cfg: RasterConfig,
+    y_offset: int = 0,
+) -> torch.Tensor:
+    """Exact tile-level rejection: (N,) bool, True where the triangle
+    ``tri_ids[i]`` covers no pixel of tile ``tile_ids[i]``.
+
+    It evaluates each edge's normalised barycentric ``l_i = fl(edge_fn(...)
+    * inv_area)`` at the tile's four corner pixel centres, with the
+    operations of ``rasterize_tiles_plain`` in its order, and rejects the
+    pair when, for some edge, all four corner values are ``< 0``.
+
+    Why this is exact, for the rounded arithmetic the kernel performs: with
+    the triangle fixed, ``fl(px - ax)`` is monotone in ``px`` and
+    ``fl(A * u)`` in ``u`` (direction set by the sign of ``A``);
+    ``fl(T1 - T2)`` is monotone in each argument and ``fl(e * inv)`` in
+    ``e``. So the rounded ``l_i`` is monotone along every row and every
+    column of the tile's pixel centres, and its maximum over the tile lies
+    at a corner: a rejected pair has ``l_i < 0`` at every pixel and covers
+    none. A NaN corner never rejects (``NaN < 0`` is false). NaN can only
+    arise at one end of a monotone row or column (an infinite term meeting
+    another), so corners free of NaN leave the whole tile free of it.
+    """
+    _, ntx = num_tiles(width, height, cfg)
+    dev = setup.screen_xy.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    tiles = tile_ids.long()
+    tx = (tiles % ntx).to(torch.float32)[:, None]
+    ty = (tiles // ntx).to(torch.float32)[:, None]
+    # The corner pixel centres, formed as _tile_pixel_centers forms them.
+    ix = torch.tensor([0, cfg.tile_w - 1, 0, cfg.tile_w - 1], **f32)
+    iy = torch.tensor([0, 0, cfg.tile_h - 1, cfg.tile_h - 1], **f32)
+    px = tx * cfg.tile_w + ix[None, :] + 0.5
+    py = ty * cfg.tile_h + iy[None, :] + 0.5 + y_offset
+    s = setup.screen_xy[tri_ids.long()]
+    x0, y0 = s[:, 0, 0, None], s[:, 0, 1, None]
+    x1, y1 = s[:, 1, 0, None], s[:, 1, 1, None]
+    x2, y2 = s[:, 2, 0, None], s[:, 2, 1, None]
+    area2 = edge_fn(x0, y0, x1, y1, x2, y2)
+    inv_area = torch.where(
+        torch.abs(area2) > 1e-12, 1.0 / torch.where(area2 == 0, 1.0, area2), 0.0
+    )
+    rejects = torch.zeros(tiles.shape, dtype=torch.bool, device=dev)
+    for e in (edge_fn(x1, y1, x2, y2, px, py), edge_fn(x2, y2, x0, y0, px, py),
+              edge_fn(x0, y0, x1, y1, px, py)):
+        rejects |= ((e * inv_area) < 0.0).all(dim=1)
+    return rejects
 
 
 def rasterize_tiles(

@@ -9,7 +9,9 @@ synchronising; ``rasterize_tiles_cuda.launches`` counts its launches.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 --fmad=false`` and no
 fast math, so the kernel rounds every operation as eager torch does and
-equals ``ops.raster.rasterize_tiles_plain`` bit for bit.
+equals ``ops.raster.rasterize_tiles_plain`` bit for bit. ``-Xptxas=-v``
+reports each kernel's registers, shared memory and spills; the report is
+kept beside the library (``ptxas_report(lib)``).
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 ]
+
+MAX_THREADS = 128  # threads a block (csrc/raster_tiles.cu)
 
 _lib: ctypes.CDLL | None = None
 
@@ -48,7 +52,8 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library."""
+    """Compile ``csrc/*.cu`` (once per source version, into ``BUILD_DIR``)
+    and load the port's kernel library."""
     global _lib
     if _lib is not None:
         return _lib
@@ -66,6 +71,7 @@ def build_kernels() -> ctypes.CDLL:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        so.with_suffix(".ptxas.txt").write_text(res.stderr)
         tmp.replace(so)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -73,6 +79,26 @@ def build_kernels() -> ctypes.CDLL:
     lib.raster_tiles_launch.restype = i
     _lib = lib
     return lib
+
+
+def ptxas_report(lib: ctypes.CDLL) -> list[str]:
+    """ptxas's lines on registers, shared memory and spills from the build
+    of ``lib``."""
+    text = Path(lib._name).with_suffix(".ptxas.txt").read_text()
+    return [line.strip() for line in text.splitlines() if "ptxas info" in line or "spill" in line]
+
+
+def check_tile(cfg: RasterConfig) -> None:
+    """Raise ValueError unless the kernel takes ``cfg``'s tile. As
+    ``raster_tiles_launch`` decides it: tile_w <= 128 (one thread a column),
+    R row groups with R the largest divisor of tile_h such that
+    tile_w * R <= 128, and tile_h / R rows a thread in 1, 2, 4, 8 or 16.
+    So 8x16 and 8x128 are taken; 32x128, 64x64 and 8x256 are not."""
+    groups = next((r for r in range(cfg.tile_h, 0, -1)
+                   if cfg.tile_h % r == 0 and cfg.tile_w * r <= MAX_THREADS), 1)
+    if not (0 < cfg.tile_w <= MAX_THREADS and cfg.tile_h // groups in (1, 2, 4, 8, 16)):
+        raise ValueError(f"the raster kernel does not take tile {cfg.tile_h}x{cfg.tile_w}: it "
+                         "takes tile_w <= 128 with 1, 2, 4, 8 or 16 rows a thread")
 
 
 def _check(name, t: torch.Tensor, dtype, shape=None):
@@ -98,6 +124,7 @@ def rasterize_tiles_cuda(
 ):
     """The kernel behind ``ops.raster.rasterize_tiles`` for CUDA tensors;
     same contract. Returns (vis (H,W) i32, depth (H,W) f32)."""
+    check_tile(cfg)
     nty, ntx = num_tiles(width, height, cfg)
     n_setup = setup.screen_xy.shape[0]
     dev = setup.screen_xy.device
@@ -108,18 +135,31 @@ def rasterize_tiles_cuda(
     _check("counts", bins.counts, torch.int32, (nty * ntx,))
     _check("global_tris", bins.global_tris, torch.int32)
     _check("global_count", bins.global_count, torch.int32, ())
+    if setup.screen_xy.data_ptr() % 8:
+        raise ValueError("screen_xy must be 8-byte aligned (the kernel copies corners as float2)")
     if depth_limit is not None:
         _check("depth_limit", depth_limit, torch.float32, (height, width))
     for t in (bins.sorted_tris, bins.starts, bins.counts, bins.global_tris,
               bins.global_count, setup.z_ndc):
         if t.device != dev:
             raise ValueError("all raster inputs must be on one device")
-    lib = build_kernels()
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     if depth_only:
         vis = torch.full((height, width), VIS_NONE, dtype=torch.int32, device=dev)
     else:
         vis = torch.empty((height, width), dtype=torch.int32, device=dev)
+    launch_raw(build_kernels(), setup, bins, width, height, cfg, depth_only, y_offset,
+               depth_limit, depth, vis)
+    rasterize_tiles_cuda.launches += 1
+    return vis, depth
+
+
+def launch_raw(lib, setup: TriSetup, bins: TileBins, width: int, height: int,
+               cfg: RasterConfig, depth_only: bool, y_offset: int,
+               depth_limit: torch.Tensor | None, depth: torch.Tensor, vis: torch.Tensor):
+    """One launch of ``lib.raster_tiles_launch`` into the given outputs on the
+    current stream, with no checks and no count: ``rasterize_tiles_cuda``
+    checks the inputs; timing scripts call this on outputs made once."""
     err = lib.raster_tiles_launch(
         setup.screen_xy.data_ptr(), setup.z_ndc.data_ptr(),
         bins.sorted_tris.data_ptr(), bins.starts.data_ptr(), bins.counts.data_ptr(),
@@ -127,13 +167,14 @@ def rasterize_tiles_cuda(
         None if depth_limit is None else depth_limit.data_ptr(),
         depth.data_ptr(), vis.data_ptr(),
         width, height, cfg.tile_h, cfg.tile_w, int(y_offset), int(depth_only),
-        n_setup, bins.sorted_tris.numel(), bins.global_tris.numel(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        setup.screen_xy.shape[0], bins.sorted_tris.numel(), bins.global_tris.numel(),
+        torch.cuda.current_stream(depth.device).cuda_stream,
     )
+    if err == 1:  # cudaErrorInvalidValue: a shape or alignment the kernel does not take
+        raise ValueError(f"raster_tiles_launch refused tile {cfg.tile_h}x{cfg.tile_w} at "
+                         f"{width}x{height} (see check_tile)")
     if err != 0:
         raise RuntimeError(f"raster_tiles_launch failed: CUDA error {err}")
-    rasterize_tiles_cuda.launches += 1
-    return vis, depth
 
 
 rasterize_tiles_cuda.launches = 0

@@ -64,7 +64,7 @@ class RenderPass(abc.ABC):
 
 
 class RenderPipeline:
-    def __init__(self, cfg: PipelineConfig, device="cpu"):
+    def __init__(self, cfg: PipelineConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.passes: list[RenderPass] = []

@@ -180,7 +180,7 @@ class Camera:
             aperture_px=np.float32(aperture_px),
         )
 
-    def state(self, frame_index: int = 0, device="cpu") -> CameraState:
+    def state(self, frame_index: int = 0, device="cuda") -> CameraState:
         """CameraState on ``device``; a static camera hits the cache after
         one jitter period and uploads nothing."""
         slot = (frame_index % self.jitter_period) if self.jitter_enabled else -1

@@ -362,7 +362,7 @@ class Scene:
         out["env_brightness"] = np.asarray(self.env_brightness, np.float32)
         return out
 
-    def build(self, device="cpu") -> SceneArrays:
+    def build(self, device="cuda") -> SceneArrays:
         return scene_arrays_from_host(self.build_host(), device)
 
     def static_info(self) -> SceneStatic:

@@ -36,7 +36,7 @@ def assert_golden_close(img_u8, ref_u8):
 @pytest.fixture(scope="module")
 def port_image():
     scene, cam = t_build_test_scene(viewport=(RES, RES))
-    img = TRenderer(scene, cam, port_cfg(), taa=False, bloom=False).render_frame()
+    img = TRenderer(scene, cam, port_cfg(), device="cpu", taa=False, bloom=False).render_frame()
     assert img.shape == (RES, RES, 3) and np.isfinite(img.numpy()).all()
     return to_u8(img.numpy())
 
@@ -77,7 +77,7 @@ def test_static_shadow_cache_is_a_host_branch(monkeypatch):
 
     monkeypatch.setattr(traster, "rasterize_tiles", counting)
     scene, cam = t_build_test_scene(viewport=(64, 64))
-    r = TRenderer(scene, cam, port_cfg(64, 128), taa=False, bloom=False)
+    r = TRenderer(scene, cam, port_cfg(64, 128), device="cpu", taa=False, bloom=False)
     r.render_frames(3)
     assert calls == [False, True, False, False]   # sun map once, camera per frame
     first = r.state["ShadowMap.sun"]

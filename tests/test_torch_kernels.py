@@ -77,3 +77,61 @@ def test_raster_kernel_matches_plain(cuda_device, floor, depth_only, y_off, peel
     assert rasterize_tiles_cuda.launches == before + 1
     assert (kd > 0).any()
     assert torch.equal(kv, pv) and torch.equal(kd, pd)
+
+
+# (tile_h, tile_w, taken by the kernel)
+TILES = [
+    (8, 16, True),
+    (8, 128, True),
+    (32, 64, True),
+    (32, 128, False),
+    (64, 64, False),
+    (8, 256, False),
+]
+
+
+def tile_inputs(device, cfg, width=256, height=64):
+    clip, idx = triangles(np.random.default_rng(5), 60, False)
+    valid = torch.ones(len(idx), dtype=torch.bool, device=device)
+    setup = raster.setup_triangles(clip.to(device), idx.to(device), valid, width, height,
+                                   cull_backfaces=False, w_eps=1e-4)
+    return setup, raster.bin_triangles(setup, width, height, cfg)
+
+
+@pytest.mark.parametrize("tile_h,tile_w,taken", TILES)
+def test_wrapper_refuses_tiles_the_kernel_does_not_take(tile_h, tile_w, taken):
+    """check_tile states the kernel's tile rule; the wrapper raises its
+    ValueError before it looks at the inputs, so this runs on the CPU."""
+    from arkoserenderer_torch.ops.raster_cuda import check_tile, rasterize_tiles_cuda
+
+    cfg = RasterConfig(tile_h=tile_h, tile_w=tile_w)
+    if taken:
+        check_tile(cfg)
+        return
+    with pytest.raises(ValueError, match="does not take tile"):
+        check_tile(cfg)
+    setup, bins = tile_inputs("cpu", cfg)
+    with pytest.raises(ValueError, match="does not take tile"):
+        rasterize_tiles_cuda(setup, bins, 256, 64, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_h,tile_w,taken", TILES)
+def test_kernel_tile_rule_matches_check_tile(cuda_device, tile_h, tile_w, taken):
+    """The C entry point takes exactly the tiles check_tile passes, and
+    equals the plain version on them."""
+    from arkoserenderer_torch.ops.raster_cuda import build_kernels, launch_raw
+
+    cfg = RasterConfig(tile_h=tile_h, tile_w=tile_w)
+    setup, bins = tile_inputs(cuda_device, cfg)
+    depth = torch.empty((64, 256), dtype=torch.float32, device=cuda_device)
+    vis = torch.empty((64, 256), dtype=torch.int32, device=cuda_device)
+    args = (build_kernels(), setup, bins, 256, 64, cfg, False, 0, None, depth, vis)
+    if not taken:
+        with pytest.raises(ValueError, match="refused tile"):
+            launch_raw(*args)
+        return
+    launch_raw(*args)
+    pv, pd = raster.rasterize_tiles_plain(setup, bins, 256, 64, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(vis, pv) and torch.equal(depth, pd)

@@ -112,7 +112,7 @@ def walk():
     tcfg = TPipelineConfig(width=RES, height=RES, raster=TRasterConfig(**RASTER),
                            shadow_map_size=128, scene=tscene.static_info())
     jpipe = j_make_pipeline(jcfg, taa=False, bloom=False)
-    tpipe = t_make_pipeline(tcfg, taa=False, bloom=False)
+    tpipe = t_make_pipeline(tcfg, taa=False, bloom=False, device="cpu")
     assert [n for n, _ in jpipe._executes] == PASSES == [n for n, _ in tpipe._executes]
     assert sorted(jpipe.registry.persistent_names) == sorted(tpipe.registry.persistent_names)
 

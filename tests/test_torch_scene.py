@@ -44,7 +44,7 @@ def both_scenes():
 def test_scene_arrays_match_jax(both_scenes):
     js, _, ts, _ = both_scenes
     ref = bridge.numpy_fields(js.build())
-    ours = bridge.numpy_fields(ts.build())
+    ours = bridge.numpy_fields(ts.build("cpu"))
     assert set(ours) <= set(ref)
     for name in sorted(ours):
         assert_field_equal(name, ours[name], ref[name])
@@ -62,7 +62,7 @@ def test_static_info_matches_jax(both_scenes):
 def test_camera_state_matches_jax(both_scenes, frames):
     _, jc, _, tc = both_scenes
     for i in range(frames):
-        ref, ours = jc.state(i), tc.state(i)
+        ref, ours = jc.state(i), tc.state(i, "cpu")
         for f in ref._fields:
             assert_field_equal(f, getattr(ours, f), getattr(ref, f))
         for p in ("view_proj", "unjittered_view_proj", "prev_view_proj"):
@@ -95,7 +95,7 @@ def test_local_lights_are_rejected():
     scene, _ = t_build_test_scene()
     scene.spots.append(object())
     with pytest.raises(NotImplementedError):
-        scene.build()
+        scene.build("cpu")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -128,6 +128,27 @@ def test_renderer_device_is_explicit():
     assert all(t.device == torch.device("cpu") for t in bridge_tensors(r.scene_arrays))
     with pytest.raises(NotImplementedError):
         Renderer(scene, cam, cfg, device="cpu")  # TAA and bloom default on
+
+
+def _entry_points():
+    from arkoserenderer_torch.models.standard import Renderer, make_forward_pipeline
+    from arkoserenderer_torch.rendering.pipeline import RenderPipeline
+    from arkoserenderer_torch.scene.camera import Camera
+    from arkoserenderer_torch.scene.scene import Scene
+
+    return {"Renderer": Renderer.__init__, "make_forward_pipeline": make_forward_pipeline,
+            "RenderPipeline": RenderPipeline.__init__, "Scene.build": Scene.build,
+            "Camera.state": Camera.state}
+
+
+@pytest.mark.parametrize("name", ["Renderer", "make_forward_pipeline", "RenderPipeline",
+                                  "Scene.build", "Camera.state"])
+def test_entry_points_default_to_the_card(name):
+    """The port runs on the card unless the caller asks for the CPU; the
+    check reads the signature and builds nothing."""
+    import inspect
+
+    assert inspect.signature(_entry_points()[name]).parameters["device"].default == "cuda"
 
 
 def bridge_tensors(tree):

@@ -5,13 +5,16 @@ same frames with PyTorch on an NVIDIA GPU (Hopper, sm_90a) and on the CPU.
 It mirrors the reference's layout and names:
 
   core/       — constants, host (numpy) matrix math, tensor helpers
-  assets/     — procedural test scenes
+  assets/     — procedural scenes (the test scene, the bindless scene)
   scene/      — Camera, lights, Scene -> SceneArrays (tensors on a device)
   rendering/  — Registry, RenderPipeline and the render passes
-  ops/        — raster, packed shading, shadows, BRDF, sky, tonemap
+  ops/        — raster, packed shading, shadows, BRDF, sky, tonemap, image
+                helpers, SSAO and the post-process functions
   csrc/       — hand-written CUDA kernels (built with nvcc at first use)
   models/     — make_forward_pipeline and the Renderer frame loop
-  bridge.py   — carries the reference's SceneArrays / CameraState across
+  tools/      — the frame-time bench and the raster kernel's measurements
+  bridge.py   — carries the reference's SceneArrays / CameraState / frame
+                state across
 
 Nothing here imports jax or arkoserenderer_tpu; only the parity tests do.
 """

@@ -1,6 +1,7 @@
-"""Procedural geometry and the standard test scene (port of
-arkoserenderer_tpu/assets/procedural.py, the parts the forward frame uses).
-Host numpy only; the same code gives the same pools as the reference."""
+"""Procedural geometry, the standard test scene and the bindless-pressure
+scene (port of arkoserenderer_tpu/assets/procedural.py, the parts the raster
+frames use). Host numpy only; the same code gives the same pools as the
+reference."""
 
 from __future__ import annotations
 
@@ -159,4 +160,108 @@ def build_test_scene(
     cam = Camera(viewport=viewport)
     cam.look_at((4.0, 2.5, 5.0), (0.0, 0.6, -0.5))
     cam.focus_depth = 6.0
+    return scene, cam
+
+
+def _variety_textures(scene: Scene, n_textures: int, rng) -> tuple:
+    """n_textures distinct base-colour chains (checker, stripes or rings with
+    a scale and hue each) plus metallic-roughness and emissive chains for
+    every third one. Returns (tex_ids, mr_tex_ids, emi_tex_ids)."""
+    tex_ids = []
+    mr_tex_ids = []
+    emi_tex_ids = []
+    for i in range(n_textures):
+        size = 64
+        sq = int(rng.integers(2, 16))
+        hue = rng.random(3) * 0.8 + 0.2
+        c0 = (hue * 220).astype(np.uint8)
+        c1 = (hue * 70).astype(np.uint8)
+        img = np.zeros((size, size, 4), np.uint8)
+        q = max(size // sq, 1)
+        yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+        if i % 3 == 1:    # diagonal stripes
+            mask = ((yy + xx) // q) % 2 == 0
+        elif i % 3 == 2:  # rings
+            r = np.sqrt((yy - size / 2) ** 2 + (xx - size / 2) ** 2)
+            mask = (r // q) % 2 == 0
+        else:             # checker
+            mask = ((yy // q) + (xx // q)) % 2 == 0
+        img[..., :3] = np.where(mask[..., None], c0, c1)
+        img[..., 3] = 255
+        tex_ids.append(scene.add_texture(img, srgb=True))
+        if i % 3 == 0:
+            mr = np.zeros((32, 32, 4), np.uint8)
+            mr[..., 1] = (rng.random((32, 32)) * 255).astype(np.uint8)  # rough
+            mr[..., 2] = 255 if i % 6 == 0 else 0                       # metal
+            mr[..., 3] = 255
+            mr_tex_ids.append(scene.add_texture(mr, srgb=False))
+            em = np.zeros((16, 16, 4), np.uint8)
+            em[..., :3] = (hue * 255 * (((yy[:16, :16] // 4) % 2) == 0)[..., None]).astype(np.uint8)
+            em[..., 3] = 255
+            emi_tex_ids.append(scene.add_texture(em, srgb=True))
+    return tex_ids, mr_tex_ids, emi_tex_ids
+
+
+def build_bindless_scene(
+    n_materials: int = 256,
+    n_textures: int = 64,
+    viewport: tuple[int, int] = (256, 256),
+) -> tuple[Scene, Camera]:
+    """Bindless-pressure scene: a grid of spheres where every instance has
+    its own material, and the materials cycle through ``n_textures`` distinct
+    texture chains, so neighbouring pixels routinely fetch from different
+    chains. A third of the materials also bind a metallic-roughness and an
+    emissive texture."""
+    side = int(np.ceil(np.sqrt(n_materials)))
+    spacing = 1.6
+    extent = side * spacing
+    lim = SceneLimits(
+        max_vertices=max(1 << 16, 160 * n_materials + 8192),
+        max_indices=max(3 << 16, 3 * (240 * n_materials + 8192)),
+        max_drawables=max(64, n_materials + 8),
+        max_materials=max(64, n_materials + 8),
+        max_textures=max(64, 3 * n_textures + 8),
+        texture_pool_texels=1 << 22,
+    )
+    scene = Scene(limits=lim)
+
+    rng = np.random.default_rng(99)
+    tex_ids, mr_tex_ids, emi_tex_ids = _variety_textures(scene, n_textures, rng)
+
+    floor_mat = scene.add_material(Material(base_color_tex=tex_ids[0], roughness_factor=0.9))
+    floor = make_plane(size=extent * 1.2, uv_scale=extent / 2)
+    floor.material = floor_mat
+    scene.add_instance(scene.add_segment(floor), np.eye(4, dtype=np.float32))
+
+    proto = make_uv_sphere(0.55, rings=8, sectors=12)
+    for i in range(n_materials):
+        m = Material(
+            base_color_factor=np.array([*(0.4 + 0.6 * rng.random(3)), 1.0], np.float32),
+            roughness_factor=float(0.15 + 0.8 * rng.random()),
+            metallic_factor=float(rng.random() < 0.3),
+            base_color_tex=tex_ids[i % n_textures],
+        )
+        if i % 3 == 0 and mr_tex_ids:
+            m.mr_tex = mr_tex_ids[(i // 3) % len(mr_tex_ids)]
+            m.emissive_tex = emi_tex_ids[(i // 3) % len(emi_tex_ids)]
+            m.emissive_factor = np.full(3, 2000.0, np.float32)
+        mid = scene.add_material(m)
+        seg = MeshSegment(
+            positions=proto.positions, normals=proto.normals, uvs=proto.uvs,
+            indices=proto.indices, material=mid, tangents=proto.tangents,
+        )
+        sid = scene.add_segment(seg)
+        gx, gz = i % side, i // side
+        w = np.eye(4, dtype=np.float32)
+        w[:3, 3] = ((gx - side / 2 + 0.5) * spacing, 0.75, (gz - side / 2 + 0.5) * spacing)
+        scene.add_instance(sid, w)
+
+    scene.sun = DirectionalLight(
+        direction=np.array([0.4, -1.0, -0.3], np.float32),
+        illuminance_lux=90000.0,
+    )
+    scene.set_env_map(gradient_env_map(32), brightness=8000.0)
+    scene.ambient_lx = 6000.0
+    cam = Camera(viewport=viewport)
+    cam.look_at((extent * 0.10, 5.0, extent * 0.16), (0.0, 0.4, 0.0))
     return scene, cam

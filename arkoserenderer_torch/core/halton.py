@@ -1,5 +1,6 @@
-"""Halton low-discrepancy sequence for the TAA camera jitter (port of
-arkoserenderer_tpu/core/halton.py, the part the forward frame uses)."""
+"""Low-discrepancy sequences: Halton for the TAA camera jitter and the SSAO
+kernel, the Fibonacci disc for PCF and bokeh taps (port of
+arkoserenderer_tpu/core/halton.py, the parts the raster frames use)."""
 
 from __future__ import annotations
 
@@ -30,3 +31,12 @@ def halton_sequence_2d(count: int, bases: tuple[int, int] = (2, 3)) -> np.ndarra
 def camera_jitter_sequence(count: int = 16) -> np.ndarray:
     """(count, 2) sub-pixel jitter offsets in [-0.5, 0.5)^2."""
     return halton_sequence_2d(count).astype(np.float32) - 0.5
+
+
+def fibonacci_disc(count: int) -> np.ndarray:
+    """(count, 2) near-uniform points on the unit disc (PCF and bokeh taps)."""
+    i = np.arange(count, dtype=np.float64) + 0.5
+    r = np.sqrt(i / count)
+    golden = np.pi * (3.0 - np.sqrt(5.0))
+    theta = golden * i
+    return np.stack([r * np.cos(theta), r * np.sin(theta)], axis=-1).astype(np.float32)

@@ -38,6 +38,14 @@ def sample_equirect(env: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return top * (1 - fy) + bot * fy
 
 
+def average_radiance(env: torch.Tensor) -> torch.Tensor:
+    """(3,) solid-angle-weighted mean radiance of an (H, W, 3) equirect map."""
+    h = env.shape[0]
+    theta = (torch.arange(h, dtype=torch.float32, device=env.device) + 0.5) / h * math.pi
+    weights = torch.sin(theta)[:, None, None]
+    return torch.sum(env * weights, dim=(0, 1)) / (torch.sum(weights) * env.shape[1])
+
+
 _C0, _C1, _C2, _C3, _C4 = 0.282095, 0.488603, 1.092548, 0.315392, 0.546274
 
 

@@ -1,9 +1,10 @@
 """Packed-record deferred shading (port of
-arkoserenderer_tpu/ops/packed_shading.py, the forward frame's subset).
+arkoserenderer_tpu/ops/packed_shading.py, the raster frames' subset).
 
 Everything a pixel needs is folded into one per-triangle record at
 geometry time, so shading does one record gather per pixel, the texel taps
-(ops/mattex) and one shadow tap (ops/shadow VSM).
+(ops/mattex), one sun shadow tap (ops/shadow VSM) and, per shadow-casting
+spot light, one PCF disc.
 
 Record layout (``rec_size`` f32 lanes per raster setup row, permuted per
 scene by ``RecLayout``):
@@ -21,6 +22,7 @@ meta (ops/mattex.META_LANES).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -29,7 +31,7 @@ from arkoserenderer_torch.core import mathx as mx
 from arkoserenderer_torch.ops import brdf, mattex
 from arkoserenderer_torch.ops.raster import TriSetup
 from arkoserenderer_torch.ops.shading import GBuffer
-from arkoserenderer_torch.ops.shadow import sample_vsm
+from arkoserenderer_torch.ops.shadow import sample_shadow_pcf, sample_vsm
 
 MREC_SIZE = 32
 
@@ -167,12 +169,18 @@ def shade_packed(
     height: int,
     shadow_moments: torch.Tensor | None = None,  # (S, S, 2) sun VSM
     sun_shadow_vp: torch.Tensor | None = None,
+    local_shadow_maps: torch.Tensor | None = None,  # (n_spots, A, A) depth
+    spot_shadow_flags: tuple | None = None,         # per spot: samples its map
+    n_spots: int = 0,
+    n_points: int = 0,
     any_tex: bool = True,
     *,
     layout: RecLayout,
 ) -> GBuffer:
-    """Deferred shading of the visibility buffer: the sun (VSM-shadowed)
-    through the Filament BRDF, emissive, and the velocity G-buffer."""
+    """Deferred shading of the visibility buffer: the sun (VSM-shadowed), the
+    first ``n_spots`` spot lights (cone, IES profile, PCF-shadowed where
+    flagged) and ``n_points`` point lights through the Filament BRDF,
+    emissive, and the velocity G-buffer."""
     cs = layout.c_stride
     valid = vis_flat >= 0
     rec = records[torch.clamp(vis_flat, min=0).long()]   # the per-pixel gather
@@ -286,6 +294,33 @@ def shade_packed(
     )
     sun_radiance = scene.lights.sun_color[None, :] * exposure
     color = color + sun_fr * sun_radiance * shadow[:, None] * scene.lights.sun_valid
+
+    lights = scene.lights
+    for i in range(n_spots):
+        to_l = lights.spot_pos[i][None, :] - world_pos
+        dist2 = torch.clamp(mx.vdot(to_l, to_l), min=1e-6)
+        l = to_l * torch.rsqrt(dist2)
+        cos_dir = -mx.vdot(l, lights.spot_dir[i][None, :], keepdims=False)
+        cone = lights.spot_cone[i]  # cos(inner), cos(outer)
+        t = torch.clamp((cos_dir - cone[1]) / torch.clamp(cone[0] - cone[1], min=1e-4), 0.0, 1.0)
+        angle_idx = torch.clamp(
+            (torch.acos(torch.clamp(cos_dir, -1.0, 1.0)) / math.pi * 255.0).to(torch.int64),
+            0, 255)
+        falloff = t * t * lights.spot_ies[i][angle_idx] / dist2[:, 0]
+        if (local_shadow_maps is not None and spot_shadow_flags is not None
+                and i < len(spot_shadow_flags) and spot_shadow_flags[i]):
+            n_dot_l_spot = torch.clamp(mx.vdot(world_nrm, l, keepdims=False), 0.0, 1.0)
+            falloff = falloff * sample_shadow_pcf(
+                local_shadow_maps[i], lights.spot_view_proj[i], world_pos, n_dot_l_spot)
+        fr = brdf.evaluate(l, view, shading_nrm, base_color, roughness, metallic)
+        color = color + fr * (lights.spot_color[i][None, :] * exposure) * falloff[:, None]
+
+    for i in range(n_points):
+        to_l = lights.point_pos[i][None, :] - world_pos
+        dist2 = torch.clamp(mx.vdot(to_l, to_l), min=1e-6)
+        l = to_l * torch.rsqrt(dist2)
+        fr = brdf.evaluate(l, view, shading_nrm, base_color, roughness, metallic)
+        color = color + fr * (lights.point_color[i][None, :] * exposure) / dist2
 
     def to_screen(vp, p):
         sx_, sy_, w_c = mx.transform_point_lanes(vp, p, rows=(0, 1, 3))

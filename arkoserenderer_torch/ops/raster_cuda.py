@@ -5,7 +5,9 @@ with a plain C interface under ``build/kernels/`` at the checkout root (the
 library name carries a hash of the sources, so an edit rebuilds), and loads
 it with ctypes. ``rasterize_tiles_cuda`` checks its inputs, allocates the
 outputs with ``torch.empty`` and launches on the current stream without
-synchronising; ``rasterize_tiles_cuda.launches`` counts its launches.
+synchronising; ``rasterize_tiles_cuda.launches`` counts its launches, and
+``rasterize_tiles_cuda.launches_by_shape`` counts them per
+(height, width, depth_only).
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 --fmad=false`` and no
 fast math, so the kernel rounds every operation as eager torch does and
@@ -16,6 +18,7 @@ kept beside the library (``ptxas_report(lib)``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -151,6 +154,7 @@ def rasterize_tiles_cuda(
     launch_raw(build_kernels(), setup, bins, width, height, cfg, depth_only, y_offset,
                depth_limit, depth, vis)
     rasterize_tiles_cuda.launches += 1
+    rasterize_tiles_cuda.launches_by_shape[(height, width, bool(depth_only))] += 1
     return vis, depth
 
 
@@ -178,3 +182,4 @@ def launch_raw(lib, setup: TriSetup, bins: TileBins, width: int, height: int,
 
 
 rasterize_tiles_cuda.launches = 0
+rasterize_tiles_cuda.launches_by_shape = collections.Counter()

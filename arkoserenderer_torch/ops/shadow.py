@@ -1,9 +1,11 @@
-"""Sun shadows: light-space projection and variance shadow maps (port of
-arkoserenderer_tpu/ops/shadow.py, the VSM path the forward frame uses).
+"""Shadow maps: light-space projection, variance shadow maps for the sun and
+disc PCF for the spot lights (port of arkoserenderer_tpu/ops/shadow.py).
 
 The depth-only raster of the sun's view (ops/raster) is turned into
 prefiltered moments (E[d], E[d^2]) at half resolution; receivers take one
-bilinear moment tap and a Chebyshev bound. Depth is reverse-Z throughout.
+bilinear moment tap and a Chebyshev bound. A spot light's map is compared
+directly, over a Fibonacci disc of nearest taps. Depth is reverse-Z
+throughout.
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from arkoserenderer_torch.core.halton import fibonacci_disc
 from arkoserenderer_torch.core.mathx import transform_point_lanes
+from arkoserenderer_torch.ops.image import clamped_index
 
 
 def project_to_shadow_uv(shadow_vp: torch.Tensor, world_pos: torch.Tensor):
@@ -20,6 +24,40 @@ def project_to_shadow_uv(shadow_vp: torch.Tensor, world_pos: torch.Tensor):
     inv_w = torch.where(torch.abs(w) > 1e-12, 1.0 / torch.where(w == 0, 1.0, w), 0.0)
     uv = torch.stack([cx * inv_w * 0.5 + 0.5, 0.5 - cy * inv_w * 0.5], dim=-1)
     return uv, cz * inv_w
+
+
+def _fetch_shadow_depth(shadow_map: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Nearest fetch with clamp from an (S, S) reverse-Z depth map. The
+    texel index is cast before it is clipped, so it truncates toward zero."""
+    s = shadow_map.shape[0]
+    return shadow_map.reshape(-1)[clamped_index(v * s, s) * s + clamped_index(u * s, s)]
+
+
+def sample_shadow_pcf(
+    shadow_map: torch.Tensor,  # (S, S)
+    shadow_vp: torch.Tensor,
+    world_pos: torch.Tensor,   # (N, 3)
+    n_dot_l: torch.Tensor,
+    constant_bias: float = 1.5e-3,
+    slope_bias: float = 3.5e-3,
+    radius_texels: float = 1.5,
+    num_taps: int = 8,
+) -> torch.Tensor:
+    """(N,) shadow visibility in [0, 1], 1 = fully lit: the share of disc
+    taps whose stored depth the receiver's biased depth reaches (reverse-Z:
+    the closest occluder has the largest depth). The slope bias grows with
+    tan(acos(n.l)). Outside the light's frustum everything is lit."""
+    s = shadow_map.shape[0]
+    uv, depth = project_to_shadow_uv(shadow_vp, world_pos)
+    slope = torch.sqrt(torch.clamp(1.0 - n_dot_l ** 2, min=0.0)) / torch.clamp(n_dot_l, min=0.1)
+    biased = depth + (constant_bias + slope_bias * torch.clamp(slope, 0.0, 3.0))
+    taps = fibonacci_disc(num_taps) * (radius_texels / s)  # float32
+    lit = torch.zeros_like(depth)
+    for du, dv in taps.tolist():
+        occ = _fetch_shadow_depth(shadow_map, uv[:, 0] + du, uv[:, 1] + dv)
+        lit = lit + (biased >= occ).to(depth.dtype)
+    inside = (uv[:, 0] > 0.0) & (uv[:, 0] < 1.0) & (uv[:, 1] > 0.0) & (uv[:, 1] < 1.0)
+    return torch.where(inside, lit / num_taps, 1.0)
 
 
 def shadow_moments(depth_map: torch.Tensor, blur_passes: int = 2,

@@ -33,6 +33,18 @@ def lod_instance_mask(scene, cam_pos: torch.Tensor) -> torch.Tensor:
     return (d >= band[:, 0]) & (d < band[:, 1])
 
 
+def transform_vertices_clip(scene, view_proj: torch.Tensor,
+                            positions: torch.Tensor) -> torch.Tensor:
+    """Object-space vertex pool -> (V, 4) clip space: ``view_proj`` folded
+    into each instance matrix, gathered per vertex, applied elementwise."""
+    mvp = torch.matmul(view_proj[None], scene.world)       # (D, 4, 4)
+    m = mvp[scene.vertex_instance.long()]                  # (V, 4, 4)
+    p = positions
+    return torch.stack(
+        [m[:, r, 0] * p[:, 0] + m[:, r, 1] * p[:, 1] + m[:, r, 2] * p[:, 2] + m[:, r, 3]
+         for r in range(4)], dim=-1)
+
+
 def world_to_clip(view_proj: torch.Tensor, wpos: torch.Tensor) -> torch.Tensor:
     """(4,4) @ (V,3) world positions -> (V,4) clip, elementwise."""
     return torch.stack(mx.transform_point_lanes(view_proj, wpos), dim=-1)

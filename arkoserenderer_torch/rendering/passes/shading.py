@@ -1,8 +1,10 @@
 """Deferred shading pass (port of
 arkoserenderer_tpu/rendering/passes/shading.py ``VisibilityShadingPass``,
-packed branch: trilinear textures, bilinear VSM sun, no local lights —
-the reference's defaults; its other texture and shadow filters are not
-ported yet).
+packed branch: trilinear textures and the bilinear VSM sun — the
+reference's defaults; its other texture and shadow filters are not ported
+yet). Spot and point lights are shaded at the scene's static counts; a
+spot flagged as a shadow caster samples its tile of ShadowMap.locals when
+the LocalShadow pass ran before this one.
 
 Publishes SceneColor, SceneNormal, SceneVelocity, SceneBaseColor,
 SceneMaterial and SceneCoverage.
@@ -28,8 +30,6 @@ class VisibilityShadingPass(RenderPass):
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
         st = cfg.scene
-        if st.n_spots or st.n_points:
-            raise NotImplementedError("local lights are not ported yet")
         reg.get("Visibility")
         reg.get("SceneDepth")
         reg.get("vis.setup")
@@ -39,6 +39,9 @@ class VisibilityShadingPass(RenderPass):
         use_moments = reg.has("ShadowMoments.sun")
         if use_moments:
             reg.get("ShadowMoments.sun")
+        use_local_shadow = reg.has("ShadowMap.locals")
+        if use_local_shadow:
+            reg.get("ShadowMap.locals")
         for name, shape in (("SceneColor", (h, w, 3)), ("SceneNormal", (h, w, 3)),
                             ("SceneVelocity", (h, w, 2)), ("SceneBaseColor", (h, w, 3)),
                             ("SceneMaterial", (h, w, 4))):
@@ -54,6 +57,10 @@ class VisibilityShadingPass(RenderPass):
                 state["vis.records"], px, py, w, h,
                 shadow_moments=state["ShadowMoments.sun"] if use_moments else None,
                 sun_shadow_vp=ctx.scene.lights.sun_view_proj if use_moments else None,
+                local_shadow_maps=state["ShadowMap.locals"] if use_local_shadow else None,
+                spot_shadow_flags=st.spot_shadow_casters if use_local_shadow else None,
+                n_spots=st.n_spots,
+                n_points=st.n_points,
                 any_tex=any_tex,
                 layout=layout,
             )

@@ -1,5 +1,8 @@
-"""Directional sun shadow map (port of
-arkoserenderer_tpu/rendering/passes/shadow.py ``SunShadowPass``).
+"""Shadow-map passes (port of arkoserenderer_tpu/rendering/passes/shadow.py):
+the directional sun map and the per-spot-light local maps.
+
+SunShadow
+---------
 
 A depth-only raster from the sun's ortho view (no backface culling, so
 single-sided geometry casts) through the same stage-4 kernel as the camera,
@@ -13,6 +16,15 @@ reads nothing back.
 
 Publishes: ShadowMap.sun (S, S) f32 reverse-Z depth and ShadowMoments.sun
 (S/2, S/2, 2) f32.
+
+LocalShadow
+-----------
+One depth-only perspective raster per shadow-casting spot light, through
+the same stage-4 kernel, at ``local_shadow_map_size``; shading PCF-samples
+each light's tile through the light's matrix.
+
+Publishes: ShadowMap.locals (n_spots, A, A) f32 reverse-Z depth; the tiles
+of lights that cast no shadow stay at the far clear value.
 """
 
 from __future__ import annotations
@@ -22,7 +34,11 @@ import torch
 from arkoserenderer_torch.core.types import DEPTH_FAR
 from arkoserenderer_torch.ops import raster
 from arkoserenderer_torch.ops.shadow import shadow_moments
-from arkoserenderer_torch.rendering.passes.geometry import visible_triangles, world_to_clip
+from arkoserenderer_torch.rendering.passes.geometry import (
+    transform_vertices_clip,
+    visible_triangles,
+    world_to_clip,
+)
 from arkoserenderer_torch.rendering.pipeline import FrameContext, PipelineConfig, RenderPass
 from arkoserenderer_torch.rendering.registry import Registry
 
@@ -74,5 +90,42 @@ class SunShadowPass(RenderPass):
                 "ShadowMap.sun": depth, "ShadowMoments.sun": moments,
                 "SunShadow.version": version, "scene.version": version,
             }
+
+        return execute
+
+
+class LocalShadowPass(RenderPass):
+    name = "LocalShadow"
+
+    def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
+        a = cfg.local_shadow_map_size
+        st = cfg.scene
+        if st.has_translucent:
+            raise NotImplementedError("translucent shadow casters are not ported yet")
+        n_tiles = max(st.n_spots, 1)
+        casters = st.spot_shadow_casters
+        reg.get("geom.positions")
+        reg.create("ShadowMap.locals", (n_tiles, a, a), torch.float32, clear=DEPTH_FAR)
+        rcfg = cfg.raster
+        if a % rcfg.tile_h or a % rcfg.tile_w:
+            raise ValueError("local shadow map size must be a multiple of the raster tile")
+
+        def execute(state: dict, ctx: FrameContext) -> dict:
+            tiles = []
+            for i in range(n_tiles):
+                if i >= len(casters) or not casters[i]:
+                    tiles.append(torch.full((a, a), DEPTH_FAR, dtype=torch.float32,
+                                            device=ctx.scene.positions.device))
+                    continue
+                vp = ctx.scene.lights.spot_view_proj[i]
+                clip = transform_vertices_clip(ctx.scene, vp, state["geom.positions"])
+                setup = raster.setup_triangles(
+                    clip, ctx.scene.indices,
+                    visible_triangles(ctx.scene, vp, ctx.camera.position), a, a,
+                    cull_backfaces=False,
+                )
+                bins = raster.bin_triangles(setup, a, a, rcfg)
+                tiles.append(raster.rasterize_tiles(setup, bins, a, a, rcfg, depth_only=True)[1])
+            return {"ShadowMap.locals": torch.stack(tiles)}
 
         return execute

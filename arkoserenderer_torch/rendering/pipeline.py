@@ -44,7 +44,11 @@ class PipelineConfig:
     raster: RasterConfig = dataclasses.field(default_factory=RasterConfig)
     limits: SceneLimits = dataclasses.field(default_factory=SceneLimits)
     shadow_map_size: int = 2048
+    local_shadow_map_size: int = 512  # each spot light's shadow map
     tonemap_mode: str = "agx"  # a key of ops.tonemap.MODES
+    # TAA history filter: "catmull" (16-tap Catmull-Rom, sharp history) or
+    # "bilinear" (4 taps).
+    taa_filter: str = "catmull"
     scene: SceneStatic = dataclasses.field(default_factory=SceneStatic)
 
 

@@ -6,8 +6,8 @@ instances; ``build(device)`` freezes them into ``SceneArrays`` — SoA tensors
 in unified pools with the reference's static capacities, so both packages
 hold identical pools for the same scene.
 
-The static subset: no skinning, morph targets, hair, meshlets, BVH,
-streaming or local lights. Authoring those raises ``NotImplementedError``.
+The static subset: no skinning, morph targets, hair, meshlets, BVH or
+streaming. Authoring those raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from arkoserenderer_torch.ops import mattex
 from arkoserenderer_torch.scene.lights import (
     DirectionalLight,
     LightArrays,
+    PointLight,
+    SpotLight,
     build_light_arrays,
 )
 
@@ -42,6 +44,13 @@ class SceneStatic:
     has_skin: bool = False
     n_spots: int = 0
     n_points: int = 0
+    # Per-light shadow-caster flags: the spots' drive the local shadow
+    # raster and the PCF branch of shading; the points' are for ray-traced
+    # shadows, as are the source radii (world units).
+    spot_shadow_casters: tuple = ()
+    point_shadow_casters: tuple = ()
+    spot_source_radius: tuple = ()
+    point_source_radius: tuple = ()
     uses_base_tex: bool = True
     uses_normal_tex: bool = True
     uses_mr_tex: bool = True
@@ -199,8 +208,8 @@ class Scene:
                      [128, 128, 255, 255], [128, 128, 128, 255]):
             self.add_texture(np.full((1, 1, 4), rgba, np.uint8), srgb=False)
         self.sun: DirectionalLight | None = None
-        self.spots: list = []
-        self.points: list = []
+        self.spots: list[SpotLight] = []
+        self.points: list[PointLight] = []
         self.env_map: np.ndarray = np.zeros((1, 2, 3), np.float32)
         self.env_brightness: float = 1.0
         self.ambient_lx: float = 0.0
@@ -244,8 +253,6 @@ class Scene:
 
     def build_host(self) -> dict[str, np.ndarray]:
         """Every SceneArrays field as host arrays (nested as "a.b")."""
-        if self.spots or self.points:
-            raise NotImplementedError("local lights are outside the forward slice")
         lim = self.limits
         vmax, tmax, dmax, mmax = (
             lim.max_vertices, lim.max_triangles, lim.max_drawables, lim.max_materials,
@@ -352,7 +359,8 @@ class Scene:
 
         center, radius = self.bounding_sphere()
         lights = build_light_arrays(
-            self.sun, exposure=1.0,  # raw units; pre-exposure happens in shading
+            self.sun, self.spots, self.points,
+            exposure=1.0,  # raw units; pre-exposure happens in shading
             scene_center=center, scene_radius=radius,
             max_spots=lim.max_spot_lights, max_points=lim.max_point_lights,
             ambient_lx=self.ambient_lx,
@@ -370,6 +378,10 @@ class Scene:
         return SceneStatic(
             n_spots=len(self.spots),
             n_points=len(self.points),
+            spot_shadow_casters=tuple(bool(sp.cast_shadows) for sp in self.spots),
+            point_shadow_casters=tuple(bool(p.cast_shadows) for p in self.points),
+            spot_source_radius=tuple(float(sp.source_radius) for sp in self.spots),
+            point_source_radius=tuple(float(p.source_radius) for p in self.points),
             uses_base_tex=any(m.base_color_tex != 0 for m in mats),
             uses_normal_tex=any(m.normal_tex != 2 for m in mats),
             uses_mr_tex=any(m.mr_tex != 0 for m in mats),

@@ -1,7 +1,7 @@
 """Measurements of the stage-4 raster kernel (csrc/raster_tiles.cu) on the card.
 
 Helpers used by chip_smoke.py and the tests: the forward frame's camera and
-sun raster inputs, the (tile, triangle) pairs a raster walks and its pixel
+sun raster inputs and a spot light's local-shadow raster inputs, the (tile, triangle) pairs a raster walks and its pixel
 tests before and after exact tile rejection (``ops.raster.tile_rejects``),
 the kernel's bound, and two timings: the wrapper's (CUDA events around
 back-to-back ``rasterize_tiles_cuda`` calls, as the frame calls it) and the
@@ -36,7 +36,11 @@ from arkoserenderer_torch.core.types import RasterConfig
 from arkoserenderer_torch.ops import raster
 from arkoserenderer_torch.ops.packed_shading import build_vertex_world, record_layout_for
 from arkoserenderer_torch.ops import raster_cuda
-from arkoserenderer_torch.rendering.passes.geometry import visible_triangles, world_to_clip
+from arkoserenderer_torch.rendering.passes.geometry import (
+    transform_vertices_clip,
+    visible_triangles,
+    world_to_clip,
+)
 
 # One H100 SXM (NVIDIA's data sheet): HBM rate and float32 rate outside the
 # tensor cores.
@@ -50,7 +54,7 @@ OPS_PER_TEST = 20
 # graph, and back-to-back wrapper calls under CUDA events a raster.
 ROUNDS = 3
 GRAPH_LAUNCHES = 50
-WRAPPER_CALLS = {"camera": 50, "sun": 10}
+WRAPPER_CALLS = {"camera": 50, "sun": 10, "local": 50}
 # The adversarial case: viewport and numpy seed.
 ADVERSARIAL_SIZE, ADVERSARIAL_SEED = 64, 7
 
@@ -142,6 +146,18 @@ def forward_raster_inputs(scene_arrays, cam_state, scene_static, width: int, hei
         "camera": (cam, raster.bin_triangles(cam, width, height, cfg), width, height, False),
         "sun": (sun, raster.bin_triangles(sun, shadow, shadow, cfg), shadow, shadow, True),
     }
+
+
+def local_shadow_raster_inputs(scene_arrays, cam_state, size: int, cfg: RasterConfig,
+                               spot: int = 0):
+    """The depth-only raster of spot light ``spot``'s shadow map, as the
+    LocalShadow pass forms it: (setup, bins, size, size, True)."""
+    sa = scene_arrays
+    vp = sa.lights.spot_view_proj[spot]
+    clip = transform_vertices_clip(sa, vp, sa.positions)
+    setup = raster.setup_triangles(clip, sa.indices, visible_triangles(sa, vp, cam_state.position),
+                                   size, size, cull_backfaces=False)
+    return setup, raster.bin_triangles(setup, size, size, cfg), size, size, True
 
 
 def tile_list_pairs(bins) -> tuple[torch.Tensor, torch.Tensor]:

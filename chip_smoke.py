@@ -26,11 +26,27 @@ result line):
      bound;
   4. the 256^2 forward golden (tests/goldens/forward.png) rendered on the
      card, under the golden test's thresholds;
-  5. the forward frame at 1920x1080 with an 8192^2 shadow map: 20 frames,
-     finite LDR, non-empty coverage, raster kernel launched frames + 1
-     times (camera every frame, sun once under the static shadow cache);
-     prints ms/frame, a per-pass table and peak device memory.
-The line before the last is the kernels' JSON; the last line is
+  5. the forward slice (no TAA, no Bloom) at 1920x1080 with an 8192^2
+     shadow map: 20 frames, finite LDR, non-empty coverage, raster kernel
+     launched frames + 1 times (camera every frame, sun once under the
+     static shadow cache); prints ms/frame, a per-pass table and peak
+     device memory;
+  6. the 256^2 full_post golden (tests/goldens/full_post.png: SSAO, motion
+     blur, Bloom and TAA over three frames) rendered on the card, under the
+     golden test's thresholds;
+  7. the depth-only 512^2 local-shadow raster of the test_spot scene's spot
+     light: kernel equal to its plain version bit for bit, timed like the
+     camera and the sun;
+  8. through arkoserenderer_torch.tools.bench, at 1920x1080 with the 8192^2
+     sun map and a camera that moves every frame: the forward (TAA +
+     Bloom), full_post, bindless (256 materials, 64 textures) and test_spot
+     (LocalShadow) frames, 4 warm-up + 16 timed + 1 frames each: finite
+     LDR, non-empty coverage, real motion vectors, a TAAHistory that
+     changes between frames, and the raster kernel's launches (camera
+     every frame, sun once, one per shadow-casting spot per frame); prints
+     ms/frame, the per-pass table and peak memory of each.
+The line before the last is the kernels' JSON, one entry per raster (camera,
+sun, local shadow) of the one kernel; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -70,6 +86,28 @@ def random_case(rng, n, big: bool, width: int, height: int):
     return torch.from_numpy(clip), torch.from_numpy(idx)
 
 
+def check_golden(name: str, img: torch.Tensor) -> None:
+    """Hold a 256x256 LDR image rendered on the card against
+    tests/goldens/<name>.png under the golden test's thresholds."""
+    from arkoserenderer_torch.utils.imageio import load_png, to_u8
+
+    golden = load_png(str(ROOT / "tests" / "goldens" / f"{name}.png"))[..., :3]
+    diff = np.abs(to_u8(img.cpu().numpy()).astype(int) - golden.astype(int))
+    if not (diff.mean() < 1.5 and (diff > 24).mean() < 0.005):
+        raise AssertionError(f"golden {name}: mean abs diff {diff.mean():.4f}, "
+                             f"{(diff > 24).mean():.4%} pixels off by > 24")
+    print(f"golden {name} 256x256 on the card: mean abs diff {diff.mean():.4f} (< 1.5), "
+          f"{(diff > 24).mean():.4%} pixels off by > 24 (< 0.5%)", flush=True)
+
+
+def print_frame_table(result: dict, card: str) -> None:
+    print(f"frame ms: {[round(x, 4) for x in result['frame_ms']]}")
+    print(f"per-pass median ms [{card}]:")
+    for name, ms in result["pass_ms"].items():
+        print(f"  {name:20s} {ms:10.4f}")
+    print(f"  {'sum of passes':20s} {sum(result['pass_ms'].values()):10.4f}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -84,8 +122,8 @@ def main() -> None:
         rasterize_tiles_cuda,
     )
     from arkoserenderer_torch.rendering.pipeline import PipelineConfig
+    from arkoserenderer_torch.tools import bench
     from arkoserenderer_torch.tools import raster_bench as rb
-    from arkoserenderer_torch.utils.imageio import load_png, to_u8
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -182,10 +220,9 @@ def main() -> None:
     cases = rb.forward_raster_inputs(r.scene_arrays, cam.state(0, dev), r.cfg.scene, W, H, S,
                                      full_raster)
     timed = {}
-    for name, label, p_iters in (("camera", f"camera {W}x{H}", 5),
-                                 ("sun", f"sun {S}x{S} depth-only", 2)):
-        setup, bins, w, h, depth_only = cases[name]
-        errs.append(compare(label, setup, bins, w, h, full_raster, depth_only)[0])
+
+    def compare_and_time(name, label, p_iters, setup, bins, w, h, depth_only):
+        err = compare(label, setup, bins, w, h, full_raster, depth_only)[0]
         device_ms = rb.kernel_ms(lib, setup, bins, w, h, full_raster, depth_only)
         k_ms = rb.events_ms(lambda: rasterize_tiles_cuda(setup, bins, w, h, full_raster,
                                                          depth_only=depth_only),
@@ -194,8 +231,8 @@ def main() -> None:
                                                                  depth_only=depth_only), p_iters)
         before, after = rb.pixel_tests(setup, bins, w, h, full_raster)
         bound, kind = rb.bound_ms(setup, bins, w, h, depth_only, after)
-        timed[name] = dict(ms=k_ms, device_ms=device_ms, plain_ms=p_ms, bound_ms=bound,
-                           bound_by=kind)
+        timed[name] = dict(max_abs_err=err, ms=k_ms, device_ms=device_ms, plain_ms=p_ms,
+                           bound_ms=bound, bound_by=kind, shape=label)
         counts, px = bins.counts.float(), full_raster.tile_h * full_raster.tile_w
         print(f"{label}: {counts.numel()} tiles, {int(counts.sum())} binned pairs (mean "
               f"{counts.mean().item():.4f}, max {int(counts.max())} a tile), "
@@ -206,6 +243,11 @@ def main() -> None:
               f"rejection, {after} after; bound {bound:.4f} ms ({kind}), "
               f"{bound / device_ms:.1%} of the bound on device time, {bound / k_ms:.1%} on "
               f"the wrapper's [{card}]", flush=True)
+
+    for name, label, p_iters in (("camera", f"camera {W}x{H}, tile 8x128", 5),
+                                 ("sun", f"sun {S}x{S} depth-only", 2)):
+        compare_and_time(name, label, p_iters, *cases[name])
+    timed["camera"]["max_abs_err"] = max(errs + [timed["camera"]["max_abs_err"]])
     del cases, setup, bins
 
     # -- 4. golden on the card ----------------------------------------------------
@@ -213,21 +255,17 @@ def main() -> None:
                            raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256),
                            shadow_map_size=256)
     g_scene, g_cam = build_test_scene(viewport=(256, 256))
-    img = Renderer(g_scene, g_cam, g_cfg, device=dev, taa=False, bloom=False).render_frame()
-    golden = load_png(str(ROOT / "tests" / "goldens" / "forward.png"))[..., :3]
-    diff = np.abs(to_u8(img.cpu().numpy()).astype(int) - golden.astype(int))
-    if not (diff.mean() < 1.5 and (diff > 24).mean() < 0.005):
-        raise AssertionError(f"golden: mean abs diff {diff.mean():.4f}, "
-                             f"{(diff > 24).mean():.4%} pixels off by > 24")
-    print(f"golden forward 256x256 on the card: mean abs diff {diff.mean():.4f} (< 1.5), "
-          f"{(diff > 24).mean():.4%} pixels off by > 24 (< 0.5%)", flush=True)
+    check_golden("forward", Renderer(g_scene, g_cam, g_cfg, device=dev, taa=False,
+                                     bloom=False).render_frame())
 
     # -- 5. the slice at full size --------------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     rasterize_tiles_cuda.launches = 0
-    bench = r.benchmark(warmup=WARMUP, iters=FRAMES - WARMUP)
+    rasterize_tiles_cuda.launches_by_shape.clear()
+    slice1 = r.benchmark(warmup=WARMUP, iters=FRAMES - WARMUP)
     launches = rasterize_tiles_cuda.launches
+    slice1_launches = dict(rasterize_tiles_cuda.launches_by_shape)
     ldr = r.state["LDR"]
     if tuple(ldr.shape) != (H, W, 3) or not bool(torch.isfinite(ldr).all()):
         raise AssertionError("full-size LDR is not a finite (H, W, 3) image")
@@ -238,23 +276,73 @@ def main() -> None:
         raise AssertionError(f"raster kernel launched {launches} times in {FRAMES} frames, "
                              f"expected {FRAMES + 1}")
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"forward {W}x{H} shadow {S}: {FRAMES} frames, median {bench['ms_per_frame']:.4f} "
+    print(f"forward slice {W}x{H} shadow {S}: {FRAMES} frames, median "
+          f"{slice1['ms_per_frame']:.4f} "
           f"ms/frame over the last {FRAMES - WARMUP} (CUDA events), coverage {coverage:.4f}, "
           f"raster launches {launches}, peak memory {peak / 2**30:.3f} GiB [{card}]", flush=True)
-    print(f"frame ms: {[round(x, 4) for x in bench['frame_ms']]}")
-    print(f"per-pass median ms [{card}]:")
-    for name, ms in bench["pass_ms"].items():
-        print(f"  {name:20s} {ms:10.4f}")
-    print(f"  {'sum of passes':20s} {sum(bench['pass_ms'].values()):10.4f}", flush=True)
+    print_frame_table(slice1, card)
+    del r
 
-    cam_t, sun_t = timed["camera"], timed["sun"]
+    # -- 6. the full_post golden on the card ----------------------------------------
+    g_scene, g_cam = build_test_scene(viewport=(256, 256))
+    check_golden("full_post", Renderer(g_scene, g_cam, g_cfg, device=dev, ssao=True,
+                                       motion_blur=True).render_frames(3))
+
+    # -- 7. the local-shadow raster --------------------------------------------------
+    spot = bench.build_renderer("test_spot", device=dev)
+    A = spot.cfg.local_shadow_map_size
+    compare_and_time("local", f"local shadow {A}x{A} depth-only", 5,
+                     *rb.local_shadow_raster_inputs(spot.scene_arrays, spot.camera.state(0, dev),
+                                                    A, full_raster))
+    del spot
+
+    # -- 8. the frames of this slice, through the bench -------------------------------
+    shapes = {"camera": (H, W, False), "sun": (S, S, True), "local": (A, A, True)}
+    slice3_launches = dict.fromkeys(shapes.values(), 0)
+    for name in bench.CONFIGS:
+        rasterize_tiles_cuda.launches_by_shape.clear()
+        res, renderer = bench.run_config(name, warmup=WARMUP, iters=FRAMES - WARMUP)
+        by_shape = dict(rasterize_tiles_cuda.launches_by_shape)
+        n = res["frames"]
+        casters = sum(renderer.cfg.scene.spot_shadow_casters)
+        want = {shapes["camera"]: n, shapes["sun"]: 1}
+        if casters:
+            want[shapes["local"]] = casters * n
+        if by_shape != want or res["raster_launches"] != res["raster_launches_expected"]:
+            raise AssertionError(f"{name}: raster launches {by_shape} in {n} frames, "
+                                 f"expected {want}")
+        if (res["width"], res["height"], res["shadow_map_size"]) != (W, H, S):
+            raise AssertionError(f"{name}: not the full-size configuration")
+        if tuple(renderer.state["LDR"].shape) != (H, W, 3) or not res["ldr_finite"]:
+            raise AssertionError(f"{name}: LDR is not a finite (H, W, 3) image")
+        if res["coverage"] <= 0.0:
+            raise AssertionError(f"{name}: the frame covers no pixel")
+        if res["max_velocity_px"] <= 1.0:
+            raise AssertionError(f"{name}: the moving camera gave no motion vectors")
+        if res["taa_history_delta"] <= 1e-4:
+            raise AssertionError(f"{name}: TAAHistory did not change between frames")
+        for shape, count in by_shape.items():
+            slice3_launches[shape] += count
+        print(f"{name} {W}x{H} shadow {S}: {n} frames, median {res['ms_per_frame']:.4f} ms/frame "
+              f"over {FRAMES - WARMUP} (CUDA events; min {res['ms_min']:.4f}, max "
+              f"{res['ms_max']:.4f}; host wall clock {res['wall_ms_per_frame']:.4f}), coverage "
+              f"{res['coverage']:.4f}, max velocity {res['max_velocity_px']:.2f} px, TAAHistory "
+              f"moved {res['taa_history_delta']:.4f}, raster launches {by_shape}, peak memory "
+              f"{res['peak_memory_gib']:.3f} GiB [{card}]", flush=True)
+        print_frame_table(res, card)
+        print(json.dumps(res), flush=True)
+        del renderer
+    if not all(slice3_launches.values()):
+        raise AssertionError(f"a raster of this slice's path was never launched: "
+                             f"{slice3_launches}")
+
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "raster_tiles", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": max(errs),
-        **cam_t, "library_ms": None, "shape": f"camera {W}x{H}, tile 8x128",
-        **{f"sun_{k}": v for k, v in sun_t.items()}, "sun_shape": f"{S}x{S} depth-only",
-    }]}))
+        "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": slice3_launches[shapes[name]],
+        "launches_forward_slice": slice1_launches.get(shapes[name], 0),
+        **timed[name], "library_ms": None,
+    } for name in ("camera", "sun", "local")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

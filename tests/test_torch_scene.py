@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from arkoserenderer_torch import bridge
+from arkoserenderer_torch.assets.procedural import build_bindless_scene as t_build_bindless_scene
 from arkoserenderer_torch.assets.procedural import build_test_scene as t_build_test_scene
+from arkoserenderer_tpu.assets.procedural import build_bindless_scene as j_build_bindless_scene
 from arkoserenderer_tpu.assets.procedural import build_test_scene as j_build_test_scene
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -92,10 +94,133 @@ def test_bridge_round_trip(both_scenes):
 
 
 def test_local_lights_are_rejected():
+    """Beyond the pools' capacity, that is: within it they build."""
+    from arkoserenderer_torch.scene.lights import SpotLight
+
     scene, _ = t_build_test_scene()
-    scene.spots.append(object())
-    with pytest.raises(NotImplementedError):
+    down = np.array([0.0, -1.0, 0.0], np.float32)
+    scene.spots = [SpotLight(position=np.array([i, 3.0, 0.0], np.float32), direction=down)
+                   for i in range(scene.limits.max_spot_lights)]
+    assert int(scene.build("cpu").lights.spot_count) == scene.limits.max_spot_lights
+    scene.spots.append(scene.spots[0])
+    with pytest.raises(ValueError):
         scene.build("cpu")
+
+
+def _local_lights(mod):
+    """Two spots (one with an IES profile and no shadow) and two points."""
+    ies = np.linspace(1.0, 0.2, 256).astype(np.float32)
+    spots = [
+        mod.SpotLight(position=np.array([1.5, 3.0, 1.0], np.float32),
+                      direction=np.array([-0.3, -1.0, -0.2], np.float32),
+                      luminous_intensity_cd=30000.0),
+        mod.SpotLight(position=np.array([-2.0, 4.0, 0.5], np.float32),
+                      direction=np.array([0.0, -1.0, 0.0], np.float32),  # straight down
+                      color=np.array([1.0, 0.8, 0.6], np.float32), cast_shadows=False,
+                      inner_cone_angle=np.radians(10.0), outer_cone_angle=np.radians(50.0),
+                      ies_lut=ies, source_radius=0.1),
+    ]
+    points = [
+        mod.PointLight(position=np.array([0.0, 2.0, 2.0], np.float32)),
+        mod.PointLight(position=np.array([3.0, 1.0, -1.0], np.float32), cast_shadows=True,
+                       color=np.array([0.2, 0.4, 1.0], np.float32), source_radius=0.05),
+    ]
+    return spots, points
+
+
+def test_local_light_lanes_match_jax():
+    """Spot, point and IES lanes of LightArrays, the spots' shadow matrices
+    and the static shadow-caster facts, through the bridge."""
+    import arkoserenderer_torch.scene.lights as tlights
+    import arkoserenderer_tpu.scene.lights as jlights
+
+    js, _ = j_build_test_scene(viewport=(96, 64))
+    ts, _ = t_build_test_scene(viewport=(96, 64))
+    js.spots, js.points = _local_lights(jlights)
+    ts.spots, ts.points = _local_lights(tlights)
+    ref = bridge.numpy_fields(js.build().lights)
+    ours = bridge.numpy_fields(ts.build("cpu").lights)
+    assert set(ours) == set(ref)
+    for name in sorted(ours):
+        assert_field_equal(name, ours[name], ref[name])
+    assert ours["spot_count"] == 2 and ours["point_count"] == 2
+    assert (ours["spot_ies"][1] < 1).any() and ours["spot_casts_shadow"][:2].tolist() == [1, 0]
+    carried = bridge.scene_arrays_from_numpy(js.build()._asdict(), "cpu").lights
+    for name, value in bridge.numpy_fields(carried).items():
+        np.testing.assert_array_equal(value, ref[name], err_msg=name)
+    jst, tst = js.static_info(), ts.static_info()
+    assert tst.spot_shadow_casters == (True, False) and tst.point_shadow_casters == (False, True)
+    for f in type(tst).__dataclass_fields__:
+        assert getattr(tst, f) == getattr(jst, f), f
+
+
+def test_bindless_scene_matches_jax():
+    """Equal pools (materials, packed texel rows, records) at 16 materials
+    over 4 texture chains."""
+    js, jc = j_build_bindless_scene(n_materials=16, n_textures=4, viewport=(96, 64))
+    ts, tc = t_build_bindless_scene(n_materials=16, n_textures=4, viewport=(96, 64))
+    ref = bridge.numpy_fields(js.build())
+    ours = bridge.numpy_fields(ts.build("cpu"))
+    for name in sorted(ours):
+        assert_field_equal(name, ours[name], ref[name])
+    assert len(ts.materials) == 18 and len(ts.images) == 4 + 4 + 2 + 2
+    jst, tst = js.static_info(), ts.static_info()
+    for f in type(tst).__dataclass_fields__:
+        assert getattr(tst, f) == getattr(jst, f), f
+    for f in jc.state(0)._fields:
+        assert_field_equal(f, getattr(tc.state(0, "cpu"), f), getattr(jc.state(0), f))
+
+
+UNPORTED = [("rt_shadows", True), ("rt_reflections", True), ("ddgi", True),
+            ("ddgi_probe_debug", True), ("light_icons", True), ("ssss", True),
+            ("rt_refit", True), ("oit_layers", 2), ("upscale_to", (192, 128)),
+            ("upscale_mode", "spatial"), ("debug_draw", object())]
+
+
+@pytest.mark.parametrize("flag,value", UNPORTED, ids=[f for f, _ in UNPORTED])
+def test_unported_flags_raise_by_name(flag, value):
+    from arkoserenderer_torch.models.standard import UNPORTED_FLAGS, make_forward_pipeline
+    from arkoserenderer_torch.rendering.pipeline import PipelineConfig
+
+    cfg = PipelineConfig(width=32, height=16, shadow_map_size=32)
+    with pytest.raises(NotImplementedError, match=flag):
+        make_forward_pipeline(cfg, device="cpu", **{flag: value})
+    with pytest.raises(TypeError):
+        make_forward_pipeline(cfg, device="cpu", no_such_flag=True)
+    assert set(UNPORTED_FLAGS) == {f for f, _ in UNPORTED}
+
+
+def test_pipelines_build_in_reference_order():
+    """The reference's default flags give the nine forward passes; the
+    full_post flags with fxaa and cas the fifteen; a casting spot puts
+    LocalShadow after SunShadow."""
+    import dataclasses
+
+    from arkoserenderer_torch.core.types import RasterConfig
+    from arkoserenderer_torch.models.standard import make_forward_pipeline
+    from arkoserenderer_torch.rendering.pipeline import PipelineConfig
+    from arkoserenderer_torch.scene.scene import SceneStatic
+
+    cfg = PipelineConfig(width=32, height=16, shadow_map_size=32, local_shadow_map_size=32,
+                         raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=64))
+
+    def names(cfg, **kw):
+        return [p.name for p in make_forward_pipeline(cfg, device="cpu", **kw).passes]
+
+    forward = ["Scene", "Geometry", "SunShadow", "VisibilityShading", "LightingCompose",
+               "SkyView", "Bloom", "TAA", "Output"]
+    assert names(cfg) == forward
+    assert names(cfg, ssao=True, fog=True, motion_blur=True, depth_of_field=True, fxaa=True,
+                 cas=True) == [
+        "Scene", "Geometry", "SunShadow", "VisibilityShading", "SSAO", "LightingCompose",
+        "SkyView", "Fog", "MotionBlur", "DepthOfField", "Bloom", "TAA", "Output", "FXAA", "CAS"]
+    spot = dataclasses.replace(cfg, scene=SceneStatic(n_spots=2, spot_shadow_casters=(False, True)))
+    assert names(spot) == forward[:3] + ["LocalShadow"] + forward[3:]
+    assert names(spot, shadows=False) == forward[:2] + forward[3:]
+    no_caster = dataclasses.replace(cfg, scene=SceneStatic(n_spots=1, spot_shadow_casters=(False,)))
+    assert names(no_caster) == forward
+    with pytest.raises(ValueError):  # 36 is no multiple of the 8x16 tile
+        names(dataclasses.replace(spot, local_shadow_map_size=36))
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -105,6 +230,7 @@ def test_port_imports_neither_jax_nor_reference():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "import arkoserenderer_torch.models.standard, arkoserenderer_torch.ops.raster_cuda\n"
+        "import arkoserenderer_torch.tools.bench\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('arkoserenderer_tpu'))\n"
         "print(len(mods), bad)\n"
@@ -113,7 +239,7 @@ def test_port_imports_neither_jax_nor_reference():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 25  # every module of the slice was imported
+    assert int(res.stdout.split()[0]) >= 32  # every module of the slices was imported
 
 
 def test_renderer_device_is_explicit():
@@ -126,8 +252,8 @@ def test_renderer_device_is_explicit():
                          raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=64))
     r = Renderer(scene, cam, cfg, device="cpu", taa=False, bloom=False)
     assert all(t.device == torch.device("cpu") for t in bridge_tensors(r.scene_arrays))
-    with pytest.raises(NotImplementedError):
-        Renderer(scene, cam, cfg, device="cpu")  # TAA and bloom default on
+    full = Renderer(scene, cam, cfg, device="cpu")  # TAA and bloom default on
+    assert full.pipeline.initial_state()["TAAHistory"].device == torch.device("cpu")
 
 
 def _entry_points():

@@ -1,0 +1,81 @@
+"""Meshlet building (port of arkoserenderer_tpu/assets/meshopt.py,
+``build_meshlets`` and its NumPy greedy scan).
+
+The reference also builds the scan as a native g++ library; the port needs
+no native code for it: meshlets are built once per segment at scene build.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Meshlets:
+    """Per-meshlet triangle ranges and culling bounds."""
+
+    tri_offset: np.ndarray  # (M,) into the segment's triangle list
+    tri_count: np.ndarray   # (M,)
+    sphere: np.ndarray      # (M, 4) centre xyz + radius
+    cone: np.ndarray        # (M, 4) axis xyz + cutoff (min dot of a face normal with the axis)
+
+    @property
+    def count(self) -> int:
+        return len(self.tri_offset)
+
+
+def build_meshlets(positions: np.ndarray, indices: np.ndarray,
+                   max_verts: int = 64, max_tris: int = 126) -> Meshlets:
+    """Greedy meshlet scan in triangle order: a meshlet takes triangles
+    until one more would exceed ``max_verts`` distinct vertices or
+    ``max_tris`` triangles. Its sphere is centred on the mean of its
+    triangle centroids; its cone axis is the normalised sum of its unit
+    face normals, and the cutoff the least dot of a face normal with it."""
+    tris = np.ascontiguousarray(indices.reshape(-1, 3), np.int32)
+    pos = np.ascontiguousarray(positions, np.float32)
+    t = len(tris)
+    if t == 0:
+        z = np.zeros((0,), np.int32)
+        return Meshlets(z, z, np.zeros((0, 4), np.float32), np.zeros((0, 4), np.float32))
+
+    offs, cnts, spheres, cones = [], [], [], []
+    cursor = 0
+    while cursor < t:
+        start = cursor
+        verts: set[int] = set()
+        while cursor < t and cursor - start < max_tris:
+            tri_set = set(tris[cursor])
+            if len(verts | tri_set) > max_verts:
+                break
+            verts |= tri_set
+            cursor += 1
+        if cursor == start:
+            cursor += 1
+        seg = tris[start:cursor]
+        pts = pos[seg.reshape(-1)]
+        center = pos[seg].mean(axis=1).mean(axis=0)
+        radius = np.linalg.norm(pts - center, axis=-1).max()
+        e1 = pos[seg[:, 1]] - pos[seg[:, 0]]
+        e2 = pos[seg[:, 2]] - pos[seg[:, 0]]
+        fn = np.cross(e1, e2)
+        ln = np.linalg.norm(fn, axis=-1, keepdims=True)
+        ok = ln[:, 0] > 1e-20
+        fn = np.where(ok[:, None], fn / np.maximum(ln, 1e-20), 0.0)
+        axis_v = fn.sum(0)
+        al = np.linalg.norm(axis_v)
+        if al > 1e-12:
+            axis_v = axis_v / al
+            cutoff = float(np.min(fn[ok] @ axis_v)) if ok.any() else 1.0
+        else:
+            axis_v = np.array([0, 0, 1.0], np.float32)
+            cutoff = 1.0
+        offs.append(start)
+        cnts.append(cursor - start)
+        spheres.append([*center, radius])
+        cones.append([*axis_v, cutoff])
+    return Meshlets(
+        np.array(offs, np.int32), np.array(cnts, np.int32),
+        np.array(spheres, np.float32), np.array(cones, np.float32),
+    )

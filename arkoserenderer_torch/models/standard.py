@@ -4,14 +4,16 @@ arkoserenderer_tpu/models/standard.py, the raster frames).
 The pass order is the reference's: Scene -> Geometry -> SunShadow ->
 [LocalShadow] -> VisibilityShading -> [SSAO] -> LightingCompose -> SkyView ->
 [Fog] -> [MotionBlur] -> [DepthOfField] -> [Bloom] -> [TAA] -> Output ->
-[FXAA] -> [CAS]. Ray tracing, DDGI, subsurface scattering, translucency,
-upscaling and the debug overlays are later slices; asking for one raises
-``NotImplementedError`` naming the flag.
+[FXAA] -> [CAS] -> [TemporalUpscale | Upscale]. Ray tracing, DDGI,
+subsurface scattering, translucency, auto-exposure and the debug overlays
+are later slices; asking for one raises ``NotImplementedError`` naming the
+flag.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import statistics
 import time
 
@@ -33,6 +35,8 @@ from arkoserenderer_torch.rendering.passes import (
     SSAOPass,
     SunShadowPass,
     TAAPass,
+    TemporalUpscalePass,
+    UpscalePass,
     VisibilityShadingPass,
 )
 from arkoserenderer_torch.rendering.pipeline import PipelineConfig, RenderPipeline
@@ -44,8 +48,10 @@ from arkoserenderer_torch.scene.scene import Scene
 UNPORTED_FLAGS = {
     "rt_shadows": False, "rt_reflections": False, "ddgi": None, "ddgi_probe_debug": False,
     "light_icons": False, "ssss": False, "rt_refit": False, "oit_layers": 1,
-    "upscale_to": None, "upscale_mode": "temporal", "debug_draw": None,
+    "debug_draw": None,
 }
+# Keywords of the reference's Renderer whose features are not ported yet.
+UNPORTED_RENDERER_KW = ("auto_exposure", "debug_draw")
 
 
 def make_forward_pipeline(
@@ -60,18 +66,29 @@ def make_forward_pipeline(
     depth_of_field: bool = False,
     fxaa: bool = False,
     cas: bool = False,
+    upscale_to: tuple[int, int] | None = None,  # display (width, height)
+    upscale_mode: str = "temporal",  # "temporal" (TemporalUpscale, no TAA) | "spatial"
     film_grain: float = 0.0,
     vignette: float = 0.18,  # 0 disables
     device="cuda",
     **later,
 ) -> RenderPipeline:
     """The raster backbone; passes run in the order they are added. The
-    flags keep the reference's names and defaults."""
+    flags keep the reference's names and defaults. With ``upscale_to`` the
+    frame renders at ``cfg``'s size, the texture LOD is biased by
+    log2(render / display width) unless ``cfg.mip_bias`` is set, and an
+    upscale pass publishes LDRDisplay at the display size; the temporal
+    one replaces TAA."""
     for name, value in later.items():
         if name not in UNPORTED_FLAGS:
             raise TypeError(f"make_forward_pipeline() got an unexpected keyword argument {name!r}")
         if value != UNPORTED_FLAGS[name]:
             raise NotImplementedError(f"{name} is not ported yet")
+    if upscale_mode not in ("temporal", "spatial"):
+        raise ValueError(f"unknown upscale_mode {upscale_mode!r}")
+    if upscale_to is not None and cfg.mip_bias == 0.0:
+        cfg = dataclasses.replace(cfg, mip_bias=math.log2(cfg.width / upscale_to[0]))
+    temporal_upscale = upscale_to is not None and upscale_mode == "temporal"
     pipe = RenderPipeline(cfg, device=device)
     pipe.add_pass(ScenePass())
     pipe.add_pass(GeometryPass())
@@ -92,13 +109,17 @@ def make_forward_pipeline(
         pipe.add_pass(DepthOfFieldPass())
     if bloom:
         pipe.add_pass(BloomPass())
-    if taa:
+    if taa and not temporal_upscale:
         pipe.add_pass(TAAPass())
     pipe.add_pass(OutputPass(film_grain_gain=film_grain, vignette_intensity=vignette))
     if fxaa:
         pipe.add_pass(FXAAPass())
     if cas:
         pipe.add_pass(CASPass())
+    if temporal_upscale:
+        pipe.add_pass(TemporalUpscalePass(*upscale_to))
+    elif upscale_to is not None:
+        pipe.add_pass(UpscalePass(*upscale_to))
     pipe.construct_all()
     return pipe
 
@@ -107,7 +128,14 @@ class Renderer:
     """Host frame loop: owns the pipeline, the persistent frame state and
     the camera's previous-frame bookkeeping. Nothing is read back from the
     device per frame. It runs on the card unless ``device`` asks for the CPU;
-    without a card the default raises, as torch does."""
+    without a card the default raises, as torch does.
+
+    Moving instances: ``scene_animator`` (``fn(scene_arrays, frame_index,
+    delta_time) -> scene_arrays``) animates the scene inside each frame;
+    ``dynamic_transforms=True`` uploads the host's instance transforms
+    (``Scene.update_instance_transforms``) before each frame. Either one
+    makes the scene dynamic: the shading records carry previous positions
+    and the sun map is rastered every frame."""
 
     @property
     def scene_arrays(self):
@@ -121,19 +149,31 @@ class Renderer:
         self._scene_version = getattr(self, "_scene_version", -1) + 1
 
     def __init__(self, scene: Scene, camera: Camera, cfg: PipelineConfig,
-                 device="cuda", **pipeline_kw):
+                 device="cuda", dynamic_transforms: bool = False, scene_animator=None,
+                 **pipeline_kw):
+        for name in UNPORTED_RENDERER_KW:
+            if pipeline_kw.pop(name, False):
+                raise NotImplementedError(f"{name} is not ported yet")
         self.device = torch.device(device)
         self.scene = scene
         self.camera = camera
-        self.cfg = dataclasses.replace(cfg, scene=scene.static_info())
+        self.dynamic_transforms = dynamic_transforms
+        static = scene.static_info()
+        if dynamic_transforms or scene_animator is not None:
+            static = dataclasses.replace(static, dynamic=True)
+        self.cfg = dataclasses.replace(cfg, scene=static)
         self.pipeline = make_forward_pipeline(self.cfg, device=self.device, **pipeline_kw)
+        self.pipeline.scene_animator = scene_animator
         self.scene_arrays = scene.build(self.device)
         self.state = self.pipeline.initial_state()
         self.frame_index = 0
 
     def render_frame(self, delta_time: float = 1 / 60,
                      pass_events: list | None = None) -> torch.Tensor:
-        """Render one frame; returns the (H, W, 3) LDR image on the device."""
+        """Render one frame; returns the LDR image on the device: (H, W, 3),
+        or LDRDisplay at the display size when the pipeline upscales."""
+        if self.dynamic_transforms:
+            self.scene_arrays = self.scene.update_instance_transforms(self.scene_arrays)
         persistent = self.pipeline.registry.persistent_names
         inputs = {k: self.state[k] for k in persistent if k in self.state}
         if "scene.version" in persistent:
@@ -145,7 +185,7 @@ class Renderer:
         )
         self.camera.post_render()
         self.frame_index += 1
-        return self.state["LDR"]
+        return self.state.get("LDRDisplay", self.state["LDR"])
 
     def render_frames(self, n: int) -> torch.Tensor:
         for _ in range(n):

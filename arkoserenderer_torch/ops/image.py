@@ -1,10 +1,14 @@
 """Image-space helpers: bilinear and Catmull-Rom resampling, the 2x pyramid
-steps and 3x3 stencils (port of arkoserenderer_tpu/ops/image.py, the
-functions the post chain uses: TAA reprojection, the bloom pyramid, depth of
-field, motion blur). All take (H, W, C) images and run as plain tensor ops.
+steps, 3x3 stencils and the rational-ratio resizes (port of
+arkoserenderer_tpu/ops/image.py, the functions the post chain and the
+upscalers use: TAA reprojection, the bloom pyramid, depth of field, motion
+blur, spatial and temporal upscaling). All take (H, W, C) images and run as
+plain tensor ops.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -139,6 +143,93 @@ def sample_catmull_rom(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> t
         for i, wxi in enumerate(wx):
             acc = acc + flat[row + cols[i]] * (wxi * wyj)[:, None]
     return acc
+
+
+def _edge_pad(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """``x`` with its first and last slices along ``axis`` repeated ``n``
+    times on either side."""
+    first = x.narrow(axis, 0, 1)
+    last = x.narrow(axis, x.shape[axis] - 1, 1)
+    return torch.cat([first] * n + [x] + [last] * n, dim=axis)
+
+
+def _phases(x: torch.Tensor, out_n: int, axis: int, pad: int):
+    """For ``out_n = in_n * k / m`` in lowest terms along ``axis``: (k, m,
+    ``strided``), where ``strided(start, count)`` takes the ``count`` input
+    slices start, start + m, ... of the input edge-padded by ``pad``."""
+    in_n = x.shape[axis]
+    g = math.gcd(out_n, in_n)
+    k, m = out_n // g, in_n // g
+    if k > 16:
+        raise ValueError(f"resize {in_n}->{out_n}: {k} phases; pick sizes of a small "
+                         "rational ratio")
+    padded = _edge_pad(x, axis, pad)
+
+    def strided(start: int, count: int) -> torch.Tensor:
+        idx = [slice(None)] * x.dim()
+        idx[axis] = slice(start + pad, start + pad + (count - 1) * m + 1, m)
+        return padded[tuple(idx)]
+
+    return k, m, strided
+
+
+def _interleave(phases: list[torch.Tensor], x: torch.Tensor, out_n: int,
+                axis: int) -> torch.Tensor:
+    """Phase p's slice t becomes output index t * k + p along ``axis``."""
+    shape = list(x.shape)
+    shape[axis] = out_n
+    return torch.stack(phases, dim=axis + 1).reshape(shape)
+
+
+def resize_bilinear_rational(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """(h, w, c) -> (out_h, out_w, c) bilinear resample (pixel-centre
+    aligned, edge clamp) for sizes of a small rational ratio: output rows of
+    one phase read input rows at a fixed stride, so every phase is the lerp
+    of two strided slices with a constant weight."""
+
+    def axis_resize(x, out_n, axis):
+        if out_n == x.shape[axis]:
+            return x
+        k, m, strided = _phases(x, out_n, axis, 1)
+        phases = []
+        for p in range(k):
+            y = (p + 0.5) * m / k - 0.5
+            y0 = math.floor(y)
+            f = y - y0
+            lo = strided(max(y0, -1), out_n // k)
+            hi = strided(max(y0, -1) + 1, out_n // k)
+            phases.append(lo * (1.0 - f) + hi * f)
+        return _interleave(phases, x, out_n, axis)
+
+    return axis_resize(axis_resize(img, out_h, 0), out_w, 1)
+
+
+def resize_bilinear_rational_jittered(img: torch.Tensor, out_h: int, out_w: int,
+                                      jitter_x: torch.Tensor,
+                                      jitter_y: torch.Tensor) -> torch.Tensor:
+    """The rational resample of an image rendered with a sub-pixel camera
+    jitter of (+jitter_x, +jitter_y) pixels (|j| <= 0.5; 0-dim tensors):
+    input sample i holds the scene at i - j, so the scene at y is read at
+    y + j. Each output phase is four strided slices weighted by the
+    triangle kernel at the jittered offset (two weights are nonzero). An
+    axis of equal size is still shifted by its jitter."""
+
+    def axis_resize(x, out_n, axis, j):
+        k, m, strided = _phases(x, out_n, axis, 2)
+        phases = []
+        for p in range(k):
+            y0 = (p + 0.5) * m / k - 0.5
+            base = math.floor(y0)
+            yrel = j + (y0 - base)  # in [-0.5, 1.5)
+            acc = None
+            for t in (-1, 0, 1, 2):
+                wt = torch.clamp(1.0 - torch.abs(yrel - t), min=0.0)
+                sl = strided(base + t, out_n // k) * wt
+                acc = sl if acc is None else acc + sl
+            phases.append(acc)
+        return _interleave(phases, x, out_n, axis)
+
+    return axis_resize(axis_resize(img, out_h, 0, jitter_y), out_w, 1, jitter_x)
 
 
 def luminance(rgb: torch.Tensor) -> torch.Tensor:

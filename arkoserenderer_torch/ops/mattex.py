@@ -264,9 +264,11 @@ def sample_packed(
     uv: torch.Tensor,       # (N, 2)
     duv_dx: torch.Tensor,
     duv_dy: torch.Tensor,
+    lod_bias: float = 0.0,  # negative when rendering below display resolution
 ) -> MaterialSample:
     """Gradient-correct trilinear packed material sample (8 row gathers;
-    the reference's other filters are not ported yet)."""
+    the reference's other filters are not ported yet). ``lod_bias`` is
+    added to the mip level before the clamp."""
     wrap = meta[:, 0].to(torch.int32)
     w0 = meta[:, 1].to(torch.int32)
     h0 = meta[:, 2].to(torch.int32)
@@ -278,6 +280,8 @@ def sample_packed(
     dy = duv_dy * size0
     rho2 = torch.maximum(torch.sum(dx * dx, -1), torch.sum(dy * dy, -1))
     lod = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
+    if lod_bias:
+        lod = lod + lod_bias
     max_lod = n_mips - 1.0
     lod = torch.minimum(torch.clamp(lod, min=0.0), max_lod)
 

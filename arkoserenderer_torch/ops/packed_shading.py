@@ -174,13 +174,15 @@ def shade_packed(
     n_spots: int = 0,
     n_points: int = 0,
     any_tex: bool = True,
+    mip_bias: float = 0.0,
     *,
     layout: RecLayout,
 ) -> GBuffer:
     """Deferred shading of the visibility buffer: the sun (VSM-shadowed), the
     first ``n_spots`` spot lights (cone, IES profile, PCF-shadowed where
     flagged) and ``n_points`` point lights through the Filament BRDF,
-    emissive, and the velocity G-buffer."""
+    emissive, and the velocity G-buffer. ``mip_bias`` biases the texture
+    LOD (the upscaler's drive)."""
     cs = layout.c_stride
     valid = vis_flat >= 0
     rec = records[torch.clamp(vis_flat, min=0).long()]   # the per-pixel gather
@@ -253,7 +255,7 @@ def shade_packed(
     if any_tex:
         ms = mattex.sample_packed(
             scene.mat_tex.rows, mrec[:, M_TEXMETA:M_TEXMETA + mattex.META_LANES],
-            uv, duv_dx, duv_dy,
+            uv, duv_dx, duv_dy, lod_bias=mip_bias,
         )
         base_color = ms.base[:, :3] * base_factor[:, :3]
         roughness = torch.clamp(ms.rough_metal[:, 0:1] * roughness_f, 0.0, 1.0)

@@ -1,8 +1,9 @@
 """Geometry pass: world-space vertices -> visibility buffer (port of
 arkoserenderer_tpu/rendering/passes/geometry.py, packed branch without
-meshlets or translucency).
+translucency).
 
-Instance frustum + LOD culling, triangle setup with near clipping, binning,
+Instance frustum + LOD culling, per-meshlet sphere and cone culling when the
+scene has meshlets, triangle setup with near clipping, binning,
 the stage-4 tile raster (the CUDA kernel on the card) and the per-triangle
 shading records.
 
@@ -60,12 +61,44 @@ def visible_triangles(scene, view_proj: torch.Tensor, cam_pos: torch.Tensor) -> 
     return scene.tri_valid & inst_visible[scene.tri_instance.long()]
 
 
+def meshlet_visible(scene, planes: torch.Tensor, cam_pos: torch.Tensor) -> torch.Tensor:
+    """(Mm,) bool: meshlets whose world-space bounding sphere meets the
+    frustum ``planes`` and whose normal cone does not face wholly away from
+    the camera (conservative: the cone test keeps the sphere's slack)."""
+    w_m = scene.world[scene.meshlet_instance.long()]
+    rot = w_m[:, :3, :3]
+    c_w = torch.einsum("mij,mj->mi", rot, scene.meshlet_sphere[:, :3]) + w_m[:, :3, 3]
+    scale = torch.linalg.norm(rot, dim=1).amax(dim=-1)
+    r_w = scene.meshlet_sphere[:, 3] * scale
+    visible = mx.frustum_test_spheres(planes, c_w, r_w)
+    axis_w = mx.normalize(torch.einsum("mij,mj->mi", rot, scene.meshlet_cone[:, :3]))
+    cutoff = scene.meshlet_cone[:, 3]
+    to_cam = cam_pos[None, :] - c_w
+    dist = torch.clamp(torch.linalg.norm(to_cam, dim=-1), min=1e-6)
+    cos_view = torch.sum(axis_w * to_cam, dim=-1) / dist
+    cone_ok = (cutoff < 0.1) | (
+        cos_view > -torch.sqrt(torch.clamp(1.0 - cutoff * cutoff, min=0.0)) - r_w / dist)
+    return visible & cone_ok & scene.meshlet_valid
+
+
+def camera_visible_triangles(scene, view_proj: torch.Tensor, cam_pos: torch.Tensor,
+                             has_meshlets: bool):
+    """The Geometry pass's culling: (Tmax,) bool triangles after instance
+    frustum and LOD culling, and after meshlet culling when the scene has
+    meshlets; and the (Mm,) bool meshlets kept (None without meshlets)."""
+    tri_visible = visible_triangles(scene, view_proj, cam_pos)
+    if not has_meshlets:
+        return tri_visible, None
+    kept = meshlet_visible(scene, mx.frustum_planes_from_matrix(view_proj), cam_pos)
+    return tri_visible & kept[scene.tri_meshlet.long()], kept
+
+
 class GeometryPass(RenderPass):
     name = "Geometry"
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
-        if cfg.scene.has_meshlets or cfg.scene.has_translucent:
-            raise NotImplementedError("meshlet culling and translucency are not ported yet")
+        if cfg.scene.has_translucent:
+            raise NotImplementedError("translucency is not ported yet")
         reg.get("geom.positions")
         reg.get("geom.vtx_world")
         reg.publish("vis.records")
@@ -74,15 +107,14 @@ class GeometryPass(RenderPass):
         reg.publish("vis.setup")
         w, h, rcfg = cfg.width, cfg.height, cfg.raster
         layout = record_layout_for(cfg.scene)
+        has_meshlets = cfg.scene.has_meshlets
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             s, cam = ctx.scene, ctx.camera
             view_proj = cam.view_proj
             clip = world_to_clip(view_proj, state["geom.vtx_world"][:, 0:3])
-            setup = raster.setup_triangles(
-                clip, s.indices, visible_triangles(s, view_proj, cam.position), w, h,
-                w_eps=cam.near,
-            )
+            tri_visible, _ = camera_visible_triangles(s, view_proj, cam.position, has_meshlets)
+            setup = raster.setup_triangles(clip, s.indices, tri_visible, w, h, w_eps=cam.near)
             bins = raster.bin_triangles(setup, w, h, rcfg)
             vis, depth = raster.rasterize_tiles(setup, bins, w, h, rcfg)
             return {

@@ -62,6 +62,7 @@ class VisibilityShadingPass(RenderPass):
                 n_spots=st.n_spots,
                 n_points=st.n_points,
                 any_tex=any_tex,
+                mip_bias=cfg.mip_bias,
                 layout=layout,
             )
             return {

@@ -12,7 +12,8 @@ Static-shadow cache: when nothing that casts shadows can move, the map is
 rendered once and reused until the host bumps the scene version. The
 reference decides that on the device (a ``lax.cond``); here the host already
 holds both versions as Python ints, so it is a plain branch and the frame
-reads nothing back.
+reads nothing back. A dynamic scene (moving instances, skinning, morph
+targets, hair) rasters the sun every frame, and both maps are transient.
 
 Publishes: ShadowMap.sun (S, S) f32 reverse-Z depth and ShadowMoments.sun
 (S/2, S/2, 2) f32.
@@ -43,6 +44,13 @@ from arkoserenderer_torch.rendering.pipeline import FrameContext, PipelineConfig
 from arkoserenderer_torch.rendering.registry import Registry
 
 
+def sun_shadow_cacheable(scene_static) -> bool:
+    """Whether the sun map is rendered once and cached: nothing that casts
+    shadows can move."""
+    st = scene_static
+    return not (st.dynamic or st.has_skin or st.has_morphs or st.has_hair)
+
+
 class SunShadowPass(RenderPass):
     name = "SunShadow"
 
@@ -53,7 +61,7 @@ class SunShadowPass(RenderPass):
             raise NotImplementedError("translucent shadow casters are not ported yet")
         reg.get("geom.positions")
         reg.get("geom.vtx_world")
-        cacheable = not (st.dynamic or st.has_skin or st.has_morphs or st.has_hair)
+        cacheable = sun_shadow_cacheable(st)
         reg.create("ShadowMoments.sun", (s // 2, s // 2, 2), torch.float32,
                    persistent=cacheable)
         reg.create("ShadowMap.sun", (s, s), torch.float32, clear=DEPTH_FAR,

@@ -11,6 +11,10 @@ Two phases, as in the reference:
 
 ``FrameContext`` bundles what every execute callback receives: the scene
 tensors, the camera state and the frame index (a host int).
+
+``RenderPipeline.scene_animator``, when set, is the frame's prologue:
+``fn(scene, frame_index, delta_time) -> scene`` runs before the first pass
+and the passes see the scene it returns (the stress grid's animation).
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ class PipelineConfig:
     # TAA history filter: "catmull" (16-tap Catmull-Rom, sharp history) or
     # "bilinear" (4 taps).
     taa_filter: str = "catmull"
+    # Texture LOD bias; negative when rendering below display resolution
+    # (make_forward_pipeline sets log2(render / display) for upscaling).
+    mip_bias: float = 0.0
     scene: SceneStatic = dataclasses.field(default_factory=SceneStatic)
 
 
@@ -74,6 +81,7 @@ class RenderPipeline:
         self.passes: list[RenderPass] = []
         self.registry = Registry()
         self._executes: list[tuple[str, ExecuteFn]] | None = None
+        self.scene_animator: Callable | None = None
 
     def add_pass(self, p: RenderPass) -> "RenderPipeline":
         self.passes.append(p)
@@ -105,6 +113,8 @@ class RenderPipeline:
         ``pass_events``: when a list, each pass appends (name, start, end)
         CUDA events recorded around it, for a per-pass time table."""
         self._require_constructed()
+        if self.scene_animator is not None:
+            scene = self.scene_animator(scene, int(frame_index), float(delta_time))
         ctx = FrameContext(scene=scene, camera=camera,
                            frame_index=int(frame_index), delta_time=float(delta_time))
         state = dict(state)

@@ -6,8 +6,13 @@ instances; ``build(device)`` freezes them into ``SceneArrays`` — SoA tensors
 in unified pools with the reference's static capacities, so both packages
 hold identical pools for the same scene.
 
-The static subset: no skinning, morph targets, hair, meshlets, BVH or
-streaming. Authoring those raises ``NotImplementedError``.
+Instances may carry a previous transform and a LOD band (``add_instance``,
+``add_instance_lods``); ``update_instance_transforms`` re-uploads the
+instance rows from a host mirror after the host moved instances. With
+``enable_meshlets`` the build splits every segment into meshlets
+(``assets/meshopt.build_meshlets``) and records their culling bounds.
+
+Not ported: skinning, morph targets, hair, the BVH and streaming.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from arkoserenderer_torch.assets import meshopt
 from arkoserenderer_torch.core.types import SceneLimits
 from arkoserenderer_torch.ops import mattex
 from arkoserenderer_torch.scene.lights import (
@@ -145,6 +151,7 @@ class SceneArrays(NamedTuple):
     indices: torch.Tensor          # (Tmax, 3) i32 into the vertex pool
     tri_instance: torch.Tensor     # (Tmax,) i32
     tri_valid: torch.Tensor        # (Tmax,) bool
+    tri_meshlet: torch.Tensor      # (Tmax,) i32 owning meshlet (for culling)
     world: torch.Tensor            # (Dmax, 4, 4)
     prev_world: torch.Tensor       # (Dmax, 4, 4)
     normal_mat: torch.Tensor       # (Dmax, 3, 3) inverse-transpose world
@@ -159,6 +166,12 @@ class SceneArrays(NamedTuple):
     lights: LightArrays
     env_map: torch.Tensor          # (He, We, 3) f32 linear radiance
     env_brightness: torch.Tensor   # ()
+    # Meshlets: object-space culling bounds and the owning instance; one
+    # invalid placeholder row when the scene was built without meshlets.
+    meshlet_sphere: torch.Tensor   # (Mm, 4) centre xyz + radius
+    meshlet_cone: torch.Tensor     # (Mm, 4) axis xyz + cutoff
+    meshlet_instance: torch.Tensor  # (Mm,) i32
+    meshlet_valid: torch.Tensor    # (Mm,) bool
 
 
 # Nested NamedTuple fields of SceneArrays, by field name.
@@ -200,7 +213,11 @@ class Scene:
         self.limits = limits or SceneLimits()
         self.materials: list[Material] = [Material()]  # 0 = default
         self.segments: list[MeshSegment] = []
-        self.instances: list[tuple] = []  # (segment id, world 4x4)
+        # (segment id, world 4x4, previous world 4x4 or None, LOD band)
+        self.instances: list[tuple] = []
+        self.enable_meshlets = False  # meshlet-granularity culling (build + Geometry)
+        self._mirror: dict[str, np.ndarray] | None = None  # instance pools of the last build
+        self._seg_bounds: dict[int, tuple[np.ndarray, float]] = {}
         # Bindless texture list (img_rgba8, srgb, wrap); ids 0-3 are the
         # defaults white, black, flat normal and mid-gray.
         self.images: list[tuple[np.ndarray, bool, int]] = []
@@ -239,11 +256,28 @@ class Scene:
         self.segments.append(seg)
         return len(self.segments) - 1
 
-    def add_instance(self, segment_id: int, world: np.ndarray) -> int:
-        """Returns the new instance id. Static: prev_world = world, and the
-        LOD band is [0, LOD_FAR)."""
-        self.instances.append((segment_id, np.asarray(world, np.float32)))
+    def add_instance(self, segment_id: int, world: np.ndarray, prev_world=None,
+                     lod_band=(0.0, LOD_FAR)) -> int:
+        """Returns the new instance id. ``prev_world`` (None: ``world``)
+        feeds the velocity of moving instances; the instance renders while
+        the camera's distance lies in ``lod_band`` = [near, far)."""
+        self.instances.append(
+            (segment_id, np.asarray(world, np.float32), prev_world, lod_band))
         return len(self.instances) - 1
+
+    def add_instance_lods(self, lod_segment_ids: list, world: np.ndarray,
+                          distances: list, prev_world=None) -> None:
+        """One instance with a discrete LOD chain: ``lod_segment_ids[i]``
+        renders while the camera distance is in [distances[i-1],
+        distances[i]) (one switch distance between consecutive levels; the
+        last level runs to LOD_FAR). Every level lives in the pools; the
+        selection is a per-frame distance-band mask."""
+        if len(distances) != len(lod_segment_ids) - 1:
+            raise ValueError("need one switch distance between consecutive LOD levels")
+        edges = [0.0, *[float(d) for d in distances], LOD_FAR]
+        for i, sid in enumerate(lod_segment_ids):
+            self.add_instance(sid, world, prev_world=prev_world,
+                              lod_band=(edges[i], edges[i + 1]))
 
     def set_env_map(self, img: np.ndarray, brightness: float = 1.0):
         self.env_map = np.asarray(img, np.float32)
@@ -273,11 +307,15 @@ class Scene:
         inst_valid = np.zeros((dmax,), bool)
         inst_lod_band = np.tile(np.array([0.0, LOD_FAR], np.float32), (dmax, 1))
 
+        tri_meshlet = np.zeros((tmax,), np.int32)
+        meshlet_rows: list[tuple] = []  # (sphere4, cone4, instance)
+        seg_meshlets: dict[int, meshopt.Meshlets] = {}
+
         if len(self.instances) > dmax:
             raise ValueError("drawable capacity exceeded")
         v_cursor = 0
         t_cursor = 0
-        for inst_id, (sid, w) in enumerate(self.instances):
+        for inst_id, (sid, w, pw, lod_band) in enumerate(self.instances):
             seg = self.segments[sid]
             v = seg.positions.shape[0]
             t = seg.num_triangles
@@ -291,18 +329,35 @@ class Scene:
             indices[t_cursor:t_cursor + t] = seg.indices.reshape(t, 3) + v_cursor
             tri_instance[t_cursor:t_cursor + t] = inst_id
             tri_valid[t_cursor:t_cursor + t] = True
+            if self.enable_meshlets:
+                # Built once per segment; culling bounds recorded per instance.
+                if sid not in seg_meshlets:
+                    seg_meshlets[sid] = meshopt.build_meshlets(
+                        seg.positions, seg.indices, max_verts=64, max_tris=126)
+                ml = seg_meshlets[sid]
+                base_ml = len(meshlet_rows)
+                for mi in range(ml.count):
+                    o, c = ml.tri_offset[mi], ml.tri_count[mi]
+                    tri_meshlet[t_cursor + o:t_cursor + o + c] = base_ml + mi
+                    meshlet_rows.append((ml.sphere[mi], ml.cone[mi], inst_id))
             world[inst_id] = w
-            prev_world[inst_id] = w
+            prev_world[inst_id] = pw if pw is not None else w
             normal_mat[inst_id] = np.linalg.inv(w[:3, :3]).T
             inst_material[inst_id] = seg.material
-            center_obj = 0.5 * (seg.positions.min(0) + seg.positions.max(0))
-            r_obj = np.linalg.norm(seg.positions - center_obj, axis=-1).max()
+            center_obj, r_obj = self._segment_bounds(sid)
             scale = np.linalg.norm(w[:3, :3], axis=0).max()
             center_w = w[:3, :3] @ center_obj + w[:3, 3]
             inst_sphere[inst_id] = (*center_w, r_obj * scale)
             inst_valid[inst_id] = True
+            inst_lod_band[inst_id] = lod_band
             v_cursor += v
             t_cursor += t
+        # The host mirror of the instance pools: update_instance_transforms
+        # rewrites it and uploads copies, never reading the device back.
+        self._mirror = {
+            "world": world, "prev_world": prev_world, "normal_mat": normal_mat,
+            "inst_sphere": inst_sphere, "inst_lod_band": inst_lod_band,
+        }
 
         if len(self.materials) > mmax:
             raise ValueError("material capacity exceeded")
@@ -314,7 +369,15 @@ class Scene:
             "tri_valid": tri_valid, "world": world, "prev_world": prev_world,
             "normal_mat": normal_mat, "inst_material": inst_material,
             "inst_sphere": inst_sphere, "inst_valid": inst_valid,
-            "inst_lod_band": inst_lod_band,
+            "inst_lod_band": inst_lod_band, "tri_meshlet": tri_meshlet,
+            "meshlet_sphere": np.array([m[0] for m in meshlet_rows], np.float32)
+            if meshlet_rows else np.zeros((1, 4), np.float32),
+            "meshlet_cone": np.array([m[1] for m in meshlet_rows], np.float32)
+            if meshlet_rows else np.array([[0, 0, 1, -1]], np.float32),
+            "meshlet_instance": np.array([m[2] for m in meshlet_rows], np.int32)
+            if meshlet_rows else np.zeros((1,), np.int32),
+            "meshlet_valid": np.ones((max(len(meshlet_rows), 1),), bool)
+            if meshlet_rows else np.zeros((1,), bool),
             "materials.base_color_factor": _soa([x.base_color_factor for x in ms], (mmax, 4)),
             "materials.emissive_factor": _soa([x.emissive_factor for x in ms], (mmax, 3)),
             "materials.metallic_factor": _soa([x.metallic_factor for x in ms], (mmax,)),
@@ -373,6 +436,43 @@ class Scene:
     def build(self, device="cuda") -> SceneArrays:
         return scene_arrays_from_host(self.build_host(), device)
 
+    def _segment_bounds(self, sid: int) -> tuple[np.ndarray, float]:
+        """Object-space bounding sphere (AABB centre, radius) of a segment,
+        computed once."""
+        if sid not in self._seg_bounds:
+            pos = self.segments[sid].positions
+            c = 0.5 * (pos.min(0) + pos.max(0))
+            self._seg_bounds[sid] = (c.astype(np.float32),
+                                     float(np.linalg.norm(pos - c, axis=-1).max()))
+        return self._seg_bounds[sid]
+
+    def update_instance_transforms(self, arrays: SceneArrays) -> SceneArrays:
+        """``arrays`` with the instance rows (world, prev_world, normal_mat,
+        inst_sphere, inst_lod_band) recomputed from ``instances``, as the
+        host moved them: one vectorised update of the build's host mirror,
+        then an upload of copies to the arrays' device. The vertex, index and
+        texture pools are untouched and nothing is read back."""
+        if self._mirror is None:
+            raise RuntimeError("call build() before update_instance_transforms()")
+        mir = self._mirror
+        n = min(len(self.instances), self.limits.max_drawables)
+        insts = self.instances[:n]
+        w = np.stack([np.asarray(it[1], np.float32) for it in insts])
+        pw = np.stack([np.asarray(it[2] if it[2] is not None else it[1], np.float32)
+                       for it in insts])
+        mir["world"][:n] = w
+        mir["prev_world"][:n] = pw
+        mir["normal_mat"][:n] = np.transpose(np.linalg.inv(w[:, :3, :3]), (0, 2, 1))
+        bounds = [self._segment_bounds(it[0]) for it in insts]
+        centers = np.stack([b[0] for b in bounds])
+        radii = np.array([b[1] for b in bounds], np.float32)
+        scale = np.linalg.norm(w[:, :3, :3], axis=1).max(axis=-1)
+        mir["inst_sphere"][:n, :3] = np.einsum("nij,nj->ni", w[:, :3, :3], centers) + w[:, :3, 3]
+        mir["inst_sphere"][:n, 3] = radii * scale
+        mir["inst_lod_band"][:n] = np.array([it[3] for it in insts], np.float32)
+        dev = arrays.world.device
+        return arrays._replace(**{k: host_to_device(v, dev) for k, v in mir.items()})
+
     def static_info(self) -> SceneStatic:
         mats = self.materials
         return SceneStatic(
@@ -388,6 +488,7 @@ class Scene:
             uses_emissive_tex=any(m.emissive_tex != 0 for m in mats),
             uses_occlusion_tex=any(m.occlusion_tex != 0 for m in mats),
             has_translucent=any(m.blend_mode == BLEND_TRANSLUCENT for m in mats),
+            has_meshlets=self.enable_meshlets,
         )
 
     def bounding_sphere(self) -> tuple[np.ndarray, float]:
@@ -395,7 +496,7 @@ class Scene:
             return np.zeros(3, np.float32), 1.0
         mins = np.full(3, np.inf)
         maxs = np.full(3, -np.inf)
-        for sid, w in self.instances:
+        for sid, w, *_ in self.instances:
             pts = self.segments[sid].positions @ w[:3, :3].T + w[:3, 3]
             mins = np.minimum(mins, pts.min(0))
             maxs = np.maximum(maxs, pts.max(0))

@@ -8,11 +8,19 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
   bindless   256 materials over 64 texture chains + MotionBlur + DepthOfField
   test_spot  the test scene with one shadow-casting spot light: its shadow
              map is rastered every frame (LocalShadow) and PCF-sampled
+  stress     4,096 animated grid cells, each a two-level LOD chain (983,042
+             triangles in the pool): the forward passes with the animation
+             in the frame (``make_stress_animator``), so the sun map is
+             rastered every frame and the records carry previous positions
+  meshlet    the same with per-meshlet culling in Geometry
+  forward_upscaled  the forward passes at 1280x720 (the "quality" preset of
+             1920x1080) with TemporalUpscale to 1920x1080 in place of TAA
 
 at 1920x1080, raster tile 8x128 with 256 triangles a tile, and an 8192^2 sun
 shadow map (``--small``: 256x256, tile 8x16, a 256^2 map, 64 materials over
-16 chains). The camera moves every frame, so the motion vectors, TAA's
-reprojection and the motion blur do real work.
+16 chains, 256 stress cells). The camera moves every frame, so the motion
+vectors, the history reprojections and the motion blur do real work; in
+``stress`` and ``meshlet`` it stands still and the motion is the grid's.
 
     python -m arkoserenderer_torch.tools.bench [--config forward,full_post] [--small]
                                                [--warmup 4] [--iters 16] [--profile]
@@ -20,8 +28,11 @@ reprojection and the motion blur do real work.
 prints the card's name and power limit, then one JSON line per frame kind:
 ms/frame (median, min, max of CUDA-event times around each frame, and the
 host's wall clock per frame), the median ms of every pass, peak device
-memory, the raster kernel's launches, coverage and how far TAA's history
-moved in one frame. With ``--profile`` it then runs 4 more frames of each
+memory, the raster kernel's launches (and the count the configuration
+implies), coverage, how far the history (TAA's, or the upscaler's) moved in
+one frame, and for the last STATS_FRAMES frames the triangles left after
+culling, the meshlets kept and the triangles the camera's and the sun's
+bins dropped. With ``--profile`` it then runs 4 more frames of each
 kind under ``torch.profiler`` and prints a second JSON line: the device's
 kernel ms per frame, its busy share of the frame, launches per frame, the
 operators and kernels that take the most device time, and each pass's span
@@ -32,18 +43,27 @@ GPU; run from the root of a checkout.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
 import torch
 
-from arkoserenderer_torch.assets.procedural import build_bindless_scene, build_test_scene
+from arkoserenderer_torch.assets.procedural import (
+    build_bindless_scene,
+    build_stress_scene,
+    build_test_scene,
+    make_stress_animator,
+)
 from arkoserenderer_torch.core.types import RasterConfig
 from arkoserenderer_torch.models.standard import Renderer
 from arkoserenderer_torch.ops.raster_cuda import rasterize_tiles_cuda
+from arkoserenderer_torch.ops.upscale import ideal_render_resolution
+from arkoserenderer_torch.rendering.passes.geometry import camera_visible_triangles
+from arkoserenderer_torch.rendering.passes.shadow import sun_shadow_cacheable
 from arkoserenderer_torch.rendering.pipeline import PipelineConfig
 from arkoserenderer_torch.scene.lights import SpotLight
-from arkoserenderer_torch.tools.raster_bench import card_line
+from arkoserenderer_torch.tools.raster_bench import card_line, forward_raster_inputs
 
 # name -> (scene kind, pipeline flags, description)
 CONFIGS = {
@@ -53,7 +73,12 @@ CONFIGS = {
     "bindless": ("bindless", dict(motion_blur=True, depth_of_field=True),
                  "256 materials / 64 textures bindless + TAA + motion blur + DoF"),
     "test_spot": ("test_spot", {}, "forward + one shadow-casting spot light (LocalShadow + PCF)"),
+    "stress": ("stress", {}, "4096 animated instances with LOD chains (culling stress)"),
+    "meshlet": ("meshlet", {}, "meshlet visbuf + per-meshlet culling, 4096 instances"),
+    "forward_upscaled": ("test_upscaled", {}, "forward at 2/3 scale + temporal upscale to 1080p"),
 }
+ANIMATED = ("stress", "meshlet")  # scene kinds whose grid moves; their camera stands still
+STATS_FRAMES = 4  # frames after the timed ones whose culling and bin counts are read
 
 
 def pipeline_config(small: bool = False) -> PipelineConfig:
@@ -67,13 +92,23 @@ def pipeline_config(small: bool = False) -> PipelineConfig:
 def build_renderer(name: str, small: bool = False, device="cuda",
                    cfg: PipelineConfig | None = None) -> Renderer:
     """The Renderer of frame kind ``name`` at ``pipeline_config(small)``, or
-    at ``cfg`` when given (the scene's size still follows ``small``)."""
+    at ``cfg`` when given (the scene's size still follows ``small``). The
+    upscaled kind renders at the "quality" preset of that size and upscales
+    to it."""
     kind, kw, _ = CONFIGS[name]
     cfg = cfg or pipeline_config(small)
+    if kind == "test_upscaled":
+        rw, rh = ideal_render_resolution(cfg.width, cfg.height, "quality")
+        kw = dict(kw, upscale_to=(cfg.width, cfg.height))
+        cfg = dataclasses.replace(cfg, width=rw, height=rh)
     viewport = (cfg.width, cfg.height)
     if kind == "bindless":
         scene, camera = build_bindless_scene(
             n_materials=64 if small else 256, n_textures=16 if small else 64, viewport=viewport)
+    elif kind in ANIMATED:
+        scene, camera = build_stress_scene(n_instances=256 if small else 4096, viewport=viewport)
+        scene.enable_meshlets = kind == "meshlet"
+        kw = dict(kw, scene_animator=make_stress_animator(scene))
     else:
         scene, camera = build_test_scene(viewport=viewport)
     if kind == "test_spot":
@@ -97,30 +132,101 @@ def camera_mover(renderer: Renderer):
     return move
 
 
-def expected_launches(renderer: Renderer, frames: int) -> int:
+def expected_launches_by_shape(renderer: Renderer, frames: int) -> dict:
     """Raster launches of ``frames`` frames from a fresh Renderer whose scene
-    stays as built: the camera's every frame, the sun's once, and one per
-    shadow-casting spot per frame."""
-    return frames * (1 + sum(renderer.cfg.scene.spot_shadow_casters)) + 1
+    stays as built, by (height, width, depth_only): the camera's every
+    frame; the sun's once under the static shadow cache, else every frame;
+    and one per shadow-casting spot per frame."""
+    cfg = renderer.cfg
+    s, a = cfg.shadow_map_size, cfg.local_shadow_map_size
+    out = {(cfg.height, cfg.width, False): frames,
+           (s, s, True): 1 if sun_shadow_cacheable(cfg.scene) else frames}
+    casters = sum(cfg.scene.spot_shadow_casters)
+    if casters:
+        out[(a, a, True)] = casters * frames
+    return out
+
+
+def expected_launches(renderer: Renderer, frames: int) -> int:
+    return sum(expected_launches_by_shape(renderer, frames).values())
+
+
+def frame_counts(renderer: Renderer) -> dict:
+    """For the frame ``renderer`` renders next: the triangles left after
+    culling (instance frustum and LOD, and meshlets where the scene has
+    them), the meshlets kept of those in the scene, and the bin entries the
+    camera's and the sun's rasters drop (``vis.overflow``), formed from the
+    scene the frame sees as the Geometry and SunShadow passes form them.
+    Reads the device."""
+    cfg, dev = renderer.cfg, renderer.device
+    scene = renderer.scene_arrays
+    animator = renderer.pipeline.scene_animator
+    if animator is not None:
+        scene = animator(scene, renderer.frame_index, 1 / 60)
+    cam = renderer.camera.state(renderer.frame_index, dev)
+    tris, kept = camera_visible_triangles(scene, cam.view_proj, cam.position,
+                                          cfg.scene.has_meshlets)
+    cases = forward_raster_inputs(scene, cam, cfg.scene, cfg.width, cfg.height,
+                                  cfg.shadow_map_size, cfg.raster)
+    return {
+        "visible_tris": int(tris.sum()),
+        "meshlets_kept": None if kept is None else int(kept.sum()),
+        "meshlets": None if kept is None else int(scene.meshlet_valid.sum()),
+        "overflow_camera": int(cases["camera"][1].overflow),
+        "overflow_sun": int(cases["sun"][1].overflow),
+    }
+
+
+def animation_paths(device, n_instances: int = 64, res: int = 128, frames: int = 3):
+    """The stress grid's frame ``frames - 1`` rendered twice at ``res``^2
+    (no TAA, no Bloom): animated inside the frame (``make_stress_animator``),
+    and animated on the host (``animate_stress_scene`` to t = k / 60 before
+    frame k) and uploaded by ``dynamic_transforms``. Returns the two LDR
+    images (animator, host); they differ only where a triangle edge's
+    coverage flips between the two transform paths."""
+    from arkoserenderer_torch.assets.procedural import animate_stress_scene
+
+    cfg = PipelineConfig(width=res, height=res, shadow_map_size=256,
+                         raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256))
+    scene_d, cam_d = build_stress_scene(n_instances=n_instances, viewport=(res, res))
+    rd = Renderer(scene_d, cam_d, cfg, device=device, taa=False, bloom=False,
+                  scene_animator=make_stress_animator(scene_d))
+    scene_h, cam_h = build_stress_scene(n_instances=n_instances, viewport=(res, res))
+    rh = Renderer(scene_h, cam_h, cfg, device=device, taa=False, bloom=False,
+                  dynamic_transforms=True)
+    for k in range(frames):
+        img_d = rd.render_frame()
+        animate_stress_scene(scene_h, k / 60)
+        img_h = rh.render_frame()
+    return img_d, img_h
 
 
 def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16):
-    """Bench one frame kind on the card. Returns (result dict, Renderer)."""
+    """Bench one frame kind on the card: ``warmup`` + ``iters`` timed frames,
+    then STATS_FRAMES frames whose counts are read (``frame_counts``).
+    Returns (result dict, Renderer)."""
     dev = torch.device("cuda")
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     rasterize_tiles_cuda.launches = 0
     renderer = build_renderer(name, small, dev)
-    move = camera_mover(renderer)
+    move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
     bench = renderer.benchmark(warmup=warmup, iters=iters, before_frame=move)
-    before = renderer.state["TAAHistory"].clone()
-    move(renderer.frame_index)
-    renderer.render_frame()
+    history = "UpscaleHistory" if "UpscaleHistory" in renderer.state else "TAAHistory"
+    counts = []
+    for _ in range(STATS_FRAMES):
+        before = renderer.state[history].clone()
+        if move is not None:
+            move(renderer.frame_index)
+        counts.append(frame_counts(renderer))
+        renderer.render_frame()
     state = renderer.state
     cfg = renderer.cfg
+    ldr = state.get("LDRDisplay", state["LDR"])
     result = {
         "config": name, "frame": CONFIGS[name][2],
         "width": cfg.width, "height": cfg.height, "shadow_map_size": cfg.shadow_map_size,
+        "display": list(ldr.shape[:2]),
         "passes": [p.name for p in renderer.pipeline.passes],
         "ms_per_frame": bench["ms_per_frame"],
         "ms_min": min(bench["frame_ms"]), "ms_max": max(bench["frame_ms"]),
@@ -129,10 +235,12 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
         "frames": renderer.frame_index,
         "raster_launches": rasterize_tiles_cuda.launches,
         "raster_launches_expected": expected_launches(renderer, renderer.frame_index),
-        "ldr_finite": bool(torch.isfinite(state["LDR"]).all()),
+        "ldr_finite": bool(torch.isfinite(ldr).all()),
         "coverage": state["SceneCoverage"].float().mean().item(),
         "max_velocity_px": state["SceneVelocity"].abs().max().item(),
-        "taa_history_delta": (state["TAAHistory"] - before).abs().max().item(),
+        "history": history,
+        "history_delta": (state[history] - before).abs().max().item(),
+        "frame_counts": counts,
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "device": torch.cuda.get_device_name(0), "card": card_line(),
     }
@@ -149,7 +257,7 @@ def profile_config(name: str, renderer: Renderer, frames: int = 4, top: int = 12
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    move = camera_mover(renderer)
+    move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
     pipeline = renderer.pipeline
     plain = pipeline._executes
 
@@ -165,7 +273,8 @@ def profile_config(name: str, renderer: Renderer, frames: int = 4, top: int = 12
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(frames):
-                move(renderer.frame_index)
+                if move is not None:
+                    move(renderer.frame_index)
                 renderer.render_frame()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / frames

@@ -37,6 +37,7 @@ from arkoserenderer_torch.ops import raster
 from arkoserenderer_torch.ops.packed_shading import build_vertex_world, record_layout_for
 from arkoserenderer_torch.ops import raster_cuda
 from arkoserenderer_torch.rendering.passes.geometry import (
+    camera_visible_triangles,
     transform_vertices_clip,
     visible_triangles,
     world_to_clip,
@@ -54,7 +55,8 @@ OPS_PER_TEST = 20
 # graph, and back-to-back wrapper calls under CUDA events a raster.
 ROUNDS = 3
 GRAPH_LAUNCHES = 50
-WRAPPER_CALLS = {"camera": 50, "sun": 10, "local": 50}
+WRAPPER_CALLS = {"camera": 50, "sun": 10, "local": 50, "camera_stress": 20,
+                 "sun_stress": 10, "camera_720p": 50}
 # The adversarial case: viewport and numpy seed.
 ADVERSARIAL_SIZE, ADVERSARIAL_SEED = 64, 7
 
@@ -129,14 +131,16 @@ def adversarial_case():
 
 def forward_raster_inputs(scene_arrays, cam_state, scene_static, width: int, height: int,
                           shadow: int, cfg: RasterConfig) -> dict:
-    """The camera and sun rasters of the forward frame's first frame, as
-    the Geometry and SunShadow passes form them: name -> (setup, bins,
-    width, height, depth_only)."""
+    """The camera and sun rasters of a frame of the forward passes, as the
+    Geometry and SunShadow passes form them from the scene the frame sees
+    (animated, where the frame animates it): name -> (setup, bins, width,
+    height, depth_only)."""
     sa, cs = scene_arrays, cam_state
     vtx = build_vertex_world(sa, sa.positions, sa.normals, sa.tangents,
                              layout=record_layout_for(scene_static))
     clip = world_to_clip(cs.view_proj, vtx[:, 0:3])
-    tri_vis = visible_triangles(sa, cs.view_proj, cs.position)
+    tri_vis, _ = camera_visible_triangles(sa, cs.view_proj, cs.position,
+                                          scene_static.has_meshlets)
     cam = raster.setup_triangles(clip, sa.indices, tri_vis, width, height, w_eps=cs.near)
     sun_vp = sa.lights.sun_view_proj
     clip = world_to_clip(sun_vp, vtx[:, 0:3])

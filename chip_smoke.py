@@ -40,13 +40,29 @@ result line):
   8. through arkoserenderer_torch.tools.bench, at 1920x1080 with the 8192^2
      sun map and a camera that moves every frame: the forward (TAA +
      Bloom), full_post, bindless (256 materials, 64 textures) and test_spot
-     (LocalShadow) frames, 4 warm-up + 16 timed + 1 frames each: finite
-     LDR, non-empty coverage, real motion vectors, a TAAHistory that
-     changes between frames, and the raster kernel's launches (camera
-     every frame, sun once, one per shadow-casting spot per frame); prints
-     ms/frame, the per-pass table and peak memory of each.
-The line before the last is the kernels' JSON, one entry per raster (camera,
-sun, local shadow) of the one kernel; the last line is
+     (LocalShadow) frames, 4 warm-up + 16 timed + 4 counted frames each:
+     finite LDR, non-empty coverage, real motion vectors, a TAAHistory that
+     changes between frames, and the raster kernel's launches by shape as
+     the configuration implies them (bench.expected_launches_by_shape:
+     camera every frame, sun once under the static cache, one per
+     shadow-casting spot per frame); prints ms/frame, the per-pass table and
+     peak memory of each;
+  9. the same for the stress (4,096 animated cells with LOD chains, 983,042
+     pool triangles; the sun rastered every frame; a still camera, so the
+     motion vectors are the animation's) and meshlet (+ per-meshlet
+     culling) frames and forward_upscaled (1280x720 with TemporalUpscale to
+     1920x1080: LDRDisplay and UpscaleHistory), with the triangles left
+     after culling, the meshlets kept and the camera's and sun's dropped
+     bin entries of the counted frames; then the kernel against its plain
+     version bit for bit on one animated stress frame's camera and sun
+     rasters and on the 1280x720 camera, timed like phase 3; and the stress
+     grid at 128^2 animated in the frame against the host's
+     dynamic_transforms path (mean abs diff < 1e-3, under 0.5 % of pixels
+     off by more than 0.05: the thresholds of tests/test_stress.py).
+The line before the last is the kernels' JSON, one entry per raster the one
+kernel serves (forward camera, cached sun, local shadow, stress camera,
+per-frame stress sun, 720p camera), each with its launches in the runs of
+the frame kinds that launch it; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -63,6 +79,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 FRAMES, WARMUP = 20, 4
+PHASE8 = ("forward", "full_post", "bindless", "test_spot")
+PHASE9 = ("stress", "meshlet", "forward_upscaled")
 TPU_KERNEL = "arkoserenderer_tpu/ops/raster_pallas.py:63"
 KERNEL_SOURCE = "arkoserenderer_torch/csrc/raster_tiles.cu"
 
@@ -158,8 +176,8 @@ def main() -> None:
         if not bool((kd > 0).any()):
             raise AssertionError(f"{label}: the raster covers no pixel")
         print(f"kernel==plain {label}: equal, coverage {(kd > 0).float().mean().item():.4f}, "
-              f"max tri/tile {int(bins.counts.max())}, global {int(bins.global_count)}",
-              flush=True)
+              f"max tri/tile {int(bins.counts.max())}, global {int(bins.global_count)}, "
+              f"overflow {int(bins.overflow)}", flush=True)
         return (kd - pd).abs().max().item(), pd
 
     rng = np.random.default_rng(1234)
@@ -296,53 +314,104 @@ def main() -> None:
                                                     A, full_raster))
     del spot
 
-    # -- 8. the frames of this slice, through the bench -------------------------------
-    shapes = {"camera": (H, W, False), "sun": (S, S, True), "local": (A, A, True)}
-    slice3_launches = dict.fromkeys(shapes.values(), 0)
-    for name in bench.CONFIGS:
+    # -- 8. and 9. the frame kinds, through the bench ---------------------------------
+    def run_kind(name):
+        """One frame kind through the bench: the launch counts are zeroed
+        just before it and read just after; every check of its frames."""
         rasterize_tiles_cuda.launches_by_shape.clear()
         res, renderer = bench.run_config(name, warmup=WARMUP, iters=FRAMES - WARMUP)
         by_shape = dict(rasterize_tiles_cuda.launches_by_shape)
         n = res["frames"]
-        casters = sum(renderer.cfg.scene.spot_shadow_casters)
-        want = {shapes["camera"]: n, shapes["sun"]: 1}
-        if casters:
-            want[shapes["local"]] = casters * n
+        want = bench.expected_launches_by_shape(renderer, n)
         if by_shape != want or res["raster_launches"] != res["raster_launches_expected"]:
             raise AssertionError(f"{name}: raster launches {by_shape} in {n} frames, "
                                  f"expected {want}")
-        if (res["width"], res["height"], res["shadow_map_size"]) != (W, H, S):
+        if (res["shadow_map_size"], tuple(res["display"])) != (S, (H, W)):
             raise AssertionError(f"{name}: not the full-size configuration")
-        if tuple(renderer.state["LDR"].shape) != (H, W, 3) or not res["ldr_finite"]:
-            raise AssertionError(f"{name}: LDR is not a finite (H, W, 3) image")
+        out = renderer.state.get("LDRDisplay", renderer.state["LDR"])
+        if tuple(out.shape) != (H, W, 3) or not res["ldr_finite"]:
+            raise AssertionError(f"{name}: the display image is not a finite (H, W, 3) image")
         if res["coverage"] <= 0.0:
             raise AssertionError(f"{name}: the frame covers no pixel")
-        if res["max_velocity_px"] <= 1.0:
-            raise AssertionError(f"{name}: the moving camera gave no motion vectors")
-        if res["taa_history_delta"] <= 1e-4:
-            raise AssertionError(f"{name}: TAAHistory did not change between frames")
-        for shape, count in by_shape.items():
-            slice3_launches[shape] += count
-        print(f"{name} {W}x{H} shadow {S}: {n} frames, median {res['ms_per_frame']:.4f} ms/frame "
-              f"over {FRAMES - WARMUP} (CUDA events; min {res['ms_min']:.4f}, max "
-              f"{res['ms_max']:.4f}; host wall clock {res['wall_ms_per_frame']:.4f}), coverage "
-              f"{res['coverage']:.4f}, max velocity {res['max_velocity_px']:.2f} px, TAAHistory "
-              f"moved {res['taa_history_delta']:.4f}, raster launches {by_shape}, peak memory "
+        if res["max_velocity_px"] <= MIN_VELOCITY_PX[name]:
+            raise AssertionError(f"{name}: motion vectors of at most {res['max_velocity_px']} px")
+        if res["history_delta"] <= 1e-4:
+            raise AssertionError(f"{name}: {res['history']} did not change between frames")
+        print(f"{name} {res['width']}x{res['height']} -> {W}x{H} shadow {S}: {n} frames, median "
+              f"{res['ms_per_frame']:.4f} ms/frame over {FRAMES - WARMUP} (CUDA events; min "
+              f"{res['ms_min']:.4f}, max {res['ms_max']:.4f}; host wall clock "
+              f"{res['wall_ms_per_frame']:.4f}), coverage {res['coverage']:.4f}, max velocity "
+              f"{res['max_velocity_px']:.2f} px, {res['history']} moved "
+              f"{res['history_delta']:.4f}, raster launches {by_shape}, peak memory "
               f"{res['peak_memory_gib']:.3f} GiB [{card}]", flush=True)
+        for i, c in enumerate(res["frame_counts"]):
+            print(f"  frame {n - len(res['frame_counts']) + i}: {c}")
         print_frame_table(res, card)
         print(json.dumps(res), flush=True)
+        return res, renderer, by_shape
+
+    # The camera moves 3 cm a frame in phase 8 and upscaled frames; in the
+    # stress frames it stands still, so the motion vectors are the grid's.
+    MIN_VELOCITY_PX = {"forward": 1.0, "full_post": 1.0, "bindless": 1.0, "test_spot": 1.0,
+                       "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5}
+    by_kind = {}
+    for name in PHASE8:
+        by_kind[name] = run_kind(name)[2]
+
+    # -- 9. the stress, meshlet and forward_upscaled frames ---------------------------
+    for name in PHASE9:
+        res, renderer, by_kind[name] = run_kind(name)
+        if name == "stress":
+            # One animated frame's camera and sun rasters, bit for bit.
+            sa = renderer.pipeline.scene_animator(renderer.scene_arrays, renderer.frame_index,
+                                                  1 / 60)
+            cases = rb.forward_raster_inputs(sa, renderer.camera.state(renderer.frame_index, dev),
+                                             renderer.cfg.scene, W, H, S, full_raster)
+            compare_and_time("camera_stress", f"stress camera {W}x{H}, tile 8x128", 2,
+                             *cases["camera"])
+            compare_and_time("sun_stress", f"stress sun {S}x{S} depth-only (every frame)", 1,
+                             *cases["sun"])
+            del cases, sa
+        if name == "forward_upscaled":
+            rw, rh = res["width"], res["height"]
+            cases = rb.forward_raster_inputs(
+                renderer.scene_arrays, renderer.camera.state(renderer.frame_index, dev),
+                renderer.cfg.scene, rw, rh, S, full_raster)
+            compare_and_time("camera_720p", f"camera {rw}x{rh}, tile 8x128", 5,
+                             *cases["camera"])
+            del cases
         del renderer
-    if not all(slice3_launches.values()):
-        raise AssertionError(f"a raster of this slice's path was never launched: "
-                             f"{slice3_launches}")
+    img_d, img_h = bench.animation_paths(dev)
+    diff = (img_d - img_h).abs()
+    flips = (diff.amax(dim=-1) > 0.05).float().mean().item()
+    if not (bool(torch.isfinite(img_d).all()) and diff.mean().item() < 1e-3 and flips < 0.005):
+        raise AssertionError(f"stress animator vs host transforms: mean abs diff "
+                             f"{diff.mean().item()}, {flips:.4%} pixels off by > 0.05")
+    print(f"stress 128x128 on the card, animator vs host dynamic_transforms: mean abs diff "
+          f"{diff.mean().item():.6f} (< 1e-3), {flips:.4%} pixels off by > 0.05 (< 0.5%)",
+          flush=True)
+
+    # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
+    entries = {
+        "camera": (PHASE8, (H, W, False)),
+        "sun": (PHASE8 + ("forward_upscaled",), (S, S, True)),
+        "local": (PHASE8, (A, A, True)),
+        "camera_stress": (("stress", "meshlet"), (H, W, False)),
+        "sun_stress": (("stress", "meshlet"), (S, S, True)),
+        "camera_720p": (("forward_upscaled",), (720, 1280, False)),
+    }
+    launches = {e: sum(by_kind[k].get(shape, 0) for k in kinds)
+                for e, (kinds, shape) in entries.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"a raster of the frames' path was never launched: {launches}")
 
     print(card)
     print(json.dumps({"kernels": [{
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": slice3_launches[shapes[name]],
-        "launches_forward_slice": slice1_launches.get(shapes[name], 0),
+        "replaces": TPU_KERNEL, "launches": launches[name],
+        "launches_forward_slice": slice1_launches.get(entries[name][1], 0),
         **timed[name], "library_ms": None,
-    } for name in ("camera", "sun", "local")]}))
+    } for name in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

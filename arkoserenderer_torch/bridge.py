@@ -9,8 +9,10 @@ a reference array may share its buffer, which a later frame can recycle.
 
 Nested tuples (``materials``, ``lights`` with its spot, point and IES lanes,
 ``mat_tex``) may be given as NamedTuples of arrays, as mappings, or
-flattened to "lights.sun_view_proj" style keys. Fields the port does not
-carry (skinning, BVH, ...) are ignored.
+flattened to "lights.sun_view_proj" style keys; the BVH (a dataclass in
+both packages) flattens to "bvh.*" keys, and the reference's one-leaf
+placeholder of a scene without one carries across as None. Fields the
+port does not carry (skinning, hair, ...) are ignored.
 
 ``frame_state_from_numpy`` carries a frame state across: every resource a
 pass published (``ShadowMap.locals``, the G-buffer, ...) and the persistent
@@ -20,6 +22,7 @@ frame of the port.
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -31,9 +34,14 @@ from arkoserenderer_torch.scene.scene import SceneArrays, scene_arrays_from_host
 
 
 def numpy_fields(tree, prefix: str = "") -> dict[str, np.ndarray]:
-    """Flatten NamedTuples / mappings of arrays to {"a.b": np.ndarray}."""
+    """Flatten NamedTuples / dataclasses / mappings of arrays to
+    {"a.b": np.ndarray}; a None field (a scene's absent BVH) adds no key."""
+    if tree is None:
+        return {}
     if hasattr(tree, "_asdict"):
         tree = tree._asdict()
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        tree = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
     if isinstance(tree, Mapping):
         out = {}
         for k, v in tree.items():

@@ -134,6 +134,11 @@ def vdot(a: torch.Tensor, b: torch.Tensor, keepdims: bool = True) -> torch.Tenso
     return torch.sum(a * b, dim=-1, keepdim=keepdims)
 
 
+def reflect(incident: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """Reflect ``incident`` about ``normal``."""
+    return incident - 2.0 * vdot(incident, normal) * normal
+
+
 def transform_point_lanes(m: torch.Tensor, p: torch.Tensor, rows=(0, 1, 2, 3)):
     """(4,4) m, (N,3) p -> tuple of (N,) homogeneous lanes for ``rows``."""
     return tuple(

@@ -1,13 +1,15 @@
 """Standard pipeline assembly and the frame loop (port of
-arkoserenderer_tpu/models/standard.py, the raster frames).
+arkoserenderer_tpu/models/standard.py, the raster and ray-traced frames).
 
-The pass order is the reference's: Scene -> Geometry -> SunShadow ->
-[LocalShadow] -> VisibilityShading -> [SSAO] -> LightingCompose -> SkyView ->
-[Fog] -> [MotionBlur] -> [DepthOfField] -> [Bloom] -> [TAA] -> Output ->
-[FXAA] -> [CAS] -> [TemporalUpscale | Upscale]. Ray tracing, DDGI,
-subsurface scattering, translucency, auto-exposure and the debug overlays
-are later slices; asking for one raises ``NotImplementedError`` naming the
-flag.
+The pass order is the reference's: Scene -> Geometry -> (SunShadow ->
+[LocalShadow] | RTShadow -> [RTLocalShadow]) -> VisibilityShading ->
+[RTReflections] -> [SSAO] -> LightingCompose -> SkyView -> [Fog] ->
+[MotionBlur] -> [DepthOfField] -> [Bloom] -> [TAA] -> Output -> [FXAA] ->
+[CAS] -> [TemporalUpscale | Upscale]. With ``rt_shadows`` or
+``rt_reflections`` the Renderer builds the scene with its two-level BVH.
+DDGI, BVH refit, subsurface scattering, translucency, auto-exposure and the
+debug overlays are later slices; asking for one raises
+``NotImplementedError`` naming the flag.
 """
 
 from __future__ import annotations
@@ -39,6 +41,11 @@ from arkoserenderer_torch.rendering.passes import (
     UpscalePass,
     VisibilityShadingPass,
 )
+from arkoserenderer_torch.rendering.passes.rt import (
+    RTLocalShadowPass,
+    RTReflectionsPass,
+    RTShadowPass,
+)
 from arkoserenderer_torch.rendering.pipeline import PipelineConfig, RenderPipeline
 from arkoserenderer_torch.scene.camera import Camera
 from arkoserenderer_torch.scene.scene import Scene
@@ -46,9 +53,8 @@ from arkoserenderer_torch.scene.scene import Scene
 # Flags of the reference's make_forward_pipeline whose passes are not ported
 # yet, with the value that leaves each one off.
 UNPORTED_FLAGS = {
-    "rt_shadows": False, "rt_reflections": False, "ddgi": None, "ddgi_probe_debug": False,
-    "light_icons": False, "ssss": False, "rt_refit": False, "oit_layers": 1,
-    "debug_draw": None,
+    "ddgi": None, "ddgi_probe_debug": False, "light_icons": False, "ssss": False,
+    "rt_refit": False, "oit_layers": 1, "debug_draw": None,
 }
 # Keywords of the reference's Renderer whose features are not ported yet.
 UNPORTED_RENDERER_KW = ("auto_exposure", "debug_draw")
@@ -66,6 +72,8 @@ def make_forward_pipeline(
     depth_of_field: bool = False,
     fxaa: bool = False,
     cas: bool = False,
+    rt_shadows: bool = False,
+    rt_reflections: bool = False,
     upscale_to: tuple[int, int] | None = None,  # display (width, height)
     upscale_mode: str = "temporal",  # "temporal" (TemporalUpscale, no TAA) | "spatial"
     film_grain: float = 0.0,
@@ -78,7 +86,10 @@ def make_forward_pipeline(
     frame renders at ``cfg``'s size, the texture LOD is biased by
     log2(render / display width) unless ``cfg.mip_bias`` is set, and an
     upscale pass publishes LDRDisplay at the display size; the temporal
-    one replaces TAA."""
+    one replaces TAA. ``rt_shadows`` traces the sun's and the casting local
+    lights' shadows in place of their shadow maps; ``rt_reflections`` adds
+    ray-traced reflections; both trace the scene's ``bvh`` (build it with
+    ``Scene.build(with_bvh=True)``, as ``Renderer`` does)."""
     for name, value in later.items():
         if name not in UNPORTED_FLAGS:
             raise TypeError(f"make_forward_pipeline() got an unexpected keyword argument {name!r}")
@@ -92,11 +103,18 @@ def make_forward_pipeline(
     pipe = RenderPipeline(cfg, device=device)
     pipe.add_pass(ScenePass())
     pipe.add_pass(GeometryPass())
-    if shadows:
+    st = cfg.scene
+    if rt_shadows:
+        pipe.add_pass(RTShadowPass())
+        if any(st.spot_shadow_casters) or any(st.point_shadow_casters):
+            pipe.add_pass(RTLocalShadowPass())
+    elif shadows:
         pipe.add_pass(SunShadowPass())
-        if any(cfg.scene.spot_shadow_casters) and cfg.scene.n_spots > 0:
+        if any(st.spot_shadow_casters) and st.n_spots > 0:
             pipe.add_pass(LocalShadowPass())
     pipe.add_pass(VisibilityShadingPass())
+    if rt_reflections:
+        pipe.add_pass(RTReflectionsPass())
     if ssao:
         pipe.add_pass(SSAOPass())
     pipe.add_pass(LightingComposePass())
@@ -162,9 +180,13 @@ class Renderer:
         if dynamic_transforms or scene_animator is not None:
             static = dataclasses.replace(static, dynamic=True)
         self.cfg = dataclasses.replace(cfg, scene=static)
+        use_rt = bool(pipeline_kw.get("rt_shadows") or pipeline_kw.get("rt_reflections"))
+        if use_rt and (static.has_skin or static.has_morphs):
+            raise NotImplementedError("rt_refit (the per-frame BVH refit of a skinned or "
+                                      "morphed scene) is not ported yet")
         self.pipeline = make_forward_pipeline(self.cfg, device=self.device, **pipeline_kw)
         self.pipeline.scene_animator = scene_animator
-        self.scene_arrays = scene.build(self.device)
+        self.scene_arrays = scene.build(self.device, with_bvh=use_rt)
         self.state = self.pipeline.initial_state()
         self.frame_index = 0
 

@@ -69,3 +69,10 @@ def evaluate(l, v, n, base_color, roughness, metallic,
         fc = f_schlick(l_dot_h, DIELECTRIC_F0) * clearcoat
         fr = fr * (1.0 - fc) + dc * vc * fc
     return fr * n_dot_l
+
+
+def env_fresnel_roughness(n_dot_v, f0, roughness):
+    """Fresnel with a roughness-aware grazing response, for ambient and
+    reflection terms."""
+    f90 = torch.maximum(1.0 - roughness, f0)
+    return f0 + (f90 - f0) * (1.0 - n_dot_v) ** 5

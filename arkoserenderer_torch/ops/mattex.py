@@ -265,10 +265,15 @@ def sample_packed(
     duv_dx: torch.Tensor,
     duv_dy: torch.Tensor,
     lod_bias: float = 0.0,  # negative when rendering below display resolution
+    quality: str = "trilinear",
 ) -> MaterialSample:
-    """Gradient-correct trilinear packed material sample (8 row gathers;
-    the reference's other filters are not ported yet). ``lod_bias`` is
-    added to the mip level before the clamp."""
+    """Gradient-correct packed material sample. ``quality="trilinear"``
+    (8 row gathers) or ``"bilinear"`` (the nearest mip, 4 row gathers: the
+    ray-hit shading's); the reference's anisotropic and stochastic filters
+    are not ported yet and raise. ``lod_bias`` is added to the mip level
+    before the clamp."""
+    if quality not in ("trilinear", "bilinear"):
+        raise NotImplementedError(f"texture quality {quality!r} is not ported yet")
     wrap = meta[:, 0].to(torch.int32)
     w0 = meta[:, 1].to(torch.int32)
     h0 = meta[:, 2].to(torch.int32)
@@ -289,10 +294,13 @@ def sample_packed(
         off = _select13(offs, level).to(torch.int32)
         return _fetch_level(rows, off, wrap, _mip_dim(w0, level), _mip_dim(h0, level), uv)
 
-    l0 = torch.floor(lod).to(torch.int32)
-    l1 = torch.minimum(l0 + 1, max_lod.to(torch.int32))
-    f = (lod - l0.to(torch.float32))[:, None]
-    c = level_fetch(l0) * (1 - f) + level_fetch(l1) * f
+    if quality == "bilinear":
+        c = level_fetch(torch.round(lod).to(torch.int32))  # lod is clamped to the chain
+    else:
+        l0 = torch.floor(lod).to(torch.int32)
+        l1 = torch.minimum(l0 + 1, max_lod.to(torch.int32))
+        f = (lod - l0.to(torch.float32))[:, None]
+        c = level_fetch(l0) * (1 - f) + level_fetch(l1) * f
 
     n_xy = c[:, 4:6] * 2.0 - 1.0
     n_z = torch.sqrt(torch.clamp(1.0 - torch.sum(n_xy * n_xy, -1, keepdim=True), min=0.0))

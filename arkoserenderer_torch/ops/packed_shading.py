@@ -169,8 +169,11 @@ def shade_packed(
     height: int,
     shadow_moments: torch.Tensor | None = None,  # (S, S, 2) sun VSM
     sun_shadow_vp: torch.Tensor | None = None,
+    shadow_mask: torch.Tensor | None = None,        # (N,) RT sun visibility: wins
     local_shadow_maps: torch.Tensor | None = None,  # (n_spots, A, A) depth
     spot_shadow_flags: tuple | None = None,         # per spot: samples its map
+    rt_spot_masks: torch.Tensor | None = None,      # (S, N) RT spot visibility: wins
+    rt_point_masks: torch.Tensor | None = None,     # (P, N) RT point visibility
     n_spots: int = 0,
     n_points: int = 0,
     any_tex: bool = True,
@@ -178,11 +181,12 @@ def shade_packed(
     *,
     layout: RecLayout,
 ) -> GBuffer:
-    """Deferred shading of the visibility buffer: the sun (VSM-shadowed), the
-    first ``n_spots`` spot lights (cone, IES profile, PCF-shadowed where
-    flagged) and ``n_points`` point lights through the Filament BRDF,
-    emissive, and the velocity G-buffer. ``mip_bias`` biases the texture
-    LOD (the upscaler's drive)."""
+    """Deferred shading of the visibility buffer: the sun (VSM-shadowed, or
+    by the ray-traced ``shadow_mask``), the first ``n_spots`` spot lights
+    (cone, IES profile; shadowed by ``rt_spot_masks``, else PCF where
+    flagged) and ``n_points`` point lights (by ``rt_point_masks`` when
+    given) through the Filament BRDF, emissive, and the velocity G-buffer.
+    ``mip_bias`` biases the texture LOD (the upscaler's drive)."""
     cs = layout.c_stride
     valid = vis_flat >= 0
     rec = records[torch.clamp(vis_flat, min=0).long()]   # the per-pixel gather
@@ -285,7 +289,9 @@ def shade_packed(
 
     color = emissive * exposure
     sun_l = -scene.lights.sun_direction[None, :]
-    if shadow_moments is not None:
+    if shadow_mask is not None:
+        shadow = shadow_mask
+    elif shadow_moments is not None:
         n_dot_l_geo = torch.clamp(mx.vdot(world_nrm, sun_l, keepdims=False), 0.0, 1.0)
         shadow = sample_vsm(shadow_moments, sun_shadow_vp, world_pos, n_dot_l_geo)
     else:
@@ -309,7 +315,9 @@ def shade_packed(
             (torch.acos(torch.clamp(cos_dir, -1.0, 1.0)) / math.pi * 255.0).to(torch.int64),
             0, 255)
         falloff = t * t * lights.spot_ies[i][angle_idx] / dist2[:, 0]
-        if (local_shadow_maps is not None and spot_shadow_flags is not None
+        if rt_spot_masks is not None:
+            falloff = falloff * rt_spot_masks[i]
+        elif (local_shadow_maps is not None and spot_shadow_flags is not None
                 and i < len(spot_shadow_flags) and spot_shadow_flags[i]):
             n_dot_l_spot = torch.clamp(mx.vdot(world_nrm, l, keepdims=False), 0.0, 1.0)
             falloff = falloff * sample_shadow_pcf(
@@ -322,7 +330,8 @@ def shade_packed(
         dist2 = torch.clamp(mx.vdot(to_l, to_l), min=1e-6)
         l = to_l * torch.rsqrt(dist2)
         fr = brdf.evaluate(l, view, shading_nrm, base_color, roughness, metallic)
-        color = color + fr * (lights.point_color[i][None, :] * exposure) / dist2
+        vis_p = rt_point_masks[i][:, None] if rt_point_masks is not None else 1.0
+        color = color + fr * (lights.point_color[i][None, :] * exposure) / dist2 * vis_p
 
     def to_screen(vp, p):
         sx_, sy_, w_c = mx.transform_point_lanes(vp, p, rows=(0, 1, 3))

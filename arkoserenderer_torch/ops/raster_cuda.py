@@ -1,9 +1,10 @@
-"""Wrapper of the hand-written stage-4 raster kernel (csrc/raster_tiles.cu).
+"""Wrapper of the hand-written stage-4 raster kernel (csrc/raster_tiles.cu),
+and the build of the port's kernel library.
 
-``build_kernels()`` compiles ``csrc/*.cu`` with nvcc into a shared library
-with a plain C interface under ``build/kernels/`` at the checkout root (the
-library name carries a hash of the sources, so an edit rebuilds), and loads
-it with ctypes. ``rasterize_tiles_cuda`` checks its inputs, allocates the
+``build_kernels()`` compiles ``csrc/*.cu`` with nvcc (one process per
+source, in parallel) into a shared library with a plain C interface under
+``build/kernels/`` at the checkout root (the library name carries a hash of
+the sources, so an edit rebuilds), and loads it with ctypes. ``rasterize_tiles_cuda`` checks its inputs, allocates the
 outputs with ``torch.empty`` and launches on the current stream without
 synchronising; ``rasterize_tiles_cuda.launches`` counts its launches, and
 ``rasterize_tiles_cuda.launches_by_shape`` counts them per
@@ -35,8 +36,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 MAX_THREADS = 128  # threads a block (csrc/raster_tiles.cu)
 
@@ -56,7 +58,8 @@ def _nvcc() -> str:
 
 def build_kernels() -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` (once per source version, into ``BUILD_DIR``)
-    and load the port's kernel library."""
+    and load the port's kernel library: one ``nvcc -c`` per source, all
+    started together, then one link."""
     global _lib
     if _lib is not None:
         return _lib
@@ -69,17 +72,31 @@ def build_kernels() -> ctypes.CDLL:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"libarkose_kernels_{digest.hexdigest()[:16]}.so"
     if not so.exists():
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objs)]
+        outs = [p.communicate() for p in procs]
+        failed = [f"{src.name}:\n{err}" for src, p, (_, err) in zip(sources, procs, outs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        res = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        so.with_suffix(".ptxas.txt").write_text(res.stderr)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        for obj in objs:
+            obj.unlink()
+        so.with_suffix(".ptxas.txt").write_text("".join(err for _, err in outs))
         tmp.replace(so)
     lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.raster_tiles_launch.argtypes = [p] * 10 + [i] * 9 + [p]
     lib.raster_tiles_launch.restype = i
+    lib.bvh_trace_launch.argtypes = [p] * 6 + [f, f] + [i] * 4 + [p] * 5
+    lib.bvh_trace_launch.restype = i
     _lib = lib
     return lib
 

@@ -2,6 +2,11 @@ from arkoserenderer_torch.rendering.passes.scenepass import ScenePass  # noqa: F
 from arkoserenderer_torch.rendering.passes.geometry import GeometryPass  # noqa: F401
 from arkoserenderer_torch.rendering.passes.shadow import LocalShadowPass, SunShadowPass  # noqa: F401
 from arkoserenderer_torch.rendering.passes.shading import VisibilityShadingPass  # noqa: F401
+from arkoserenderer_torch.rendering.passes.rt import (  # noqa: F401
+    RTLocalShadowPass,
+    RTReflectionsPass,
+    RTShadowPass,
+)
 from arkoserenderer_torch.rendering.passes.post import (  # noqa: F401
     CASPass,
     DepthOfFieldPass,

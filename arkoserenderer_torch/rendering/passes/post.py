@@ -4,10 +4,10 @@ wraps a function of ops/ssao or ops/postprocess; all take their dense
 branch (every sample and tap, every frame), which is what the reference's
 default texture quality resolves to.
 
-LightingCompose is the branch without DDGI or reflections: direct light
-(already in SceneColor) plus SH-2 environment irradiance and the flat
-ambient, modulated by diffuse albedo, material occlusion and, when the SSAO
-pass ran, its ambient visibility.
+LightingCompose is the branch without DDGI: direct light (already in
+SceneColor) plus SH-2 environment irradiance and the flat ambient,
+modulated by diffuse albedo, material occlusion and, when the SSAO pass
+ran, its ambient visibility; plus SceneReflections where RTReflections ran.
 """
 
 from __future__ import annotations
@@ -66,8 +66,11 @@ class LightingComposePass(RenderPass):
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
-        if reg.has("SceneReflections") or reg.has("DDGI.irradiance"):
-            raise NotImplementedError("reflections and DDGI are not ported yet")
+        if reg.has("DDGI.irradiance"):
+            raise NotImplementedError("DDGI is not ported yet")
+        use_refl = reg.has("SceneReflections")
+        if use_refl:
+            reg.get("SceneReflections")
         for name in ("SceneColor", "SceneBaseColor", "SceneMaterial", "SceneCoverage",
                      "SceneNormal"):
             reg.get(name)
@@ -90,6 +93,8 @@ class LightingComposePass(RenderPass):
                 ao = ao * state["SSAO"][..., None]
             diffuse = base * (1.0 - mat[..., 1:2])
             out = color + torch.where(valid, diffuse * ambient * ao, 0.0)
+            if use_refl:
+                out = out + torch.where(valid, state["SceneReflections"], 0.0)
             return {"SceneColor": out}
 
         return execute

@@ -1,0 +1,206 @@
+"""Ray-traced passes (port of arkoserenderer_tpu/rendering/passes/rt.py):
+RT sun shadows, RT local-light shadows and RT reflections with their
+denoiser, traced through the scene's two-level BVH (``ops/bvh.trace_rays``:
+the hand-written traversal kernel on the card).
+
+  * RTShadowPass: one any-hit ray per pixel toward the sun, off the depth
+    buffer; publishes ShadowMask.sun, which replaces the sun's shadow map
+    in shading.
+  * RTLocalShadowPass: one any-hit ray per pixel to each shadow-casting spot
+    and point light, stopping just short of it; publishes
+    ShadowMask.locals and ShadowMask.points (1 where a light casts none).
+  * RTReflectionsPass: mirror rays of the surfaces under the roughness
+    cutoff, shaded at their hits (``ops/rt.shade_hits``), weighted by
+    Fresnel, then denoised (``ops/reflection_denoise``: prefilter,
+    reproject, resolve-temporal over RTRefl.history / .moments / .depth);
+    publishes SceneReflections, which LightingCompose adds.
+
+Rays of pixels that trace nothing (sky, surfaces past the cutoff) start
+far below the scene, so they leave the BVH in one step. The hard-shadow
+branches only: a sun with an angular radius or a light with a source
+radius (soft shadows and their denoiser), DDGI at the hits, half-rate
+tracing (``PipelineConfig.rt_scale``) and BVH refit are not ported and
+raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from arkoserenderer_torch.core import mathx as mx
+from arkoserenderer_torch.ops import brdf as brdf_ops
+from arkoserenderer_torch.ops import reflection_denoise as dn
+from arkoserenderer_torch.ops.bvh import Hit, trace_rays
+from arkoserenderer_torch.ops.rt import PARK, shade_hits, trace_shadow_mask
+from arkoserenderer_torch.ops.ssao import inverse4, reconstruct_world_pos
+from arkoserenderer_torch.rendering.pipeline import (
+    FrameContext,
+    PipelineConfig,
+    RenderPass,
+    pixel_centers,
+)
+from arkoserenderer_torch.rendering.registry import Registry
+
+MAX_ROUGHNESS = 0.6  # reflection rays stop past this roughness (diffuse GI takes over)
+
+
+def _receivers(state: dict, ctx: FrameContext, px, py, w: int, h: int, covered):
+    """World positions of the depth buffer's pixels; uncovered ones parked."""
+    inv_vp = inverse4(ctx.camera.unjittered_view_proj)
+    world = reconstruct_world_pos(state["SceneDepth"].reshape(-1), px, py, inv_vp, w, h)
+    return torch.where(covered[:, None], world, PARK)
+
+
+class RTShadowPass(RenderPass):
+    """Per-pixel any-hit sun shadow mask (replaces the sun's shadow map)."""
+
+    name = "RTShadow"
+
+    def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
+        if cfg.scene.sun_angular_radius_deg > 0.0:
+            raise NotImplementedError("rt_shadows with a sun angular_radius_deg > 0 (soft "
+                                      "shadows and their denoiser) is not ported yet")
+        h, w = cfg.height, cfg.width
+        reg.get("SceneDepth")
+        reg.get("Visibility")
+        reg.create("ShadowMask.sun", (h, w), torch.float32, clear=1.0)
+        px, py = pixel_centers(cfg, device)
+
+        def execute(state: dict, ctx: FrameContext) -> dict:
+            covered = state["Visibility"].reshape(-1) >= 0
+            world = _receivers(state, ctx, px, py, w, h, covered)
+            mask = trace_shadow_mask(ctx.scene, world,
+                                     -ctx.scene.lights.sun_direction, covered,
+                                     label="sun mask")
+            return {"ShadowMask.sun": mask.reshape(h, w)}
+
+        return execute
+
+
+class RTLocalShadowPass(RenderPass):
+    """Per-pixel any-hit shadow masks of the local lights: one (H, W) plane
+    per spot and per point light, traced to the light with t_max just short
+    of it; lights that cast no shadow keep a plane of ones. Which lights
+    cast, and their source radii, come from ``cfg.scene``."""
+
+    name = "RTLocalShadow"
+
+    def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
+        st = cfg.scene
+        spot_casters, point_casters = st.spot_shadow_casters, st.point_shadow_casters
+        for kind, casters, radii in (("spot", spot_casters, st.spot_source_radius),
+                                     ("point", point_casters, st.point_source_radius)):
+            for i, cast in enumerate(casters):
+                if cast and i < len(radii) and float(radii[i]) > 0.0:
+                    raise NotImplementedError(
+                        f"rt_shadows for a {kind} light with source_radius > 0 (soft shadows "
+                        "and their denoiser) is not ported yet")
+        h, w = cfg.height, cfg.width
+        reg.get("SceneDepth")
+        reg.get("Visibility")
+        n_s, n_p = len(spot_casters), len(point_casters)
+        reg.create("ShadowMask.locals", (max(n_s, 1), h, w), torch.float32, clear=1.0)
+        reg.create("ShadowMask.points", (max(n_p, 1), h, w), torch.float32, clear=1.0)
+        px, py = pixel_centers(cfg, device)
+
+        def execute(state: dict, ctx: FrameContext) -> dict:
+            covered = state["Visibility"].reshape(-1) >= 0
+            world = _receivers(state, ctx, px, py, w, h, covered)
+            bvh = ctx.scene.bvh
+
+            def mask_to(light_pos, label):
+                to_l = light_pos[None, :] - world
+                dist = torch.sqrt(torch.clamp(mx.vdot(to_l, to_l), min=1e-12))
+                l_dir = to_l / dist
+                occ = trace_rays(bvh, world + l_dir * 3e-2, l_dir,
+                                 t_max=torch.clamp(dist[:, 0] - 6e-2, min=1e-3), any_hit=True,
+                                 label=label)
+                return torch.where(covered, (~occ.hit).to(torch.float32), 1.0).reshape(h, w)
+
+            ones = torch.ones((h, w), dtype=torch.float32, device=world.device)
+            lights = ctx.scene.lights
+            spots = [mask_to(lights.spot_pos[i], "spot mask") if cast else ones
+                     for i, cast in enumerate(spot_casters)] or [ones]
+            points = [mask_to(lights.point_pos[i], "point mask") if cast else ones
+                      for i, cast in enumerate(point_casters)] or [ones]
+            return {"ShadowMask.locals": torch.stack(spots),
+                    "ShadowMask.points": torch.stack(points)}
+
+        return execute
+
+
+class RTReflectionsPass(RenderPass):
+    """RT reflections: a mirror ray per pixel under MAX_ROUGHNESS, shaded at
+    its hit, Fresnel-weighted (faded out over the last quarter before the
+    cutoff) and denoised: prefilter, reprojection and temporal resolve (the
+    reference's defaults; its roughness and temporal knobs have no caller)."""
+
+    name = "RTReflections"
+
+    def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
+        h, w = cfg.height, cfg.width
+        for name in ("SceneDepth", "SceneNormal", "SceneMaterial", "SceneBaseColor",
+                     "SceneCoverage"):
+            reg.get(name)
+        reg.create("SceneReflections", (h, w, 3), torch.float32)
+        reg.get("SceneVelocity")
+        reg.create("RTRefl.history", (h, w, 3), torch.float32, persistent=True)
+        reg.create("RTRefl.moments", (h, w, 3), torch.float32, persistent=True)
+        reg.create("RTRefl.depth", (h, w), torch.float32, persistent=True)
+        px, py = pixel_centers(cfg, device)
+        cone_spread = 1.0 / max(h, 1)  # ray cone ~ one pixel of the vertical FOV
+        n_rays = h * w
+        compact = n_rays >= (1 << 17)  # the reference compacts where it traces in chunks
+        st = cfg.scene
+
+        def execute(state: dict, ctx: FrameContext) -> dict:
+            depth = state["SceneDepth"]
+            valid0 = state["SceneCoverage"].reshape(-1)
+            inv_vp = inverse4(ctx.camera.unjittered_view_proj)
+            world = reconstruct_world_pos(depth.reshape(-1), px, py, inv_vp, w, h)
+            world = torch.where(valid0[:, None], world, PARK)
+            nrm = state["SceneNormal"].reshape(-1, 3)
+            mat = state["SceneMaterial"].reshape(-1, 4)
+            base = state["SceneBaseColor"].reshape(-1, 3)
+            rough = mat[:, 0:1]
+            metal = mat[:, 1:2]
+
+            view = mx.normalize(ctx.camera.position[None, :] - world)
+            r_dir = mx.normalize(mx.reflect(-view, nrm))
+            active = valid0 & (rough[:, 0] < MAX_ROUGHNESS)
+            world = torch.where(active[:, None], world, PARK)
+            origins = world + nrm * 2e-2
+            if compact:
+                # The active rays first, in pixel order (a stable sort), so
+                # neighbouring threads walk neighbouring rays; the result of
+                # each ray does not change.
+                order = torch.argsort((~active).to(torch.uint8), stable=True)
+                hit_s = trace_rays(ctx.scene.bvh, origins[order], r_dir[order], t_max=1e4,
+                                   label="reflection")
+                inv = torch.empty_like(order)
+                inv[order] = torch.arange(n_rays, device=order.device)
+                hit = Hit(*(x[inv] for x in hit_s))
+            else:
+                hit = trace_rays(ctx.scene.bvh, origins, r_dir.contiguous(), t_max=1e4,
+                                 label="reflection")
+            radiance = shade_hits(ctx.scene, hit, r_dir, ctx.camera.exposure,
+                                  cone_spread=cone_spread, n_spots=st.n_spots,
+                                  n_points=st.n_points, spot_casters=st.spot_shadow_casters,
+                                  point_casters=st.point_shadow_casters)
+
+            f0 = brdf_ops.base_f0(base, metal)
+            n_dot_v = torch.clamp(mx.vdot(nrm, view), 0.0, 1.0)
+            fresnel = brdf_ops.env_fresnel_roughness(n_dot_v, f0, rough)
+            fade = torch.clamp((MAX_ROUGHNESS - rough) / (0.25 * MAX_ROUGHNESS), 0.0, 1.0)
+            refl = torch.where(active[:, None], radiance * fresnel * fade, 0.0)
+            filtered = dn.prefilter(refl.reshape(h, w, 3), rough.reshape(h, w, 1),
+                                    nrm.reshape(h, w, 3), depth)
+            hist, mom, conf = dn.reproject(state["RTRefl.history"], state["RTRefl.moments"],
+                                           state["RTRefl.depth"], depth,
+                                           state["SceneVelocity"], px, py)
+            resolved, moments = dn.resolve_temporal(filtered, hist, mom, conf,
+                                                    ctx.frame_index == 0)
+            return {"SceneReflections": resolved, "RTRefl.history": resolved,
+                    "RTRefl.moments": moments, "RTRefl.depth": depth}
+
+        return execute

@@ -4,7 +4,10 @@ packed branch: trilinear textures and the bilinear VSM sun — the
 reference's defaults; its other texture and shadow filters are not ported
 yet). Spot and point lights are shaded at the scene's static counts; a
 spot flagged as a shadow caster samples its tile of ShadowMap.locals when
-the LocalShadow pass ran before this one.
+the LocalShadow pass ran before this one. The ray-traced masks win where
+their passes ran: ShadowMask.sun (RTShadow) over the sun's map,
+ShadowMask.locals and ShadowMask.points (RTLocalShadow) for the local
+lights.
 
 Publishes SceneColor, SceneNormal, SceneVelocity, SceneBaseColor,
 SceneMaterial and SceneCoverage.
@@ -42,6 +45,13 @@ class VisibilityShadingPass(RenderPass):
         use_local_shadow = reg.has("ShadowMap.locals")
         if use_local_shadow:
             reg.get("ShadowMap.locals")
+        use_rt_shadow = reg.has("ShadowMask.sun")
+        if use_rt_shadow:
+            reg.get("ShadowMask.sun")
+        use_rt_local = reg.has("ShadowMask.locals")
+        if use_rt_local:
+            reg.get("ShadowMask.locals")
+            reg.get("ShadowMask.points")
         for name, shape in (("SceneColor", (h, w, 3)), ("SceneNormal", (h, w, 3)),
                             ("SceneVelocity", (h, w, 2)), ("SceneBaseColor", (h, w, 3)),
                             ("SceneMaterial", (h, w, 4))):
@@ -57,8 +67,13 @@ class VisibilityShadingPass(RenderPass):
                 state["vis.records"], px, py, w, h,
                 shadow_moments=state["ShadowMoments.sun"] if use_moments else None,
                 sun_shadow_vp=ctx.scene.lights.sun_view_proj if use_moments else None,
+                shadow_mask=state["ShadowMask.sun"].reshape(-1) if use_rt_shadow else None,
                 local_shadow_maps=state["ShadowMap.locals"] if use_local_shadow else None,
                 spot_shadow_flags=st.spot_shadow_casters if use_local_shadow else None,
+                rt_spot_masks=(state["ShadowMask.locals"].flatten(1) if use_rt_local
+                               else None),
+                rt_point_masks=(state["ShadowMask.points"].flatten(1) if use_rt_local
+                                else None),
                 n_spots=st.n_spots,
                 n_points=st.n_points,
                 any_tex=any_tex,

@@ -56,7 +56,15 @@ class PipelineConfig:
     # Texture LOD bias; negative when rendering below display resolution
     # (make_forward_pipeline sets log2(render / display) for upscaling).
     mip_bias: float = 0.0
+    # Ray-tracing rate: 1 traces a ray per pixel; the reference's 2
+    # (half-rate tracing, nearest-depth upsampled) is not ported.
+    rt_scale: int = 1
     scene: SceneStatic = dataclasses.field(default_factory=SceneStatic)
+
+    def __post_init__(self):
+        if self.rt_scale != 1:
+            raise NotImplementedError(f"rt_scale={self.rt_scale} (half-rate ray tracing for "
+                                      "rt_shadows and rt_reflections) is not ported yet")
 
 
 ExecuteFn = Callable[[dict, FrameContext], dict]

@@ -11,8 +11,11 @@ Instances may carry a previous transform and a LOD band (``add_instance``,
 instance rows from a host mirror after the host moved instances. With
 ``enable_meshlets`` the build splits every segment into meshlets
 (``assets/meshopt.build_meshlets``) and records their culling bounds.
+``build(device, with_bvh=True)`` adds the two-level BVH over the LOD-0
+instances (``ops/bvh``), with the reference's parked TLAS slots for
+streamed instances; without it ``bvh`` is None.
 
-Not ported: skinning, morph targets, hair, the BVH and streaming.
+Not ported: skinning, morph targets, hair, streaming and BVH refit.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from arkoserenderer_torch.assets import meshopt
 from arkoserenderer_torch.core.types import SceneLimits
+from arkoserenderer_torch.ops import bvh as bvh_ops
 from arkoserenderer_torch.ops import mattex
 from arkoserenderer_torch.scene.lights import (
     DirectionalLight,
@@ -55,6 +59,7 @@ class SceneStatic:
     # shadows, as are the source radii (world units).
     spot_shadow_casters: tuple = ()
     point_shadow_casters: tuple = ()
+    sun_angular_radius_deg: float = 0.0
     spot_source_radius: tuple = ()
     point_source_radius: tuple = ()
     uses_base_tex: bool = True
@@ -172,6 +177,8 @@ class SceneArrays(NamedTuple):
     meshlet_cone: torch.Tensor     # (Mm, 4) axis xyz + cutoff
     meshlet_instance: torch.Tensor  # (Mm,) i32
     meshlet_valid: torch.Tensor    # (Mm,) bool
+    # Ray tracing: ops.bvh.TwoLevelBVH when built with_bvh, else None.
+    bvh: bvh_ops.TwoLevelBVH | None
 
 
 # Nested NamedTuple fields of SceneArrays, by field name.
@@ -193,11 +200,17 @@ def host_to_device(value: np.ndarray, device) -> torch.Tensor:
 
 def scene_arrays_from_host(fields: dict[str, np.ndarray], device) -> SceneArrays:
     """SceneArrays from host arrays keyed by field name, nested fields as
-    ``"lights.sun_view_proj"`` and the like. Extra keys are ignored."""
+    ``"lights.sun_view_proj"`` and the like. Extra keys are ignored. The BVH
+    comes from "bvh.*" keys holding a two-level BVH's fields; without them
+    (or with the reference's one-leaf placeholder, which has no
+    ``wide_rec``) it is None."""
     out = {}
     for name in SceneArrays._fields:
         cls = NESTED_FIELDS.get(name)
-        if cls is None:
+        if name == "bvh":
+            sub = {k[4:]: v for k, v in fields.items() if k.startswith("bvh.")}
+            out[name] = bvh_ops.bvh_from_host(sub, device) if "wide_rec" in sub else None
+        elif cls is None:
             out[name] = host_to_device(fields[name], device)
         else:
             out[name] = cls(**{
@@ -285,8 +298,10 @@ class Scene:
 
     # -- freeze -----------------------------------------------------------------
 
-    def build_host(self) -> dict[str, np.ndarray]:
-        """Every SceneArrays field as host arrays (nested as "a.b")."""
+    def build_host(self, with_bvh: bool = False,
+                   rt_stream_capacity: int = 64) -> dict[str, np.ndarray]:
+        """Every SceneArrays field as host arrays (nested as "a.b"); the
+        BVH's as "bvh.*" when ``with_bvh``."""
         lim = self.limits
         vmax, tmax, dmax, mmax = (
             lim.max_vertices, lim.max_triangles, lim.max_drawables, lim.max_materials,
@@ -431,10 +446,91 @@ class Scene:
         out.update({f"lights.{k}": v for k, v in lights.items()})
         out["env_map"] = self.env_map
         out["env_brightness"] = np.asarray(self.env_brightness, np.float32)
+        if with_bvh:
+            out.update({f"bvh.{k}": v for k, v in self._build_bvh(rt_stream_capacity).items()})
         return out
 
-    def build(self, device="cuda") -> SceneArrays:
-        return scene_arrays_from_host(self.build_host(), device)
+    def build(self, device="cuda", with_bvh: bool = False,
+              rt_stream_capacity: int = 64) -> SceneArrays:
+        """The scene's SceneArrays on ``device``. ``with_bvh`` builds the
+        two-level BVH on the host and moves it once; ``rt_stream_capacity``
+        parked TLAS slots are reserved as the reference reserves them for
+        streaming (they shape the TLAS, so both packages trace the same
+        tree)."""
+        return scene_arrays_from_host(self.build_host(with_bvh, rt_stream_capacity), device)
+
+    def _build_bvh(self, stream_capacity: int = 0) -> dict:
+        """The two-level BVH's host arrays: one BLAS per segment in object
+        space, shared by its instances, and a TLAS over the LOD-0 instances
+        (bands starting at distance 0), so a ray never finds one surface at
+        several LOD levels. Fully transparent triangles of masked materials
+        are left out (``_masked_tri_opacity``)."""
+        omm_cache: dict[int, np.ndarray | None] = {}
+        blas_geo: list[tuple] = []
+        seg_blas: dict[int, int] = {}
+        inst_blas, inst_o2w, inst_tri_base, inst_ids = [], [], [], []
+        tri_cursor = 0
+        for inst_id, (sid, w, _pw, lod_band) in enumerate(self.instances):
+            seg = self.segments[sid]
+            t = seg.num_triangles
+            base = tri_cursor
+            tri_cursor += t
+            if lod_band[0] != 0.0:
+                continue
+            if sid not in omm_cache:
+                omm_cache[sid] = self._masked_tri_opacity(seg)
+            if sid not in seg_blas:
+                tris = seg.indices.reshape(t, 3).astype(np.int32)
+                keep = omm_cache[sid]
+                tri_ids = None
+                if keep is not None:
+                    tri_ids = np.nonzero(keep)[0].astype(np.int32)
+                    tris = tris[keep]
+                seg_blas[sid] = len(blas_geo)
+                blas_geo.append((seg.positions.astype(np.float32), tris, tri_ids))
+            inst_blas.append(seg_blas[sid])
+            inst_o2w.append(np.asarray(w, np.float32))
+            inst_tri_base.append(base)
+            inst_ids.append(inst_id)
+        return bvh_ops.build_two_level_host(
+            blas_geo,
+            np.asarray(inst_blas, np.int32),
+            np.stack(inst_o2w) if inst_o2w else np.zeros((0, 4, 4), np.float32),
+            np.asarray(inst_tri_base, np.int32),
+            inst_id=np.asarray(inst_ids, np.int32),
+            inst_cap=(len(inst_ids) + stream_capacity) if stream_capacity else None,
+        )
+
+    def _masked_tri_opacity(self, seg) -> np.ndarray | None:
+        """(T,) keep-mask of a segment whose material is MASKED, or None when
+        every triangle is kept: the base-colour texture's alpha sampled at
+        each triangle's corners, edge midpoints and centroid; a triangle
+        whose every sample is under the cutoff is fully transparent and left
+        out of ray tracing (the role of the reference's opacity
+        micromaps)."""
+        mat = self.materials[seg.material]
+        if mat.blend_mode != BLEND_MASKED:
+            return None
+        tid = int(mat.base_color_tex)
+        if not (0 <= tid < len(self.images)) or tid in (0, 1, 2, 3):
+            return None
+        img = self.images[tid][0]
+        h, w = img.shape[:2]
+        if img.shape[-1] < 4:
+            return None
+        alpha = img[..., 3].astype(np.float32) / 255.0
+        uv = seg.uvs[seg.indices.reshape(-1, 3)]  # (T, 3, 2)
+        bary = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [0.5, 0.5, 0], [0.5, 0, 0.5],
+                         [0, 0.5, 0.5], [1 / 3, 1 / 3, 1 / 3]], np.float32)
+        pts = np.einsum("kj,tjc->tkc", bary, uv)  # (T, 7, 2)
+        xi = np.clip((np.mod(pts[..., 0], 1.0) * w).astype(np.int64), 0, w - 1)
+        yi = np.clip((np.mod(pts[..., 1], 1.0) * h).astype(np.int64), 0, h - 1)
+        keep = (alpha[yi, xi] >= mat.alpha_cutoff).any(axis=1)
+        if keep.all():
+            return None
+        if not keep.any():
+            keep[0] = True  # keep one triangle
+        return keep
 
     def _segment_bounds(self, sid: int) -> tuple[np.ndarray, float]:
         """Object-space bounding sphere (AABB centre, radius) of a segment,
@@ -482,6 +578,8 @@ class Scene:
             point_shadow_casters=tuple(bool(p.cast_shadows) for p in self.points),
             spot_source_radius=tuple(float(sp.source_radius) for sp in self.spots),
             point_source_radius=tuple(float(p.source_radius) for p in self.points),
+            sun_angular_radius_deg=(float(getattr(self.sun, "angular_radius_deg", 0.0))
+                                    if self.sun is not None else 0.0),
             uses_base_tex=any(m.base_color_tex != 0 for m in mats),
             uses_normal_tex=any(m.normal_tex != 2 for m in mats),
             uses_mr_tex=any(m.mr_tex != 0 for m in mats),

@@ -8,6 +8,10 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
   bindless   256 materials over 64 texture chains + MotionBlur + DepthOfField
   test_spot  the test scene with one shadow-casting spot light: its shadow
              map is rastered every frame (LocalShadow) and PCF-sampled
+  rt         the same scene and spot with rt_shadows and rt_reflections: the
+             sun's and the spot's shadows are rays (RTShadow, RTLocalShadow)
+             and RTReflections traces mirror rays and their sun and spot
+             occlusion rays, five traces a frame through the two-level BVH
   stress     4,096 animated grid cells, each a two-level LOD chain (983,042
              triangles in the pool): the forward passes with the animation
              in the frame (``make_stress_animator``), so the sun map is
@@ -29,7 +33,8 @@ prints the card's name and power limit, then one JSON line per frame kind:
 ms/frame (median, min, max of CUDA-event times around each frame, and the
 host's wall clock per frame), the median ms of every pass, peak device
 memory, the raster kernel's launches (and the count the configuration
-implies), coverage, how far the history (TAA's, or the upscaler's) moved in
+implies), the traversal kernel's launches by trace (and the count implied),
+coverage, how far the history (TAA's, or the upscaler's) moved in
 one frame, and for the last STATS_FRAMES frames the triangles left after
 culling, the meshlets kept and the triangles the camera's and the sun's
 bins dropped. With ``--profile`` it then runs 4 more frames of each
@@ -57,6 +62,7 @@ from arkoserenderer_torch.assets.procedural import (
 )
 from arkoserenderer_torch.core.types import RasterConfig
 from arkoserenderer_torch.models.standard import Renderer
+from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
 from arkoserenderer_torch.ops.raster_cuda import rasterize_tiles_cuda
 from arkoserenderer_torch.ops.upscale import ideal_render_resolution
 from arkoserenderer_torch.rendering.passes.geometry import camera_visible_triangles
@@ -73,6 +79,8 @@ CONFIGS = {
     "bindless": ("bindless", dict(motion_blur=True, depth_of_field=True),
                  "256 materials / 64 textures bindless + TAA + motion blur + DoF"),
     "test_spot": ("test_spot", {}, "forward + one shadow-casting spot light (LocalShadow + PCF)"),
+    "rt": ("test_spot", dict(rt_shadows=True, rt_reflections=True),
+           "RT shadows + RT reflections + denoise, one shadow-casting spot light"),
     "stress": ("stress", {}, "4096 animated instances with LOD chains (culling stress)"),
     "meshlet": ("meshlet", {}, "meshlet visbuf + per-meshlet culling, 4096 instances"),
     "forward_upscaled": ("test_upscaled", {}, "forward at 2/3 scale + temporal upscale to 1080p"),
@@ -132,19 +140,49 @@ def camera_mover(renderer: Renderer):
     return move
 
 
+def _pass_names(renderer: Renderer) -> set:
+    return {p.name for p in renderer.pipeline.passes}
+
+
 def expected_launches_by_shape(renderer: Renderer, frames: int) -> dict:
     """Raster launches of ``frames`` frames from a fresh Renderer whose scene
     stays as built, by (height, width, depth_only): the camera's every
-    frame; the sun's once under the static shadow cache, else every frame;
-    and one per shadow-casting spot per frame."""
+    frame; with shadow maps, the sun's once under the static shadow cache,
+    else every frame, and one per shadow-casting spot per frame; with
+    ray-traced shadows no other raster."""
     cfg = renderer.cfg
     s, a = cfg.shadow_map_size, cfg.local_shadow_map_size
-    out = {(cfg.height, cfg.width, False): frames,
-           (s, s, True): 1 if sun_shadow_cacheable(cfg.scene) else frames}
-    casters = sum(cfg.scene.spot_shadow_casters)
-    if casters:
-        out[(a, a, True)] = casters * frames
+    out = {(cfg.height, cfg.width, False): frames}
+    if "SunShadow" in _pass_names(renderer):
+        out[(s, s, True)] = 1 if sun_shadow_cacheable(cfg.scene) else frames
+        casters = sum(cfg.scene.spot_shadow_casters)
+        if casters:
+            out[(a, a, True)] = casters * frames
     return out
+
+
+def expected_trace_launches_by_label(renderer: Renderer, frames: int) -> dict:
+    """Traversal launches of ``frames`` frames by trace: with RTShadow one
+    sun mask and one mask per shadow-casting spot and point light a frame;
+    with RTReflections the reflection rays and, at their hits, the sun's
+    occlusion rays and one per casting spot (and point) light a frame."""
+    st = renderer.cfg.scene
+    names = _pass_names(renderer)
+    per_frame = {}
+    n_spot_casters = sum(st.spot_shadow_casters)
+    n_point_casters = sum(st.point_shadow_casters)
+    if "RTShadow" in names:
+        per_frame["sun mask"] = 1
+        per_frame["spot mask"] = n_spot_casters
+        per_frame["point mask"] = n_point_casters
+    if "RTReflections" in names:
+        per_frame["reflection"] = 1
+        per_frame["sun occlusion"] = 1
+        per_frame["spot occlusion"] = sum(
+            1 for i in range(st.n_spots)
+            if i >= len(st.spot_shadow_casters) or st.spot_shadow_casters[i])
+        per_frame["point occlusion"] = n_point_casters
+    return {k: n * frames for k, n in per_frame.items() if n}
 
 
 def expected_launches(renderer: Renderer, frames: int) -> int:
@@ -173,7 +211,8 @@ def frame_counts(renderer: Renderer) -> dict:
         "meshlets_kept": None if kept is None else int(kept.sum()),
         "meshlets": None if kept is None else int(scene.meshlet_valid.sum()),
         "overflow_camera": int(cases["camera"][1].overflow),
-        "overflow_sun": int(cases["sun"][1].overflow),
+        "overflow_sun": (int(cases["sun"][1].overflow) if "SunShadow" in _pass_names(renderer)
+                         else None),
     }
 
 
@@ -209,6 +248,7 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     rasterize_tiles_cuda.launches = 0
+    trace_rays_cuda.launches_by_label.clear()
     renderer = build_renderer(name, small, dev)
     move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
     bench = renderer.benchmark(warmup=warmup, iters=iters, before_frame=move)
@@ -235,6 +275,9 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
         "frames": renderer.frame_index,
         "raster_launches": rasterize_tiles_cuda.launches,
         "raster_launches_expected": expected_launches(renderer, renderer.frame_index),
+        "trace_launches": dict(trace_rays_cuda.launches_by_label),
+        "trace_launches_expected": expected_trace_launches_by_label(renderer,
+                                                                    renderer.frame_index),
         "ldr_finite": bool(torch.isfinite(ldr).all()),
         "coverage": state["SceneCoverage"].float().mean().item(),
         "max_velocity_px": state["SceneVelocity"].abs().max().item(),

@@ -44,7 +44,10 @@ from arkoserenderer_torch.rendering.passes.geometry import (
 )
 
 # One H100 SXM (NVIDIA's data sheet): HBM rate and float32 rate outside the
-# tensor cores.
+# tensor cores. That float32 rate counts a fused multiply-add as two
+# operations; the kernels are built with --fmad=false, so a bound that
+# counts each mul and add as one operation against it is optimistic by up
+# to 2x.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Operations of one pixel test with factored edge functions: 3 subtracts and

@@ -9,8 +9,9 @@ Phases (any failure raises, and the script exits non-zero without a
 result line):
   1. device: requires CUDA, prints the card's name and power limit, turns
      TF32 off;
-  2. build: compiles the hand-written kernels from csrc/ with nvcc and
-     prints ptxas's registers, shared memory and spills (none allowed);
+  2. build: compiles the hand-written kernels from csrc/ with nvcc (one
+     process per source, in parallel) and prints ptxas's registers, shared
+     memory and spills (none allowed);
   3. kernel against its plain torch version on the card, vis and depth
      equal bit for bit: the random 64x64 cases, the y_offset band and the
      depth_limit peel, an adversarial case (vertices on pixel centres and
@@ -59,11 +60,26 @@ result line):
      grid at 128^2 animated in the frame against the host's
      dynamic_transforms path (mean abs diff < 1e-3, under 0.5 % of pixels
      off by more than 0.05: the thresholds of tests/test_stress.py).
-The line before the last is the kernels' JSON, one entry per raster the one
-kernel serves (forward camera, cached sun, local shadow, stress camera,
-per-frame stress sun, 720p camera), each with its launches in the runs of
-the frame kinds that launch it; the last line is
-{"ok": true, "device": {...}}.
+ 10. the rt frame (the test_spot scene and spot with rt_shadows and
+     rt_reflections) and the BVH traversal kernel: the five traces of one
+     1920x1080 frame (sun mask, spot mask, reflection rays, and the sun and
+     spot occlusion rays at the reflection hits; parked and compacted rays
+     included) captured as the frame makes them, and random rays through a
+     4,096-instance TLAS (closest-hit, and any-hit with per-ray t_max), each
+     through the kernel and its plain torch version: t, tri, u, v and hit
+     equal bit for bit; the kernel's wrapper, device and plain times and its
+     bound from the plain walk's step counts (tools/trace_bench.py); the
+     256^2 rt golden (tests/goldens/rt.png) rendered on the card; then the
+     rt frame through the bench as in phase 8, with one camera raster and
+     no other a frame, and the traversal launches by trace as the
+     configuration implies them (bench.expected_trace_launches_by_label):
+     exactly five a frame.
+The line before the last is the kernels' JSON: one entry per raster the
+raster kernel serves (1080p camera, cached sun, local shadow, stress
+camera, per-frame stress sun, 720p camera), each with its launches in the
+runs of the frame kinds that launch it, and one entry per trace the
+traversal kernel serves in the rt frame, with its launches in the rt run;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -83,6 +99,11 @@ PHASE8 = ("forward", "full_post", "bindless", "test_spot")
 PHASE9 = ("stress", "meshlet", "forward_upscaled")
 TPU_KERNEL = "arkoserenderer_tpu/ops/raster_pallas.py:63"
 KERNEL_SOURCE = "arkoserenderer_torch/csrc/raster_tiles.cu"
+# The traversal kernel replaces the reference's XLA while-loop (not a Pallas
+# kernel) of the 8-wide walk.
+TRACE_REPLACES = "arkoserenderer_tpu/ops/bvh.py:1001"
+TRACE_SOURCE = "arkoserenderer_torch/csrc/bvh_trace.cu"
+RT_TRACES = ("sun mask", "spot mask", "reflection", "sun occlusion", "spot occlusion")
 
 
 def random_case(rng, n, big: bool, width: int, height: int):
@@ -153,8 +174,8 @@ def main() -> None:
     # -- 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
     lib = build_kernels()
-    print(f"build: raster_tiles.cu built and loaded in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    sources = ", ".join(p.name for p in sorted((ROOT / "arkoserenderer_torch" / "csrc").glob("*.cu")))
+    print(f"build: {sources} built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
     report = ptxas_report(lib)
     for line in report:
         print(f"  {line}")
@@ -353,7 +374,7 @@ def main() -> None:
     # The camera moves 3 cm a frame in phase 8 and upscaled frames; in the
     # stress frames it stands still, so the motion vectors are the grid's.
     MIN_VELOCITY_PX = {"forward": 1.0, "full_post": 1.0, "bindless": 1.0, "test_spot": 1.0,
-                       "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5}
+                       "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5, "rt": 1.0}
     by_kind = {}
     for name in PHASE8:
         by_kind[name] = run_kind(name)[2]
@@ -391,9 +412,36 @@ def main() -> None:
           f"{diff.mean().item():.6f} (< 1e-3), {flips:.4%} pixels off by > 0.05 (< 0.5%)",
           flush=True)
 
+    # -- 10. the rt frame and the traversal kernel ------------------------------------
+    from arkoserenderer_torch.scene.lights import SpotLight
+    from arkoserenderer_torch.tools import trace_bench as tb
+
+    traces = tb.frame_cases(bench.build_renderer("rt", device=dev))
+    if tuple(t["name"] for t in traces) != RT_TRACES:
+        raise AssertionError(f"the rt frame traced {[t['name'] for t in traces]}, "
+                             f"expected {list(RT_TRACES)}")
+    for t in traces + tb.tlas_cases(dev):
+        print(tb.describe(t, card), flush=True)
+    g_scene, g_cam = build_test_scene(viewport=(256, 256), n_spheres=1)
+    g_scene.spots.append(SpotLight(position=np.array([0.5, 3.0, 1.0], np.float32),
+                                   direction=np.array([-0.2, -1.0, -0.1], np.float32),
+                                   luminous_intensity_cd=150000.0, cast_shadows=True))
+    check_golden("rt", Renderer(g_scene, g_cam, g_cfg, device=dev, rt_shadows=True,
+                                rt_reflections=True, taa=False, bloom=False).render_frames(2))
+    res, renderer, by_kind["rt"] = run_kind("rt")
+    n = res["frames"]
+    if (res["trace_launches"] != res["trace_launches_expected"]
+            or sum(res["trace_launches"].values()) != 5 * n):
+        raise AssertionError(f"rt: traversal launches {res['trace_launches']} in {n} frames, "
+                             f"expected {res['trace_launches_expected']} (5 a frame)")
+    print(f"rt: traversal launches {res['trace_launches']} in {n} frames (5 a frame)",
+          flush=True)
+    trace_launches = res["trace_launches"]
+    del renderer
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
-        "camera": (PHASE8, (H, W, False)),
+        "camera": (PHASE8 + ("rt",), (H, W, False)),
         "sun": (PHASE8 + ("forward_upscaled",), (S, S, True)),
         "local": (PHASE8, (A, A, True)),
         "camera_stress": (("stress", "meshlet"), (H, W, False)),
@@ -406,12 +454,22 @@ def main() -> None:
         raise AssertionError(f"a raster of the frames' path was never launched: {launches}")
 
     print(card)
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches[name],
         "launches_forward_slice": slice1_launches.get(entries[name][1], 0),
         **timed[name], "library_ms": None,
-    } for name in entries]}))
+    } for name in entries]
+    rows += [{
+        "name": f"bvh_trace ({t['name']})", "route": "cuda", "source": TRACE_SOURCE,
+        "replaces": TRACE_REPLACES, "launches": trace_launches.get(t["name"], 0),
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "share": t["share"], "rays": t["rays"], "steps": t["steps"], "library_ms": None,
+    } for t in traces]
+    if not all(row["launches"] for row in rows):
+        raise AssertionError("a kernel of the frames' path was never launched")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -135,3 +135,50 @@ def test_kernel_tile_rule_matches_check_tile(cuda_device, tile_h, tile_w, taken)
     pv, pd = raster.rasterize_tiles_plain(setup, bins, 256, 64, cfg)
     torch.cuda.synchronize()
     assert torch.equal(vis, pv) and torch.equal(depth, pd)
+
+
+# -- the BVH traversal kernel (csrc/bvh_trace.cu) ------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit,per_ray", [(False, False), (False, True), (True, False),
+                                             (True, True)])
+def test_trace_kernel_matches_plain(cuda_device, any_hit, per_ray):
+    """Random rays through a 512-instance TLAS: t, tri, u, v and hit equal
+    bit for bit (tools/trace_bench.compare raises otherwise)."""
+    from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
+    from arkoserenderer_torch.tools import trace_bench
+
+    bvh, o, d, tm = trace_bench.tlas_case(cuda_device, n_inst=512, n_rays=8192)
+    before = trace_rays_cuda.launches
+    res = trace_bench.compare(bvh, o, d, tm if per_ray else 1e30, any_hit, "tlas512")
+    assert trace_rays_cuda.launches == before + 1
+    assert 0.05 < res["hit_share"] < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_steps", [9, 20, 512])
+def test_trace_kernel_stack_overflow_matches_plain(cuda_device, max_steps):
+    """The hand-made chain that overflows the 64-entry stack, cut at 9 and
+    20 steps or run out: kernel and plain version agree bit for bit."""
+    from arkoserenderer_torch.ops import bvh as bvh_ops
+    from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
+    from arkoserenderer_torch.tools.trace_bench import overflow_case
+
+    bvh, o, d = overflow_case(cuda_device)
+    k = trace_rays_cuda(bvh, o, d, max_steps=max_steps)
+    p = bvh_ops.trace_wide_plain(bvh, o, d, max_steps=max_steps)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def test_trace_wrapper_checks_its_inputs():
+    """The wrapper raises on what the kernel does not take before it builds
+    anything, so this runs on the CPU."""
+    from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
+    from arkoserenderer_torch.tools.trace_bench import overflow_case
+
+    bvh, o, d = overflow_case("cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trace_rays_cuda(bvh, o, d)

@@ -1,6 +1,7 @@
 """Low-discrepancy sequences: Halton for the TAA camera jitter and the SSAO
-kernel, the Fibonacci disc for PCF and bokeh taps (port of
-arkoserenderer_tpu/core/halton.py, the parts the raster frames use)."""
+kernel, the Fibonacci disc for PCF and bokeh taps, the Fibonacci sphere for
+probe-ray directions (port of arkoserenderer_tpu/core/halton.py, the parts
+the frames use)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,18 @@ def halton_sequence_2d(count: int, bases: tuple[int, int] = (2, 3)) -> np.ndarra
 def camera_jitter_sequence(count: int = 16) -> np.ndarray:
     """(count, 2) sub-pixel jitter offsets in [-0.5, 0.5)^2."""
     return halton_sequence_2d(count).astype(np.float32) - 0.5
+
+
+def fibonacci_sphere(count: int) -> np.ndarray:
+    """(count, 3) near-uniform points on the unit sphere."""
+    i = np.arange(count, dtype=np.float64) + 0.5
+    phi = np.arccos(1.0 - 2.0 * i / count)
+    golden = np.pi * (1.0 + np.sqrt(5.0))
+    theta = golden * i
+    return np.stack(
+        [np.cos(theta) * np.sin(phi), np.sin(theta) * np.sin(phi), np.cos(phi)],
+        axis=-1,
+    ).astype(np.float32)
 
 
 def fibonacci_disc(count: int) -> np.ndarray:

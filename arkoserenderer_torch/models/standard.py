@@ -97,6 +97,12 @@ def make_forward_pipeline(
             raise NotImplementedError(f"{name} is not ported yet")
     if upscale_mode not in ("temporal", "spatial"):
         raise ValueError(f"unknown upscale_mode {upscale_mode!r}")
+    # "auto" resolves as the reference's does: trilinear textures, the
+    # bilinear VSM sun.
+    if cfg.texture_quality == "auto":
+        cfg = dataclasses.replace(cfg, texture_quality="trilinear")
+    if cfg.shadow_filter == "auto":
+        cfg = dataclasses.replace(cfg, shadow_filter="bilinear")
     if upscale_to is not None and cfg.mip_bias == 0.0:
         cfg = dataclasses.replace(cfg, mip_bias=math.log2(cfg.width / upscale_to[0]))
     temporal_upscale = upscale_to is not None and upscale_mode == "temporal"

@@ -534,8 +534,10 @@ def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.
 
     Each step works only on the rays still walking, which changes no ray's
     result. When ``stats`` is a dict it receives per-ray counts of steps,
-    quad steps, node steps and triangle tests (``steps``, ``quad_steps``,
-    ``node_steps``, ``triangle_tests``), for a bound on the work."""
+    quad steps, node steps, triangle tests and ray transforms (``steps``,
+    ``quad_steps``, ``node_steps``, ``triangle_tests``, ``inst_steps``: the
+    TLAS entry at the ray's first step, and one per instance entered), for a
+    bound on the work."""
     dev = origins.device
     r = origins.shape[0]
     f_rec = bvh.wide_rec.view(torch.float32)
@@ -558,7 +560,8 @@ def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.
     counts = None
     if stats is not None:
         counts = {k: torch.zeros((r,), dtype=torch.int32, device=dev)
-                  for k in ("steps", "quad_steps", "node_steps", "triangle_tests")}
+                  for k in ("steps", "quad_steps", "node_steps", "triangle_tests",
+                            "inst_steps")}
 
     for _ in range(max_steps):
         rows = torch.nonzero(sp > 0).squeeze(1)
@@ -649,6 +652,8 @@ def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.
         base_sp[rows] = bsp
         best_t[rows], best_tri[rows], best_u[rows], best_v[rows] = bt, btri, bu, bv
         if counts is not None:
+            first = (counts["steps"][rows] == 0).to(torch.int32)
+            counts["inst_steps"][rows] += first + is_inst.to(torch.int32)
             counts["steps"][rows] += 1
             counts["quad_steps"][rows] += is_quad.to(torch.int32)
             counts["node_steps"][rows] += is_node.to(torch.int32)

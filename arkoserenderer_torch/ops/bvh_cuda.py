@@ -3,12 +3,13 @@
 ``ops/raster_cuda.build_kernels``.
 
 ``trace_rays_cuda`` checks its inputs, allocates ``t``, ``tri``, ``u`` and
-``v`` with ``torch.empty`` and launches on the current stream without
-synchronising; ``trace_rays_cuda.launches`` counts its launches and
-``trace_rays_cuda.launches_by_label`` counts them by the caller's label
-(the trace of a frame: "sun mask", "reflection", ...). With the
-library's flags (``--fmad=false``, no fast math) the kernel equals
-``ops.bvh.trace_wide_plain`` bit for bit.
+``v`` and the kernel's ray counter (one int32 of scratch, which the entry
+point zeroes on the stream) with ``torch.empty`` and launches on the
+current stream without synchronising; ``trace_rays_cuda.launches`` counts
+its launches and ``trace_rays_cuda.launches_by_label`` counts them by the
+caller's label (the trace of a frame: "sun mask", "reflection", ...).
+With the library's flags (``--fmad=false``, no fast math) the kernel
+equals ``ops.bvh.trace_wide_plain`` bit for bit.
 """
 
 from __future__ import annotations
@@ -47,17 +48,19 @@ def trace_rays_cuda(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.T
     tri = torch.empty((r,), dtype=torch.int32, device=dev)
     u = torch.empty((r,), dtype=torch.float32, device=dev)
     v = torch.empty((r,), dtype=torch.float32, device=dev)
+    counter = torch.empty((1,), dtype=torch.int32, device=dev)
     launch_raw(build_kernels(), bvh, origins, directions, t_ray,
                1e30 if t_ray is not None else float(t_max), t_eps, any_hit, max_steps,
-               t, tri, u, v)
+               t, tri, u, v, counter)
     trace_rays_cuda.launches += 1
     trace_rays_cuda.launches_by_label[label] += 1
     return Hit(t=t, tri=tri, u=u, v=v, hit=tri >= 0)
 
 
 def launch_raw(lib, bvh: TwoLevelBVH, origins, directions, t_ray, t_max_all: float,
-               t_eps: float, any_hit: bool, max_steps: int, t, tri, u, v) -> None:
-    """One launch of ``lib.bvh_trace_launch`` into the given outputs on the
+               t_eps: float, any_hit: bool, max_steps: int, t, tri, u, v, counter) -> None:
+    """One launch of ``lib.bvh_trace_launch`` into the given outputs, with
+    ``counter`` (one int32 on the card) as the kernel's ray counter, on the
     current stream, with no checks and no count: ``trace_rays_cuda`` checks
     the inputs; timing scripts call this on outputs made once."""
     err = lib.bvh_trace_launch(
@@ -65,7 +68,7 @@ def launch_raw(lib, bvh: TwoLevelBVH, origins, directions, t_ray, t_max_all: flo
         origins.data_ptr(), directions.data_ptr(),
         None if t_ray is None else t_ray.data_ptr(), float(t_max_all), float(t_eps),
         int(max_steps), int(bool(any_hit)), origins.shape[0], bvh.quad_rec.shape[0],
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), counter.data_ptr(),
         torch.cuda.current_stream(origins.device).cuda_stream,
     )
     if err != 0:

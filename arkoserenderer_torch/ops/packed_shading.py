@@ -178,6 +178,7 @@ def shade_packed(
     n_points: int = 0,
     any_tex: bool = True,
     mip_bias: float = 0.0,
+    texture_quality: str = "trilinear",  # | "bilinear"
     *,
     layout: RecLayout,
 ) -> GBuffer:
@@ -186,7 +187,8 @@ def shade_packed(
     (cone, IES profile; shadowed by ``rt_spot_masks``, else PCF where
     flagged) and ``n_points`` point lights (by ``rt_point_masks`` when
     given) through the Filament BRDF, emissive, and the velocity G-buffer.
-    ``mip_bias`` biases the texture LOD (the upscaler's drive)."""
+    ``mip_bias`` biases the texture LOD (the upscaler's drive);
+    ``texture_quality`` is ``ops.mattex.sample_packed``'s ``quality``."""
     cs = layout.c_stride
     valid = vis_flat >= 0
     rec = records[torch.clamp(vis_flat, min=0).long()]   # the per-pixel gather
@@ -259,7 +261,7 @@ def shade_packed(
     if any_tex:
         ms = mattex.sample_packed(
             scene.mat_tex.rows, mrec[:, M_TEXMETA:M_TEXMETA + mattex.META_LANES],
-            uv, duv_dx, duv_dy, lod_bias=mip_bias,
+            uv, duv_dx, duv_dy, lod_bias=mip_bias, quality=texture_quality,
         )
         base_color = ms.base[:, :3] * base_factor[:, :3]
         roughness = torch.clamp(ms.rough_metal[:, 0:1] * roughness_f, 0.0, 1.0)

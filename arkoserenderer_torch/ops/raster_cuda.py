@@ -95,8 +95,10 @@ def build_kernels() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.raster_tiles_launch.argtypes = [p] * 10 + [i] * 9 + [p]
     lib.raster_tiles_launch.restype = i
-    lib.bvh_trace_launch.argtypes = [p] * 6 + [f, f] + [i] * 4 + [p] * 5
+    lib.bvh_trace_launch.argtypes = [p] * 6 + [f, f] + [i] * 4 + [p] * 6
     lib.bvh_trace_launch.restype = i
+    lib.bvh_trace_warps_per_sm.argtypes = [i]
+    lib.bvh_trace_warps_per_sm.restype = i
     _lib = lib
     return lib
 

@@ -1,7 +1,7 @@
 """Output pass: tonemap, vignette, film grain and sRGB encode (port of
-arkoserenderer_tpu/rendering/passes/output.py, without the 3D colour-grade
-LUT). SceneColor is already pre-exposed. Also meters the average
-log-luminance (Metering.avgLum) on the device."""
+arkoserenderer_tpu/rendering/passes/output.py; the 3D colour-grade LUT is
+not ported and raises). SceneColor is already pre-exposed. Also meters the
+average log-luminance (Metering.avgLum) on the device."""
 
 from __future__ import annotations
 
@@ -21,7 +21,14 @@ from arkoserenderer_torch.rendering.registry import Registry
 class OutputPass(RenderPass):
     name = "Output"
 
-    def __init__(self, vignette_intensity: float = 0.18, film_grain_gain: float = 0.0):
+    def __init__(self, mode: str | None = None, vignette_intensity: float = 0.18,
+                 film_grain_gain: float = 0.0, color_grade_lut=None):
+        """``mode`` is a key of ``ops.tonemap.MODES``, or None for the
+        config's ``tonemap_mode``."""
+        if color_grade_lut is not None:
+            raise NotImplementedError("color_grade_lut (the 3D colour-grade LUT) is not "
+                                      "ported yet")
+        self.mode = mode
         self.vignette_intensity = vignette_intensity
         self.film_grain_gain = film_grain_gain
 
@@ -30,7 +37,7 @@ class OutputPass(RenderPass):
         reg.get("SceneColor")
         reg.create("LDR", (h, w, 3), torch.float32)
         reg.create("Metering.avgLum", (), torch.float32)
-        mode = tm.MODES[cfg.tonemap_mode]
+        mode = tm.MODES[self.mode or cfg.tonemap_mode]
         vign = self.vignette_intensity
         grain = self.film_grain_gain
         px, py = pixel_centers(cfg, device)

@@ -1,8 +1,9 @@
 """Deferred shading pass (port of
 arkoserenderer_tpu/rendering/passes/shading.py ``VisibilityShadingPass``,
-packed branch: trilinear textures and the bilinear VSM sun — the
-reference's defaults; its other texture and shadow filters are not ported
-yet). Spot and point lights are shaded at the scene's static counts; a
+packed branch: ``cfg.texture_quality`` trilinear or bilinear textures
+("auto" is trilinear) and the bilinear VSM sun; the reference's other
+texture and shadow filters are not ported yet and PipelineConfig refuses
+them). Spot and point lights are shaded at the scene's static counts; a
 spot flagged as a shadow caster samples its tile of ShadowMap.locals when
 the LocalShadow pass ran before this one. The ray-traced masks win where
 their passes ran: ShadowMask.sun (RTShadow) over the sun's map,
@@ -59,6 +60,7 @@ class VisibilityShadingPass(RenderPass):
         reg.create("SceneCoverage", (h, w), torch.bool)
         px, py = pixel_centers(cfg, device)
         layout = record_layout_for(st)
+        quality = "trilinear" if cfg.texture_quality == "auto" else cfg.texture_quality
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             gb = shade_packed(
@@ -78,6 +80,7 @@ class VisibilityShadingPass(RenderPass):
                 n_points=st.n_points,
                 any_tex=any_tex,
                 mip_bias=cfg.mip_bias,
+                texture_quality=quality,
                 layout=layout,
             )
             return {

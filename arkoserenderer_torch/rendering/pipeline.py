@@ -39,9 +39,19 @@ class FrameContext(NamedTuple):
     delta_time: float
 
 
+# Values of the reference's PipelineConfig fields that the port does not
+# implement yet: a value listed here raises NotImplementedError naming the
+# field. anisoN (any N) is matched by its prefix.
+UNPORTED_TEXTURE_QUALITIES = ("stochastic", "stochastic1", "sorted")
+TEXTURE_QUALITIES = ("auto", "trilinear", "bilinear")
+SHADOW_FILTERS = ("auto", "bilinear")
+
+
 @dataclasses.dataclass
 class PipelineConfig:
-    """Static configuration shared by all passes."""
+    """Static configuration shared by all passes. Every field of the
+    reference's config, with its default; a value the port does not
+    implement yet raises ``NotImplementedError`` naming the field."""
 
     width: int = 1920
     height: int = 1080
@@ -50,21 +60,75 @@ class PipelineConfig:
     shadow_map_size: int = 2048
     local_shadow_map_size: int = 512  # each spot light's shadow map
     tonemap_mode: str = "agx"  # a key of ops.tonemap.MODES
+    # Texture filter: "auto" (make_forward_pipeline resolves it to
+    # "trilinear"), "trilinear" or "bilinear"; the reference's anisoN,
+    # stochastic, stochastic1 and sorted are not ported.
+    texture_quality: str = "auto"
+    # Deferred-shading path: "packed" (the reference's "reference" path is
+    # not ported).
+    shading_mode: str = "packed"
     # TAA history filter: "catmull" (16-tap Catmull-Rom, sharp history) or
     # "bilinear" (4 taps).
     taa_filter: str = "catmull"
+    # Sun shadow receiver filter: "auto" (resolved to "bilinear") or
+    # "bilinear"; the stochastic single tap is not ported.
+    shadow_filter: str = "auto"
     # Texture LOD bias; negative when rendering below display resolution
     # (make_forward_pipeline sets log2(render / display) for upscaling).
     mip_bias: float = 0.0
+    # Sky env-map fetch at 1/k resolution: only 1 (full resolution) is ported.
+    sky_fetch_scale: int = 1
     # Ray-tracing rate: 1 traces a ray per pixel; the reference's 2
     # (half-rate tracing, nearest-depth upsampled) is not ported.
     rt_scale: int = 1
+    # DDGI probe sampling at 1/k resolution: only 1 is ported.
+    ddgi_sample_scale: int = 1
+    # Pixel-band sharding (a band of a taller frame on each device): not
+    # ported; the port renders the whole frame on one device.
+    shard_axis: str | None = None
+    full_height: int | None = None
+    shard_count: int = 1
     scene: SceneStatic = dataclasses.field(default_factory=SceneStatic)
 
     def __post_init__(self):
+        def unported(field, what):
+            raise NotImplementedError(f"{field}={getattr(self, field)!r} ({what}) is not "
+                                      "ported yet")
+
+        q = self.texture_quality
+        if q.startswith("aniso") or q in UNPORTED_TEXTURE_QUALITIES:
+            unported("texture_quality", "the reference's anisotropic, stochastic and sorted "
+                     "texture filters")
+        if q not in TEXTURE_QUALITIES:
+            raise ValueError(f"unknown texture_quality {q!r}")
+        if self.shading_mode == "reference":
+            unported("shading_mode", "the per-field reference shading path")
+        if self.shading_mode != "packed":
+            raise ValueError(f"unknown shading_mode {self.shading_mode!r}")
+        if self.shadow_filter == "stochastic":
+            unported("shadow_filter", "the stochastic single-tap VSM filter")
+        if self.shadow_filter not in SHADOW_FILTERS:
+            raise ValueError(f"unknown shadow_filter {self.shadow_filter!r}")
+        if self.sky_fetch_scale != 1:
+            unported("sky_fetch_scale", "reduced-rate sky fetch")
         if self.rt_scale != 1:
-            raise NotImplementedError(f"rt_scale={self.rt_scale} (half-rate ray tracing for "
-                                      "rt_shadows and rt_reflections) is not ported yet")
+            unported("rt_scale", "half-rate ray tracing for rt_shadows and rt_reflections")
+        if self.ddgi_sample_scale != 1:
+            unported("ddgi_sample_scale", "reduced-rate DDGI sampling")
+        if self.shard_axis is not None:
+            unported("shard_axis", "pixel-band sharding")
+        if self.shard_count != 1:
+            unported("shard_count", "pixel-band sharding")
+        if self.full_height is not None and self.full_height != self.height:
+            unported("full_height", "a band of a taller frame")
+
+    @property
+    def frame_height(self) -> int:
+        return self.full_height if self.full_height is not None else self.height
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
 
 
 ExecuteFn = Callable[[dict, FrameContext], dict]

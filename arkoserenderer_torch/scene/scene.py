@@ -589,15 +589,24 @@ class Scene:
             has_meshlets=self.enable_meshlets,
         )
 
-    def bounding_sphere(self) -> tuple[np.ndarray, float]:
+    def bounding_box(self) -> tuple[np.ndarray, np.ndarray] | None:
+        """(mins, maxs) of the instances' world-space vertices (float64);
+        None when the scene has no instance."""
         if not self.instances:
-            return np.zeros(3, np.float32), 1.0
+            return None
         mins = np.full(3, np.inf)
         maxs = np.full(3, -np.inf)
         for sid, w, *_ in self.instances:
             pts = self.segments[sid].positions @ w[:3, :3].T + w[:3, 3]
             mins = np.minimum(mins, pts.min(0))
             maxs = np.maximum(maxs, pts.max(0))
+        return mins, maxs
+
+    def bounding_sphere(self) -> tuple[np.ndarray, float]:
+        box = self.bounding_box()
+        if box is None:
+            return np.zeros(3, np.float32), 1.0
+        mins, maxs = box
         center = 0.5 * (mins + maxs)
         radius = float(np.linalg.norm(maxs - center))
         return center.astype(np.float32), max(radius, 1e-3)

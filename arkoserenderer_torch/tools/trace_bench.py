@@ -1,30 +1,48 @@
 """Measurements of the BVH traversal kernel (csrc/bvh_trace.cu) on the card.
 
-Helpers used by chip_smoke.py: the rays of one frame's traces captured as
-the frame makes them (``capture_traces``), random rays through a 4,096-
-instance TLAS (``tlas_case``), the kernel held bit for bit against its plain
-torch version with the per-ray step counts the plain walk reports
-(``compare``), the kernel's bound from those counts (``bound_ms``), and its
-times: the wrapper's (CUDA events around back-to-back ``trace_rays_cuda``
-calls, as the frame calls it), the device's (a CUDA graph of launches
-through the C entry point into outputs made once) and the plain version's.
+Helpers used by chip_smoke.py and the tests: the rays of one frame's traces
+captured as the frame makes them (``capture_traces``), random rays through a
+4,096-instance TLAS (``tlas_case``), DDGI-shaped probe rays through the
+``rt`` scene (``probe_case``), hand-made records that overflow the stack
+(``overflow_case``) and edge rays (``edge_cases``: ray counts that are no
+multiple of a group or a block, zero and negative-zero direction
+components, negative-zero origins, t_max of inf and 0, origins inside
+instance boxes); the kernel held bit for bit against its plain torch
+version with the per-ray counts the plain walk reports (``compare``), the
+kernel's bound from those counts (``bound_ms``), and its times: the
+wrapper's (CUDA events around back-to-back ``trace_rays_cuda`` calls, as
+the frame calls it), the device's (a CUDA graph of launches through the C
+entry point into outputs made once) and the plain version's.
 
 Run as a script it does all of that for the five traces of one 1920x1080
 ``rt`` frame (sun mask, spot mask, reflection, and the sun and spot
-occlusion rays at the reflection hits) and for the TLAS case:
+occlusion rays at the reflection hits), the TLAS case and the probe case:
 
     python -m arkoserenderer_torch.tools.trace_bench
+
+With ``--other OLD_CHECKOUT`` (a root that holds ``arkoserenderer_torch/``)
+it compares the other checkout's kernel with this one on those eight
+traces: both built from their own ``csrc/`` (the other into its own
+``build/``, under its own library name), held equal bit for bit, then timed
+in turns (other, this, this, other) per round, device ms by CUDA graphs;
+it prints the medians:
+
+    python -m arkoserenderer_torch.tools.trace_bench --other OLD_CHECKOUT
 
 Prints the card line, one line per case, and one JSON line. Needs a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import statistics
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from arkoserenderer_torch.core.halton import fibonacci_sphere
 from arkoserenderer_torch.ops import bvh as bvh_ops
 from arkoserenderer_torch.ops import bvh_cuda
 from arkoserenderer_torch.ops.raster_cuda import build_kernels, ptxas_report
@@ -34,13 +52,15 @@ from arkoserenderer_torch.tools.raster_bench import (
     card_line,
     events_ms,
     graph_ms,
+    load_wrapper,
 )
 
 # FP32 operations of the kernel (csrc/bvh_trace.cu), counted from its
-# source, each mul, add, min, max, compare and division as one: every step
-# transforms the ray into the current space (18 mul/add for the origin, 18
-# for the direction, 3 guarded divisions); each triangle a quad step tests
-# costs 53 (two cross products, four dot products, the division, the
+# source, each mul, add, min, max, compare and division as one: a ray
+# transform costs 42 (18 mul/add for the origin, 18 for the direction, 3
+# guarded divisions), made once a ray for the TLAS and once per instance
+# the ray enters (the plain walk's ``inst_steps``); each triangle a quad step
+# tests costs 53 (two cross products, four dot products, the division, the
 # barycentric and t comparisons); a node step slab-tests 8 children at 25
 # each, and a closest-hit node step sorts them with 19 compare-exchanges
 # (any-hit skips the sort). The rate they are held to, FP32_OPS_PER_S, is
@@ -48,13 +68,20 @@ from arkoserenderer_torch.tools.raster_bench import (
 # operations; the kernel is built with --fmad=false, so each counted
 # operation is an instruction of its own and the card executes them at no
 # more than half that rate: the operations bound is optimistic by up to 2x.
-OPS_STEP = 42
+OPS_TRANSFORM = 42
 OPS_TRIANGLE = 53
 OPS_SLAB = 8 * 25
 OPS_SORT = 19
 WRAPPER_CALLS = 20  # back-to-back wrapper calls under CUDA events
 TLAS_INSTANCES = 4096
 TLAS_RAYS = 1 << 20
+# The probe case: the flagship's DDGI trace (1,024 probes x 256 rays), the
+# probes the first of a 16x8x16 grid over the scene's box shrunk by 10 %.
+PROBE_GRID = (16, 8, 16)
+PROBES, PROBE_RAYS, PROBE_SEED, PROBE_T_MAX = 1024, 256, 7, 1e4
+EDGE_COUNTS = (0, 1, 33, 4099)  # no multiple of a group (8 lanes) or a block
+OVERFLOW_STEPS = (9, 20, 512)
+AB_ROUNDS = 3  # rounds of (other, this, this, other) in the A/B
 
 
 def capture_traces(renderer) -> list[dict]:
@@ -152,27 +179,103 @@ def overflow_case(device, levels: int = 12, n_rays: int = 512, seed: int = 11):
     return bvh, *(torch.from_numpy(a).to(device) for a in (origins, dirs))
 
 
-def compare(bvh, origins, directions, t_max, any_hit: bool, label: str) -> dict:
+def probe_case(scene, device):
+    """DDGI-shaped probe rays through ``scene`` (the host Scene): the first
+    PROBES points of a PROBE_GRID grid spanning the scene's bounding box
+    shrunk by 10 % about its centre, each casting the PROBE_RAYS directions
+    of ``fibonacci_sphere`` rotated by one unit quaternion (w, x, y, z)
+    drawn from ``numpy.random.default_rng(PROBE_SEED)``: (origins,
+    directions) of PROBES * PROBE_RAYS rays, probe-major."""
+    mins, maxs = scene.bounding_box()
+    centre, half = 0.5 * (mins + maxs), 0.45 * (maxs - mins)
+    axes = [np.linspace(centre[a] - half[a], centre[a] + half[a], n)
+            for a, n in enumerate(PROBE_GRID)]
+    probes = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)[:PROBES]
+    w, x, y, z = (lambda q: q / np.linalg.norm(q))(
+        np.random.default_rng(PROBE_SEED).normal(size=4))
+    rot = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                    [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                    [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+    dirs = fibonacci_sphere(PROBE_RAYS).astype(np.float64) @ rot.T
+    origins = np.repeat(probes, PROBE_RAYS, axis=0).astype(np.float32)
+    directions = np.tile(dirs, (PROBES, 1)).astype(np.float32)
+    return (torch.from_numpy(origins).to(device), torch.from_numpy(directions).to(device))
+
+
+def edge_cases(device, seed: int = 13) -> list[dict]:
+    """Edge rays through a 64-instance TLAS, closest-hit and any-hit, for
+    each ray count of EDGE_COUNTS (the first n of one set of 4,099 rays,
+    with per-ray t_max), and all 4,099 with a scalar t_max of inf. Two rays
+    in three start inside an instance's box; direction components are
+    exactly 0 or -0.0 in four rays of five (one, two or all three of them,
+    or an axis-aligned unit ray), origin components -0.0 in two rays of
+    seven; t_max is inf in one ray of four and 0 in another. Returns
+    [{label, bvh, origins, directions, t_max, any_hit}]."""
+    bvh = tlas_case(device, n_inst=64, n_rays=1, seed=seed)[0]
+    rng = np.random.default_rng(seed)
+    n = max(EDGE_COUNTS)
+    i = np.arange(n)
+    centres = bvh.inst_o2w[:64, :, 3].cpu().numpy()
+    origins = centres[i % 64] + rng.uniform(-0.2, 0.2, (n, 3))
+    outside = i % 3 == 2
+    origins[outside] = rng.uniform(centres.min(0) - 2.0, centres.max(0) + 2.0,
+                                   (int(outside.sum()), 3))
+    origins = origins.astype(np.float32)
+    origins[i % 7 == 0, 0] = -0.0
+    origins[i % 7 == 1, 1:] = -0.0
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs[i % 5 == 0, 0] = 0.0
+    dirs[i % 5 == 1, 1:] = (-0.0, 0.0)
+    dirs[i % 5 == 2] = (0.0, -0.0, 0.0)
+    axis = np.zeros((n, 3), np.float32)
+    axis[i, i % 3] = np.where(i % 2 == 0, 1.0, -1.0)
+    axis[(i % 3 != 0) & (i % 2 == 1), 0] = -0.0
+    dirs[i % 5 == 3] = axis[i % 5 == 3]
+    t_max = rng.uniform(0.5, 20.0, n).astype(np.float32)
+    t_max[i % 4 == 0] = np.inf
+    t_max[i % 4 == 1] = 0.0
+    o, d, tm = (torch.from_numpy(a).to(device) for a in (origins, dirs, t_max))
+    cases = []
+    for any_hit in (False, True):
+        mode = "any-hit" if any_hit else "closest"
+        for k in EDGE_COUNTS:
+            cases.append(dict(label=f"edge {k} rays {mode}, per-ray t_max", bvh=bvh,
+                              origins=o[:k], directions=d[:k], t_max=tm[:k], any_hit=any_hit))
+        cases.append(dict(label=f"edge {n} rays {mode}, t_max inf", bvh=bvh, origins=o,
+                          directions=d, t_max=float("inf"), any_hit=any_hit))
+    return cases
+
+
+def compare(bvh, origins, directions, t_max, any_hit: bool, label: str,
+            max_steps: int = 512) -> dict:
     """The kernel against ``trace_wide_plain`` on the same rays: raises
     unless t, tri, u, v and hit are equal bit for bit; returns the hit
-    share and the plain walk's step counts (summed, and the worst ray's)."""
-    hk = bvh_cuda.trace_rays_cuda(bvh, origins, directions, t_max=t_max, any_hit=any_hit)
+    share and the plain walk's counts (summed, and the worst ray's steps)."""
+    hk = bvh_cuda.trace_rays_cuda(bvh, origins, directions, t_max=t_max, any_hit=any_hit,
+                                  max_steps=max_steps)
     stats: dict = {}
     hp = bvh_ops.trace_wide_plain(bvh, origins, directions, t_max=t_max, any_hit=any_hit,
-                                  stats=stats)
+                                  max_steps=max_steps, stats=stats)
     torch.cuda.synchronize()
-    bits = {k: (getattr(hk, k).view(torch.int32) if getattr(hk, k).dtype == torch.float32
-                else getattr(hk, k)) for k in hk._fields}
-    for k in hk._fields:
-        ref = getattr(hp, k)
-        ref = ref.view(torch.int32) if ref.dtype == torch.float32 else ref
-        if not torch.equal(bits[k], ref):
-            raise AssertionError(f"{label}: kernel != plain in {k} on "
-                                 f"{int((bits[k] != ref).sum())} of {origins.shape[0]} rays")
-    return {"rays": origins.shape[0], "hit_share": hk.hit.float().mean().item(),
-            "steps": int(stats["steps"].sum()), "max_steps": int(stats["steps"].max()),
+    assert_equal_bits(hk, hp, label, origins.shape[0])
+    n = origins.shape[0]
+    return {"rays": n, "hit_share": hk.hit.float().mean().item() if n else 0.0,
+            "steps": int(stats["steps"].sum()),
+            "max_steps": int(stats["steps"].max()) if n else 0,
             "node_steps": int(stats["node_steps"].sum()),
-            "triangle_tests": int(stats["triangle_tests"].sum()), "max_abs_err": 0.0}
+            "triangle_tests": int(stats["triangle_tests"].sum()),
+            "inst_steps": int(stats["inst_steps"].sum()), "max_abs_err": 0.0}
+
+
+def assert_equal_bits(a, b, label: str, n: int) -> None:
+    """Raise unless the two Hits are equal bit for bit in every field."""
+    for k in a._fields:
+        x, y = getattr(a, k), getattr(b, k)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: kernel != reference in {k} on "
+                                 f"{int((x != y).sum())} of {n} rays")
 
 
 def bound_ms(bvh, n_rays: int, per_ray_t_max: bool, any_hit: bool,
@@ -180,89 +283,235 @@ def bound_ms(bvh, n_rays: int, per_ray_t_max: bool, any_hit: bool,
     """The least time the card could take for one trace: the larger of the
     bytes it must move (each ray's origin, direction and t_max read once,
     t, tri, u and v written once, and the three record pools read once) over
-    the HBM rate, and the operations the plain walk's step counts imply
-    (``OPS_*``; no sort for any-hit) over the float32 rate."""
+    the HBM rate, and the operations the plain walk's counts imply over the
+    float32 rate: a transform per ray and per instance entry
+    (``inst_steps``), the triangle tests, and the node steps' slab tests
+    and, closest-hit, sorts (``OPS_*``)."""
     rec_bytes = sum(getattr(bvh, k).numel() * 4 for k in bvh_cuda.RECORD_WIDTHS)
     nbytes = n_rays * (24 + (4 if per_ray_t_max else 0) + 16) + rec_bytes
-    ops = (counts["steps"] * OPS_STEP + counts["triangle_tests"] * OPS_TRIANGLE
+    ops = (counts["inst_steps"] * OPS_TRANSFORM + counts["triangle_tests"] * OPS_TRIANGLE
            + counts["node_steps"] * (OPS_SLAB + (0 if any_hit else OPS_SORT)))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_trace(bvh, origins, directions, t_max, any_hit: bool) -> dict:
-    """Wrapper ms (CUDA events around back-to-back calls), device ms (a
-    CUDA graph of launches through the C entry point) and plain ms."""
-    lib = build_kernels()
+def launcher(lib):
+    """``fn(bvh, origins, directions, t_ray, t_max_all, any_hit, outs)``: one
+    launch of ``lib``'s traversal into ``outs`` (t, tri, u, v, counter) on
+    the current stream, through ``bvh_cuda.launch_raw``; for a library whose
+    entry point takes no ray counter (an older checkout's) the same call
+    without it."""
+    if len(lib.bvh_trace_launch.argtypes) == 18:
+        return lambda bvh, o, d, t_ray, tm, any_hit, outs: bvh_cuda.launch_raw(
+            lib, bvh, o, d, t_ray, tm, 1e-4, any_hit, 512, *outs)
+
+    def old(bvh, o, d, t_ray, tm, any_hit, outs):
+        err = lib.bvh_trace_launch(
+            bvh.wide_rec.data_ptr(), bvh.quad_rec.data_ptr(), bvh.inst_rec.data_ptr(),
+            o.data_ptr(), d.data_ptr(), None if t_ray is None else t_ray.data_ptr(),
+            float(tm), 1e-4, 512, int(any_hit), o.shape[0], bvh.quad_rec.shape[0],
+            *(x.data_ptr() for x in outs[:4]), torch.cuda.current_stream(o.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"bvh_trace_launch failed: CUDA error {err}")
+
+    return old
+
+
+def device_run(lib, bvh, origins, directions, t_max, any_hit: bool):
+    """(launch, outs): a no-argument launch of ``lib``'s kernel on these
+    rays into outputs made once (t, tri, u, v and the ray counter)."""
     r = origins.shape[0]
     dev = origins.device
     t_ray = (torch.broadcast_to(t_max, (r,)).contiguous()
              if isinstance(t_max, torch.Tensor) else None)
     outs = [torch.empty((r,), dtype=dt, device=dev)
             for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
+    outs.append(torch.empty((1,), dtype=torch.int32, device=dev))
     scalar = 1e30 if t_ray is not None else float(t_max)
+    fn = launcher(lib)
+    return (lambda: fn(bvh, origins, directions, t_ray, scalar, any_hit, outs)), outs
+
+
+def hit_of(outs) -> bvh_ops.Hit:
+    """The Hit that ``device_run``'s outputs hold."""
+    return bvh_ops.Hit(t=outs[0], tri=outs[1], u=outs[2], v=outs[3], hit=outs[1] >= 0)
+
+
+def time_trace(bvh, origins, directions, t_max, any_hit: bool) -> dict:
+    """Wrapper ms (CUDA events around back-to-back calls), device ms (a
+    CUDA graph of launches through the C entry point) and plain ms."""
     ms = events_ms(lambda: bvh_cuda.trace_rays_cuda(bvh, origins, directions, t_max=t_max,
                                                     any_hit=any_hit), WRAPPER_CALLS)
-    device_ms = graph_ms(lambda: bvh_cuda.launch_raw(lib, bvh, origins, directions, t_ray,
-                                                     scalar, 1e-4, any_hit, 512, *outs))
+    launch, _ = device_run(build_kernels(), bvh, origins, directions, t_max, any_hit)
+    device_ms = graph_ms(launch)
     plain_ms = events_ms(lambda: bvh_ops.trace_wide_plain(bvh, origins, directions, t_max=t_max,
                                                           any_hit=any_hit), 1)
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms}
 
 
-def measure(bvh, case: dict) -> dict:
-    """compare + bound + times of one captured or built trace."""
+def checked(bvh, case: dict) -> dict:
+    """compare + bound of one captured or built trace."""
     args = (bvh, case["origins"], case["directions"], case["t_max"], case["any_hit"])
     res = {"name": case["label"], "any_hit": case["any_hit"],
            "per_ray_t_max": isinstance(case["t_max"], torch.Tensor)}
     res.update(compare(*args, case["label"]))
     res["bound_ms"], res["bound_by"] = bound_ms(bvh, res["rays"], res["per_ray_t_max"],
                                                 res["any_hit"], res)
-    res.update(time_trace(*args))
+    return res
+
+
+def measure(bvh, case: dict) -> dict:
+    """compare + bound + times of one captured or built trace."""
+    res = checked(bvh, case)
+    res.update(time_trace(bvh, case["origins"], case["directions"], case["t_max"],
+                          case["any_hit"]))
     res["share"] = res["bound_ms"] / res["device_ms"]
     return res
+
+
+def frame_traces(renderer) -> list[dict]:
+    """The traces of one frame of ``renderer`` after a warm-up frame."""
+    renderer.render_frame()
+    return capture_traces(renderer)
 
 
 def frame_cases(renderer) -> list[dict]:
     """Every trace of one frame of ``renderer`` (after a warm-up frame),
     measured."""
-    renderer.render_frame()
-    bvh = renderer.scene_arrays.bvh
-    return [measure(bvh, case) for case in capture_traces(renderer)]
+    return [measure(renderer.scene_arrays.bvh, case) for case in frame_traces(renderer)]
+
+
+def tlas_traces(device) -> tuple:
+    """(bvh, cases) of the closest-hit and any-hit (per-ray t_max) random
+    rays through the 4,096-instance TLAS."""
+    bvh, o, d, tm = tlas_case(device)
+    return bvh, [dict(label=f"tlas{TLAS_INSTANCES} closest", origins=o, directions=d,
+                      t_max=1e30, any_hit=False),
+                 dict(label=f"tlas{TLAS_INSTANCES} any-hit t_max", origins=o, directions=d,
+                      t_max=tm, any_hit=True)]
 
 
 def tlas_cases(device) -> list[dict]:
-    """Closest-hit and any-hit (per-ray t_max) random rays through the
-    4,096-instance TLAS, measured."""
-    bvh, o, d, tm = tlas_case(device)
-    return [measure(bvh, dict(label=f"tlas{TLAS_INSTANCES} closest", origins=o, directions=d,
-                              t_max=1e30, any_hit=False)),
-            measure(bvh, dict(label=f"tlas{TLAS_INSTANCES} any-hit t_max", origins=o,
-                              directions=d, t_max=tm, any_hit=True))]
+    """The two TLAS traces, measured."""
+    bvh, cases = tlas_traces(device)
+    return [measure(bvh, case) for case in cases]
+
+
+def probe_trace(renderer) -> dict:
+    """The probe case through ``renderer``'s scene, closest-hit, t_max
+    PROBE_T_MAX."""
+    o, d = probe_case(renderer.scene, renderer.device)
+    return dict(label=f"probes {PROBES}x{PROBE_RAYS} closest", origins=o, directions=d,
+                t_max=PROBE_T_MAX, any_hit=False)
+
+
+def probe_cases(renderer) -> list[dict]:
+    """The probe case, measured."""
+    return [measure(renderer.scene_arrays.bvh, probe_trace(renderer))]
+
+
+def edge_checks(device) -> list[str]:
+    """The edge cases and the overflowing chain at each of OVERFLOW_STEPS,
+    each held bit for bit against the plain walk (raises otherwise);
+    returns one line per case."""
+    lines = []
+    for case in edge_cases(device):
+        res = compare(case["bvh"], case["origins"], case["directions"], case["t_max"],
+                      case["any_hit"], case["label"])
+        lines.append(f"{case['label']}: kernel == plain bit for bit, hits "
+                     f"{res['hit_share']:.4f}, steps {res['steps']}")
+    bvh, o, d = overflow_case(device)
+    for max_steps in OVERFLOW_STEPS:
+        label = f"overflow chain, max_steps {max_steps}"
+        res = compare(bvh, o, d, 1e30, False, label, max_steps=max_steps)
+        lines.append(f"{label}: kernel == plain bit for bit, hits {res['hit_share']:.4f}, "
+                     f"steps {res['steps']}")
+    return lines
+
+
+def ab_compare(other_root: Path, traces: list[tuple], card: str) -> list[dict]:
+    """The A/B of ``--other``: for each (bvh, case), this checkout's kernel
+    held bit for bit against the plain walk (with its counts and bound) and
+    the other checkout's kernel against this one, then device ms of both in
+    AB_ROUNDS rounds of (other, this, this, other); returns the rows with
+    each side's times and medians."""
+    libs = {"this": build_kernels(), "other": load_wrapper(other_root).build_kernels()}
+    rows = []
+    for bvh, case in traces:
+        res = checked(bvh, case)
+        args = (bvh, case["origins"], case["directions"], case["t_max"], case["any_hit"])
+        runs = {which: device_run(lib, *args) for which, lib in libs.items()}
+        for launch, _ in runs.values():
+            launch()
+        torch.cuda.synchronize()
+        assert_equal_bits(hit_of(runs["other"][1]), hit_of(runs["this"][1]),
+                          f"{case['label']} (other)", res["rays"])
+        times = {which: [] for which in libs}
+        for _ in range(AB_ROUNDS):
+            for which in ("other", "this", "this", "other"):
+                times[which].append(graph_ms(runs[which][0]))
+        res.update({f"{w}_device_ms": t for w, t in times.items()})
+        res.update({f"{w}_median_ms": statistics.median(t) for w, t in times.items()})
+        res["share"] = res["bound_ms"] / res["this_median_ms"]
+        res["share_other"] = res["bound_ms"] / res["other_median_ms"]
+        speedup = res["other_median_ms"] / res["this_median_ms"]
+        print(f"A/B {case['label']}: other {res['other_median_ms']:.4f} ms -> this "
+              f"{res['this_median_ms']:.4f} ms (x{speedup:.3f}), device ms medians of "
+              f"{2 * AB_ROUNDS}: other {sorted(times['other'])}, this "
+              f"{sorted(times['this'])}; equal bit for bit; bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}), share {res['share_other']:.1%} -> {res['share']:.1%}; "
+              f"steps {res['steps']} (worst ray {res['max_steps']}), transforms "
+              f"{res['inst_steps']} [{card}]", flush=True)
+        rows.append(res)
+    return rows
+
+
+def occupancy_line(lib) -> str:
+    """Resident warps an SM holds of each kernel of ``lib``."""
+    return ("resident warps a SM: closest-hit "
+            f"{lib.bvh_trace_warps_per_sm(0)}, any-hit {lib.bvh_trace_warps_per_sm(1)} of 64")
 
 
 def describe(res: dict, card: str) -> str:
     return (f"trace {res['name']}: {res['rays']} rays, kernel == plain bit for bit, hits "
             f"{res['hit_share']:.4f}, steps {res['steps']} (worst ray {res['max_steps']}), "
-            f"{res['node_steps']} node steps, {res['triangle_tests']} triangle tests; "
-            f"wrapper {res['ms']:.4f} ms, device {res['device_ms']:.4f} ms, plain "
-            f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
-            f"{res['share']:.1%} of it [{card}]")
+            f"{res['node_steps']} node steps, {res['triangle_tests']} triangle tests, "
+            f"{res['inst_steps']} transforms; wrapper {res['ms']:.4f} ms, device "
+            f"{res['device_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms; bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}), {res['share']:.1%} of it [{card}]")
 
 
 def main(argv=None) -> None:
     from arkoserenderer_torch.tools import bench
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, default=None,
+                    help="root of another checkout whose kernel to compare with this one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("trace_bench: torch.cuda.is_available() is False; this needs a GPU")
     card = card_line()
     print(card, flush=True)
-    for line in ptxas_report(build_kernels()):
+    lib = build_kernels()
+    for line in ptxas_report(lib):
         print(f"  {line}", flush=True)
+    print(occupancy_line(lib), flush=True)
     dev = torch.device("cuda")
-    results = frame_cases(bench.build_renderer("rt", device=dev)) + tlas_cases(dev)
+    renderer = bench.build_renderer("rt", device=dev)
+    if args.other is not None:
+        bvh = renderer.scene_arrays.bvh
+        traces = [(bvh, case) for case in frame_traces(renderer)]
+        traces.append((bvh, probe_trace(renderer)))
+        tlas_bvh, cases = tlas_traces(dev)
+        traces += [(tlas_bvh, case) for case in cases]
+        rows = ab_compare(args.other.resolve(), traces, card)
+        print(json.dumps({"ab": rows, "card": card, "other": str(args.other)}))
+        return
+    results = frame_cases(renderer) + probe_cases(renderer) + tlas_cases(dev)
     for res in results:
         print(describe(res, card), flush=True)
+    for line in edge_checks(dev):
+        print(line, flush=True)
     print(json.dumps({"traces": results, "card": card}))
 
 

@@ -64,16 +64,21 @@ result line):
      rt_reflections) and the BVH traversal kernel: the five traces of one
      1920x1080 frame (sun mask, spot mask, reflection rays, and the sun and
      spot occlusion rays at the reflection hits; parked and compacted rays
-     included) captured as the frame makes them, and random rays through a
-     4,096-instance TLAS (closest-hit, and any-hit with per-ray t_max), each
-     through the kernel and its plain torch version: t, tri, u, v and hit
-     equal bit for bit; the kernel's wrapper, device and plain times and its
-     bound from the plain walk's step counts (tools/trace_bench.py); the
-     256^2 rt golden (tests/goldens/rt.png) rendered on the card; then the
-     rt frame through the bench as in phase 8, with one camera raster and
-     no other a frame, and the traversal launches by trace as the
-     configuration implies them (bench.expected_trace_launches_by_label):
-     exactly five a frame.
+     included) captured as the frame makes them, 262,144 DDGI-shaped probe
+     rays through the rt scene (1,024 probes x 256 directions), and random
+     rays through a 4,096-instance TLAS (closest-hit, and any-hit with
+     per-ray t_max), each through the kernel and its plain torch version:
+     t, tri, u, v and hit equal bit for bit; the kernel's wrapper, device and
+     plain times and its bound from the plain walk's counts
+     (tools/trace_bench.py), and its resident warps a SM; the edge rays
+     (ray counts 0, 1, 33 and 4,099, zero and -0.0 direction components,
+     -0.0 origins, t_max inf and 0, origins inside instance boxes) and the
+     chain that overflows the stack, cut at 9, 20 and 512 steps, each bit
+     for bit against the plain walk; the 256^2 rt golden
+     (tests/goldens/rt.png) rendered on the card; then the rt frame through
+     the bench as in phase 8, with one camera raster and no other a frame,
+     and the traversal launches by trace as the configuration implies them
+     (bench.expected_trace_launches_by_label): exactly five a frame.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera), each with its launches in the
@@ -416,12 +421,17 @@ def main() -> None:
     from arkoserenderer_torch.scene.lights import SpotLight
     from arkoserenderer_torch.tools import trace_bench as tb
 
-    traces = tb.frame_cases(bench.build_renderer("rt", device=dev))
+    rt_renderer = bench.build_renderer("rt", device=dev)
+    traces = tb.frame_cases(rt_renderer)
     if tuple(t["name"] for t in traces) != RT_TRACES:
         raise AssertionError(f"the rt frame traced {[t['name'] for t in traces]}, "
                              f"expected {list(RT_TRACES)}")
-    for t in traces + tb.tlas_cases(dev):
+    for t in traces + tb.probe_cases(rt_renderer) + tb.tlas_cases(dev):
         print(tb.describe(t, card), flush=True)
+    del rt_renderer
+    print(tb.occupancy_line(lib), flush=True)
+    for line in tb.edge_checks(dev):
+        print(line, flush=True)
     g_scene, g_cam = build_test_scene(viewport=(256, 256), n_spheres=1)
     g_scene.spots.append(SpotLight(position=np.array([0.5, 3.0, 1.0], np.float32),
                                    direction=np.array([-0.2, -1.0, -0.1], np.float32),

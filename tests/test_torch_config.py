@@ -1,0 +1,175 @@
+"""The port's PipelineConfig and OutputPass take the reference's fields.
+
+Every field of the reference's PipelineConfig constructs at its default;
+each value the port does not implement raises NotImplementedError naming
+the field; "auto" resolves as the reference's make_forward_pipeline
+resolves it. OutputPass's ``mode`` matches JAX's at 96^2 for every
+tonemap operator, and VisibilityShading with ``texture_quality="bilinear"``
+matches JAX's pass at 96^2 under the forward tests' tolerances
+(``tests/test_torch_passes.py``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from arkoserenderer_torch import bridge
+from arkoserenderer_torch.assets.procedural import build_test_scene as t_build_test_scene
+from arkoserenderer_torch.core.types import RasterConfig as TRasterConfig
+from arkoserenderer_torch.models.standard import make_forward_pipeline as t_make_pipeline
+from arkoserenderer_torch.ops import tonemap as t_tonemap
+from arkoserenderer_torch.rendering.passes.output import OutputPass as TOutputPass
+from arkoserenderer_torch.rendering.pipeline import FrameContext as TFrameContext
+from arkoserenderer_torch.rendering.pipeline import PipelineConfig as TPipelineConfig
+from arkoserenderer_torch.rendering.registry import Registry as TRegistry
+from arkoserenderer_tpu.assets.procedural import build_test_scene as j_build_test_scene
+from arkoserenderer_tpu.core.types import RasterConfig as JRasterConfig
+from arkoserenderer_tpu.models.standard import make_forward_pipeline as j_make_pipeline
+from arkoserenderer_tpu.rendering.passes.output import OutputPass as JOutputPass
+from arkoserenderer_tpu.rendering.pipeline import FrameContext as JFrameContext
+from arkoserenderer_tpu.rendering.pipeline import PipelineConfig as JPipelineConfig
+from arkoserenderer_tpu.rendering.registry import Registry as JRegistry
+from test_torch_passes import COLOR_ATOL, RASTER, compare
+
+torch.set_num_threads(2)
+
+RES = 96
+REFERENCE_FIELDS = ["texture_quality", "shading_mode", "shadow_filter", "sky_fetch_scale",
+                    "ddgi_sample_scale", "shard_axis", "full_height", "shard_count"]
+# (field, value) the port does not implement; each raises naming the field.
+UNPORTED = [("texture_quality", "aniso4"), ("texture_quality", "aniso16"),
+            ("texture_quality", "stochastic"), ("texture_quality", "stochastic1"),
+            ("texture_quality", "sorted"), ("shading_mode", "reference"),
+            ("shadow_filter", "stochastic"), ("sky_fetch_scale", 2),
+            ("ddgi_sample_scale", 2), ("shard_axis", "x"), ("shard_count", 2),
+            ("full_height", 2 * RES)]
+
+
+@pytest.mark.parametrize("field", REFERENCE_FIELDS + ["frame_height", "num_pixels"])
+def test_reference_fields_construct_at_their_defaults(field):
+    ours = TPipelineConfig(width=RES, height=RES)
+    ref = JPipelineConfig(width=RES, height=RES)
+    assert getattr(ours, field) == getattr(ref, field)
+
+
+@pytest.mark.parametrize("field,value", UNPORTED, ids=[f"{f}={v}" for f, v in UNPORTED])
+def test_unported_values_raise_by_name(field, value):
+    JPipelineConfig(width=RES, height=RES, **{field: value})  # the reference takes it
+    with pytest.raises(NotImplementedError, match=field):
+        TPipelineConfig(width=RES, height=RES, **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        dataclasses.replace(TPipelineConfig(width=RES, height=RES), **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("texture_quality", "trilinear"),
+                                         ("texture_quality", "bilinear"),
+                                         ("shadow_filter", "bilinear"), ("full_height", RES),
+                                         ("shard_count", 1), ("sky_fetch_scale", 1)])
+def test_ported_values_construct(field, value):
+    cfg = TPipelineConfig(width=RES, height=RES, **{field: value})
+    assert getattr(cfg, field) == value and cfg.frame_height == RES
+    with pytest.raises(ValueError):
+        TPipelineConfig(texture_quality="no_such_filter")
+
+
+def test_auto_resolves_as_the_reference():
+    """make_forward_pipeline resolves "auto" to trilinear textures and the
+    bilinear VSM, as the reference's does, and keeps an explicit value."""
+    scene, _ = t_build_test_scene(viewport=(32, 32))
+    jscene, _ = j_build_test_scene(viewport=(32, 32))
+    for explicit in ({}, dict(texture_quality="bilinear", shadow_filter="bilinear")):
+        tcfg = TPipelineConfig(width=32, height=32, shadow_map_size=32,
+                               raster=TRasterConfig(**RASTER), scene=scene.static_info(),
+                               **explicit)
+        jcfg = JPipelineConfig(width=32, height=32, shadow_map_size=32,
+                               raster=JRasterConfig(**RASTER), scene=jscene.static_info(),
+                               **explicit)
+        ours = t_make_pipeline(tcfg, device="cpu").cfg
+        ref = j_make_pipeline(jcfg).cfg
+        assert (ours.texture_quality, ours.shadow_filter) == (ref.texture_quality,
+                                                              ref.shadow_filter)
+    assert t_make_pipeline(dataclasses.replace(tcfg, texture_quality="auto"),
+                           device="cpu").cfg.texture_quality == "trilinear"
+
+
+def test_output_pass_takes_the_reference_keywords():
+    TOutputPass(mode="agx", vignette_intensity=0.0, film_grain_gain=0.1)
+    with pytest.raises(NotImplementedError, match="color_grade_lut"):
+        TOutputPass(color_grade_lut=object())
+
+
+@pytest.mark.parametrize("mode", sorted(t_tonemap.MODES))
+def test_output_mode_matches_jax(mode):
+    """OutputPass(mode=...) against JAX's on the same 96^2 HDR SceneColor,
+    with vignette and film grain; the config's tonemap_mode differs, so
+    the pass's own mode is what selects the operator."""
+    rng = np.random.default_rng(5)
+    color = np.exp(rng.normal(-0.5, 1.5, (RES, RES, 3))).astype(np.float32)
+    kw = dict(mode=mode, vignette_intensity=0.18, film_grain_gain=0.05)
+    other = "clamp" if mode != "clamp" else "agx"
+    tcfg = TPipelineConfig(width=RES, height=RES, tonemap_mode=other)
+    jcfg = JPipelineConfig(width=RES, height=RES, tonemap_mode=other)
+    outs = []
+    for reg, cfg, make, state, ctx in (
+        (TRegistry(), tcfg, lambda r, c: TOutputPass(**kw).construct(c, r, torch.device("cpu")),
+         {"SceneColor": torch.from_numpy(color)},
+         TFrameContext(scene=None, camera=None, frame_index=3, delta_time=1 / 60)),
+        (JRegistry(), jcfg, lambda r, c: jax.jit(JOutputPass(**kw).construct(c, r)),
+         {"SceneColor": jnp.asarray(color)},
+         JFrameContext(scene=None, camera=None, frame_index=jnp.asarray(3, jnp.int32),
+                       delta_time=jnp.asarray(1 / 60, jnp.float32),
+                       row_offset=jnp.zeros((), jnp.int32))),
+    ):
+        reg.set_current_node("Source")
+        reg.create("SceneColor", (RES, RES, 3), None)
+        reg.set_current_node("Output")
+        outs.append(make(reg, cfg)(state, ctx))
+    ours, ref = outs
+    for key in ("LDR", "Metering.avgLum"):
+        np.testing.assert_allclose(ours[key].numpy(), np.asarray(ref[key]),
+                                   atol=COLOR_ATOL[key], rtol=0, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def bilinear_walk():
+    """The forward slice's passes up to VisibilityShading with
+    texture_quality="bilinear", JAX's outputs fed to both sides."""
+    jscene, jcam = j_build_test_scene(viewport=(RES, RES))
+    tscene, _ = t_build_test_scene(viewport=(RES, RES))
+    sizes = dict(width=RES, height=RES, shadow_map_size=128, texture_quality="bilinear")
+    jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), scene=jscene.static_info(), **sizes)
+    tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), scene=tscene.static_info(), **sizes)
+    jpipe = j_make_pipeline(jcfg, taa=False, bloom=False)
+    tpipe = t_make_pipeline(tcfg, taa=False, bloom=False, device="cpu")
+    jsa, jcs = jscene.build(), jcam.state(0)
+    tctx = TFrameContext(scene=bridge.scene_arrays_from_numpy(jsa._asdict(), "cpu"),
+                         camera=bridge.camera_state_from_numpy(jcs._asdict(), "cpu"),
+                         frame_index=0, delta_time=1 / 60)
+    jctx = JFrameContext(scene=jsa, camera=jcs, frame_index=jnp.asarray(0, jnp.int32),
+                         delta_time=jnp.asarray(1 / 60, jnp.float32),
+                         row_offset=jnp.zeros((), jnp.int32))
+    state = jpipe.initial_state()
+    state["scene.version"] = jnp.asarray(0, jnp.int32)
+    out = {}
+    for (name, jexec), (_, texec) in zip(jpipe._executes, tpipe._executes):
+        out[name] = (texec(bridge.frame_state_from_numpy(state, "cpu"), tctx),
+                     jax.jit(jexec)(state, jctx))
+        state = {**state, **out[name][1]}
+        if name == "VisibilityShading":
+            break
+    return out
+
+
+def test_bilinear_visibility_shading_matches_jax(bilinear_walk):
+    tupd, jupd = bilinear_walk["VisibilityShading"]
+    assert set(tupd) == set(jupd)
+    vis_agree = (bilinear_walk["Geometry"][0]["Visibility"].numpy()
+                 == np.asarray(bilinear_walk["Geometry"][1]["Visibility"]))
+    for key in sorted(jupd):
+        compare(key, tupd[key], jupd[key], vis_agree)
+    base = tupd["SceneBaseColor"].numpy()
+    assert np.isfinite(base).all() and base[vis_agree].std() > 0

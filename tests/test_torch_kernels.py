@@ -5,8 +5,8 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -o addopts="" -q
 
-Tolerance: equal, bit for bit. The raster kernel is built with
---fmad=false and performs the plain version's operations in its order.
+Tolerance: equal, bit for bit. The kernels are built with --fmad=false
+and perform the plain versions' operations in their order.
 """
 
 import numpy as np
@@ -171,6 +171,39 @@ def test_trace_kernel_stack_overflow_matches_plain(cuda_device, max_steps):
     torch.cuda.synchronize()
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+
+
+EDGE = [(any_hit, n, True) for any_hit in (False, True) for n in (0, 1, 33, 4099)]
+EDGE += [(False, 4099, False), (True, 4099, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit,n,per_ray", EDGE)
+def test_trace_kernel_edge_rays_match_plain(cuda_device, any_hit, n, per_ray):
+    """tools/trace_bench.edge_cases on the card: ray counts that are no
+    multiple of a group or a block, zero and -0.0 direction components,
+    -0.0 origins, t_max inf and 0, origins inside instance boxes; bit for
+    bit against the plain walk."""
+    from arkoserenderer_torch.tools import trace_bench
+
+    case = next(c for c in trace_bench.edge_cases(cuda_device)
+                if c["any_hit"] == any_hit and c["origins"].shape[0] == n
+                and isinstance(c["t_max"], torch.Tensor) == per_ray)
+    trace_bench.compare(case["bvh"], case["origins"], case["directions"], case["t_max"],
+                        any_hit, case["label"])
+
+
+@pytest.mark.cuda
+def test_trace_kernel_probe_rays_match_plain(cuda_device):
+    """The DDGI-shaped probe case (262,144 closest-hit rays through the rt
+    scene), bit for bit against the plain walk."""
+    from arkoserenderer_torch.tools import bench, trace_bench
+
+    renderer = bench.build_renderer("rt", small=True, device=cuda_device)
+    case = trace_bench.probe_trace(renderer)
+    res = trace_bench.compare(renderer.scene_arrays.bvh, case["origins"], case["directions"],
+                              case["t_max"], False, case["label"])
+    assert res["rays"] == 262144 and 0.05 < res["hit_share"] < 1.0
 
 
 def test_trace_wrapper_checks_its_inputs():

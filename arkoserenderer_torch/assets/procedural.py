@@ -1,6 +1,7 @@
 """Procedural geometry, the standard test scene, the culling-stress scene
-with its animation and the bindless-pressure scene (port of
-arkoserenderer_tpu/assets/procedural.py, the parts the raster frames use).
+with its animation, the bindless-pressure scene and the flagship scene
+(port of arkoserenderer_tpu/assets/procedural.py, the parts the frames
+use).
 Scene building is host numpy: the same code gives the same pools as the
 reference. ``make_stress_animator`` is the one function on tensors.
 """
@@ -12,7 +13,7 @@ import torch
 
 from arkoserenderer_torch.core.types import SceneLimits
 from arkoserenderer_torch.scene.camera import Camera
-from arkoserenderer_torch.scene.lights import DirectionalLight
+from arkoserenderer_torch.scene.lights import DirectionalLight, PointLight, SpotLight
 from arkoserenderer_torch.scene.scene import Material, MeshSegment, Scene, generate_tangents_uv
 
 
@@ -361,6 +362,100 @@ def _variety_textures(scene: Scene, n_textures: int, rng) -> tuple:
             em[..., 3] = 255
             emi_tex_ids.append(scene.add_texture(em, srgb=True))
     return tex_ids, mr_tex_ids, emi_tex_ids
+
+
+def build_flagship_scene(
+    n_instances: int = 4096,
+    n_materials: int = 256,
+    n_textures: int = 64,
+    viewport: tuple[int, int] = (1920, 1080),
+) -> tuple[Scene, Camera]:
+    """The representative-scale scene: ``n_instances`` spheres (192
+    triangles each) over ``n_materials`` materials cycling ``n_textures``
+    texture chains, on a textured floor, lit by the sun, two shadow-casting
+    spots and a point light that casts no shadow. At 4,096 / 256 / 64:
+    786,434 triangles. The random draws are the reference's, in its order,
+    so both packages build the same pools."""
+    side = int(np.ceil(np.sqrt(n_instances)))
+    spacing = 2.0
+    extent = side * spacing
+    proto = make_uv_sphere(0.55, rings=8, sectors=12)
+    vpp = proto.positions.shape[0]
+    tpp = proto.indices.shape[0]
+    lim = SceneLimits(
+        max_vertices=vpp * n_instances + 8192,
+        max_indices=tpp * n_instances + 32768,
+        max_drawables=n_instances + 8,
+        max_materials=n_materials + 8,
+        max_textures=3 * n_textures + 8,
+        texture_pool_texels=1 << 22,
+    )
+    scene = Scene(limits=lim)
+    rng = np.random.default_rng(7)
+    tex_ids, mr_tex_ids, emi_tex_ids = _variety_textures(scene, n_textures, rng)
+
+    floor_mat = scene.add_material(Material(base_color_tex=tex_ids[0], roughness_factor=0.9))
+    floor = make_plane(size=extent * 1.2, uv_scale=extent / 2)
+    floor.material = floor_mat
+    scene.add_instance(scene.add_segment(floor), np.eye(4, dtype=np.float32))
+
+    seg_ids = []
+    for i in range(n_materials):
+        m = Material(
+            base_color_factor=np.array([*(0.4 + 0.6 * rng.random(3)), 1.0], np.float32),
+            roughness_factor=float(0.15 + 0.8 * rng.random()),
+            metallic_factor=float(rng.random() < 0.3),
+            base_color_tex=tex_ids[i % n_textures],
+        )
+        if i % 3 == 0 and mr_tex_ids:
+            m.mr_tex = mr_tex_ids[(i // 3) % len(mr_tex_ids)]
+            m.emissive_tex = emi_tex_ids[(i // 3) % len(emi_tex_ids)]
+            m.emissive_factor = np.full(3, 2000.0, np.float32)
+        mid = scene.add_material(m)
+        seg = MeshSegment(
+            positions=proto.positions, normals=proto.normals, uvs=proto.uvs,
+            indices=proto.indices, material=mid, tangents=proto.tangents,
+        )
+        seg_ids.append(scene.add_segment(seg))
+
+    for i in range(n_instances):
+        gx, gz = i % side, i // side
+        w = np.eye(4, dtype=np.float32)
+        w[:3, 3] = (
+            (gx - side / 2 + 0.5) * spacing,
+            0.6 + 0.5 * ((gx * 7 + gz * 3) % 5) / 4.0,
+            (gz - side / 2 + 0.5) * spacing,
+        )
+        scene.add_instance(seg_ids[i % n_materials], w)
+
+    scene.sun = DirectionalLight(
+        direction=np.array([0.4, -1.0, -0.3], np.float32),
+        illuminance_lux=90000.0,
+    )
+    scene.spots.append(SpotLight(
+        position=np.array([0.0, 10.0, 0.0], np.float32),
+        direction=np.array([0.2, -1.0, 0.1], np.float32),
+        luminous_intensity_cd=300000.0,
+        outer_cone_angle=np.radians(45.0), inner_cone_angle=np.radians(30.0),
+        cast_shadows=True,
+    ))
+    scene.spots.append(SpotLight(
+        position=np.array([-extent * 0.2, 8.0, extent * 0.2], np.float32),
+        direction=np.array([0.3, -1.0, -0.3], np.float32),
+        luminous_intensity_cd=200000.0,
+        outer_cone_angle=np.radians(40.0), inner_cone_angle=np.radians(25.0),
+        cast_shadows=True,
+    ))
+    scene.points.append(PointLight(
+        position=np.array([extent * 0.15, 4.0, -extent * 0.1], np.float32),
+        luminous_intensity_cd=80000.0,
+    ))
+    scene.set_env_map(gradient_env_map(32), brightness=8000.0)
+    scene.ambient_lx = 6000.0
+    cam = Camera(viewport=viewport)
+    cam.look_at((extent * 0.18, 7.0, extent * 0.26), (0.0, 0.5, 0.0))
+    cam.focus_depth = extent * 0.25
+    return scene, cam
 
 
 def build_bindless_scene(

@@ -16,8 +16,10 @@ port does not carry (skinning, hair, ...) are ignored.
 
 ``frame_state_from_numpy`` carries a frame state across: every resource a
 pass published (``ShadowMap.locals``, the G-buffer, ...) and the persistent
-ones (``TAAHistory``, the cached sun map), so a reference frame can seed a
-frame of the port.
+ones (``TAAHistory``, the cached sun map, the DDGI atlases), so a reference
+frame can seed a frame of the port. ``probe_grid_from`` and
+``ddgi_state_from_numpy`` carry a DDGI grid and a ``DDGIState`` across, so
+both packages start from the same probes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from arkoserenderer_torch.ops.ddgi import DDGIState, ProbeGridConfig
 from arkoserenderer_torch.ops.raster import TriSetup
 from arkoserenderer_torch.scene.camera import CameraState, camera_state_from_arrays
 from arkoserenderer_torch.scene.scene import SceneArrays, scene_arrays_from_host
@@ -77,3 +80,17 @@ def frame_state_from_numpy(state: Mapping, device) -> dict:
         else:
             out[k] = torch.from_numpy(np.array(v, copy=True)).to(device)
     return out
+
+
+def probe_grid_from(grid) -> ProbeGridConfig:
+    """The port's ProbeGridConfig with every field of ``grid`` (the
+    reference's, or any object with those attributes)."""
+    return ProbeGridConfig(**{f.name: getattr(grid, f.name)
+                              for f in dataclasses.fields(ProbeGridConfig)})
+
+
+def ddgi_state_from_numpy(state, device) -> DDGIState:
+    """The port's DDGIState on ``device`` from the reference's (a
+    NamedTuple or a mapping of irradiance, visibility and offsets)."""
+    fields = numpy_fields(state)
+    return DDGIState(*(torch.from_numpy(fields[k]).to(device) for k in DDGIState._fields))

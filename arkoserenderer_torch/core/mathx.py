@@ -139,6 +139,13 @@ def reflect(incident: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
     return incident - 2.0 * vdot(incident, normal) * normal
 
 
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) ``v`` by quaternion(s) ``q``, stored (x, y, z, w)."""
+    qv = q[..., :3].expand_as(v)
+    t = 2.0 * torch.cross(qv, v, dim=-1)
+    return v + q[..., 3:4] * t + torch.cross(qv, t, dim=-1)
+
+
 def transform_point_lanes(m: torch.Tensor, p: torch.Tensor, rows=(0, 1, 2, 3)):
     """(4,4) m, (N,3) p -> tuple of (N,) homogeneous lanes for ``rows``."""
     return tuple(

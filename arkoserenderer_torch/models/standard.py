@@ -1,15 +1,16 @@
 """Standard pipeline assembly and the frame loop (port of
 arkoserenderer_tpu/models/standard.py, the raster and ray-traced frames).
 
-The pass order is the reference's: Scene -> Geometry -> (SunShadow ->
-[LocalShadow] | RTShadow -> [RTLocalShadow]) -> VisibilityShading ->
-[RTReflections] -> [SSAO] -> LightingCompose -> SkyView -> [Fog] ->
-[MotionBlur] -> [DepthOfField] -> [Bloom] -> [TAA] -> Output -> [FXAA] ->
-[CAS] -> [TemporalUpscale | Upscale]. With ``rt_shadows`` or
-``rt_reflections`` the Renderer builds the scene with its two-level BVH.
-DDGI, BVH refit, subsurface scattering, translucency, auto-exposure and the
-debug overlays are later slices; asking for one raises
-``NotImplementedError`` naming the flag.
+The pass order is the reference's: Scene -> Geometry -> [DDGI] ->
+(SunShadow -> [LocalShadow] | RTShadow -> [RTLocalShadow]) ->
+VisibilityShading -> [RTReflections] -> [SSAO] -> LightingCompose ->
+SkyView -> [Fog] -> [MotionBlur] -> [DepthOfField] -> [Bloom] -> [TAA] ->
+Output -> [FXAA] -> [CAS] -> [TemporalUpscale | Upscale]. With
+``rt_shadows``, ``rt_reflections`` or ``ddgi`` the Renderer builds the
+scene with its two-level BVH. BVH refit, subsurface scattering,
+translucency, auto-exposure, the DDGI probe overlay and the other debug
+overlays are later slices; asking for one raises ``NotImplementedError``
+naming the flag.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import time
 
 import torch
 
+from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
 from arkoserenderer_torch.rendering.passes import (
     BloomPass,
     CASPass,
@@ -41,6 +43,7 @@ from arkoserenderer_torch.rendering.passes import (
     UpscalePass,
     VisibilityShadingPass,
 )
+from arkoserenderer_torch.rendering.passes.ddgi import DDGIPass
 from arkoserenderer_torch.rendering.passes.rt import (
     RTLocalShadowPass,
     RTReflectionsPass,
@@ -53,7 +56,7 @@ from arkoserenderer_torch.scene.scene import Scene
 # Flags of the reference's make_forward_pipeline whose passes are not ported
 # yet, with the value that leaves each one off.
 UNPORTED_FLAGS = {
-    "ddgi": None, "ddgi_probe_debug": False, "light_icons": False, "ssss": False,
+    "ddgi_probe_debug": False, "light_icons": False, "ssss": False,
     "rt_refit": False, "oit_layers": 1, "debug_draw": None,
 }
 # Keywords of the reference's Renderer whose features are not ported yet.
@@ -74,6 +77,7 @@ def make_forward_pipeline(
     cas: bool = False,
     rt_shadows: bool = False,
     rt_reflections: bool = False,
+    ddgi: ProbeGridConfig | None = None,
     upscale_to: tuple[int, int] | None = None,  # display (width, height)
     upscale_mode: str = "temporal",  # "temporal" (TemporalUpscale, no TAA) | "spatial"
     film_grain: float = 0.0,
@@ -88,8 +92,11 @@ def make_forward_pipeline(
     upscale pass publishes LDRDisplay at the display size; the temporal
     one replaces TAA. ``rt_shadows`` traces the sun's and the casting local
     lights' shadows in place of their shadow maps; ``rt_reflections`` adds
-    ray-traced reflections; both trace the scene's ``bvh`` (build it with
-    ``Scene.build(with_bvh=True)``, as ``Renderer`` does)."""
+    ray-traced reflections; ``ddgi`` (a ``ProbeGridConfig``) adds the DDGI
+    probe update after Geometry, whose irradiance then lights
+    LightingCompose and the reflections' hits. All three trace the scene's
+    ``bvh`` (build it with ``Scene.build(with_bvh=True)``, as ``Renderer``
+    does)."""
     for name, value in later.items():
         if name not in UNPORTED_FLAGS:
             raise TypeError(f"make_forward_pipeline() got an unexpected keyword argument {name!r}")
@@ -97,6 +104,8 @@ def make_forward_pipeline(
             raise NotImplementedError(f"{name} is not ported yet")
     if upscale_mode not in ("temporal", "spatial"):
         raise ValueError(f"unknown upscale_mode {upscale_mode!r}")
+    if ddgi is not None and not isinstance(ddgi, ProbeGridConfig):
+        raise TypeError(f"ddgi takes a ProbeGridConfig (Renderer resolves True), not {ddgi!r}")
     # "auto" resolves as the reference's does: trilinear textures, the
     # bilinear VSM sun.
     if cfg.texture_quality == "auto":
@@ -109,6 +118,8 @@ def make_forward_pipeline(
     pipe = RenderPipeline(cfg, device=device)
     pipe.add_pass(ScenePass())
     pipe.add_pass(GeometryPass())
+    if ddgi is not None:
+        pipe.add_pass(DDGIPass(ddgi))
     st = cfg.scene
     if rt_shadows:
         pipe.add_pass(RTShadowPass())
@@ -120,10 +131,10 @@ def make_forward_pipeline(
             pipe.add_pass(LocalShadowPass())
     pipe.add_pass(VisibilityShadingPass())
     if rt_reflections:
-        pipe.add_pass(RTReflectionsPass())
+        pipe.add_pass(RTReflectionsPass(ddgi_grid=ddgi))
     if ssao:
         pipe.add_pass(SSAOPass())
-    pipe.add_pass(LightingComposePass())
+    pipe.add_pass(LightingComposePass(ddgi_grid=ddgi))
     pipe.add_pass(SkyPass())
     if fog:
         pipe.add_pass(FogPass())
@@ -159,7 +170,9 @@ class Renderer:
     ``dynamic_transforms=True`` uploads the host's instance transforms
     (``Scene.update_instance_transforms``) before each frame. Either one
     makes the scene dynamic: the shading records carry previous positions
-    and the sun map is rastered every frame."""
+    and the sun map is rastered every frame.
+
+    ``ddgi=True`` fits the probe grid to the scene's bounding sphere."""
 
     @property
     def scene_arrays(self):
@@ -186,7 +199,11 @@ class Renderer:
         if dynamic_transforms or scene_animator is not None:
             static = dataclasses.replace(static, dynamic=True)
         self.cfg = dataclasses.replace(cfg, scene=static)
-        use_rt = bool(pipeline_kw.get("rt_shadows") or pipeline_kw.get("rt_reflections"))
+        if pipeline_kw.get("ddgi") is True:
+            center, radius = scene.bounding_sphere()
+            pipeline_kw["ddgi"] = ProbeGridConfig.fit_bounds(center, radius)
+        use_rt = bool(pipeline_kw.get("rt_shadows") or pipeline_kw.get("rt_reflections")
+                      or pipeline_kw.get("ddgi"))
         if use_rt and (static.has_skin or static.has_morphs):
             raise NotImplementedError("rt_refit (the per-frame BVH refit of a skinned or "
                                       "morphed scene) is not ported yet")

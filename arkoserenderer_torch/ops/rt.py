@@ -1,12 +1,13 @@
 """Ray-traced shading helpers of the screen-space RT passes (port of
 arkoserenderer_tpu/ops/rt.py: ``surface_at_hits``, ``shade_hits`` and
-``trace_shadow_mask``; DDGI's ``shade_hits_simple`` waits for DDGI).
+``trace_shadow_mask``; ``shade_hits_simple`` has no caller there).
 
 Given BVH hits, reconstruct the surface (position, normal, uv, material)
 and shade it as the reflection rays' closest-hit shader does: the packed
 material at a ray-cone mip, the Filament BRDF for the sun and the local
-lights with an any-hit occlusion ray each, emissive, the flat environment
-ambient, and the environment on a miss. Rays of misses are parked far
+lights with an any-hit occlusion ray each, emissive, the diffuse ambient
+(the DDGI probes' irradiance when the frame has them, else the flat
+environment ambient), and the environment on a miss. Rays of misses are parked far
 below the scene, so their occlusion rays leave the BVH in one step.
 """
 
@@ -64,13 +65,17 @@ def surface_at_hits(scene, hit: Hit, with_uv_density: bool = False):
 
 
 def shade_hits(scene, hit: Hit, ray_dirs: torch.Tensor, exposure,
-               cone_spread: float = 2e-3, n_spots: int = 0, n_points: int = 0,
-               spot_casters: tuple = (), point_casters: tuple = ()) -> torch.Tensor:
+               cone_spread: float = 2e-3, ddgi_sample=None, n_spots: int = 0,
+               n_points: int = 0, spot_casters: tuple = (),
+               point_casters: tuple = ()) -> torch.Tensor:
     """(R, 3) pre-exposed radiance of the reflection rays: at a hit the
     textured material (nearest mip of the ray-cone footprint), the sun and
     the first ``n_spots`` / ``n_points`` local lights through the BRDF,
     each behind an any-hit occlusion ray where it casts shadows, emissive
-    and the flat environment ambient; the environment on a miss."""
+    and the diffuse ambient: ``ddgi_sample(world_pos, normal)`` (the
+    probes' irradiance) when given, else the flat environment ambient; the
+    environment on a miss. Every lane samples; a miss's garbage never
+    reaches the result (a select, not a multiply by a mask)."""
     world_pos, nrm, uv, mat_id, uv_density = surface_at_hits(scene, hit, with_uv_density=True)
     nrm = nrm * torch.where(mx.vdot(nrm, -ray_dirs) < 0.0, -1.0, 1.0)
     mrec = scene.mat_records[mat_id.long()]
@@ -112,7 +117,7 @@ def shade_hits(scene, hit: Hit, ray_dirs: torch.Tensor, exposure,
         if li >= len(spot_casters) or spot_casters[li]:
             occ_l = trace_rays(scene.bvh, occl_org, l_dir.contiguous(),
                                t_max=torch.clamp(dist[:, 0] - 6e-2, min=1e-3), any_hit=True,
-                               label="spot occlusion")
+                               label=f"spot occlusion {li}")
             falloff = falloff * (~occ_l.hit)
         fr_l = brdf_ops.evaluate(l_dir, view, nrm, base, rough, metal)
         color = color + fr_l * (lights.spot_color[li][None, :] * exposure) * falloff[:, None]
@@ -125,15 +130,18 @@ def shade_hits(scene, hit: Hit, ray_dirs: torch.Tensor, exposure,
         if li < len(point_casters) and point_casters[li]:
             occ_l = trace_rays(scene.bvh, occl_org, l_dir.contiguous(),
                                t_max=torch.clamp(dist[:, 0] - 6e-2, min=1e-3), any_hit=True,
-                               label="point occlusion")
+                               label=f"point occlusion {li}")
             vis_l = (~occ_l.hit).to(torch.float32)[:, None]
         fr_l = brdf_ops.evaluate(l_dir, view, nrm, base, rough, metal)
         color = color + fr_l * (lights.point_color[li][None, :] * exposure) / dist2 * vis_l
 
-    # The flat environment ambient the primary frame's LightingCompose adds.
+    # The diffuse ambient the primary frame's LightingCompose adds.
     diffuse = base * (1.0 - metal) * ms.occlusion[:, None]
-    ambient = ambient_of_normal(scene.env_map, nrm, scene.env_brightness)
-    ambient = (ambient + lights.ambient_lx / math.pi) * exposure
+    if ddgi_sample is not None:
+        ambient = ddgi_sample(world_pos, nrm)
+    else:
+        ambient = ambient_of_normal(scene.env_map, nrm, scene.env_brightness)
+        ambient = (ambient + lights.ambient_lx / math.pi) * exposure
     color = color + diffuse * ambient
 
     env = sample_equirect(scene.env_map, ray_dirs) * scene.env_brightness * exposure

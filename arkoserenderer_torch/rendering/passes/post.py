@@ -4,10 +4,12 @@ wraps a function of ops/ssao or ops/postprocess; all take their dense
 branch (every sample and tap, every frame), which is what the reference's
 default texture quality resolves to.
 
-LightingCompose is the branch without DDGI: direct light (already in
-SceneColor) plus SH-2 environment irradiance and the flat ambient,
-modulated by diffuse albedo, material occlusion and, when the SSAO pass
-ran, its ambient visibility; plus SceneReflections where RTReflections ran.
+LightingCompose adds to the direct light (already in SceneColor) the
+diffuse ambient: the DDGI probes' irradiance at each pixel when the DDGI
+pass ran (``ddgi_sample_scale=1``: every pixel samples), else SH-2
+environment irradiance and the flat ambient; modulated by diffuse albedo,
+material occlusion and, when the SSAO pass ran, its ambient visibility;
+plus SceneReflections where RTReflections ran.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import math
 
 import torch
 
+from arkoserenderer_torch.core import mathx as mx
+from arkoserenderer_torch.ops import ddgi as ddgi_ops
 from arkoserenderer_torch.ops import postprocess as pp
 from arkoserenderer_torch.ops import ssao as ssao_ops
 from arkoserenderer_torch.ops.envmap import ambient_of_normal, average_radiance
@@ -26,6 +30,8 @@ from arkoserenderer_torch.rendering.pipeline import (
     RenderPass,
     pixel_centers,
 )
+from arkoserenderer_torch.rendering.passes.ddgi import STATE_KEYS as DDGI_KEYS
+from arkoserenderer_torch.rendering.passes.ddgi import ddgi_state
 from arkoserenderer_torch.rendering.registry import Registry
 
 
@@ -64,10 +70,18 @@ class SSAOPass(RenderPass):
 class LightingComposePass(RenderPass):
     name = "LightingCompose"
 
+    def __init__(self, ddgi_grid: ddgi_ops.ProbeGridConfig | None = None):
+        self.ddgi_grid = ddgi_grid
+
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
-        if reg.has("DDGI.irradiance"):
-            raise NotImplementedError("DDGI is not ported yet")
+        grid = self.ddgi_grid
+        use_ddgi = grid is not None and reg.has("DDGI.irradiance")
+        if use_ddgi:
+            for name in DDGI_KEYS + ("SceneDepth",):
+                reg.get(name)
+            px, py = pixel_centers(cfg, device)
+            up = torch.tensor([0.0, 1.0, 0.0], device=device)
         use_refl = reg.has("SceneReflections")
         if use_refl:
             reg.get("SceneReflections")
@@ -83,11 +97,20 @@ class LightingComposePass(RenderPass):
             base = state["SceneBaseColor"]
             mat = state["SceneMaterial"]  # roughness, metallic, occlusion, subsurface
             valid = state["SceneCoverage"][..., None]
-            ambient = ambient_of_normal(
-                ctx.scene.env_map, state["SceneNormal"].reshape(-1, 3),
-                ctx.scene.env_brightness,
-            ).reshape(h, w, 3)
-            ambient = (ambient + ctx.scene.lights.ambient_lx / math.pi) * ctx.camera.exposure
+            nrm = state["SceneNormal"].reshape(-1, 3)
+            if use_ddgi:
+                inv_vp = ssao_ops.inverse4(ctx.camera.unjittered_view_proj)
+                world = ssao_ops.reconstruct_world_pos(state["SceneDepth"].reshape(-1), px, py,
+                                                       inv_vp, w, h)
+                # Sky pixels carry zero normals, whose octahedral encode is
+                # NaN: give them a unit one (their result is not used).
+                nrm = torch.where(mx.vdot(nrm, nrm) > 0.25, nrm, up)
+                ambient = ddgi_ops.sample_irradiance(ddgi_state(state), grid, world,
+                                                     nrm).reshape(h, w, 3)
+            else:
+                ambient = ambient_of_normal(ctx.scene.env_map, nrm,
+                                            ctx.scene.env_brightness).reshape(h, w, 3)
+                ambient = (ambient + ctx.scene.lights.ambient_lx / math.pi) * ctx.camera.exposure
             ao = mat[..., 2:3]
             if use_ssao:
                 ao = ao * state["SSAO"][..., None]

@@ -13,14 +13,14 @@ the hand-written traversal kernel on the card).
     cutoff, shaded at their hits (``ops/rt.shade_hits``), weighted by
     Fresnel, then denoised (``ops/reflection_denoise``: prefilter,
     reproject, resolve-temporal over RTRefl.history / .moments / .depth);
-    publishes SceneReflections, which LightingCompose adds.
+    publishes SceneReflections, which LightingCompose adds. With a DDGI
+    grid the hits' diffuse ambient is the probes' irradiance.
 
 Rays of pixels that trace nothing (sky, surfaces past the cutoff) start
 far below the scene, so they leave the BVH in one step. The hard-shadow
 branches only: a sun with an angular radius or a light with a source
-radius (soft shadows and their denoiser), DDGI at the hits, half-rate
-tracing (``PipelineConfig.rt_scale``) and BVH refit are not ported and
-raise.
+radius (soft shadows and their denoiser), half-rate tracing
+(``PipelineConfig.rt_scale``) and BVH refit are not ported and raise.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch
 
 from arkoserenderer_torch.core import mathx as mx
 from arkoserenderer_torch.ops import brdf as brdf_ops
+from arkoserenderer_torch.ops import ddgi as ddgi_ops
 from arkoserenderer_torch.ops import reflection_denoise as dn
 from arkoserenderer_torch.ops.bvh import Hit, trace_rays
 from arkoserenderer_torch.ops.rt import PARK, shade_hits, trace_shadow_mask
@@ -39,6 +40,8 @@ from arkoserenderer_torch.rendering.pipeline import (
     RenderPass,
     pixel_centers,
 )
+from arkoserenderer_torch.rendering.passes.ddgi import STATE_KEYS as DDGI_KEYS
+from arkoserenderer_torch.rendering.passes.ddgi import ddgi_state
 from arkoserenderer_torch.rendering.registry import Registry
 
 MAX_ROUGHNESS = 0.6  # reflection rays stop past this roughness (diffuse GI takes over)
@@ -119,9 +122,9 @@ class RTLocalShadowPass(RenderPass):
 
             ones = torch.ones((h, w), dtype=torch.float32, device=world.device)
             lights = ctx.scene.lights
-            spots = [mask_to(lights.spot_pos[i], "spot mask") if cast else ones
+            spots = [mask_to(lights.spot_pos[i], f"spot mask {i}") if cast else ones
                      for i, cast in enumerate(spot_casters)] or [ones]
-            points = [mask_to(lights.point_pos[i], "point mask") if cast else ones
+            points = [mask_to(lights.point_pos[i], f"point mask {i}") if cast else ones
                       for i, cast in enumerate(point_casters)] or [ones]
             return {"ShadowMask.locals": torch.stack(spots),
                     "ShadowMask.points": torch.stack(points)}
@@ -133,15 +136,25 @@ class RTReflectionsPass(RenderPass):
     """RT reflections: a mirror ray per pixel under MAX_ROUGHNESS, shaded at
     its hit, Fresnel-weighted (faded out over the last quarter before the
     cutoff) and denoised: prefilter, reprojection and temporal resolve (the
-    reference's defaults; its roughness and temporal knobs have no caller)."""
+    reference's defaults; its roughness and temporal knobs have no caller).
+    With ``ddgi_grid`` and the DDGI pass earlier in the frame, the hits
+    sample the probes for their diffuse ambient."""
 
     name = "RTReflections"
+
+    def __init__(self, ddgi_grid: ddgi_ops.ProbeGridConfig | None = None):
+        self.ddgi_grid = ddgi_grid
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
         for name in ("SceneDepth", "SceneNormal", "SceneMaterial", "SceneBaseColor",
                      "SceneCoverage"):
             reg.get(name)
+        grid = self.ddgi_grid
+        use_ddgi = grid is not None and reg.has("DDGI.irradiance")
+        if use_ddgi:
+            for name in DDGI_KEYS:
+                reg.get(name)
         reg.create("SceneReflections", (h, w, 3), torch.float32)
         reg.get("SceneVelocity")
         reg.create("RTRefl.history", (h, w, 3), torch.float32, persistent=True)
@@ -183,8 +196,16 @@ class RTReflectionsPass(RenderPass):
             else:
                 hit = trace_rays(ctx.scene.bvh, origins, r_dir.contiguous(), t_max=1e4,
                                  label="reflection")
+            ddgi_sample = None
+            if use_ddgi:
+                probes = ddgi_state(state)
+
+                def ddgi_sample(wp, n):
+                    return ddgi_ops.sample_irradiance(probes, grid, wp, n)
+
             radiance = shade_hits(ctx.scene, hit, r_dir, ctx.camera.exposure,
-                                  cone_spread=cone_spread, n_spots=st.n_spots,
+                                  cone_spread=cone_spread, ddgi_sample=ddgi_sample,
+                                  n_spots=st.n_spots,
                                   n_points=st.n_points, spot_casters=st.spot_shadow_casters,
                                   point_casters=st.point_shadow_casters)
 

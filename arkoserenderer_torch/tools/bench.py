@@ -19,12 +19,24 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
   meshlet    the same with per-meshlet culling in Geometry
   forward_upscaled  the forward passes at 1280x720 (the "quality" preset of
              1920x1080) with TemporalUpscale to 1920x1080 in place of TAA
+  showcase   the test scene with rt_shadows, rt_reflections, DDGI (an 8x4x8
+             grid fitted to the scene, 128 rays x 64 probes a frame), SSAO,
+             Fog and MotionBlur: five traces a frame (sun mask, reflection,
+             sun occlusion, ddgi probe, ddgi sun)
+  flagship   4,096 spheres (786,434 triangles) over 256 materials and 64
+             texture chains, the sun, two shadow-casting spots and a point
+             light, with the showcase's passes and DDGI at 256 rays x 1,024
+             probes of a 16x8x16 grid: eleven traces a frame (sun mask,
+             spot masks 0 and 1, reflection, sun occlusion, spot occlusions
+             0 and 1, ddgi probe, ddgi sun, ddgi spots 0 and 1)
 
 at 1920x1080, raster tile 8x128 with 256 triangles a tile, and an 8192^2 sun
 shadow map (``--small``: 256x256, tile 8x16, a 256^2 map, 64 materials over
-16 chains, 256 stress cells). The camera moves every frame, so the motion
-vectors, the history reprojections and the motion blur do real work; in
-``stress`` and ``meshlet`` it stands still and the motion is the grid's.
+16 chains, 256 stress cells; the flagship 256 spheres, 64 materials, 16
+chains, an 8x4x8 grid with 128 rays x 64 probes). The camera moves every
+frame, so the motion vectors, the history reprojections and the motion
+blur do real work; in ``stress`` and ``meshlet`` it stands still and the
+motion is the grid's.
 
     python -m arkoserenderer_torch.tools.bench [--config forward,full_post] [--small]
                                                [--warmup 4] [--iters 16] [--profile]
@@ -37,7 +49,8 @@ implies), the traversal kernel's launches by trace (and the count implied),
 coverage, how far the history (TAA's, or the upscaler's) moved in
 one frame, and for the last STATS_FRAMES frames the triangles left after
 culling, the meshlets kept and the triangles the camera's and the sun's
-bins dropped. With ``--profile`` it then runs 4 more frames of each
+bins dropped, with each of those frames' checks (finite LDR, coverage and,
+with DDGI, how far each atlas moved in the frame). With ``--profile`` it then runs 4 more frames of each
 kind under ``torch.profiler`` and prints a second JSON line: the device's
 kernel ms per frame, its busy share of the frame, launches per frame, the
 operators and kernels that take the most device time, and each pass's span
@@ -56,6 +69,7 @@ import torch
 
 from arkoserenderer_torch.assets.procedural import (
     build_bindless_scene,
+    build_flagship_scene,
     build_stress_scene,
     build_test_scene,
     make_stress_animator,
@@ -63,8 +77,10 @@ from arkoserenderer_torch.assets.procedural import (
 from arkoserenderer_torch.core.types import RasterConfig
 from arkoserenderer_torch.models.standard import Renderer
 from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
+from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
 from arkoserenderer_torch.ops.raster_cuda import rasterize_tiles_cuda
 from arkoserenderer_torch.ops.upscale import ideal_render_resolution
+from arkoserenderer_torch.rendering.passes.ddgi import STATE_KEYS as DDGI_KEYS
 from arkoserenderer_torch.rendering.passes.geometry import camera_visible_triangles
 from arkoserenderer_torch.rendering.passes.shadow import sun_shadow_cacheable
 from arkoserenderer_torch.rendering.pipeline import PipelineConfig
@@ -84,6 +100,13 @@ CONFIGS = {
     "stress": ("stress", {}, "4096 animated instances with LOD chains (culling stress)"),
     "meshlet": ("meshlet", {}, "meshlet visbuf + per-meshlet culling, 4096 instances"),
     "forward_upscaled": ("test_upscaled", {}, "forward at 2/3 scale + temporal upscale to 1080p"),
+    "showcase": ("test", dict(rt_shadows=True, rt_reflections=True, ddgi=True, ssao=True,
+                              fog=True, motion_blur=True),
+                 "showcase: raster + RT shadows/reflections + DDGI + SSAO + full post"),
+    "flagship": ("flagship", dict(rt_shadows=True, rt_reflections=True, ddgi="flagship",
+                                  ssao=True, fog=True, motion_blur=True),
+                 "flagship: 786K tris, 256 mats/64 tex, RT shadows+refl, DDGI 256x1024, "
+                 "SSAO, full post"),
 }
 ANIMATED = ("stress", "meshlet")  # scene kinds whose grid moves; their camera stands still
 STATS_FRAMES = 4  # frames after the timed ones whose culling and bin counts are read
@@ -113,6 +136,15 @@ def build_renderer(name: str, small: bool = False, device="cuda",
     if kind == "bindless":
         scene, camera = build_bindless_scene(
             n_materials=64 if small else 256, n_textures=16 if small else 64, viewport=viewport)
+    elif kind == "flagship":
+        scene, camera = build_flagship_scene(
+            n_instances=256 if small else 4096, n_materials=64 if small else 256,
+            n_textures=16 if small else 64, viewport=viewport)
+        if kw.get("ddgi") == "flagship":
+            center, radius = scene.bounding_sphere()
+            kw = dict(kw, ddgi=ProbeGridConfig.fit_bounds(
+                center, radius, dims=(8, 4, 8) if small else (16, 8, 16),
+                rays_per_probe=128 if small else 256, probes_per_frame=64 if small else 1024))
     elif kind in ANIMATED:
         scene, camera = build_stress_scene(n_instances=256 if small else 4096, viewport=viewport)
         scene.enable_meshlets = kind == "meshlet"
@@ -162,27 +194,30 @@ def expected_launches_by_shape(renderer: Renderer, frames: int) -> dict:
 
 
 def expected_trace_launches_by_label(renderer: Renderer, frames: int) -> dict:
-    """Traversal launches of ``frames`` frames by trace: with RTShadow one
-    sun mask and one mask per shadow-casting spot and point light a frame;
-    with RTReflections the reflection rays and, at their hits, the sun's
-    occlusion rays and one per casting spot (and point) light a frame."""
+    """Traversal launches of ``frames`` frames by trace, one a frame each:
+    with RTShadow the sun mask and a mask per shadow-casting spot and point
+    light ("spot mask 0", ...: the light's index); with RTReflections the
+    reflection rays and, at their hits, the sun's occlusion rays and one
+    trace per casting spot and point light; with DDGI the probe rays and,
+    at their hits, the same occlusion rays."""
     st = renderer.cfg.scene
     names = _pass_names(renderer)
-    per_frame = {}
-    n_spot_casters = sum(st.spot_shadow_casters)
-    n_point_casters = sum(st.point_shadow_casters)
+    spot_casters = [i for i, cast in enumerate(st.spot_shadow_casters) if cast]
+    point_casters = [i for i, cast in enumerate(st.point_shadow_casters) if cast]
+    # ops/rt and ops/ddgi trace a spot beyond the casters' tuple as casting.
+    spots_traced = [i for i in range(st.n_spots)
+                    if i >= len(st.spot_shadow_casters) or st.spot_shadow_casters[i]]
+    traces = []
+    if "DDGI" in names:
+        traces += ["ddgi probe", "ddgi sun", *(f"ddgi spot {i}" for i in spots_traced),
+                   *(f"ddgi point {i}" for i in point_casters)]
     if "RTShadow" in names:
-        per_frame["sun mask"] = 1
-        per_frame["spot mask"] = n_spot_casters
-        per_frame["point mask"] = n_point_casters
+        traces += ["sun mask", *(f"spot mask {i}" for i in spot_casters),
+                   *(f"point mask {i}" for i in point_casters)]
     if "RTReflections" in names:
-        per_frame["reflection"] = 1
-        per_frame["sun occlusion"] = 1
-        per_frame["spot occlusion"] = sum(
-            1 for i in range(st.n_spots)
-            if i >= len(st.spot_shadow_casters) or st.spot_shadow_casters[i])
-        per_frame["point occlusion"] = n_point_casters
-    return {k: n * frames for k, n in per_frame.items() if n}
+        traces += ["reflection", "sun occlusion", *(f"spot occlusion {i}" for i in spots_traced),
+                   *(f"point occlusion {i}" for i in point_casters)]
+    return {label: frames for label in traces}
 
 
 def expected_launches(renderer: Renderer, frames: int) -> int:
@@ -253,13 +288,20 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
     move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
     bench = renderer.benchmark(warmup=warmup, iters=iters, before_frame=move)
     history = "UpscaleHistory" if "UpscaleHistory" in renderer.state else "TAAHistory"
-    counts = []
+    counts, checks = [], []
     for _ in range(STATS_FRAMES):
         before = renderer.state[history].clone()
+        atlases = {k: renderer.state[k].clone() for k in DDGI_KEYS if k in renderer.state}
         if move is not None:
             move(renderer.frame_index)
         counts.append(frame_counts(renderer))
-        renderer.render_frame()
+        out = renderer.render_frame()
+        checks.append({
+            "ldr_finite": bool(torch.isfinite(out).all()),
+            "coverage": renderer.state["SceneCoverage"].float().mean().item(),
+            **{f"{k}_delta": (renderer.state[k] - v).abs().max().item()
+               for k, v in atlases.items()},
+        })
     state = renderer.state
     cfg = renderer.cfg
     ldr = state.get("LDRDisplay", state["LDR"])
@@ -283,7 +325,7 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
         "max_velocity_px": state["SceneVelocity"].abs().max().item(),
         "history": history,
         "history_delta": (state[history] - before).abs().max().item(),
-        "frame_counts": counts,
+        "frame_counts": counts, "frame_checks": checks,
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "device": torch.cuda.get_device_name(0), "card": card_line(),
     }

@@ -16,12 +16,16 @@ entry point into outputs made once) and the plain version's.
 
 Run as a script it does all of that for the five traces of one 1920x1080
 ``rt`` frame (sun mask, spot mask, reflection, and the sun and spot
-occlusion rays at the reflection hits), the TLAS case and the probe case:
+occlusion rays at the reflection hits), the TLAS case, the probe case, and
+the four DDGI traces of one 1920x1080 ``flagship`` frame (``ddgi_traces``:
+262,144 probe rays, closest-hit, then the sun's and the two casting
+spots' any-hit occlusion rays at their hits, captured as the frame makes
+them):
 
     python -m arkoserenderer_torch.tools.trace_bench
 
 With ``--other OLD_CHECKOUT`` (a root that holds ``arkoserenderer_torch/``)
-it compares the other checkout's kernel with this one on those eight
+it compares the other checkout's kernel with this one on those twelve
 traces: both built from their own ``csrc/`` (the other into its own
 ``build/``, under its own library name), held equal bit for bit, then timed
 in turns (other, this, this, other) per round, device ms by CUDA graphs;
@@ -352,7 +356,8 @@ def time_trace(bvh, origins, directions, t_max, any_hit: bool) -> dict:
 def checked(bvh, case: dict) -> dict:
     """compare + bound of one captured or built trace."""
     args = (bvh, case["origins"], case["directions"], case["t_max"], case["any_hit"])
-    res = {"name": case["label"], "any_hit": case["any_hit"],
+    res = {"name": case["label"], "trace": case.get("trace", case["label"]),
+           "any_hit": case["any_hit"],
            "per_ray_t_max": isinstance(case["t_max"], torch.Tensor)}
     res.update(compare(*args, case["label"]))
     res["bound_ms"], res["bound_by"] = bound_ms(bvh, res["rays"], res["per_ray_t_max"],
@@ -379,6 +384,35 @@ def frame_cases(renderer) -> list[dict]:
     """Every trace of one frame of ``renderer`` (after a warm-up frame),
     measured."""
     return [measure(renderer.scene_arrays.bvh, case) for case in frame_traces(renderer)]
+
+
+def kind_traces(renderer, kind: str, prefix: str = "") -> list[dict]:
+    """The traces of one frame of ``renderer`` whose label starts with
+    ``prefix``, as the frame makes them, each named "<kind> <label>";
+    "trace" keeps the frame's label."""
+    cases = [c for c in capture_traces(renderer) if c["label"].startswith(prefix)]
+    for c in cases:
+        c["trace"] = c["label"]
+        c["label"] = f"{kind} {c['label']}"
+    return cases
+
+
+def kind_cases(renderer, kind: str, prefix: str = "") -> list[dict]:
+    """``kind_traces``, measured."""
+    return [measure(renderer.scene_arrays.bvh, case)
+            for case in kind_traces(renderer, kind, prefix)]
+
+
+def ddgi_traces(renderer) -> list[dict]:
+    """The DDGI traces of one ``flagship`` frame of ``renderer`` (after a
+    warm-up frame): "flagship ddgi probe", "flagship ddgi sun", ..."""
+    renderer.render_frame()
+    return kind_traces(renderer, "flagship", "ddgi")
+
+
+def ddgi_cases(renderer) -> list[dict]:
+    """The DDGI traces of one flagship frame, measured."""
+    return [measure(renderer.scene_arrays.bvh, case) for case in ddgi_traces(renderer)]
 
 
 def tlas_traces(device) -> tuple:
@@ -498,16 +532,19 @@ def main(argv=None) -> None:
     print(occupancy_line(lib), flush=True)
     dev = torch.device("cuda")
     renderer = bench.build_renderer("rt", device=dev)
+    flagship = bench.build_renderer("flagship", device=dev)
     if args.other is not None:
         bvh = renderer.scene_arrays.bvh
         traces = [(bvh, case) for case in frame_traces(renderer)]
         traces.append((bvh, probe_trace(renderer)))
         tlas_bvh, cases = tlas_traces(dev)
         traces += [(tlas_bvh, case) for case in cases]
+        traces += [(flagship.scene_arrays.bvh, case) for case in ddgi_traces(flagship)]
         rows = ab_compare(args.other.resolve(), traces, card)
         print(json.dumps({"ab": rows, "card": card, "other": str(args.other)}))
         return
-    results = frame_cases(renderer) + probe_cases(renderer) + tlas_cases(dev)
+    results = (frame_cases(renderer) + probe_cases(renderer) + tlas_cases(dev)
+               + ddgi_cases(flagship))
     for res in results:
         print(describe(res, card), flush=True)
     for line in edge_checks(dev):

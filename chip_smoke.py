@@ -62,8 +62,8 @@ result line):
      off by more than 0.05: the thresholds of tests/test_stress.py).
  10. the rt frame (the test_spot scene and spot with rt_shadows and
      rt_reflections) and the BVH traversal kernel: the five traces of one
-     1920x1080 frame (sun mask, spot mask, reflection rays, and the sun and
-     spot occlusion rays at the reflection hits; parked and compacted rays
+     1920x1080 frame (sun mask, spot mask 0, reflection rays, and the sun
+     and spot 0 occlusion rays at the reflection hits; parked and compacted rays
      included) captured as the frame makes them, 262,144 DDGI-shaped probe
      rays through the rt scene (1,024 probes x 256 directions), and random
      rays through a 4,096-instance TLAS (closest-hit, and any-hit with
@@ -79,12 +79,27 @@ result line):
      the bench as in phase 8, with one camera raster and no other a frame,
      and the traversal launches by trace as the configuration implies them
      (bench.expected_trace_launches_by_label): exactly five a frame.
+ 11. DDGI: the 256^2 ddgi and showcase goldens (tests/goldens/ddgi.png,
+     showcase.png) rendered on the card; then the showcase (8x4x8 grid:
+     8,192 probe rays a frame) and flagship (4,096 spheres, 786,434
+     triangles, a 16x8x16 grid: 262,144 probe rays a frame) frames through
+     the bench as in phase 8, each of the 4 counted frames finite, covered
+     and moving every DDGI atlas, with the raster launches by shape (the
+     camera only: RT shadows) and the traversal launches by trace as
+     implied (five and eleven a frame); after each run's counts are read,
+     every trace of one more frame of that renderer (the showcase's five;
+     the flagship's eleven: sun mask, spot masks 0 and 1, reflection, sun
+     occlusion, spot occlusions 0 and 1, ddgi probe, ddgi sun, ddgi spots
+     0 and 1), captured as the frame makes them, through the kernel and its
+     plain version bit for bit and timed as in phase 10, and the flagship
+     camera raster bit for bit and timed as in phase 3.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
-camera, per-frame stress sun, 720p camera), each with its launches in the
-runs of the frame kinds that launch it, and one entry per trace the
-traversal kernel serves in the rt frame, with its launches in the rt run;
-the last line is {"ok": true, "device": {...}}.
+camera, per-frame stress sun, 720p camera, flagship camera), each with its
+launches in the runs of the frame kinds that launch it, and one entry per
+trace the traversal kernel serves in the rt, showcase and flagship frames,
+each with its launches by its label in that kind's run; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -108,7 +123,9 @@ KERNEL_SOURCE = "arkoserenderer_torch/csrc/raster_tiles.cu"
 # kernel) of the 8-wide walk.
 TRACE_REPLACES = "arkoserenderer_tpu/ops/bvh.py:1001"
 TRACE_SOURCE = "arkoserenderer_torch/csrc/bvh_trace.cu"
-RT_TRACES = ("sun mask", "spot mask", "reflection", "sun occlusion", "spot occlusion")
+RT_TRACES = ("sun mask", "spot mask 0", "reflection", "sun occlusion", "spot occlusion 0")
+# Frame kind -> (traces a frame, DDGI rays a trace: probes a frame x rays a probe).
+PHASE11 = {"showcase": (5, 64 * 128), "flagship": (11, 1024 * 256)}
 
 
 def random_case(rng, n, big: bool, width: int, height: int):
@@ -379,7 +396,8 @@ def main() -> None:
     # The camera moves 3 cm a frame in phase 8 and upscaled frames; in the
     # stress frames it stands still, so the motion vectors are the grid's.
     MIN_VELOCITY_PX = {"forward": 1.0, "full_post": 1.0, "bindless": 1.0, "test_spot": 1.0,
-                       "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5, "rt": 1.0}
+                       "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5, "rt": 1.0,
+                       "showcase": 1.0, "flagship": 1.0}
     by_kind = {}
     for name in PHASE8:
         by_kind[name] = run_kind(name)[2]
@@ -449,14 +467,59 @@ def main() -> None:
     trace_launches = res["trace_launches"]
     del renderer
 
+    # -- 11. DDGI: goldens, the flagship's DDGI traces and camera, the frames --------
+    from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
+
+    for name, kw in (("ddgi", dict(taa=False, bloom=False)),
+                     ("showcase", dict(rt_shadows=True, rt_reflections=True, ssao=True, fog=True,
+                                       motion_blur=True))):
+        g_scene, g_cam = build_test_scene(viewport=(256, 256), n_spheres=1)
+        check_golden(name, Renderer(g_scene, g_cam, g_cfg, device=dev, ddgi=ProbeGridConfig(),
+                                    **kw).render_frames(2))
+    kind_traces = []  # (the kind's run's launches by label, measured trace)
+    for name, (per_frame, ddgi_rays) in PHASE11.items():
+        res, renderer, by_kind[name] = run_kind(name)
+        n = res["frames"]
+        if (res["trace_launches"] != res["trace_launches_expected"]
+                or sum(res["trace_launches"].values()) != per_frame * n):
+            raise AssertionError(f"{name}: traversal launches {res['trace_launches']} in {n} "
+                                 f"frames, expected {res['trace_launches_expected']} "
+                                 f"({per_frame} a frame)")
+        for i, c in enumerate(res["frame_checks"]):
+            moved = [c[f"{k}_delta"] for k in ("DDGI.irradiance", "DDGI.visibility")]
+            if not (c["ldr_finite"] and c["coverage"] > 0.0 and min(moved) > 0.0):
+                raise AssertionError(f"{name}: counted frame {i} failed its checks: {c}")
+        print(f"{name}: traversal launches {res['trace_launches']} in {n} frames ({per_frame} a "
+              f"frame); counted frames {res['frame_checks']}", flush=True)
+        # The counts are read: every trace of one more frame, bit for bit.
+        cases = tb.kind_cases(renderer, name)
+        got = sorted((t["trace"], t["rays"]) for t in cases)
+        if [t for t, _ in got] != sorted(res["trace_launches_expected"]) or any(
+                r != ddgi_rays for t, r in got if t.startswith("ddgi")):
+            raise AssertionError(f"a {name} frame traced {got}, expected one trace of each of "
+                                 f"{sorted(res['trace_launches_expected'])}, DDGI's of "
+                                 f"{ddgi_rays} rays")
+        for t in cases:
+            print(tb.describe(t, card), flush=True)
+        kind_traces += [(res["trace_launches"], t) for t in cases]
+        if name == "flagship":
+            cam = rb.forward_raster_inputs(renderer.scene_arrays,
+                                           renderer.camera.state(renderer.frame_index, dev),
+                                           renderer.cfg.scene, W, H, S, full_raster)
+            compare_and_time("camera_flagship", f"flagship camera {W}x{H}, tile 8x128", 2,
+                             *cam["camera"])
+            del cam
+        del renderer, cases
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
-        "camera": (PHASE8 + ("rt",), (H, W, False)),
+        "camera": (PHASE8 + ("rt", "showcase"), (H, W, False)),
         "sun": (PHASE8 + ("forward_upscaled",), (S, S, True)),
         "local": (PHASE8, (A, A, True)),
         "camera_stress": (("stress", "meshlet"), (H, W, False)),
         "sun_stress": (("stress", "meshlet"), (S, S, True)),
         "camera_720p": (("forward_upscaled",), (720, 1280, False)),
+        "camera_flagship": (("flagship",), (H, W, False)),
     }
     launches = {e: sum(by_kind[k].get(shape, 0) for k in kinds)
                 for e, (kinds, shape) in entries.items()}
@@ -470,13 +533,18 @@ def main() -> None:
         "launches_forward_slice": slice1_launches.get(entries[name][1], 0),
         **timed[name], "library_ms": None,
     } for name in entries]
-    rows += [{
-        "name": f"bvh_trace ({t['name']})", "route": "cuda", "source": TRACE_SOURCE,
-        "replaces": TRACE_REPLACES, "launches": trace_launches.get(t["name"], 0),
-        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "share": t["share"], "rays": t["rays"], "steps": t["steps"], "library_ms": None,
-    } for t in traces]
+
+    def trace_row(t, launches):
+        return {
+            "name": f"bvh_trace ({t['name']})", "route": "cuda", "source": TRACE_SOURCE,
+            "replaces": TRACE_REPLACES, "launches": launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "share": t["share"],
+            "rays": t["rays"], "steps": t["steps"], "library_ms": None,
+        }
+
+    rows += [trace_row(t, trace_launches.get(t["name"], 0)) for t in traces]
+    rows += [trace_row(t, by_label.get(t["trace"], 0)) for by_label, t in kind_traces]
     if not all(row["launches"] for row in rows):
         raise AssertionError("a kernel of the frames' path was never launched")
     print(json.dumps({"kernels": rows}))

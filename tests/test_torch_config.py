@@ -96,6 +96,43 @@ def test_auto_resolves_as_the_reference():
                            device="cpu").cfg.texture_quality == "trilinear"
 
 
+DDGI_UNPORTED = ["ddgi_probe_debug", "ddgi_sample_scale", "skinned"]
+
+
+@pytest.mark.parametrize("option", DDGI_UNPORTED)
+def test_unported_ddgi_options_raise_by_name(option):
+    """DDGI is ported; its probe overlay, its reduced-rate sampling and a
+    skinned or morphed scene under it (whose BVH needs the per-frame refit)
+    are not, and raise NotImplementedError naming the flag. Without them
+    the same DDGI frame builds."""
+    from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
+
+    scene, cam = t_build_test_scene(viewport=(32, 16))
+    cfg = TPipelineConfig(width=32, height=16, shadow_map_size=32,
+                          raster=TRasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=64),
+                          scene=scene.static_info())
+    grid = ProbeGridConfig()
+    if option == "ddgi_probe_debug":
+        with pytest.raises(NotImplementedError, match=option):
+            t_make_pipeline(cfg, device="cpu", ddgi=grid, ddgi_probe_debug=True)
+    elif option == "ddgi_sample_scale":
+        with pytest.raises(NotImplementedError, match=option):
+            t_make_pipeline(dataclasses.replace(cfg, ddgi_sample_scale=2), device="cpu",
+                            ddgi=grid)
+    else:
+        skinned = dataclasses.replace(scene.static_info(), has_skin=True)
+        scene.static_info = lambda: skinned
+        with pytest.raises(NotImplementedError, match="rt_refit"):
+            Renderer(scene, cam, cfg, device="cpu", ddgi=True)
+        scene.static_info = lambda: dataclasses.replace(skinned, has_skin=False)
+    r = Renderer(scene, cam, cfg, device="cpu", ddgi=True)
+    assert [p.name for p in r.pipeline.passes][:3] == ["Scene", "Geometry", "DDGI"]
+    assert r.scene_arrays.bvh is not None  # DDGI alone builds the BVH
+    with pytest.raises(TypeError, match="ProbeGridConfig"):
+        t_make_pipeline(cfg, device="cpu", ddgi=True)
+
+
 def test_output_pass_takes_the_reference_keywords():
     TOutputPass(mode="agx", vignette_intensity=0.0, film_grain_gain=0.1)
     with pytest.raises(NotImplementedError, match="color_grade_lut"):

@@ -206,6 +206,28 @@ def test_trace_kernel_probe_rays_match_plain(cuda_device):
     assert res["rays"] == 262144 and 0.05 < res["hit_share"] < 1.0
 
 
+@pytest.mark.cuda
+def test_trace_kernel_ddgi_traces_match_plain(cuda_device):
+    """The four DDGI traces of a small flagship frame (64 probes x 128
+    rays: the probe rays, then the sun's and the two casting spots'
+    occlusion rays at their hits), captured as the frame makes them, bit
+    for bit against the plain walk; the frame launched each by its label."""
+    from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
+    from arkoserenderer_torch.tools import bench, trace_bench
+
+    renderer = bench.build_renderer("flagship", small=True, device=cuda_device)
+    trace_rays_cuda.launches_by_label.clear()
+    cases = trace_bench.ddgi_traces(renderer)
+    labels = ["ddgi probe", "ddgi sun", "ddgi spot 0", "ddgi spot 1"]
+    assert [c["trace"] for c in cases] == labels
+    assert [c["label"] for c in cases] == [f"flagship {label}" for label in labels]
+    for case in cases:
+        res = trace_bench.checked(renderer.scene_arrays.bvh, case)
+        assert res["rays"] == 64 * 128
+    for label in labels:
+        assert trace_rays_cuda.launches_by_label[label] == renderer.frame_index
+
+
 def test_trace_wrapper_checks_its_inputs():
     """The wrapper raises on what the kernel does not take before it builds
     anything, so this runs on the CPU."""

@@ -183,7 +183,8 @@ UNPORTED_RT = {
     "soft point": (dict(n_points=1, point_shadow_casters=(True,), point_source_radius=(0.05,)),
                    dict(rt_shadows=True), "source_radius"),
     "refit": ({}, dict(rt_shadows=True, rt_refit=True), "rt_refit"),
-    "ddgi": ({}, dict(rt_reflections=True, ddgi=True), "ddgi"),
+    # DDGI is ported (test_torch_showcase.py); its probe overlay is not.
+    "ddgi": ({}, dict(rt_reflections=True, ddgi_probe_debug=True), "ddgi_probe_debug"),
 }
 
 

@@ -175,10 +175,11 @@ UNPORTED = [("rt_shadows", True), ("rt_reflections", True), ("ddgi", True),
             ("ddgi_probe_debug", True), ("light_icons", True), ("ssss", True),
             ("rt_refit", True), ("oit_layers", 2), ("debug_draw", object())]
 # Flags that are ported in part, with the config change whose branch is not
-# and still raises naming the flag: soft ray-traced sun shadows, and
-# half-rate ray tracing.
+# and still raises naming the flag: soft ray-traced sun shadows, half-rate
+# ray tracing, and reduced-rate DDGI sampling.
 PARTLY_PORTED = {"rt_shadows": {"scene": {"sun_angular_radius_deg": 0.5}},
-                 "rt_reflections": {"rt_scale": 2}}
+                 "rt_reflections": {"rt_scale": 2},
+                 "ddgi": {"ddgi_sample_scale": 2}}
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED, ids=[f for f, _ in UNPORTED])
@@ -262,6 +263,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import arkoserenderer_torch.ops.bvh, arkoserenderer_torch.ops.bvh_cuda\n"
         "import arkoserenderer_torch.ops.rt, arkoserenderer_torch.ops.reflection_denoise\n"
         "import arkoserenderer_torch.rendering.passes.rt, arkoserenderer_torch.tools.trace_bench\n"
+        "import arkoserenderer_torch.core.prng, arkoserenderer_torch.ops.ddgi\n"
+        "import arkoserenderer_torch.rendering.passes.ddgi\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('arkoserenderer_tpu'))\n"
         "print(len(mods), bad)\n"
@@ -270,7 +273,7 @@ def test_port_imports_neither_jax_nor_reference():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 56  # every module of the slices was imported
+    assert int(res.stdout.split()[0]) >= 59  # every module of the slices was imported
 
 
 def test_renderer_device_is_explicit():

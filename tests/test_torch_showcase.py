@@ -1,0 +1,241 @@
+"""The port's DDGI frames against the JAX package's: the `ddgi` golden's
+pipeline (one sphere, the default 8x4x8 probe grid, TAA and Bloom) and the
+`showcase` pipeline (the same scene and grid with rt_shadows,
+rt_reflections, SSAO, Fog and MotionBlur) pass by pass at 96^2 over two
+frames of a moving camera, frame 0's persistent state fed to frame 1; the
+`ddgi` and `showcase` goldens at 256^2; the flagship scene's pools against
+JAX's at the bench's small size (256 spheres, 64 materials, 16 texture
+chains); and the bench's showcase and flagship kinds at 256^2 on the CPU.
+
+The walk is test_torch_rt.py's: each torch pass gets the JAX input state of
+that pass. Tolerances are test_torch_rt.py's (and test_torch_passes.py's),
+plus:
+  * DDGI.irradiance, DDGI.visibility and DDGI.offsets: test_torch_ddgi.py's
+    (irradiance 1e-5, visibility 1e-5 of its magnitude, on all but 0.5 % of
+    the values, for a probe ray's hit can flip on an ulp; offsets 1e-6);
+  * SSAO's occlusion tests flip samples on an ulp, as in the full_post
+    walk (test_torch_passes.py's bound: under 1 % of the pixels over 1e-4,
+    none over 1).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from arkoserenderer_torch import bridge
+from arkoserenderer_torch.core.types import RasterConfig as TRasterConfig
+from arkoserenderer_torch.models.standard import make_forward_pipeline as t_make_pipeline
+from arkoserenderer_torch.rendering.pipeline import FrameContext as TFrameContext
+from arkoserenderer_torch.rendering.pipeline import PipelineConfig as TPipelineConfig
+from arkoserenderer_tpu.core.types import RasterConfig as JRasterConfig
+from arkoserenderer_tpu.models.standard import make_forward_pipeline as j_make_pipeline
+from arkoserenderer_tpu.ops import ddgi as jdd
+from arkoserenderer_tpu.rendering.pipeline import FrameContext as JFrameContext
+from arkoserenderer_tpu.rendering.pipeline import PipelineConfig as JPipelineConfig
+from test_torch_ddgi import _assert_atlas_close
+from test_torch_passes import RASTER, RES, _np, _torch_state, compare, compare_flips
+from test_torch_rt import compare_rt
+
+torch.set_num_threads(2)
+
+WALK_PASSES = {
+    "ddgi": ["Scene", "Geometry", "DDGI", "SunShadow", "VisibilityShading", "LightingCompose",
+             "SkyView", "Bloom", "TAA", "Output"],
+    "showcase": ["Scene", "Geometry", "DDGI", "RTShadow", "VisibilityShading", "RTReflections",
+                 "SSAO", "LightingCompose", "SkyView", "Fog", "MotionBlur", "Bloom", "TAA",
+                 "Output"],
+}
+WALK_KW = {
+    "ddgi": {},
+    "showcase": dict(rt_shadows=True, rt_reflections=True, ssao=True, fog=True,
+                     motion_blur=True),
+}
+DDGI_KEYS = ("DDGI.irradiance", "DDGI.visibility", "DDGI.offsets")
+# (pipeline, pass, resource) -> (bound, share of values allowed over it, cap on those).
+FLIPS = {
+    ("showcase", "SSAO", "SSAO"): (1e-4, 0.01, 1.0),
+}
+
+
+def walk_ddgi(kind):
+    """Both pipelines of ``kind`` pass by pass over two frames:
+    {(frame, pass): (torch, jax) updates}."""
+    import arkoserenderer_torch.assets.procedural as tproc
+    import arkoserenderer_tpu.assets.procedural as jproc
+
+    jscene, jcam = jproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
+    tscene, _ = tproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
+    sizes = dict(width=RES, height=RES, shadow_map_size=128)
+    jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), scene=jscene.static_info(), **sizes)
+    tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), scene=tscene.static_info(), **sizes)
+    grid = jdd.ProbeGridConfig()
+    jpipe = j_make_pipeline(jcfg, ddgi=grid, **WALK_KW[kind])
+    tpipe = t_make_pipeline(tcfg, device="cpu", ddgi=bridge.probe_grid_from(grid),
+                            **WALK_KW[kind])
+    assert [n for n, _ in jpipe._executes] == WALK_PASSES[kind] == [n for n, _ in tpipe._executes]
+    persistent = sorted(jpipe.registry.persistent_names)
+    assert persistent == sorted(tpipe.registry.persistent_names)
+    assert set(DDGI_KEYS) <= set(persistent)
+    t_init = tpipe.initial_state()
+    for key, value in jpipe.initial_state().items():
+        if key in DDGI_KEYS:  # visibility cleared to max_distance in both channels
+            np.testing.assert_array_equal(_np(t_init[key]), _np(value), err_msg=key)
+
+    jsa = jscene.build(with_bvh=True)
+    tsa = bridge.scene_arrays_from_numpy(jsa._asdict(), "cpu")
+    jitted = [jax.jit(jexec) for _, jexec in jpipe._executes]
+    state = jpipe.initial_state()
+    out = {}
+    for frame in (0, 1):
+        if frame == 1:
+            jcam.post_render()
+            jcam.position = jcam.position + np.array([0.4, 0.0, 0.0], np.float32)
+            state = {k: state[k] for k in persistent}
+        state["scene.version"] = jnp.asarray(0, jnp.int32)
+        jcs = jcam.state(frame)
+        tctx = TFrameContext(scene=tsa, camera=bridge.camera_state_from_numpy(jcs._asdict(), "cpu"),
+                             frame_index=frame, delta_time=1 / 60)
+        jctx = JFrameContext(scene=jsa, camera=jcs, frame_index=jnp.asarray(frame, jnp.int32),
+                             delta_time=jnp.asarray(1 / 60, jnp.float32),
+                             row_offset=jnp.zeros((), jnp.int32))
+        for (name, _), jexec, (_, texec) in zip(jpipe._executes, jitted, tpipe._executes):
+            tupd = texec(_torch_state(state), tctx)
+            jupd = jexec(state, jctx)
+            out[frame, name] = (tupd, jupd)
+            state = {**state, **jupd}
+    return out
+
+
+@pytest.fixture(scope="module", params=sorted(WALK_PASSES))
+def ddgi_walk(request):
+    return request.param, walk_ddgi(request.param)
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_ddgi_frames_match_jax(ddgi_walk, frame):
+    """Every published key of every pass, the three DDGI atlases included."""
+    kind, out = ddgi_walk
+    geo_t, geo_j = out[frame, "Geometry"]
+    vis_agree = _np(geo_t["Visibility"]) == _np(geo_j["Visibility"])
+    seen = set()
+    for name in WALK_PASSES[kind]:
+        tupd, jupd = out[frame, name]
+        assert set(tupd) == set(jupd), name
+        for key in sorted(jupd):
+            seen.add(key)
+            flips = FLIPS.get((kind, name, key))
+            if key in ("DDGI.irradiance", "DDGI.visibility"):
+                _assert_atlas_close(key[5:], _np(tupd[key]), _np(jupd[key]))
+            elif key == "DDGI.offsets":
+                np.testing.assert_allclose(_np(tupd[key]), _np(jupd[key]), atol=1e-6, rtol=0)
+            elif flips is not None:
+                compare_flips(key, tupd[key], jupd[key], *flips)
+            elif not compare_rt(key, tupd[key], jupd[key], vis_agree):
+                compare(key, tupd[key], jupd[key], None if name == "Geometry" else vis_agree)
+    assert set(DDGI_KEYS) <= seen
+    assert np.isfinite(_np(out[frame, "Output"][0]["LDR"])).all()
+
+
+def test_ddgi_frames_do_real_work(ddgi_walk):
+    """The probes took light in both frames (frame 1 updates the next 64
+    probes of the round-robin and keeps the others as they came in), and
+    DDGI's ambient reaches the image: LightingCompose adds to the direct
+    light where geometry covers."""
+    _, out = ddgi_walk
+    irr0 = _np(out[0, "DDGI"][0]["DDGI.irradiance"])
+    irr1 = _np(out[1, "DDGI"][0]["DDGI.irradiance"])
+    assert irr0[:64].max() > 0.0 and irr0[64:].max() == 0.0
+    assert irr1[64:128].max() > 0.0
+    assert (irr1[:64] == _np(out[0, "DDGI"][1]["DDGI.irradiance"])[:64]).all()
+    for frame in (0, 1):
+        lit = _np(out[frame, "LightingCompose"][0]["SceneColor"])
+        direct = _np(out[frame, "VisibilityShading"][1]["SceneColor"])
+        assert (lit - direct).max() > 1e-3
+
+
+def test_ddgi_and_showcase_goldens():
+    """tests/goldens/ddgi.png and showcase.png (test_golden.py's cases)
+    rendered by the port on the CPU, within the golden test's thresholds."""
+    import arkoserenderer_torch.assets.procedural as tproc
+    from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
+    from arkoserenderer_torch.utils.imageio import load_png, to_u8
+    from test_torch_forward import GOLDENS, assert_golden_close
+
+    cfg = TPipelineConfig(width=256, height=256, shadow_map_size=256,
+                          raster=TRasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256))
+    flags = {"ddgi": dict(taa=False, bloom=False),
+             "showcase": dict(rt_shadows=True, rt_reflections=True, ssao=True, fog=True,
+                              motion_blur=True)}
+    for name, kw in flags.items():
+        scene, cam = tproc.build_test_scene(viewport=(256, 256), n_spheres=1)
+        r = Renderer(scene, cam, cfg, device="cpu", ddgi=ProbeGridConfig(), **kw)
+        img = r.render_frames(2)
+        assert_golden_close(to_u8(img.numpy()), load_png(str(GOLDENS / f"{name}.png"))[..., :3])
+
+
+def test_flagship_scene_matches_jax():
+    """Equal pools, lights and camera at the bench's small size, and the
+    full-size scene's triangle count (786,434)."""
+    from arkoserenderer_torch.assets.procedural import build_flagship_scene as t_build
+    from arkoserenderer_tpu.assets.procedural import build_flagship_scene as j_build
+    from test_torch_scene import assert_field_equal
+
+    kw = dict(n_instances=256, n_materials=64, n_textures=16, viewport=(96, 64))
+    js, jc = j_build(**kw)
+    ts, tc = t_build(**kw)
+    ref = bridge.numpy_fields(js.build())
+    ours = bridge.numpy_fields(ts.build("cpu"))
+    assert set(ours) <= set(ref)
+    for name in sorted(ours):
+        assert_field_equal(name, ours[name], ref[name])
+    jst, tst = js.static_info(), ts.static_info()
+    for f in type(tst).__dataclass_fields__:
+        assert getattr(tst, f) == getattr(jst, f), f
+    assert tst.n_spots == 2 and tst.spot_shadow_casters == (True, True)
+    assert tst.n_points == 1 and tst.point_shadow_casters == (False,)
+    for f in jc.state(0)._fields:
+        assert_field_equal(f, getattr(tc.state(0, "cpu"), f), getattr(jc.state(0), f))
+    jb, tb = js.bounding_sphere(), ts.bounding_sphere()
+    np.testing.assert_array_equal(tb[0], jb[0])
+    assert tb[1] == jb[1]
+    full, _ = t_build(viewport=(96, 64))
+    assert sum(len(full.segments[sid].indices) for sid, *_ in full.instances) == 3 * 786_434
+
+
+@pytest.mark.parametrize("name", ["showcase", "flagship"])
+def test_bench_ddgi_kinds_small(name, monkeypatch):
+    """The bench's showcase and flagship kinds at their small size on the
+    CPU: the passes in the reference's order, the grid the bench resolves,
+    two finite frames with coverage, and the traces of each frame by label
+    as expected_trace_launches_by_label counts them (5 and 11 a frame)."""
+    import collections
+
+    from arkoserenderer_torch.ops import bvh as bvh_ops
+    from arkoserenderer_torch.ops import ddgi, rt
+    from arkoserenderer_torch.rendering.passes import rt as rt_passes
+    from arkoserenderer_torch.tools import bench
+
+    r = bench.build_renderer(name, small=True, device="cpu")
+    names = [p.name for p in r.pipeline.passes]
+    assert names[:3] == ["Scene", "Geometry", "DDGI"] and "SunShadow" not in names
+    grid = r.pipeline.passes[2].grid
+    if name == "flagship":
+        assert (grid.dims, grid.rays_per_probe, grid.probes_per_frame) == ((8, 4, 8), 128, 64)
+        assert names[3:5] == ["RTShadow", "RTLocalShadow"]
+    labels = collections.Counter()
+
+    def by_label(*args, label=None, **kw):
+        labels[label] += 1
+        return bvh_ops.trace_rays(*args, label=label, **kw)
+
+    for mod in (ddgi, rt, rt_passes):
+        monkeypatch.setattr(mod, "trace_rays", by_label)
+    for _ in range(2):
+        img = r.render_frame()
+        assert torch.isfinite(img).all() and r.state["SceneCoverage"].any()
+    want = bench.expected_trace_launches_by_label(r, 2)
+    assert dict(labels) == want
+    assert sum(want.values()) == (5 if name == "showcase" else 11) * 2

@@ -1,7 +1,7 @@
-"""Procedural geometry, the standard test scene, the culling-stress scene
-with its animation, the bindless-pressure scene and the flagship scene
-(port of arkoserenderer_tpu/assets/procedural.py, the parts the frames
-use).
+"""Procedural geometry, the standard test scene, the animated test scene,
+the culling-stress scene with its animation, the bindless-pressure scene
+and the flagship scene (port of arkoserenderer_tpu/assets/procedural.py,
+the parts the frames use, and of the reference bench's test_anim scene).
 Scene building is host numpy: the same code gives the same pools as the
 reference. ``make_stress_animator`` is the one function on tensors.
 """
@@ -165,6 +165,42 @@ def build_test_scene(
     cam.look_at((4.0, 2.5, 5.0), (0.0, 0.6, -0.5))
     cam.focus_depth = 6.0
     return scene, cam
+
+
+def build_anim_scene(viewport: tuple[int, int] = (256, 256)) -> tuple[Scene, Camera]:
+    """The reference bench's ``test_anim`` scene: the test scene, a box
+    skinned to a one-joint skeleton whose rest pose lifts it 0.6, and a UV
+    sphere with one inflate morph target at weight 0.5. No clip moves the
+    joint: the palette is the rest pose."""
+    from arkoserenderer_torch.scene.animation import Skeleton
+
+    scene, camera = build_test_scene(viewport=viewport)
+    skel = scene.add_skeleton(Skeleton(
+        parents=np.array([-1], np.int32),
+        inverse_bind=np.eye(4, dtype=np.float32)[None],
+        rest_translation=np.array([[0.0, 0.6, 0.0]], np.float32),
+        rest_rotation=np.array([[0, 0, 0, 1]], np.float32),
+        rest_scale=np.ones((1, 3), np.float32),
+    ))
+    box = make_box((0.7, 0.7, 0.7))
+    box.material = scene.add_material(Material(
+        base_color_factor=np.array([0.8, 0.6, 0.2, 1.0], np.float32)))
+    nv = box.positions.shape[0]
+    box.skeleton = skel
+    box.skin_joints = np.zeros((nv, 4), np.int32)
+    box.skin_weights = np.tile(np.array([1, 0, 0, 0], np.float32), (nv, 1))
+    wb = np.eye(4, dtype=np.float32)
+    wb[:3, 3] = (2.2, 0.0, 1.2)
+    scene.add_instance(scene.add_segment(box), wb)
+    sph = make_uv_sphere(0.5, rings=12, sectors=24)
+    sph.material = box.material
+    sph.morph_pos = sph.normals[None] * 0.4
+    sph.morph_nrm = np.zeros((1, len(sph.normals), 3), np.float32)
+    ws = np.eye(4, dtype=np.float32)
+    ws[:3, 3] = (-2.6, 0.5, 1.5)
+    scene.add_instance(scene.add_segment(sph), ws)
+    scene.set_morph_weights(np.array([0.5], np.float32))
+    return scene, camera
 
 
 def build_stress_scene(

@@ -9,17 +9,19 @@ a reference array may share its buffer, which a later frame can recycle.
 
 Nested tuples (``materials``, ``lights`` with its spot, point and IES lanes,
 ``mat_tex``) may be given as NamedTuples of arrays, as mappings, or
-flattened to "lights.sun_view_proj" style keys; the BVH (a dataclass in
-both packages) flattens to "bvh.*" keys, and the reference's one-leaf
-placeholder of a scene without one carries across as None. Fields the
-port does not carry (skinning, hair, ...) are ignored.
+flattened to "lights.sun_view_proj" style keys; the morph tuples (one array
+per morphed instance) flatten to "morph_pos.0" style keys; the BVH (a
+dataclass in both packages) flattens to "bvh.*" keys, and the reference's
+one-leaf placeholder of a scene without one carries across as None. The
+skinning pools and palette carry across; fields the port does not carry
+(hair, the texture pool of the reference's unpacked path) are ignored.
 
 ``frame_state_from_numpy`` carries a frame state across: every resource a
-pass published (``ShadowMap.locals``, the G-buffer, ...) and the persistent
-ones (``TAAHistory``, the cached sun map, the DDGI atlases), so a reference
-frame can seed a frame of the port. ``probe_grid_from`` and
-``ddgi_state_from_numpy`` carry a DDGI grid and a ``DDGIState`` across, so
-both packages start from the same probes.
+pass published (``ShadowMap.locals``, the G-buffer, the refitted
+``scene.bvh``, ...) and the persistent ones (``TAAHistory``, the cached sun
+map, the DDGI atlases), so a reference frame can seed a frame of the port.
+``probe_grid_from`` and ``ddgi_state_from_numpy`` carry a DDGI grid and a
+``DDGIState`` across, so both packages start from the same probes.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from arkoserenderer_torch.ops.bvh import bvh_from_host
 from arkoserenderer_torch.ops.ddgi import DDGIState, ProbeGridConfig
 from arkoserenderer_torch.ops.raster import TriSetup
 from arkoserenderer_torch.scene.camera import CameraState, camera_state_from_arrays
@@ -38,9 +41,12 @@ from arkoserenderer_torch.scene.scene import SceneArrays, scene_arrays_from_host
 
 def numpy_fields(tree, prefix: str = "") -> dict[str, np.ndarray]:
     """Flatten NamedTuples / dataclasses / mappings of arrays to
-    {"a.b": np.ndarray}; a None field (a scene's absent BVH) adds no key."""
+    {"a.b": np.ndarray}, plain tuples and lists to {"a.0": ...}; a None
+    field (a scene's absent BVH) adds no key."""
     if tree is None:
         return {}
+    if isinstance(tree, (tuple, list)) and not hasattr(tree, "_asdict"):
+        tree = {str(i): v for i, v in enumerate(tree)}
     if hasattr(tree, "_asdict"):
         tree = tree._asdict()
     elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
@@ -69,12 +75,15 @@ HOST_STATE_KEYS = ("scene.version", "SunShadow.version")
 
 def frame_state_from_numpy(state: Mapping, device) -> dict:
     """The port's frame state on ``device`` from the reference's: arrays
-    become tensors, the raster setup NamedTuple the port's ``TriSetup``, and
-    the scene-version counters host ints."""
+    become tensors, the raster setup NamedTuple the port's ``TriSetup``, a
+    BVH (a dataclass) the port's ``TwoLevelBVH``, and the scene-version
+    counters host ints."""
     out = {}
     for k, v in state.items():
         if k in HOST_STATE_KEYS:
             out[k] = int(np.asarray(v))
+        elif dataclasses.is_dataclass(v):
+            out[k] = bvh_from_host(numpy_fields(v), device)
         elif hasattr(v, "_fields"):
             out[k] = TriSetup(*(torch.from_numpy(np.array(x, copy=True)).to(device) for x in v))
         else:

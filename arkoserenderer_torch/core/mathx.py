@@ -62,6 +62,67 @@ def quat_from_mat3(m: np.ndarray) -> np.ndarray:
     return q / np.linalg.norm(q)
 
 
+def quat_identity() -> np.ndarray:
+    return np.array([0.0, 0.0, 0.0, 1.0], dtype=np.float32)
+
+
+def quat_from_axis_angle(axis, angle) -> np.ndarray:
+    axis = np_normalize(np.asarray(axis, dtype=np.float32))
+    half = 0.5 * np.asarray(angle, dtype=np.float32)
+    return np.concatenate([axis * np.sin(half), np.cos(half)[..., None]], axis=-1)
+
+
+def quat_mul(a, b) -> np.ndarray:
+    ax, ay, az, aw = np.moveaxis(a, -1, 0)
+    bx, by, bz, bw = np.moveaxis(b, -1, 0)
+    return np.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        axis=-1,
+    )
+
+
+def quat_slerp(a, b, t) -> np.ndarray:
+    """Spherical interpolation of unit quaternions, the shorter arc; a
+    normalised lerp where they nearly coincide."""
+    cos_half = np.sum(a * b, axis=-1, keepdims=True)
+    b = np.where(cos_half < 0.0, -b, b)
+    cos_half = np.minimum(np.abs(cos_half), 1.0 - 1e-7)
+    half = np.arccos(cos_half)
+    sin_half = np.sin(half)
+    wa = np.sin((1.0 - t) * half) / sin_half
+    wb = np.sin(t * half) / sin_half
+    near = cos_half > 1.0 - 1e-5
+    return np_normalize(np.where(near, (1.0 - t) * a + t * b, wa * a + wb * b))
+
+
+def translation(t) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = np.asarray(t, dtype=np.float32)
+    return m
+
+
+def scale(s) -> np.ndarray:
+    s = np.broadcast_to(np.asarray(s, dtype=np.float32), (3,))
+    return np.diag(np.concatenate([s, np.ones((1,), np.float32)]))
+
+
+def rotation(q) -> np.ndarray:
+    return compose_trs(np.zeros(3, np.float32), q, np.ones(3, np.float32))
+
+
+def compose_trs(t, r, s) -> np.ndarray:
+    """translation @ rotation @ scale, the glTF node order."""
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = quat_to_mat3(r) * np.asarray(s, dtype=np.float32)[None, :]
+    m[:3, 3] = np.asarray(t, dtype=np.float32)
+    return m
+
+
 def look_at(eye, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
     """View matrix (world -> view), camera at eye looking at target."""
     eye = np.asarray(eye, dtype=np.float32)

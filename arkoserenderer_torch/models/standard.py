@@ -1,16 +1,16 @@
 """Standard pipeline assembly and the frame loop (port of
 arkoserenderer_tpu/models/standard.py, the raster and ray-traced frames).
 
-The pass order is the reference's: Scene -> Geometry -> [DDGI] ->
-(SunShadow -> [LocalShadow] | RTShadow -> [RTLocalShadow]) ->
+The pass order is the reference's: Scene -> Geometry -> [BVHRefit] ->
+[DDGI] -> (SunShadow -> [LocalShadow] | RTShadow -> [RTLocalShadow]) ->
 VisibilityShading -> [RTReflections] -> [SSAO] -> LightingCompose ->
-SkyView -> [Fog] -> [MotionBlur] -> [DepthOfField] -> [Bloom] -> [TAA] ->
-Output -> [FXAA] -> [CAS] -> [TemporalUpscale | Upscale]. With
+[SSSS] -> SkyView -> [Fog] -> [MotionBlur] -> [DepthOfField] -> [Bloom] ->
+[TAA] -> Output -> [FXAA] -> [CAS] -> [TemporalUpscale | Upscale]. With
 ``rt_shadows``, ``rt_reflections`` or ``ddgi`` the Renderer builds the
-scene with its two-level BVH. BVH refit, subsurface scattering,
-translucency, auto-exposure, the DDGI probe overlay and the other debug
-overlays are later slices; asking for one raises ``NotImplementedError``
-naming the flag.
+scene with its two-level BVH, and on a skinned or morphed scene refits it
+every frame (``rt_refit``). Translucency, auto-exposure, the DDGI probe
+overlay and the other debug overlays are later slices; asking for one
+raises ``NotImplementedError`` naming the flag.
 """
 
 from __future__ import annotations
@@ -45,10 +45,12 @@ from arkoserenderer_torch.rendering.passes import (
 )
 from arkoserenderer_torch.rendering.passes.ddgi import DDGIPass
 from arkoserenderer_torch.rendering.passes.rt import (
+    BVHRefitPass,
     RTLocalShadowPass,
     RTReflectionsPass,
     RTShadowPass,
 )
+from arkoserenderer_torch.rendering.passes.ssss import SSSSPass
 from arkoserenderer_torch.rendering.pipeline import PipelineConfig, RenderPipeline
 from arkoserenderer_torch.scene.camera import Camera
 from arkoserenderer_torch.scene.scene import Scene
@@ -56,8 +58,7 @@ from arkoserenderer_torch.scene.scene import Scene
 # Flags of the reference's make_forward_pipeline whose passes are not ported
 # yet, with the value that leaves each one off.
 UNPORTED_FLAGS = {
-    "ddgi_probe_debug": False, "light_icons": False, "ssss": False,
-    "rt_refit": False, "oit_layers": 1, "debug_draw": None,
+    "ddgi_probe_debug": False, "light_icons": False, "oit_layers": 1, "debug_draw": None,
 }
 # Keywords of the reference's Renderer whose features are not ported yet.
 UNPORTED_RENDERER_KW = ("auto_exposure", "debug_draw")
@@ -78,6 +79,8 @@ def make_forward_pipeline(
     rt_shadows: bool = False,
     rt_reflections: bool = False,
     ddgi: ProbeGridConfig | None = None,
+    ssss: bool = False,
+    rt_refit: bool = False,
     upscale_to: tuple[int, int] | None = None,  # display (width, height)
     upscale_mode: str = "temporal",  # "temporal" (TemporalUpscale, no TAA) | "spatial"
     film_grain: float = 0.0,
@@ -96,7 +99,9 @@ def make_forward_pipeline(
     probe update after Geometry, whose irradiance then lights
     LightingCompose and the reflections' hits. All three trace the scene's
     ``bvh`` (build it with ``Scene.build(with_bvh=True)``, as ``Renderer``
-    does)."""
+    does); with ``rt_refit`` a BVHRefit pass after Geometry refits it to the
+    frame's animated geometry first. ``ssss`` adds screen-space subsurface
+    scattering after LightingCompose."""
     for name, value in later.items():
         if name not in UNPORTED_FLAGS:
             raise TypeError(f"make_forward_pipeline() got an unexpected keyword argument {name!r}")
@@ -118,6 +123,8 @@ def make_forward_pipeline(
     pipe = RenderPipeline(cfg, device=device)
     pipe.add_pass(ScenePass())
     pipe.add_pass(GeometryPass())
+    if rt_refit and (rt_shadows or rt_reflections or ddgi is not None):
+        pipe.add_pass(BVHRefitPass())
     if ddgi is not None:
         pipe.add_pass(DDGIPass(ddgi))
     st = cfg.scene
@@ -135,6 +142,8 @@ def make_forward_pipeline(
     if ssao:
         pipe.add_pass(SSAOPass())
     pipe.add_pass(LightingComposePass(ddgi_grid=ddgi))
+    if ssss:
+        pipe.add_pass(SSSSPass())
     pipe.add_pass(SkyPass())
     if fog:
         pipe.add_pass(FogPass())
@@ -172,6 +181,12 @@ class Renderer:
     makes the scene dynamic: the shading records carry previous positions
     and the sun map is rastered every frame.
 
+    Skinned and morphed scenes: before each frame the host evaluates the
+    animations at ``time`` (``Scene.update_animations``) and uploads the
+    palette and the morph weights; ``time`` advances by each frame's
+    ``delta_time``. Under ray tracing such a scene turns ``rt_refit`` on
+    unless the caller sets it.
+
     ``ddgi=True`` fits the probe grid to the scene's bounding sphere."""
 
     @property
@@ -204,14 +219,15 @@ class Renderer:
             pipeline_kw["ddgi"] = ProbeGridConfig.fit_bounds(center, radius)
         use_rt = bool(pipeline_kw.get("rt_shadows") or pipeline_kw.get("rt_reflections")
                       or pipeline_kw.get("ddgi"))
-        if use_rt and (static.has_skin or static.has_morphs):
-            raise NotImplementedError("rt_refit (the per-frame BVH refit of a skinned or "
-                                      "morphed scene) is not ported yet")
+        self.animated = static.has_skin or static.has_morphs
+        if use_rt and self.animated:
+            pipeline_kw.setdefault("rt_refit", True)
         self.pipeline = make_forward_pipeline(self.cfg, device=self.device, **pipeline_kw)
         self.pipeline.scene_animator = scene_animator
         self.scene_arrays = scene.build(self.device, with_bvh=use_rt)
         self.state = self.pipeline.initial_state()
         self.frame_index = 0
+        self.time = 0.0
 
     def render_frame(self, delta_time: float = 1 / 60,
                      pass_events: list | None = None) -> torch.Tensor:
@@ -219,6 +235,8 @@ class Renderer:
         or LDRDisplay at the display size when the pipeline upscales."""
         if self.dynamic_transforms:
             self.scene_arrays = self.scene.update_instance_transforms(self.scene_arrays)
+        if self.animated:
+            self.upload_animation()
         persistent = self.pipeline.registry.persistent_names
         inputs = {k: self.state[k] for k in persistent if k in self.state}
         if "scene.version" in persistent:
@@ -230,7 +248,17 @@ class Renderer:
         )
         self.camera.post_render()
         self.frame_index += 1
+        self.time += delta_time
         return self.state.get("LDRDisplay", self.state["LDR"])
+
+    def upload_animation(self) -> None:
+        """Evaluate the scene's animations at ``time`` on the host and
+        upload the palette and the morph weights."""
+        palette = self.scene.update_animations(self.time)
+        self.scene_arrays = self.scene_arrays._replace(
+            palette=torch.from_numpy(palette.copy()).to(self.device),
+            morph_weights=tuple(torch.from_numpy(w.copy()).to(self.device)
+                                for w in self.scene.morph_weights()))
 
     def render_frames(self, n: int) -> torch.Tensor:
         for _ in range(n):

@@ -10,11 +10,19 @@ instances' world AABBs, and the whole pool collapsed to branching factor 8
 (``_collapse_wide``). Traversal reads three packed int32 record rows a
 step (``wide_rec``, ``quad_rec``, ``inst_rec``; floats travel bit-cast).
 
+``refit_bvh`` is the per-frame refit of an animated scene, on the device:
+the same topology with new bounds, the deformable BLASes' triangles re-read
+from the deformed vertex pool, the instance transforms and the TLAS from the
+scene's world matrices, and the three records re-derived. The record
+derivations (``_derive_packed``, ``_derive_wide_bounds``,
+``_derive_wide_recs``) are torch functions that the host build calls too, so
+the layout has one source.
+
 ``trace_rays`` runs the 8-wide two-level walk: the hand-written CUDA
 kernel (``ops/bvh_cuda.trace_rays_cuda``) for CUDA tensors, its plain torch
 version ``trace_wide_plain`` for CPU tensors. The flat single-level walk and
 the binary two-level walk of the reference (the path tracer's and
-``bake_ao``'s) are not ported, nor is refit.
+``bake_ao``'s) are not ported.
 """
 
 from __future__ import annotations
@@ -194,15 +202,17 @@ def _median_build(lo: np.ndarray, hi: np.ndarray, leaf_size: int,
 
 
 def _derive_packed(node_min, node_max, left, right, count, blas_root, tri_v0, tri_e1, tri_e2):
-    """Binary-tree records: children bounds in the parent (M, 12), ints
-    [left, right, count, redirect] (M, 4), quad rows (S/4, 36)."""
+    """Binary-tree records from tensors: children bounds in the parent
+    (M, 12), ints [left, right, count, redirect] (M, 4), quad rows
+    (S/4, 36)."""
     cap = node_min.shape[0] - 1
-    li = np.clip(left, 0, cap)
-    ri = np.clip(right, 0, cap)
-    cbounds = np.concatenate([node_min[li], node_max[li], node_min[ri], node_max[ri]], axis=-1)
-    redirect = np.where(count == -1, blas_root[np.clip(left, 0, blas_root.shape[0] - 1)], 0)
-    node_int = np.stack([left, right, count, redirect], axis=-1).astype(np.int32)
-    tri_quad = np.concatenate([tri_v0, tri_e1, tri_e2], axis=-1).reshape(-1, 36)
+    li = torch.clamp(left, 0, cap).long()
+    ri = torch.clamp(right, 0, cap).long()
+    cbounds = torch.cat([node_min[li], node_max[li], node_min[ri], node_max[ri]], dim=-1)
+    redirect = torch.where(count == -1,
+                           blas_root[torch.clamp(left, 0, blas_root.shape[0] - 1).long()], 0)
+    node_int = torch.stack([left, right, count, redirect], dim=-1).to(torch.int32)
+    tri_quad = torch.cat([tri_v0, tri_e1, tri_e2], dim=-1).reshape(-1, 36)
     return cbounds, node_int, tri_quad
 
 
@@ -275,26 +285,29 @@ def _collapse_wide(node_min, node_max, left, right, count, roots):
 
 
 def _derive_wide_bounds(node_min, node_max, wide_src):
-    """(W, 48) per-child [lo3, hi3]; empty slots get inverted bounds."""
-    src = np.maximum(wide_src, 0)
+    """(W, 48) per-child [lo3, hi3] from tensors; empty slots get inverted
+    bounds that no slab test hits."""
+    src = torch.clamp(wide_src, min=0).long()
     empty = (wide_src < 0)[..., None]
-    lo = np.where(empty, np.float32(3e30), node_min[src])
-    hi = np.where(empty, np.float32(-3e30), node_max[src])
-    return np.concatenate([lo, hi], axis=-1).reshape(-1, 6 * WIDE_WIDTH).astype(np.float32)
+    lo = torch.where(empty, 3e30, node_min[src])
+    hi = torch.where(empty, -3e30, node_max[src])
+    return torch.cat([lo, hi], dim=-1).reshape(-1, 6 * WIDE_WIDTH)
 
 
 def _derive_wide_recs(wide_cbounds, wide_meta, tri_quad, tri_order, inst_w2o,
                       inst_tri_base, wide_root_blas):
-    """The three traversal records as int32 rows (f32 lanes bit-cast)."""
-    wide_rec = np.concatenate([wide_cbounds.view(np.int32), wide_meta], -1)
+    """The three traversal records as contiguous int32 rows (f32 lanes
+    bit-cast), from tensors."""
+    wide_rec = torch.cat([wide_cbounds.contiguous().view(torch.int32), wide_meta], -1)
     q = tri_quad.shape[0]
-    ids = tri_order[: q * 4].reshape(q, 4).astype(np.int32)
-    quad_rec = np.concatenate([np.ascontiguousarray(tri_quad).view(np.int32), ids], -1)
+    ids = tri_order[: q * 4].reshape(q, 4).to(torch.int32)
+    quad_rec = torch.cat([tri_quad.contiguous().view(torch.int32), ids], -1)
     n_i = inst_w2o.shape[0]
-    w2o_flat = np.ascontiguousarray(inst_w2o.reshape(n_i, 12)).view(np.int32)
-    base = np.concatenate([np.zeros((1,), np.int32), inst_tri_base.astype(np.int32)])
-    root = np.concatenate([np.zeros((1,), np.int32), wide_root_blas.astype(np.int32)])
-    inst_rec = np.concatenate([w2o_flat, base[:, None], root[:, None]], -1)
+    w2o_flat = inst_w2o.reshape(n_i, 12).contiguous().view(torch.int32)
+    zero = torch.zeros((1,), dtype=torch.int32, device=inst_w2o.device)
+    base = torch.cat([zero, inst_tri_base.to(torch.int32)])
+    root = torch.cat([zero, wide_root_blas.to(torch.int32)])
+    inst_rec = torch.cat([w2o_flat, base[:, None], root[:, None]], -1)
     return wide_rec, quad_rec, inst_rec
 
 
@@ -441,15 +454,22 @@ def build_two_level_host(
     e1 = np.concatenate([s[2] for s in blas_slots]).astype(np.float32)
     e2 = np.concatenate([s[3] for s in blas_slots]).astype(np.float32)
     br = roots_by_blas[inst_blas].astype(np.int32)
-    cbounds, node_int, tri_quad = _derive_packed(nm, nx, lf, rt, ct, br, v0, e1, e2)
     w_meta, w_src, w_root_of = _collapse_wide(
         node_min, node_max, left, right, count, [0] + [int(r) for r in roots_by_blas])
-    w_cb = _derive_wide_bounds(nm, nx, w_src)
     w_root_blas = np.asarray([w_root_of[int(r)] for r in roots_by_blas], np.int32)[inst_blas]
     tri_order = np.concatenate([s[0] for s in blas_slots])
     itb = inst_tri_base.astype(np.int32)
-    w_rec, q_rec, i_rec = _derive_wide_recs(w_cb, w_meta, tri_quad, tri_order, w2o, itb,
-                                            w_root_blas)
+    # The records through the refit's torch derivations, on CPU tensors.
+    def tt(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    packed = _derive_packed(*map(tt, (nm, nx, lf, rt, ct, br, v0, e1, e2)))
+    w_cb = _derive_wide_bounds(tt(nm), tt(nx), tt(w_src))
+    recs = _derive_wide_recs(w_cb, tt(w_meta), packed[2], tt(tri_order), tt(w2o), tt(itb),
+                             tt(w_root_blas))
+    cbounds, node_int, tri_quad = (x.numpy() for x in packed)
+    w_cb = w_cb.numpy()
+    w_rec, q_rec, i_rec = (x.numpy() for x in recs)
     return dict(
         node_min=nm, node_max=nx, left=lf, right=rt, count=ct,
         node_start=node_start.astype(np.int32), node_end=node_end.astype(np.int32),
@@ -467,6 +487,117 @@ def build_two_level_host(
 def build_two_level(*args, device="cuda", **kw) -> TwoLevelBVH:
     """``build_two_level_host`` moved to ``device`` once."""
     return bvh_from_host(build_two_level_host(*args, **kw), device)
+
+
+# ---------------------------------------------------------------------------
+# Refit (torch, on the BVH's device)
+
+
+def _rmq_bounds(lo: torch.Tensor, hi: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor):
+    """Sparse-table range min/max: the AABB union of each range [start, end)
+    of the (n, 3) bounds, for all ranges at once (1 <= end - start <= n).
+    Level k holds the union over [i, i + 2^k); a range reads two entries of
+    level floor(log2(length)), with that level computed in float32 as the
+    reference computes it."""
+    n = lo.shape[0]
+    levels = max(int(np.ceil(np.log2(max(n, 1)))) + 1, 1)
+    pw_lo, pw_hi = [lo], [hi]
+    for k in range(1, levels):
+        half = 1 << (k - 1)
+        a, b = pw_lo[-1], pw_hi[-1]
+        pw_lo.append(torch.cat([torch.minimum(a[:n - half], a[half:]), a[n - half:]]))
+        pw_hi.append(torch.cat([torch.maximum(b[:n - half], b[half:]), b[n - half:]]))
+    table_lo = torch.stack(pw_lo)
+    table_hi = torch.stack(pw_hi)
+    length = (ends - starts).to(torch.float32)
+    k = torch.floor(torch.log2(torch.clamp(length, min=1.0)) + 1e-6).to(torch.int64)
+    second = ends.to(torch.int64) - torch.bitwise_left_shift(torch.ones_like(k), k)
+    s = starts.to(torch.int64)
+    q_min = torch.minimum(table_lo[k, s], table_lo[k, second])
+    q_max = torch.maximum(table_hi[k, s], table_hi[k, second])
+    return q_min, q_max
+
+
+def _affine_inverse(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) affine -> (..., 3, 4) inverse, through the 3x3 adjugate."""
+    r = m[..., :3, :3]
+    t = m[..., :3, 3]
+    c0 = torch.cross(r[..., :, 1], r[..., :, 2], dim=-1)
+    c1 = torch.cross(r[..., :, 2], r[..., :, 0], dim=-1)
+    c2 = torch.cross(r[..., :, 0], r[..., :, 1], dim=-1)
+    det = torch.sum(r[..., :, 0] * c0, dim=-1, keepdim=True)[..., None]
+    inv_det = torch.where(torch.abs(det) > 1e-20, 1.0 / det, 0.0)
+    r_inv = torch.stack([c0, c1, c2], dim=-2) * inv_det
+    t_inv = -torch.einsum("...ab,...b->...a", r_inv, t)
+    return torch.cat([r_inv, t_inv[..., None]], dim=-1)
+
+
+def _rotate(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(I, 3, 3) m times (I, 3) v as ((m0 v0 + m1 v1) + m2 v2)."""
+    return m[:, :, 0] * v[:, 0:1] + m[:, :, 1] * v[:, 1:2] + m[:, :, 2] * v[:, 2:3]
+
+
+def refit_bvh(bvh: TwoLevelBVH, world_verts: torch.Tensor, tris: torch.Tensor,
+              world: torch.Tensor | None = None) -> TwoLevelBVH:
+    """The BVH with the same topology and new bounds, on the device:
+
+    1. the slots of deformable (per-instance) BLASes re-read their triangles
+       from ``world_verts`` (V, 3) through ``tris`` (Tmax, 3), the pool's
+       indices; shared static slots keep their object-space triangles;
+    2. BLAS node bounds are range min/max over their slots (``_rmq_bounds``:
+       the build keeps each node's slots contiguous);
+    3. with ``world`` ((>= I, 4, 4) the scene's instance transforms), the
+       instance transforms and their inverses are refreshed;
+    4. the instances' world boxes (parked slots stay parked) and the TLAS
+       bounds follow, then the three traversal records are re-derived."""
+    own_i = torch.clamp(bvh.slot_inst, min=0).long()
+    gid = torch.clamp(bvh.inst_tri_base[own_i] + bvh.tri_order, 0, tris.shape[0] - 1).long()
+    v = world_verts[tris[gid].long()]                       # (T, 3, 3)
+    own = (bvh.slot_inst >= 0)[:, None]
+    v0 = torch.where(own, v[:, 0], bvh.tri_v0)
+    e1 = torch.where(own, v[:, 1] - v[:, 0], bvh.tri_e1)
+    e2 = torch.where(own, v[:, 2] - v[:, 0], bvh.tri_e2)
+    v1 = v0 + e1
+    v2 = v0 + e2
+    lo = torch.minimum(v0, torch.minimum(v1, v2))
+    hi = torch.maximum(v0, torch.maximum(v1, v2))
+    nt = bvh.n_tlas
+    b_min, b_max = _rmq_bounds(lo, hi, bvh.node_start[nt:], bvh.node_end[nt:])
+
+    if world is not None:
+        o2w = world[bvh.inst_id.long()][..., :3, :4]
+        eye = torch.eye(3, 4, dtype=torch.float32, device=o2w.device)[None]
+        w2o = torch.cat([eye, _affine_inverse(o2w)])
+    else:
+        o2w, w2o = bvh.inst_o2w, bvh.inst_w2o
+
+    root = (bvh.blas_root - nt).long()
+    r_lo, r_hi = b_min[root], b_max[root]
+    c = 0.5 * (r_lo + r_hi)
+    e = 0.5 * (r_hi - r_lo)
+    rot = o2w[:, :3, :3]
+    wc = _rotate(rot, c) + o2w[:, :3, 3]
+    we = _rotate(torch.abs(rot), e)
+    act = bvh.inst_active[:, None]
+    wc = torch.where(act, wc, -1e9)
+    we = torch.where(act, we, 0.0)
+    order = bvh.inst_order.long()
+    t_min, t_max = _rmq_bounds((wc - we)[order], (wc + we)[order], bvh.node_start[:nt],
+                               bvh.node_end[:nt])
+
+    node_min = torch.cat([t_min, b_min])
+    node_max = torch.cat([t_max, b_max])
+    cbounds, node_int, tri_quad = _derive_packed(node_min, node_max, bvh.left, bvh.right,
+                                                 bvh.count, bvh.blas_root, v0, e1, e2)
+    wide_cb = _derive_wide_bounds(node_min, node_max, bvh.wide_src)
+    wide_rec, quad_rec, inst_rec = _derive_wide_recs(
+        wide_cb, bvh.wide_meta, tri_quad, bvh.tri_order, w2o, bvh.inst_tri_base,
+        bvh.wide_root_blas)
+    return dataclasses.replace(
+        bvh, node_min=node_min, node_max=node_max, tri_v0=v0, tri_e1=e1, tri_e2=e2,
+        inst_o2w=o2w, inst_w2o=w2o, node_cbounds=cbounds, node_int=node_int,
+        tri_quad=tri_quad, wide_cbounds=wide_cb, wide_rec=wide_rec, quad_rec=quad_rec,
+        inst_rec=inst_rec)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """DDGI pass (port of arkoserenderer_tpu/rendering/passes/ddgi.py): each
 frame updates ``probes_per_frame`` probes round-robin by tracing their rays
-through the scene's BVH and blending the octahedral atlases with
+through the scene's BVH (the frame's refitted one after a BVHRefitPass)
+and blending the octahedral atlases with
 hysteresis (``ops/ddgi.update_probes``).
 
 The atlases are persistent frame state: DDGI.irradiance (cleared to 0),
@@ -41,11 +42,16 @@ class DDGIPass(RenderPass):
         reg.create("DDGI.visibility", (p, vr, vr, 2), torch.float32, persistent=True,
                    clear=float(grid.max_distance))
         reg.create("DDGI.offsets", (p, 3), torch.float32, persistent=True)
+        # rt.py imports this module, so its helpers are imported here.
+        from arkoserenderer_torch.rendering.passes.rt import scene_with_live_bvh, uses_live_bvh
+
+        uses_live_bvh(reg)
         st = cfg.scene
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             new = ddgi_ops.update_probes(
-                ctx.scene, ddgi_state(state), grid, ctx.frame_index, ctx.camera.exposure,
+                scene_with_live_bvh(state, ctx), ddgi_state(state), grid, ctx.frame_index,
+                ctx.camera.exposure,
                 n_spots=st.n_spots, n_points=st.n_points,
                 spot_casters=st.spot_shadow_casters, point_casters=st.point_shadow_casters,
             )

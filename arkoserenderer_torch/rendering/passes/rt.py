@@ -1,7 +1,12 @@
 """Ray-traced passes (port of arkoserenderer_tpu/rendering/passes/rt.py):
-RT sun shadows, RT local-light shadows and RT reflections with their
-denoiser, traced through the scene's two-level BVH (``ops/bvh.trace_rays``:
-the hand-written traversal kernel on the card).
+the per-frame BVH refit, RT sun shadows, RT local-light shadows and RT
+reflections with their denoiser, traced through the scene's two-level BVH
+(``ops/bvh.trace_rays``: the hand-written traversal kernel on the card).
+
+  * BVHRefitPass: on a skinned or morphed scene, refits the BVH to the
+    frame's deformed vertex pool and instance transforms and publishes it
+    as scene.bvh; the passes after it trace that BVH
+    (``scene_with_live_bvh``), the others the build-time one.
 
   * RTShadowPass: one any-hit ray per pixel toward the sun, off the depth
     buffer; publishes ShadowMask.sun, which replaces the sun's shadow map
@@ -19,8 +24,8 @@ the hand-written traversal kernel on the card).
 Rays of pixels that trace nothing (sky, surfaces past the cutoff) start
 far below the scene, so they leave the BVH in one step. The hard-shadow
 branches only: a sun with an angular radius or a light with a source
-radius (soft shadows and their denoiser), half-rate tracing
-(``PipelineConfig.rt_scale``) and BVH refit are not ported and raise.
+radius (soft shadows and their denoiser) and half-rate tracing
+(``PipelineConfig.rt_scale``) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from arkoserenderer_torch.core import mathx as mx
 from arkoserenderer_torch.ops import brdf as brdf_ops
 from arkoserenderer_torch.ops import ddgi as ddgi_ops
 from arkoserenderer_torch.ops import reflection_denoise as dn
-from arkoserenderer_torch.ops.bvh import Hit, trace_rays
+from arkoserenderer_torch.ops.bvh import Hit, refit_bvh, trace_rays
 from arkoserenderer_torch.ops.rt import PARK, shade_hits, trace_shadow_mask
 from arkoserenderer_torch.ops.ssao import inverse4, reconstruct_world_pos
 from arkoserenderer_torch.rendering.pipeline import (
@@ -45,6 +50,41 @@ from arkoserenderer_torch.rendering.passes.ddgi import ddgi_state
 from arkoserenderer_torch.rendering.registry import Registry
 
 MAX_ROUGHNESS = 0.6  # reflection rays stop past this roughness (diffuse GI takes over)
+
+
+class BVHRefitPass(RenderPass):
+    """Per-frame refit of an animated scene's BVH: the frame's object-space
+    vertex pool (skinned and morphed by the Scene pass) through each
+    vertex's instance transform, and the instances' transforms, into
+    ``ops/bvh.refit_bvh``. Publishes scene.bvh."""
+
+    name = "BVHRefit"
+
+    def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
+        reg.get("geom.positions")
+        reg.publish("scene.bvh")
+
+        def execute(state: dict, ctx: FrameContext) -> dict:
+            s = ctx.scene
+            p = state["geom.positions"]
+            m = s.world[s.vertex_instance.long()]
+            wp = torch.einsum("vij,vj->vi", m[:, :3, :3], p) + m[:, :3, 3]
+            return {"scene.bvh": refit_bvh(s.bvh, wp, s.indices, world=s.world)}
+
+        return execute
+
+
+def uses_live_bvh(reg: Registry) -> None:
+    """Declare the read of the refitted BVH where a BVHRefitPass runs."""
+    if reg.has("scene.bvh"):
+        reg.get("scene.bvh")
+
+
+def scene_with_live_bvh(state: dict, ctx: FrameContext):
+    """The frame's scene with the refitted BVH in place of the build-time
+    one, when a BVHRefitPass ran earlier in the frame."""
+    bvh = state.get("scene.bvh")
+    return ctx.scene if bvh is None else ctx.scene._replace(bvh=bvh)
 
 
 def _receivers(state: dict, ctx: FrameContext, px, py, w: int, h: int, covered):
@@ -66,13 +106,14 @@ class RTShadowPass(RenderPass):
         h, w = cfg.height, cfg.width
         reg.get("SceneDepth")
         reg.get("Visibility")
+        uses_live_bvh(reg)
         reg.create("ShadowMask.sun", (h, w), torch.float32, clear=1.0)
         px, py = pixel_centers(cfg, device)
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             covered = state["Visibility"].reshape(-1) >= 0
             world = _receivers(state, ctx, px, py, w, h, covered)
-            mask = trace_shadow_mask(ctx.scene, world,
+            mask = trace_shadow_mask(scene_with_live_bvh(state, ctx), world,
                                      -ctx.scene.lights.sun_direction, covered,
                                      label="sun mask")
             return {"ShadowMask.sun": mask.reshape(h, w)}
@@ -101,6 +142,7 @@ class RTLocalShadowPass(RenderPass):
         h, w = cfg.height, cfg.width
         reg.get("SceneDepth")
         reg.get("Visibility")
+        uses_live_bvh(reg)
         n_s, n_p = len(spot_casters), len(point_casters)
         reg.create("ShadowMask.locals", (max(n_s, 1), h, w), torch.float32, clear=1.0)
         reg.create("ShadowMask.points", (max(n_p, 1), h, w), torch.float32, clear=1.0)
@@ -109,7 +151,7 @@ class RTLocalShadowPass(RenderPass):
         def execute(state: dict, ctx: FrameContext) -> dict:
             covered = state["Visibility"].reshape(-1) >= 0
             world = _receivers(state, ctx, px, py, w, h, covered)
-            bvh = ctx.scene.bvh
+            bvh = scene_with_live_bvh(state, ctx).bvh
 
             def mask_to(light_pos, label):
                 to_l = light_pos[None, :] - world
@@ -155,6 +197,7 @@ class RTReflectionsPass(RenderPass):
         if use_ddgi:
             for name in DDGI_KEYS:
                 reg.get(name)
+        uses_live_bvh(reg)
         reg.create("SceneReflections", (h, w, 3), torch.float32)
         reg.get("SceneVelocity")
         reg.create("RTRefl.history", (h, w, 3), torch.float32, persistent=True)
@@ -167,6 +210,7 @@ class RTReflectionsPass(RenderPass):
         st = cfg.scene
 
         def execute(state: dict, ctx: FrameContext) -> dict:
+            live = scene_with_live_bvh(state, ctx)
             depth = state["SceneDepth"]
             valid0 = state["SceneCoverage"].reshape(-1)
             inv_vp = inverse4(ctx.camera.unjittered_view_proj)
@@ -188,13 +232,13 @@ class RTReflectionsPass(RenderPass):
                 # neighbouring threads walk neighbouring rays; the result of
                 # each ray does not change.
                 order = torch.argsort((~active).to(torch.uint8), stable=True)
-                hit_s = trace_rays(ctx.scene.bvh, origins[order], r_dir[order], t_max=1e4,
+                hit_s = trace_rays(live.bvh, origins[order], r_dir[order], t_max=1e4,
                                    label="reflection")
                 inv = torch.empty_like(order)
                 inv[order] = torch.arange(n_rays, device=order.device)
                 hit = Hit(*(x[inv] for x in hit_s))
             else:
-                hit = trace_rays(ctx.scene.bvh, origins, r_dir.contiguous(), t_max=1e4,
+                hit = trace_rays(live.bvh, origins, r_dir.contiguous(), t_max=1e4,
                                  label="reflection")
             ddgi_sample = None
             if use_ddgi:
@@ -203,7 +247,7 @@ class RTReflectionsPass(RenderPass):
                 def ddgi_sample(wp, n):
                     return ddgi_ops.sample_irradiance(probes, grid, wp, n)
 
-            radiance = shade_hits(ctx.scene, hit, r_dir, ctx.camera.exposure,
+            radiance = shade_hits(live, hit, r_dir, ctx.camera.exposure,
                                   cone_spread=cone_spread, ddgi_sample=ddgi_sample,
                                   n_spots=st.n_spots,
                                   n_points=st.n_points, spot_casters=st.spot_shadow_casters,

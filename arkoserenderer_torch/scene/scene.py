@@ -6,16 +6,24 @@ instances; ``build(device)`` freezes them into ``SceneArrays`` — SoA tensors
 in unified pools with the reference's static capacities, so both packages
 hold identical pools for the same scene.
 
-Instances may carry a previous transform and a LOD band (``add_instance``,
-``add_instance_lods``); ``update_instance_transforms`` re-uploads the
-instance rows from a host mirror after the host moved instances. With
+Instances may carry a previous transform, a LOD band and an animation clip
+(``add_instance``, ``add_instance_lods``); ``update_instance_transforms``
+re-uploads the instance rows from a host mirror after the host moved
+instances. Skinned segments index a skeleton (``add_skeleton``): the build
+gives each skinned instance a range of the (MAX_JOINTS, 4, 4) palette pool,
+and ``update_animations`` evaluates the clips into a new pool for the frame
+to upload. Morphed segments carry position and normal deltas: each morphed
+instance is one block of the vertex pool with its own weights
+(``set_morph_weights``, or a clip's "weights" channel). With
 ``enable_meshlets`` the build splits every segment into meshlets
 (``assets/meshopt.build_meshlets``) and records their culling bounds.
 ``build(device, with_bvh=True)`` adds the two-level BVH over the LOD-0
 instances (``ops/bvh``), with the reference's parked TLAS slots for
-streamed instances; without it ``bvh`` is None.
+streamed instances; without it ``bvh`` is None. A skinned or morphed
+instance gets a BLAS of its own in world space, which the per-frame refit
+(``ops/bvh.refit_bvh``) re-reads from the deformed vertex pool.
 
-Not ported: skinning, morph targets, hair, streaming and BVH refit.
+Not ported: hair and streaming.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ BLEND_OPAQUE = 0
 BLEND_MASKED = 1
 BLEND_TRANSLUCENT = 2
 
+MAX_JOINTS = 256  # skinning palette capacity, every skeleton instance together
 LOD_FAR = 3.4e38  # 'infinite' LOD band end (finite: no inf in device buffers)
 
 WRAP_REPEAT = 0  # texture address modes (WRAP_CLAMP = 1)
@@ -71,6 +80,8 @@ class SceneStatic:
     has_translucent: bool = False
     has_meshlets: bool = False
     has_morphs: bool = False
+    # Vertex-pool base of each morphed instance's block, in instance order.
+    morph_vertex_base: tuple = ()
     dynamic: bool = False
 
 
@@ -109,6 +120,11 @@ class MeshSegment:
     tangents: np.ndarray | None = None  # (V, 4) f32 (xyz + handedness w)
     indices: np.ndarray | None = None   # (I,) int — None = iota
     material: int = 0
+    skin_joints: np.ndarray | None = None   # (V, 4) i32 into its skeleton
+    skin_weights: np.ndarray | None = None  # (V, 4) f32
+    skeleton: int = -1                      # Scene.skeletons index when skinned
+    morph_pos: np.ndarray | None = None     # (B, V, 3) position deltas
+    morph_nrm: np.ndarray | None = None     # (B, V, 3) normal deltas
 
     def __post_init__(self):
         v = self.positions.shape[0]
@@ -177,9 +193,21 @@ class SceneArrays(NamedTuple):
     meshlet_cone: torch.Tensor     # (Mm, 4) axis xyz + cutoff
     meshlet_instance: torch.Tensor  # (Mm,) i32
     meshlet_valid: torch.Tensor    # (Mm,) bool
+    # Skinning: palette indices and weights per vertex (all-zero weights: a
+    # static vertex) and the palette the host uploads each frame.
+    skin_joints: torch.Tensor      # (Vmax, 4) i32
+    skin_weights: torch.Tensor     # (Vmax, 4) f32
+    palette: torch.Tensor          # (MAX_JOINTS, 4, 4) joint world @ inverse bind
+    # Morph targets, one entry per morphed instance (SceneStatic.morph_vertex_base).
+    morph_pos: tuple               # of (B_i, V_i, 3) position deltas
+    morph_nrm: tuple               # of (B_i, V_i, 3) normal deltas
+    morph_weights: tuple           # of (B_i,)
     # Ray tracing: ops.bvh.TwoLevelBVH when built with_bvh, else None.
     bvh: bvh_ops.TwoLevelBVH | None
 
+
+# Tuple fields of SceneArrays: entry i is host key "<name>.<i>".
+TUPLE_FIELDS = ("morph_pos", "morph_nrm", "morph_weights")
 
 # Nested NamedTuple fields of SceneArrays, by field name.
 NESTED_FIELDS = {
@@ -200,7 +228,8 @@ def host_to_device(value: np.ndarray, device) -> torch.Tensor:
 
 def scene_arrays_from_host(fields: dict[str, np.ndarray], device) -> SceneArrays:
     """SceneArrays from host arrays keyed by field name, nested fields as
-    ``"lights.sun_view_proj"`` and the like. Extra keys are ignored. The BVH
+    ``"lights.sun_view_proj"`` and the like, tuple entries as
+    ``"morph_pos.0"``. Extra keys are ignored. The BVH
     comes from "bvh.*" keys holding a two-level BVH's fields; without them
     (or with the reference's one-leaf placeholder, which has no
     ``wide_rec``) it is None."""
@@ -210,6 +239,11 @@ def scene_arrays_from_host(fields: dict[str, np.ndarray], device) -> SceneArrays
         if name == "bvh":
             sub = {k[4:]: v for k, v in fields.items() if k.startswith("bvh.")}
             out[name] = bvh_ops.bvh_from_host(sub, device) if "wide_rec" in sub else None
+        elif name in TUPLE_FIELDS:
+            n = 0
+            while f"{name}.{n}" in fields:
+                n += 1
+            out[name] = tuple(host_to_device(fields[f"{name}.{i}"], device) for i in range(n))
         elif cls is None:
             out[name] = host_to_device(fields[name], device)
         else:
@@ -228,6 +262,17 @@ class Scene:
         self.segments: list[MeshSegment] = []
         # (segment id, world 4x4, previous world 4x4 or None, LOD band)
         self.instances: list[tuple] = []
+        self.instance_clips: dict[int, int] = {}  # instance id -> animation clip id
+        self.skeletons: list = []   # scene.animation.Skeleton
+        self.animations: list = []  # scene.animation.AnimationClip
+        self._palette_pool = np.tile(np.eye(4, dtype=np.float32), (MAX_JOINTS, 1, 1))
+        self._bindings: list[tuple] = []  # (skeleton id, palette base, clip id), by build()
+        # Morph blocks (vertex base, segment id, clip id), one per morphed
+        # instance, by build(); weights per block. Overrides keep
+        # set_morph_weights calls made before build().
+        self._morph_blocks: list[tuple] = []
+        self._morph_weights_list: list[np.ndarray] = []
+        self._morph_weight_overrides: dict[int, np.ndarray] = {}
         self.enable_meshlets = False  # meshlet-granularity culling (build + Geometry)
         self._mirror: dict[str, np.ndarray] | None = None  # instance pools of the last build
         self._seg_bounds: dict[int, tuple[np.ndarray, float]] = {}
@@ -270,13 +315,88 @@ class Scene:
         return len(self.segments) - 1
 
     def add_instance(self, segment_id: int, world: np.ndarray, prev_world=None,
-                     lod_band=(0.0, LOD_FAR)) -> int:
+                     lod_band=(0.0, LOD_FAR), clip: int | None = None) -> int:
         """Returns the new instance id. ``prev_world`` (None: ``world``)
         feeds the velocity of moving instances; the instance renders while
-        the camera's distance lies in ``lod_band`` = [near, far)."""
+        the camera's distance lies in ``lod_band`` = [near, far). ``clip``
+        (an ``add_animation`` id) drives a skinned instance's skeleton or a
+        morphed instance's weights."""
         self.instances.append(
             (segment_id, np.asarray(world, np.float32), prev_world, lod_band))
+        if clip is not None:
+            self.instance_clips[len(self.instances) - 1] = clip
         return len(self.instances) - 1
+
+    def add_skeleton(self, skeleton) -> int:
+        self.skeletons.append(skeleton)
+        return len(self.skeletons) - 1
+
+    def add_animation(self, clip) -> int:
+        self.animations.append(clip)
+        return len(self.animations) - 1
+
+    def set_morph_weights(self, weights: np.ndarray, block: int = 0):
+        """Morph-target weights of one morphed instance (blocks in instance
+        order, as SceneStatic.morph_vertex_base)."""
+        w = np.asarray(weights, np.float32)
+        self._morph_weight_overrides[block] = w
+        if block < len(self._morph_weights_list):
+            self._morph_weights_list[block] = w
+
+    def _rebuild_morph_weights(self) -> list[np.ndarray]:
+        """The weight list sized to the current blocks, keeping weights
+        whose target count still matches (set before or after build)."""
+        out = []
+        for i, (_b, sid, _c) in enumerate(self._morph_blocks):
+            nb = self.segments[sid].morph_pos.shape[0]
+            w = self._morph_weight_overrides.get(i)
+            if w is None and i < len(self._morph_weights_list):
+                w = self._morph_weights_list[i]
+            if w is None or w.shape[0] != nb:
+                w = np.zeros((nb,), np.float32)
+            out.append(np.asarray(w, np.float32))
+        self._morph_weights_list = out
+        return out
+
+    def morph_weights(self) -> list[np.ndarray]:
+        """The current weights of each morph block."""
+        return self._morph_weights_list
+
+    def _morph_bases_for_static(self) -> tuple:
+        """Vertex-pool base of every morphed instance, in instance order."""
+        bases = []
+        base = 0
+        for sid, *_ in self.instances:
+            if self.segments[sid].morph_pos is not None:
+                bases.append(base)
+            base += self.segments[sid].positions.shape[0]
+        return tuple(bases)
+
+    def update_animations(self, time: float) -> np.ndarray:
+        """Advance every skeleton and morph clip to ``time``; returns the
+        new (MAX_JOINTS, 4, 4) palette pool for the caller to upload with
+        ``morph_weights()``. A skeleton's clip that carries weights drives
+        block 0; a morphed instance's own clip drives its block."""
+        from arkoserenderer_torch.scene.animation import evaluate_pose, sample_channel
+
+        for skel_id, base, clip_id in self._bindings:
+            skel = self.skeletons[skel_id]
+            clip = self.animations[clip_id] if clip_id is not None else None
+            palette, morph = evaluate_pose(skel, clip, time)
+            self._palette_pool[base:base + skel.num_joints] = palette
+            if morph is not None and self._morph_weights_list:
+                self._morph_weights_list[0] = morph
+        for i, (_b, _sid, clip_id) in enumerate(self._morph_blocks):
+            if clip_id is None:
+                continue
+            clip = self.animations[clip_id]
+            d = clip.duration
+            t = time % d if d > 0 else time
+            for ch in clip.channels:
+                if ch.path == "weights":
+                    self._morph_weights_list[i] = np.asarray(
+                        sample_channel(ch, t), np.float32).reshape(-1)
+        return self._palette_pool
 
     def add_instance_lods(self, lod_segment_ids: list, world: np.ndarray,
                           distances: list, prev_world=None) -> None:
@@ -322,6 +442,11 @@ class Scene:
         inst_valid = np.zeros((dmax,), bool)
         inst_lod_band = np.tile(np.array([0.0, LOD_FAR], np.float32), (dmax, 1))
 
+        skin_joints = np.zeros((vmax, 4), np.int32)
+        skin_weights = np.zeros((vmax, 4), np.float32)
+        self._morph_blocks = []
+        self._bindings = []
+        palette_cursor = 0
         tri_meshlet = np.zeros((tmax,), np.int32)
         meshlet_rows: list[tuple] = []  # (sphere4, cone4, instance)
         seg_meshlets: dict[int, meshopt.Meshlets] = {}
@@ -341,6 +466,23 @@ class Scene:
             uvs[v_cursor:v_cursor + v] = seg.uvs
             tangents[v_cursor:v_cursor + v] = seg.tangents
             vertex_instance[v_cursor:v_cursor + v] = inst_id
+            clip = self.instance_clips.get(inst_id)
+            if seg.morph_pos is not None:
+                self._morph_blocks.append((v_cursor, sid, clip))
+            if seg.skeleton >= 0:
+                # Each skinned instance gets its own palette range.
+                from arkoserenderer_torch.scene.animation import evaluate_pose
+
+                skel = self.skeletons[seg.skeleton]
+                base = palette_cursor
+                palette_cursor += skel.num_joints
+                if palette_cursor > MAX_JOINTS:
+                    raise ValueError("joint palette capacity exceeded")
+                skin_joints[v_cursor:v_cursor + v] = seg.skin_joints + base
+                skin_weights[v_cursor:v_cursor + v] = seg.skin_weights
+                self._bindings.append((seg.skeleton, base, clip))
+                self._palette_pool[base:base + skel.num_joints] = evaluate_pose(
+                    skel, None, 0.0)[0]
             indices[t_cursor:t_cursor + t] = seg.indices.reshape(t, 3) + v_cursor
             tri_instance[t_cursor:t_cursor + t] = inst_id
             tri_valid[t_cursor:t_cursor + t] = True
@@ -409,7 +551,14 @@ class Scene:
             "materials.clearcoat_roughness": _soa([x.clearcoat_roughness for x in ms], (mmax,)),
             "materials.subsurface": _soa([x.subsurface for x in ms], (mmax,)),
             "tri_material": inst_material[tri_instance].astype(np.int32),
+            "skin_joints": skin_joints, "skin_weights": skin_weights,
+            "palette": self._palette_pool,
         }
+        for i, (_b, sid, _c) in enumerate(self._morph_blocks):
+            out[f"morph_pos.{i}"] = self.segments[sid].morph_pos.astype(np.float32)
+            out[f"morph_nrm.{i}"] = self.segments[sid].morph_nrm.astype(np.float32)
+        for i, w in enumerate(self._rebuild_morph_weights()):
+            out[f"morph_weights.{i}"] = w
 
         # Packed material records + channel-packed texel pool, padded to the
         # configured pool size.
@@ -460,13 +609,17 @@ class Scene:
         return scene_arrays_from_host(self.build_host(with_bvh, rt_stream_capacity), device)
 
     def _build_bvh(self, stream_capacity: int = 0) -> dict:
-        """The two-level BVH's host arrays: one BLAS per segment in object
-        space, shared by its instances, and a TLAS over the LOD-0 instances
-        (bands starting at distance 0), so a ray never finds one surface at
-        several LOD levels. Fully transparent triangles of masked materials
+        """The two-level BVH's host arrays: one BLAS per static segment in
+        object space, shared by its instances, and a TLAS over the LOD-0
+        instances (bands starting at distance 0), so a ray never finds one
+        surface at several LOD levels. A skinned or morphed instance gets a
+        BLAS of its own in world space (an identity transform) whose
+        triangles the refit re-reads from the deformed pool
+        (``blas_owner``). Fully transparent triangles of masked materials
         are left out (``_masked_tri_opacity``)."""
         omm_cache: dict[int, np.ndarray | None] = {}
         blas_geo: list[tuple] = []
+        blas_owner: list[int] = []
         seg_blas: dict[int, int] = {}
         inst_blas, inst_o2w, inst_tri_base, inst_ids = [], [], [], []
         tri_cursor = 0
@@ -479,17 +632,26 @@ class Scene:
                 continue
             if sid not in omm_cache:
                 omm_cache[sid] = self._masked_tri_opacity(seg)
-            if sid not in seg_blas:
-                tris = seg.indices.reshape(t, 3).astype(np.int32)
-                keep = omm_cache[sid]
-                tri_ids = None
-                if keep is not None:
-                    tri_ids = np.nonzero(keep)[0].astype(np.int32)
-                    tris = tris[keep]
-                seg_blas[sid] = len(blas_geo)
-                blas_geo.append((seg.positions.astype(np.float32), tris, tri_ids))
-            inst_blas.append(seg_blas[sid])
-            inst_o2w.append(np.asarray(w, np.float32))
+            tris = seg.indices.reshape(t, 3).astype(np.int32)
+            keep = omm_cache[sid]
+            tri_ids = None
+            if keep is not None:
+                tri_ids = np.nonzero(keep)[0].astype(np.int32)
+                tris = tris[keep]
+            if seg.skeleton >= 0 or seg.morph_pos is not None:
+                wm = np.asarray(w, np.float32)
+                wp = seg.positions @ wm[:3, :3].T + wm[:3, 3]
+                blas_geo.append((wp.astype(np.float32), tris, tri_ids))
+                blas_owner.append(len(inst_ids))
+                inst_blas.append(len(blas_geo) - 1)
+                inst_o2w.append(np.eye(4, dtype=np.float32))
+            else:
+                if sid not in seg_blas:
+                    seg_blas[sid] = len(blas_geo)
+                    blas_geo.append((seg.positions.astype(np.float32), tris, tri_ids))
+                    blas_owner.append(-1)
+                inst_blas.append(seg_blas[sid])
+                inst_o2w.append(np.asarray(w, np.float32))
             inst_tri_base.append(base)
             inst_ids.append(inst_id)
         return bvh_ops.build_two_level_host(
@@ -497,6 +659,7 @@ class Scene:
             np.asarray(inst_blas, np.int32),
             np.stack(inst_o2w) if inst_o2w else np.zeros((0, 4, 4), np.float32),
             np.asarray(inst_tri_base, np.int32),
+            blas_owner=np.asarray(blas_owner, np.int32) if blas_owner else None,
             inst_id=np.asarray(inst_ids, np.int32),
             inst_cap=(len(inst_ids) + stream_capacity) if stream_capacity else None,
         )
@@ -571,7 +734,9 @@ class Scene:
 
     def static_info(self) -> SceneStatic:
         mats = self.materials
+        morph_bases = self._morph_bases_for_static()
         return SceneStatic(
+            has_skin=any(self.segments[sid].skeleton >= 0 for sid, *_ in self.instances),
             n_spots=len(self.spots),
             n_points=len(self.points),
             spot_shadow_casters=tuple(bool(sp.cast_shadows) for sp in self.spots),
@@ -587,6 +752,8 @@ class Scene:
             uses_occlusion_tex=any(m.occlusion_tex != 0 for m in mats),
             has_translucent=any(m.blend_mode == BLEND_TRANSLUCENT for m in mats),
             has_meshlets=self.enable_meshlets,
+            has_morphs=bool(morph_bases),
+            morph_vertex_base=morph_bases,
         )
 
     def bounding_box(self) -> tuple[np.ndarray, np.ndarray] | None:

@@ -19,6 +19,13 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
   meshlet    the same with per-meshlet culling in Geometry
   forward_upscaled  the forward passes at 1280x720 (the "quality" preset of
              1920x1080) with TemporalUpscale to 1920x1080 in place of TAA
+  ddgi       the test scene with a skinned box (a one-joint skeleton) and a
+             sphere with an inflate morph target (``build_anim_scene``), DDGI
+             (a 16x8x16 grid fitted to the scene, 256 rays x 1,024 probes a
+             frame) and SSSS: the Scene pass skins and morphs the pool,
+             BVHRefit refits the BVH every frame, DDGI traces two traces a
+             frame (ddgi probe, ddgi sun) through it, and the sun map is
+             rastered every frame (animated geometry is not cacheable)
   showcase   the test scene with rt_shadows, rt_reflections, DDGI (an 8x4x8
              grid fitted to the scene, 128 rays x 64 probes a frame), SSAO,
              Fog and MotionBlur: five traces a frame (sun mask, reflection,
@@ -33,7 +40,8 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
 at 1920x1080, raster tile 8x128 with 256 triangles a tile, and an 8192^2 sun
 shadow map (``--small``: 256x256, tile 8x16, a 256^2 map, 64 materials over
 16 chains, 256 stress cells; the flagship 256 spheres, 64 materials, 16
-chains, an 8x4x8 grid with 128 rays x 64 probes). The camera moves every
+chains, an 8x4x8 grid with 128 rays x 64 probes; ddgi the grid
+``ProbeGridConfig.fit_bounds`` gives by default). The camera moves every
 frame, so the motion vectors, the history reprojections and the motion
 blur do real work; in ``stress`` and ``meshlet`` it stands still and the
 motion is the grid's.
@@ -68,6 +76,7 @@ import numpy as np
 import torch
 
 from arkoserenderer_torch.assets.procedural import (
+    build_anim_scene,
     build_bindless_scene,
     build_flagship_scene,
     build_stress_scene,
@@ -83,7 +92,7 @@ from arkoserenderer_torch.ops.upscale import ideal_render_resolution
 from arkoserenderer_torch.rendering.passes.ddgi import STATE_KEYS as DDGI_KEYS
 from arkoserenderer_torch.rendering.passes.geometry import camera_visible_triangles
 from arkoserenderer_torch.rendering.passes.shadow import sun_shadow_cacheable
-from arkoserenderer_torch.rendering.pipeline import PipelineConfig
+from arkoserenderer_torch.rendering.pipeline import FrameContext, PipelineConfig
 from arkoserenderer_torch.scene.lights import SpotLight
 from arkoserenderer_torch.tools.raster_bench import card_line, forward_raster_inputs
 
@@ -100,6 +109,8 @@ CONFIGS = {
     "stress": ("stress", {}, "4096 animated instances with LOD chains (culling stress)"),
     "meshlet": ("meshlet", {}, "meshlet visbuf + per-meshlet culling, 4096 instances"),
     "forward_upscaled": ("test_upscaled", {}, "forward at 2/3 scale + temporal upscale to 1080p"),
+    "ddgi": ("test_anim", dict(ddgi=True, ssss=True),
+             "DDGI probe GI + SSSS + skinning + morph targets"),
     "showcase": ("test", dict(rt_shadows=True, rt_reflections=True, ddgi=True, ssao=True,
                               fog=True, motion_blur=True),
                  "showcase: raster + RT shadows/reflections + DDGI + SSAO + full post"),
@@ -149,6 +160,12 @@ def build_renderer(name: str, small: bool = False, device="cuda",
         scene, camera = build_stress_scene(n_instances=256 if small else 4096, viewport=viewport)
         scene.enable_meshlets = kind == "meshlet"
         kw = dict(kw, scene_animator=make_stress_animator(scene))
+    elif kind == "test_anim":
+        scene, camera = build_anim_scene(viewport=viewport)
+        if not small:
+            center, radius = scene.bounding_sphere()
+            kw = dict(kw, ddgi=ProbeGridConfig.fit_bounds(
+                center, radius, dims=(16, 8, 16), rays_per_probe=256, probes_per_frame=1024))
     else:
         scene, camera = build_test_scene(viewport=viewport)
     if kind == "test_spot":
@@ -229,14 +246,21 @@ def frame_counts(renderer: Renderer) -> dict:
     culling (instance frustum and LOD, and meshlets where the scene has
     them), the meshlets kept of those in the scene, and the bin entries the
     camera's and the sun's rasters drop (``vis.overflow``), formed from the
-    scene the frame sees as the Geometry and SunShadow passes form them.
-    Reads the device."""
+    scene the frame sees (animated, skinned and morphed) as the Geometry
+    and SunShadow passes form them. Reads the device."""
     cfg, dev = renderer.cfg, renderer.device
+    cam = renderer.camera.state(renderer.frame_index, dev)
+    if renderer.animated:
+        renderer.upload_animation()
     scene = renderer.scene_arrays
     animator = renderer.pipeline.scene_animator
     if animator is not None:
         scene = animator(scene, renderer.frame_index, 1 / 60)
-    cam = renderer.camera.state(renderer.frame_index, dev)
+    if renderer.animated:
+        geom = dict(renderer.pipeline._executes)["Scene"](
+            {}, FrameContext(scene, cam, renderer.frame_index, 1 / 60))
+        scene = scene._replace(positions=geom["geom.positions"], normals=geom["geom.normals"],
+                               tangents=geom["geom.tangents"])
     tris, kept = camera_visible_triangles(scene, cam.view_proj, cam.position,
                                           cfg.scene.has_meshlets)
     cases = forward_raster_inputs(scene, cam, cfg.scene, cfg.width, cfg.height,

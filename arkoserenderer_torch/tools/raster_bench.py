@@ -1,7 +1,10 @@
 """Measurements of the stage-4 raster kernel (csrc/raster_tiles.cu) on the card.
 
 Helpers used by chip_smoke.py and the tests: the forward frame's camera and
-sun raster inputs and a spot light's local-shadow raster inputs, the (tile, triangle) pairs a raster walks and its pixel
+sun raster inputs, a spot light's local-shadow raster inputs, the rasters
+of one frame captured as the frame makes them (``capture_rasters``: on an
+animated scene, from the skinned and morphed pool), the (tile, triangle)
+pairs a raster walks and its pixel
 tests before and after exact tile rejection (``ops.raster.tile_rejects``),
 the kernel's bound, and two timings: the wrapper's (CUDA events around
 back-to-back ``rasterize_tiles_cuda`` calls, as the frame calls it) and the
@@ -59,7 +62,8 @@ OPS_PER_TEST = 20
 ROUNDS = 3
 GRAPH_LAUNCHES = 50
 WRAPPER_CALLS = {"camera": 50, "sun": 10, "local": 50, "camera_stress": 20,
-                 "sun_stress": 10, "camera_720p": 50, "camera_flagship": 20}
+                 "sun_stress": 10, "camera_720p": 50, "camera_flagship": 20,
+                 "camera_ddgi": 20, "sun_ddgi": 10}
 # The adversarial case: viewport and numpy seed.
 ADVERSARIAL_SIZE, ADVERSARIAL_SEED = 64, 7
 
@@ -153,6 +157,30 @@ def forward_raster_inputs(scene_arrays, cam_state, scene_static, width: int, hei
         "camera": (cam, raster.bin_triangles(cam, width, height, cfg), width, height, False),
         "sun": (sun, raster.bin_triangles(sun, shadow, shadow, cfg), shadow, shadow, True),
     }
+
+
+def capture_rasters(frame) -> tuple[dict, object]:
+    """Call ``frame()``, which renders one frame, and return (the inputs of
+    each raster the frame launches, by (height, width, depth_only): (setup,
+    bins, width, height, depth_only), as the passes formed them; what
+    ``frame()`` returned). The launches count as usual."""
+    captured = {}
+    kernel = raster_cuda.rasterize_tiles_cuda
+
+    def record(setup, bins, width, height, cfg, depth_only=False, **kw):
+        captured[height, width, bool(depth_only)] = (setup, bins, width, height, depth_only)
+        return kernel(setup, bins, width, height, cfg, depth_only=depth_only, **kw)
+
+    record.launches = kernel.launches
+    record.launches_by_shape = kernel.launches_by_shape
+    raster_cuda.rasterize_tiles_cuda = record
+    try:
+        out = frame()
+    finally:
+        raster_cuda.rasterize_tiles_cuda = kernel
+        kernel.launches = record.launches
+    torch.cuda.synchronize()
+    return captured, out
 
 
 def local_shadow_raster_inputs(scene_arrays, cam_state, size: int, cfg: RasterConfig,

@@ -1,7 +1,9 @@
 """Measurements of the BVH traversal kernel (csrc/bvh_trace.cu) on the card.
 
 Helpers used by chip_smoke.py and the tests: the rays of one frame's traces
-captured as the frame makes them (``capture_traces``), random rays through a
+captured as the frame makes them, with the BVH each trace walked (the
+frame's refitted one on an animated scene; ``capture_traces``), random rays
+through a
 4,096-instance TLAS (``tlas_case``), DDGI-shaped probe rays through the
 ``rt`` scene (``probe_case``), hand-made records that overflow the stack
 (``overflow_case``) and edge rays (``edge_cases``: ray counts that are no
@@ -90,14 +92,15 @@ AB_ROUNDS = 3  # rounds of (other, this, this, other) in the A/B
 
 def capture_traces(renderer) -> list[dict]:
     """Render one frame of ``renderer`` and return the inputs of each trace
-    it makes, in order: {label, origins, directions, t_max (a float or a
-    per-ray tensor), any_hit}, as copies on the card."""
+    it makes, in order: {label, bvh, origins, directions, t_max (a float or
+    a per-ray tensor), any_hit}, the rays as copies on the card, ``bvh`` the
+    one the trace walked."""
     captured = []
     kernel = bvh_cuda.trace_rays_cuda
 
     def record(bvh, origins, directions, t_max=1e30, any_hit=False, label=None, **kw):
         tm = t_max.clone() if isinstance(t_max, torch.Tensor) else t_max
-        captured.append(dict(label=label, origins=origins.clone(),
+        captured.append(dict(label=label, bvh=bvh, origins=origins.clone(),
                              directions=directions.clone(), t_max=tm, any_hit=any_hit))
         return kernel(bvh, origins, directions, t_max=t_max, any_hit=any_hit, label=label, **kw)
 
@@ -383,7 +386,7 @@ def frame_traces(renderer) -> list[dict]:
 def frame_cases(renderer) -> list[dict]:
     """Every trace of one frame of ``renderer`` (after a warm-up frame),
     measured."""
-    return [measure(renderer.scene_arrays.bvh, case) for case in frame_traces(renderer)]
+    return [measure(case["bvh"], case) for case in frame_traces(renderer)]
 
 
 def kind_traces(renderer, kind: str, prefix: str = "") -> list[dict]:
@@ -399,8 +402,7 @@ def kind_traces(renderer, kind: str, prefix: str = "") -> list[dict]:
 
 def kind_cases(renderer, kind: str, prefix: str = "") -> list[dict]:
     """``kind_traces``, measured."""
-    return [measure(renderer.scene_arrays.bvh, case)
-            for case in kind_traces(renderer, kind, prefix)]
+    return [measure(case["bvh"], case) for case in kind_traces(renderer, kind, prefix)]
 
 
 def ddgi_traces(renderer) -> list[dict]:
@@ -412,7 +414,7 @@ def ddgi_traces(renderer) -> list[dict]:
 
 def ddgi_cases(renderer) -> list[dict]:
     """The DDGI traces of one flagship frame, measured."""
-    return [measure(renderer.scene_arrays.bvh, case) for case in ddgi_traces(renderer)]
+    return [measure(case["bvh"], case) for case in ddgi_traces(renderer)]
 
 
 def tlas_traces(device) -> tuple:
@@ -534,12 +536,11 @@ def main(argv=None) -> None:
     renderer = bench.build_renderer("rt", device=dev)
     flagship = bench.build_renderer("flagship", device=dev)
     if args.other is not None:
-        bvh = renderer.scene_arrays.bvh
-        traces = [(bvh, case) for case in frame_traces(renderer)]
-        traces.append((bvh, probe_trace(renderer)))
+        traces = [(case["bvh"], case) for case in frame_traces(renderer)]
+        traces.append((renderer.scene_arrays.bvh, probe_trace(renderer)))
         tlas_bvh, cases = tlas_traces(dev)
         traces += [(tlas_bvh, case) for case in cases]
-        traces += [(flagship.scene_arrays.bvh, case) for case in ddgi_traces(flagship)]
+        traces += [(case["bvh"], case) for case in ddgi_traces(flagship)]
         rows = ab_compare(args.other.resolve(), traces, card)
         print(json.dumps({"ab": rows, "card": card, "other": str(args.other)}))
         return

@@ -93,13 +93,25 @@ result line):
      0 and 1), captured as the frame makes them, through the kernel and its
      plain version bit for bit and timed as in phase 10, and the flagship
      camera raster bit for bit and timed as in phase 3.
+ 12. the ddgi frame (the test scene with a skinned box and a morphed
+     sphere, DDGI on a 16x8x16 grid at 256 rays x 1,024 probes a frame, and
+     SSSS): through the bench as in phase 11, BVHRefit after Geometry and
+     SSSS after LightingCompose, each counted frame finite, covered and
+     moving every DDGI atlas, the raster launches by shape (camera and the
+     8192^2 sun every frame: animated geometry is not cacheable) and the
+     traversal launches by trace (ddgi probe and ddgi sun, two a frame);
+     then one more frame, whose two DDGI traces (262,144 rays each, through
+     the BVH refitted in that frame) go through the kernel and its plain
+     version bit for bit and whose camera and sun rasters (from the skinned
+     and morphed pool) are held bit for bit against the plain raster, all
+     captured as the frame makes them and timed as in phases 3 and 10.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
-camera, per-frame stress sun, 720p camera, flagship camera), each with its
-launches in the runs of the frame kinds that launch it, and one entry per
-trace the traversal kernel serves in the rt, showcase and flagship frames,
-each with its launches by its label in that kind's run; the last line is
-{"ok": true, "device": {...}}.
+camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
+per-frame ddgi sun), each with its launches in the runs of the frame kinds
+that launch it, and one entry per trace the traversal kernel serves in the
+rt, showcase, flagship and ddgi frames, each with its launches by its label
+in that kind's run; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -397,7 +409,7 @@ def main() -> None:
     # stress frames it stands still, so the motion vectors are the grid's.
     MIN_VELOCITY_PX = {"forward": 1.0, "full_post": 1.0, "bindless": 1.0, "test_spot": 1.0,
                        "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5, "rt": 1.0,
-                       "showcase": 1.0, "flagship": 1.0}
+                       "showcase": 1.0, "flagship": 1.0, "ddgi": 1.0}
     by_kind = {}
     for name in PHASE8:
         by_kind[name] = run_kind(name)[2]
@@ -476,8 +488,10 @@ def main() -> None:
         g_scene, g_cam = build_test_scene(viewport=(256, 256), n_spheres=1)
         check_golden(name, Renderer(g_scene, g_cam, g_cfg, device=dev, ddgi=ProbeGridConfig(),
                                     **kw).render_frames(2))
-    kind_traces = []  # (the kind's run's launches by label, measured trace)
-    for name, (per_frame, ddgi_rays) in PHASE11.items():
+    def run_traced_kind(name, per_frame):
+        """run_kind, then the traversal launches by trace (``per_frame`` a
+        frame) and every counted frame finite, covered and moving the DDGI
+        atlases."""
         res, renderer, by_kind[name] = run_kind(name)
         n = res["frames"]
         if (res["trace_launches"] != res["trace_launches_expected"]
@@ -491,17 +505,29 @@ def main() -> None:
                 raise AssertionError(f"{name}: counted frame {i} failed its checks: {c}")
         print(f"{name}: traversal launches {res['trace_launches']} in {n} frames ({per_frame} a "
               f"frame); counted frames {res['frame_checks']}", flush=True)
-        # The counts are read: every trace of one more frame, bit for bit.
-        cases = tb.kind_cases(renderer, name)
-        got = sorted((t["trace"], t["rays"]) for t in cases)
+        return res, renderer
+
+    def check_kind_traces(name, res, cases, ddgi_rays):
+        """One frame's captured traces: one of each the run counted, DDGI's
+        of ``ddgi_rays`` rays; each measured bit for bit against the plain
+        walk on the BVH it walked."""
+        got = sorted((c["trace"], c["origins"].shape[0]) for c in cases)
         if [t for t, _ in got] != sorted(res["trace_launches_expected"]) or any(
                 r != ddgi_rays for t, r in got if t.startswith("ddgi")):
             raise AssertionError(f"a {name} frame traced {got}, expected one trace of each of "
                                  f"{sorted(res['trace_launches_expected'])}, DDGI's of "
                                  f"{ddgi_rays} rays")
-        for t in cases:
+        measured = [tb.measure(c["bvh"], c) for c in cases]
+        for t in measured:
             print(tb.describe(t, card), flush=True)
-        kind_traces += [(res["trace_launches"], t) for t in cases]
+        return [(res["trace_launches"], t) for t in measured]
+
+    kind_traces = []  # (the kind's run's launches by label, measured trace)
+    for name, (per_frame, ddgi_rays) in PHASE11.items():
+        res, renderer = run_traced_kind(name, per_frame)
+        # The counts are read: every trace of one more frame, bit for bit.
+        cases = tb.kind_traces(renderer, name)
+        kind_traces += check_kind_traces(name, res, cases, ddgi_rays)
         if name == "flagship":
             cam = rb.forward_raster_inputs(renderer.scene_arrays,
                                            renderer.camera.state(renderer.frame_index, dev),
@@ -510,6 +536,24 @@ def main() -> None:
                              *cam["camera"])
             del cam
         del renderer, cases
+
+    # -- 12. the ddgi frame: skinning, morphs, the per-frame refit, SSSS ---------------
+    res, renderer = run_traced_kind("ddgi", 2)
+    if res["passes"][:4] != ["Scene", "Geometry", "BVHRefit", "DDGI"] or not (
+            "SSSS" in res["pass_ms"] and "BVHRefit" in res["pass_ms"]):
+        raise AssertionError(f"ddgi: passes {res['passes']}, timed {list(res['pass_ms'])}")
+    # The counts are read: one more frame's rasters and traces, as it makes them.
+    rasters, cases = rb.capture_rasters(lambda: tb.kind_traces(renderer, "ddgi"))
+    if sorted(rasters) != sorted(bench.expected_launches_by_shape(renderer, 1)):
+        raise AssertionError(f"a ddgi frame rastered {sorted(rasters)}")
+    if any(c["bvh"] is renderer.scene_arrays.bvh for c in cases):
+        raise AssertionError("a ddgi trace walked the build-time BVH, not the frame's refit")
+    kind_traces += check_kind_traces("ddgi", res, cases, 1024 * 256)
+    compare_and_time("camera_ddgi", f"ddgi camera {W}x{H}, tile 8x128 (skinned and morphed "
+                     "pool)", 2, *rasters[H, W, False])
+    compare_and_time("sun_ddgi", f"ddgi sun {S}x{S} depth-only (every frame)", 1,
+                     *rasters[S, S, True])
+    del renderer, cases, rasters
 
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
@@ -520,6 +564,8 @@ def main() -> None:
         "sun_stress": (("stress", "meshlet"), (S, S, True)),
         "camera_720p": (("forward_upscaled",), (720, 1280, False)),
         "camera_flagship": (("flagship",), (H, W, False)),
+        "camera_ddgi": (("ddgi",), (H, W, False)),
+        "sun_ddgi": (("ddgi",), (S, S, True)),
     }
     launches = {e: sum(by_kind[k].get(shape, 0) for k in kinds)
                 for e, (kinds, shape) in entries.items()}

@@ -96,15 +96,14 @@ def test_auto_resolves_as_the_reference():
                            device="cpu").cfg.texture_quality == "trilinear"
 
 
-DDGI_UNPORTED = ["ddgi_probe_debug", "ddgi_sample_scale", "skinned"]
+DDGI_UNPORTED = ["ddgi_probe_debug", "ddgi_sample_scale", "hair"]
 
 
 @pytest.mark.parametrize("option", DDGI_UNPORTED)
 def test_unported_ddgi_options_raise_by_name(option):
     """DDGI is ported; its probe overlay, its reduced-rate sampling and a
-    skinned or morphed scene under it (whose BVH needs the per-frame refit)
-    are not, and raise NotImplementedError naming the flag. Without them
-    the same DDGI frame builds."""
+    hair scene under it are not, and raise NotImplementedError naming the
+    flag. Without them the same DDGI frame builds."""
     from arkoserenderer_torch.models.standard import Renderer
     from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
 
@@ -121,16 +120,45 @@ def test_unported_ddgi_options_raise_by_name(option):
             t_make_pipeline(dataclasses.replace(cfg, ddgi_sample_scale=2), device="cpu",
                             ddgi=grid)
     else:
-        skinned = dataclasses.replace(scene.static_info(), has_skin=True)
-        scene.static_info = lambda: skinned
-        with pytest.raises(NotImplementedError, match="rt_refit"):
+        hair = dataclasses.replace(scene.static_info(), has_hair=True)
+        scene.static_info = lambda: hair
+        with pytest.raises(NotImplementedError, match="hair"):
             Renderer(scene, cam, cfg, device="cpu", ddgi=True)
-        scene.static_info = lambda: dataclasses.replace(skinned, has_skin=False)
+        scene.static_info = lambda: dataclasses.replace(hair, has_hair=False)
     r = Renderer(scene, cam, cfg, device="cpu", ddgi=True)
     assert [p.name for p in r.pipeline.passes][:3] == ["Scene", "Geometry", "DDGI"]
     assert r.scene_arrays.bvh is not None  # DDGI alone builds the BVH
     with pytest.raises(TypeError, match="ProbeGridConfig"):
         t_make_pipeline(cfg, device="cpu", ddgi=True)
+
+
+@pytest.mark.parametrize("case", ["ssss", "rt_refit", "hair", "ssss_temporal"])
+def test_ssss_and_refit_construct_and_their_unported_branches_raise(case):
+    """``ssss`` and ``rt_refit`` are ported and construct in the reference's
+    places (SSSS after LightingCompose, BVHRefit after Geometry when a pass
+    traces rays); hair and SSSS's temporal branch raise naming them."""
+    from arkoserenderer_torch.rendering.passes.ssss import SSSSPass
+    from arkoserenderer_torch.scene.scene import SceneStatic
+
+    cfg = TPipelineConfig(width=32, height=16, shadow_map_size=32,
+                          raster=TRasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=64))
+
+    def names(cfg, **kw):
+        return [p.name for p in t_make_pipeline(cfg, device="cpu", **kw).passes]
+
+    if case == "ssss":
+        assert names(cfg, ssss=True)[4:7] == ["LightingCompose", "SSSS", "SkyView"]
+    elif case == "rt_refit":
+        assert "BVHRefit" not in names(cfg, rt_refit=True)  # nothing traces rays
+        assert names(cfg, rt_refit=True, rt_shadows=True)[:4] == [
+            "Scene", "Geometry", "BVHRefit", "RTShadow"]
+    elif case == "hair":
+        with pytest.raises(NotImplementedError, match="hair"):
+            t_make_pipeline(dataclasses.replace(cfg, scene=SceneStatic(has_hair=True)),
+                            device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="temporal"):
+            SSSSPass(temporal=True).construct(cfg, TRegistry(), torch.device("cpu"))
 
 
 def test_output_pass_takes_the_reference_keywords():

@@ -228,6 +228,31 @@ def test_trace_kernel_ddgi_traces_match_plain(cuda_device):
         assert trace_rays_cuda.launches_by_label[label] == renderer.frame_index
 
 
+@pytest.mark.cuda
+def test_kernels_on_the_animated_ddgi_frame_match_plain(cuda_device):
+    """A small ddgi frame (skinned box, morphed sphere, BVHRefit): its two
+    DDGI traces, captured as the frame makes them, walk the BVH refitted in
+    that frame and match the plain walk bit for bit; its camera and sun
+    rasters, from the skinned and morphed pool, match the plain raster."""
+    from arkoserenderer_torch.ops.raster_cuda import rasterize_tiles_cuda
+    from arkoserenderer_torch.tools import bench, raster_bench, trace_bench
+
+    renderer = bench.build_renderer("ddgi", small=True, device=cuda_device)
+    renderer.render_frame()
+    rasters, cases = raster_bench.capture_rasters(
+        lambda: trace_bench.kind_traces(renderer, "ddgi"))
+    assert [c["trace"] for c in cases] == ["ddgi probe", "ddgi sun"]
+    for case in cases:
+        assert case["bvh"] is not renderer.scene_arrays.bvh
+        assert trace_bench.checked(case["bvh"], case)["rays"] == 64 * 128
+    assert sorted(rasters) == [(256, 256, False), (256, 256, True)]
+    cfg = renderer.cfg.raster
+    for setup, bins, w, h, depth_only in rasters.values():
+        kv, kd = rasterize_tiles_cuda(setup, bins, w, h, cfg, depth_only=depth_only)
+        pv, pd = raster.rasterize_tiles_plain(setup, bins, w, h, cfg, depth_only=depth_only)
+        assert torch.equal(kv, pv) and torch.equal(kd, pd)
+
+
 def test_trace_wrapper_checks_its_inputs():
     """The wrapper raises on what the kernel does not take before it builds
     anything, so this runs on the CPU."""

@@ -182,7 +182,9 @@ UNPORTED_RT = {
                   dict(rt_shadows=True), "source_radius"),
     "soft point": (dict(n_points=1, point_shadow_casters=(True,), point_source_radius=(0.05,)),
                    dict(rt_shadows=True), "source_radius"),
-    "refit": ({}, dict(rt_shadows=True, rt_refit=True), "rt_refit"),
+    # The refit is ported (test_torch_refit.py); hair, which it would
+    # re-read, is not.
+    "hair": (dict(has_hair=True), dict(rt_shadows=True, rt_refit=True), "hair"),
     # DDGI is ported (test_torch_showcase.py); its probe overlay is not.
     "ddgi": ({}, dict(rt_reflections=True, ddgi_probe_debug=True), "ddgi_probe_debug"),
 }
@@ -196,20 +198,28 @@ def test_unported_rt_options_raise_by_name(case):
 
 
 def test_rt_scale_and_deformable_scenes_raise_by_name():
-    """Half-rate tracing, and a skinned or morphed scene under RT (its BVH
-    needs the per-frame refit), are not ported."""
+    """Half-rate tracing and hair are not ported. A skinned or morphed scene
+    under RT refits its BVH every frame (BVHRefit after Geometry, unless
+    the caller turns rt_refit off); a rigid one does not."""
     import arkoserenderer_torch.assets.procedural as tproc
     from arkoserenderer_torch.models.standard import Renderer
 
     with pytest.raises(NotImplementedError, match="rt_scale"):
         dataclasses.replace(_cfg(), rt_scale=2)
     scene, cam = tproc.build_test_scene(viewport=(32, 16))
-    skinned = dataclasses.replace(scene.static_info(), has_skin=True)
-    scene.static_info = lambda: skinned
-    with pytest.raises(NotImplementedError, match="rt_refit"):
+    rigid = scene.static_info()
+    scene.static_info = lambda: dataclasses.replace(rigid, has_hair=True)
+    with pytest.raises(NotImplementedError, match="hair"):
         Renderer(scene, cam, _cfg(), device="cpu", rt_reflections=True)
+    scene.static_info = lambda: dataclasses.replace(rigid, has_skin=True)
+    r = Renderer(scene, cam, _cfg(), device="cpu", rt_shadows=True, rt_reflections=True)
+    assert [p.name for p in r.pipeline.passes][1:7] == [
+        "Geometry", "BVHRefit", "RTShadow", "VisibilityShading", "RTReflections",
+        "LightingCompose"]
+    r = Renderer(scene, cam, _cfg(), device="cpu", rt_shadows=True, rt_refit=False)
+    assert "BVHRefit" not in [p.name for p in r.pipeline.passes]
     # Rigid, the same scene builds with its BVH and passes in the order.
-    scene.static_info = lambda: dataclasses.replace(skinned, has_skin=False)
+    scene.static_info = lambda: rigid
     r = Renderer(scene, cam, _cfg(), device="cpu", rt_shadows=True, rt_reflections=True)
     assert [p.name for p in r.pipeline.passes][2:6] == ["RTShadow", "VisibilityShading",
                                                          "RTReflections", "LightingCompose"]

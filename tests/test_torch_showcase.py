@@ -59,41 +59,52 @@ FLIPS = {
 }
 
 
-def walk_ddgi(kind):
-    """Both pipelines of ``kind`` pass by pass over two frames:
-    {(frame, pass): (torch, jax) updates}."""
-    import arkoserenderer_torch.assets.procedural as tproc
-    import arkoserenderer_tpu.assets.procedural as jproc
+FRAME_TIMES = (0.0, 0.25)  # an animated scene's clip time at frames 0 and 1
 
-    jscene, jcam = jproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
-    tscene, _ = tproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
+
+def walk(jscene, jcam, tscene, flags: dict, frames: int = 2, animate: bool = False):
+    """Both packages' pipelines of ``flags`` (make_forward_pipeline's, with
+    ``ddgi`` a JAX ProbeGridConfig) pass by pass over ``frames`` frames:
+    {(frame, pass): (torch, jax) updates}, and "names": the passes. Each
+    torch pass takes the JAX input state of that pass; the camera moves 0.4
+    in x between frames and frame 0's persistent state feeds frame 1. With
+    ``animate`` the JAX scene's clips are evaluated at FRAME_TIMES[frame]
+    and the palette and morph weights uploaded, as Renderer does."""
     sizes = dict(width=RES, height=RES, shadow_map_size=128)
     jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), scene=jscene.static_info(), **sizes)
     tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), scene=tscene.static_info(), **sizes)
-    grid = jdd.ProbeGridConfig()
-    jpipe = j_make_pipeline(jcfg, ddgi=grid, **WALK_KW[kind])
-    tpipe = t_make_pipeline(tcfg, device="cpu", ddgi=bridge.probe_grid_from(grid),
-                            **WALK_KW[kind])
-    assert [n for n, _ in jpipe._executes] == WALK_PASSES[kind] == [n for n, _ in tpipe._executes]
+    jpipe = j_make_pipeline(jcfg, **flags)
+    tflags = dict(flags)
+    if "ddgi" in flags:
+        tflags["ddgi"] = bridge.probe_grid_from(flags["ddgi"])
+    tpipe = t_make_pipeline(tcfg, device="cpu", **tflags)
+    names = [n for n, _ in jpipe._executes]
+    assert names == [n for n, _ in tpipe._executes]
     persistent = sorted(jpipe.registry.persistent_names)
     assert persistent == sorted(tpipe.registry.persistent_names)
-    assert set(DDGI_KEYS) <= set(persistent)
-    t_init = tpipe.initial_state()
-    for key, value in jpipe.initial_state().items():
-        if key in DDGI_KEYS:  # visibility cleared to max_distance in both channels
-            np.testing.assert_array_equal(_np(t_init[key]), _np(value), err_msg=key)
+    if "ddgi" in flags:
+        assert set(DDGI_KEYS) <= set(persistent)
+        t_init = tpipe.initial_state()
+        for key, value in jpipe.initial_state().items():
+            if key in DDGI_KEYS:  # visibility cleared to max_distance in both channels
+                np.testing.assert_array_equal(_np(t_init[key]), _np(value), err_msg=key)
 
-    jsa = jscene.build(with_bvh=True)
-    tsa = bridge.scene_arrays_from_numpy(jsa._asdict(), "cpu")
+    jsa = jscene.build(with_bvh="ddgi" in flags or flags.get("rt_shadows", False)
+                       or flags.get("rt_reflections", False))
     jitted = [jax.jit(jexec) for _, jexec in jpipe._executes]
     state = jpipe.initial_state()
-    out = {}
-    for frame in (0, 1):
-        if frame == 1:
+    out = {"names": names}
+    for frame in range(frames):
+        if frame:
             jcam.post_render()
             jcam.position = jcam.position + np.array([0.4, 0.0, 0.0], np.float32)
             state = {k: state[k] for k in persistent}
-        state["scene.version"] = jnp.asarray(0, jnp.int32)
+        if animate:
+            palette = jscene.update_animations(FRAME_TIMES[frame])
+            jsa = jsa._replace(palette=jnp.asarray(palette), morph_weights=tuple(
+                jnp.asarray(w) for w in jscene._morph_weights_list))
+        tsa = bridge.scene_arrays_from_numpy(jsa._asdict(), "cpu")
+        state["scene.version"] = jnp.asarray(frame if animate else 0, jnp.int32)
         jcs = jcam.state(frame)
         tctx = TFrameContext(scene=tsa, camera=bridge.camera_state_from_numpy(jcs._asdict(), "cpu"),
                              frame_index=frame, delta_time=1 / 60)
@@ -105,6 +116,19 @@ def walk_ddgi(kind):
             jupd = jexec(state, jctx)
             out[frame, name] = (tupd, jupd)
             state = {**state, **jupd}
+    return out
+
+
+def walk_ddgi(kind):
+    """Both pipelines of ``kind`` pass by pass over two frames:
+    {(frame, pass): (torch, jax) updates}."""
+    import arkoserenderer_torch.assets.procedural as tproc
+    import arkoserenderer_tpu.assets.procedural as jproc
+
+    jscene, jcam = jproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
+    tscene, _ = tproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
+    out = walk(jscene, jcam, tscene, dict(ddgi=jdd.ProbeGridConfig(), **WALK_KW[kind]))
+    assert out["names"] == WALK_PASSES[kind]
     return out
 
 

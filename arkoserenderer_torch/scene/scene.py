@@ -29,6 +29,7 @@ Not ported: hair and streaming.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -53,7 +54,8 @@ BLEND_TRANSLUCENT = 2
 MAX_JOINTS = 256  # skinning palette capacity, every skeleton instance together
 LOD_FAR = 3.4e38  # 'infinite' LOD band end (finite: no inf in device buffers)
 
-WRAP_REPEAT = 0  # texture address modes (WRAP_CLAMP = 1)
+WRAP_REPEAT = 0  # texture address modes
+WRAP_CLAMP = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +276,7 @@ class Scene:
         self._morph_weights_list: list[np.ndarray] = []
         self._morph_weight_overrides: dict[int, np.ndarray] = {}
         self.enable_meshlets = False  # meshlet-granularity culling (build + Geometry)
+        self.build_times: dict[str, float] = {}  # host seconds of the last build_host
         self._mirror: dict[str, np.ndarray] | None = None  # instance pools of the last build
         self._seg_bounds: dict[int, tuple[np.ndarray, float]] = {}
         # Bindless texture list (img_rgba8, srgb, wrap); ids 0-3 are the
@@ -314,18 +317,27 @@ class Scene:
         self.segments.append(seg)
         return len(self.segments) - 1
 
-    def add_instance(self, segment_id: int, world: np.ndarray, prev_world=None,
-                     lod_band=(0.0, LOD_FAR), clip: int | None = None) -> int:
-        """Returns the new instance id. ``prev_world`` (None: ``world``)
-        feeds the velocity of moving instances; the instance renders while
-        the camera's distance lies in ``lod_band`` = [near, far). ``clip``
-        (an ``add_animation`` id) drives a skinned instance's skeleton or a
-        morphed instance's weights."""
-        self.instances.append(
-            (segment_id, np.asarray(world, np.float32), prev_world, lod_band))
-        if clip is not None:
-            self.instance_clips[len(self.instances) - 1] = clip
-        return len(self.instances) - 1
+    def add_mesh(self, segments: list[MeshSegment]) -> list[int]:
+        return [self.add_segment(s) for s in segments]
+
+    def add_instance(self, segment_ids, world: np.ndarray, prev_world=None,
+                     clip: int | None = None, lod_band=(0.0, LOD_FAR)) -> int:
+        """One instance of each segment id in ``segment_ids`` (an int or a
+        list); returns the first new instance id. ``prev_world`` (None:
+        ``world``) feeds the velocity of moving instances; ``clip`` (an
+        ``add_animation`` id) drives a skinned instance's skeleton or a
+        morphed instance's weights; the instance renders while the camera's
+        distance lies in ``lod_band`` = [near, far)."""
+        first = len(self.instances)
+        for sid in [segment_ids] if isinstance(segment_ids, (int, np.integer)) else segment_ids:
+            self.instances.append(
+                (sid, np.asarray(world, np.float32), prev_world, lod_band))
+            if clip is not None:
+                self.instance_clips[len(self.instances) - 1] = clip
+        return first
+
+    def instance_transform(self, instance_id: int) -> np.ndarray:
+        return self.instances[instance_id][1]
 
     def add_skeleton(self, skeleton) -> int:
         self.skeletons.append(skeleton)
@@ -421,7 +433,10 @@ class Scene:
     def build_host(self, with_bvh: bool = False,
                    rt_stream_capacity: int = 64) -> dict[str, np.ndarray]:
         """Every SceneArrays field as host arrays (nested as "a.b"); the
-        BVH's as "bvh.*" when ``with_bvh``."""
+        BVH's as "bvh.*" when ``with_bvh``. Records the host seconds of its
+        stages in ``build_times``: the pools ("pools_s"), the packed
+        materials ("packing_s") and the BVH ("bvh_s", 0 without one)."""
+        t0 = time.perf_counter()
         lim = self.limits
         vmax, tmax, dmax, mmax = (
             lim.max_vertices, lim.max_triangles, lim.max_drawables, lim.max_materials,
@@ -562,6 +577,7 @@ class Scene:
 
         # Packed material records + channel-packed texel pool, padded to the
         # configured pool size.
+        t1 = time.perf_counter()
         tex_rows, tex_meta = mattex.build_packed_materials(ms, self.images)
         cap_rows = max(int(lim.texture_pool_texels), tex_rows.shape[0])
         if cap_rows > tex_rows.shape[0]:
@@ -583,6 +599,7 @@ class Scene:
             mat_records[i, 14] = x.blend_mode
             mat_records[i, 15:32] = tex_meta[i]
         out["mat_records"] = mat_records
+        t2 = time.perf_counter()
 
         center, radius = self.bounding_sphere()
         lights = build_light_arrays(
@@ -595,8 +612,11 @@ class Scene:
         out.update({f"lights.{k}": v for k, v in lights.items()})
         out["env_map"] = self.env_map
         out["env_brightness"] = np.asarray(self.env_brightness, np.float32)
+        t3 = time.perf_counter()
         if with_bvh:
             out.update({f"bvh.{k}": v for k, v in self._build_bvh(rt_stream_capacity).items()})
+        self.build_times = {"pools_s": (t1 - t0) + (t3 - t2), "packing_s": t2 - t1,
+                            "bvh_s": time.perf_counter() - t3}
         return out
 
     def build(self, device="cuda", with_bvh: bool = False,

@@ -36,6 +36,11 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
              probes of a 16x8x16 grid: eleven traces a frame (sun mask,
              spot masks 0 and 1, reflection, sun occlusion, spot occlusions
              0 and 1, ddgi probe, ddgi sun, ddgi spots 0 and 1)
+  helmet     a 6x6 grid of the DamagedHelmet glTF (assets/sample; 556,274
+             triangles with the floor) with its five textures decoded and
+             LANCZOS-resized to 1024^2 at import, RT sun shadows and DDGI
+             (a 16x4x16 grid, 256 rays x 1,024 probes a frame): three traces
+             a frame (sun mask, ddgi probe, ddgi sun) and the camera raster
 
 at 1920x1080, raster tile 8x128 with 256 triangles a tile, and an 8192^2 sun
 shadow map (``--small``: 256x256, tile 8x16, a 256^2 map, 64 materials over
@@ -49,7 +54,10 @@ motion is the grid's.
     python -m arkoserenderer_torch.tools.bench [--config forward,full_post] [--small]
                                                [--warmup 4] [--iters 16] [--profile]
 
-prints the card's name and power limit, then one JSON line per frame kind:
+prints the card's name and power limit, then for each frame kind a line
+with the host's time to build its scene and its renderer (``build_line``:
+the scene's authoring, for the helmet with its textures' decode and resize
+timed apart; the pools, material packing and the BVH), and one JSON line:
 ms/frame (median, min, max of CUDA-event times around each frame, and the
 host's wall clock per frame), the median ms of every pass, peak device
 memory, the raster kernel's launches (and the count the configuration
@@ -71,10 +79,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import time
 
 import numpy as np
 import torch
 
+from arkoserenderer_torch.assets import imagecodec, sample_scenes
+from arkoserenderer_torch.assets.gltf import parse_gltf
 from arkoserenderer_torch.assets.procedural import (
     build_anim_scene,
     build_bindless_scene,
@@ -118,6 +129,8 @@ CONFIGS = {
                                   ssao=True, fog=True, motion_blur=True),
                  "flagship: 786K tris, 256 mats/64 tex, RT shadows+refl, DDGI 256x1024, "
                  "SSAO, full post"),
+    "helmet": ("helmet", dict(rt_shadows=True, ddgi="helmet"),
+               "helmet zoo: 36x DamagedHelmet (~556K tris, real textures), RT shadows + DDGI"),
 }
 ANIMATED = ("stress", "meshlet")  # scene kinds whose grid moves; their camera stands still
 STATS_FRAMES = 4  # frames after the timed ones whose culling and bin counts are read
@@ -131,12 +144,12 @@ def pipeline_config(small: bool = False) -> PipelineConfig:
                           raster=RasterConfig(tile_h=8, tile_w=128, max_tris_per_tile=256))
 
 
-def build_renderer(name: str, small: bool = False, device="cuda",
-                   cfg: PipelineConfig | None = None) -> Renderer:
-    """The Renderer of frame kind ``name`` at ``pipeline_config(small)``, or
-    at ``cfg`` when given (the scene's size still follows ``small``). The
-    upscaled kind renders at the "quality" preset of that size and upscales
-    to it."""
+def build_scene(name: str, small: bool = False, cfg: PipelineConfig | None = None):
+    """The host scene of frame kind ``name`` and what its Renderer takes:
+    (scene, camera, pipeline config, Renderer keywords), at
+    ``pipeline_config(small)`` or at ``cfg`` when given (the scene's size
+    still follows ``small``). The upscaled kind renders at the "quality"
+    preset of that size and upscales to it."""
     kind, kw, _ = CONFIGS[name]
     cfg = cfg or pipeline_config(small)
     if kind == "test_upscaled":
@@ -156,6 +169,15 @@ def build_renderer(name: str, small: bool = False, device="cuda",
             kw = dict(kw, ddgi=ProbeGridConfig.fit_bounds(
                 center, radius, dims=(8, 4, 8) if small else (16, 8, 16),
                 rays_per_probe=128 if small else 256, probes_per_frame=64 if small else 1024))
+    elif kind == "helmet":
+        scene, camera = sample_scenes.build_helmet_scene(
+            n_grid=3 if small else 6, viewport=viewport,
+            max_texture_size=128 if small else 1024)
+        if kw.get("ddgi") == "helmet":
+            center, radius = scene.bounding_sphere()
+            kw = dict(kw, ddgi=ProbeGridConfig.fit_bounds(
+                center, radius, dims=(8, 4, 8) if small else (16, 4, 16),
+                rays_per_probe=128 if small else 256, probes_per_frame=64 if small else 1024))
     elif kind in ANIMATED:
         scene, camera = build_stress_scene(n_instances=256 if small else 4096, viewport=viewport)
         scene.enable_meshlets = kind == "meshlet"
@@ -174,6 +196,13 @@ def build_renderer(name: str, small: bool = False, device="cuda",
             direction=np.array([-0.3, -1.0, -0.2], np.float32),
             luminous_intensity_cd=30000.0,
         ))
+    return scene, camera, cfg, kw
+
+
+def build_renderer(name: str, small: bool = False, device="cuda",
+                   cfg: PipelineConfig | None = None) -> Renderer:
+    """The Renderer of frame kind ``name`` (``build_scene``'s arguments)."""
+    scene, camera, cfg, kw = build_scene(name, small, cfg)
     return Renderer(scene, camera, cfg, device=device, **kw)
 
 
@@ -308,7 +337,13 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
     torch.cuda.reset_peak_memory_stats(dev)
     rasterize_tiles_cuda.launches = 0
     trace_rays_cuda.launches_by_label.clear()
-    renderer = build_renderer(name, small, dev)
+    t0 = time.perf_counter()
+    scene, camera, cfg, kw = build_scene(name, small)
+    t1 = time.perf_counter()
+    renderer = Renderer(scene, camera, cfg, device=dev, **kw)
+    torch.cuda.synchronize(dev)
+    host_build = {"scene_s": t1 - t0, "renderer_s": time.perf_counter() - t1,
+                  **scene.build_times}
     move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
     bench = renderer.benchmark(warmup=warmup, iters=iters, before_frame=move)
     history = "UpscaleHistory" if "UpscaleHistory" in renderer.state else "TAAHistory"
@@ -338,7 +373,7 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
         "ms_min": min(bench["frame_ms"]), "ms_max": max(bench["frame_ms"]),
         "wall_ms_per_frame": bench["wall_ms_per_frame"],
         "frame_ms": bench["frame_ms"], "pass_ms": bench["pass_ms"],
-        "frames": renderer.frame_index,
+        "frames": renderer.frame_index, "host_build": host_build,
         "raster_launches": rasterize_tiles_cuda.launches,
         "raster_launches_expected": expected_launches(renderer, renderer.frame_index),
         "trace_launches": dict(trace_rays_cuda.launches_by_label),
@@ -354,6 +389,40 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
         "device": torch.cuda.get_device_name(0), "card": card_line(),
     }
     return result, renderer
+
+
+def texture_times(small: bool = False) -> dict:
+    """Host seconds to decode the helmet's five textures
+    (``imagecodec.decode_image``) and to LANCZOS-resize them to the bench's
+    size, the two steps of its import that stand where the reference calls
+    PIL (the decoder built beforehand)."""
+    size = 128 if small else 1024
+    g = parse_gltf(sample_scenes.find_sample("DamagedHelmet") / "DamagedHelmet.gltf")
+    files = [(g.base_dir / img["uri"]).read_bytes() for img in g.doc["images"]]
+    imagecodec.build_decoder()
+    t0 = time.perf_counter()
+    images = [imagecodec.decode_image(data) for data in files]
+    t1 = time.perf_counter()
+    for img in images:
+        imagecodec.resize_lanczos(img, (size, size))
+    return {"decode_s": t1 - t0, "resize_s": time.perf_counter() - t1,
+            "textures": [list(img.shape) for img in images]}
+
+
+def build_line(name: str, result: dict, textures: dict | None = None) -> str:
+    """The host build of a frame kind's run on one line: the scene's
+    authoring (for the helmet, the glTF import with its texture decode and
+    resize), then the Renderer (the pools, material packing, the BVH, the
+    upload and the passes' construction)."""
+    b = result["host_build"]
+    line = (f"{name}: host build {b['scene_s'] + b['renderer_s']:.3f} s = scene "
+            f"{b['scene_s']:.3f} s")
+    if textures is not None:
+        line += (f" (of which decoding {len(textures['textures'])} textures "
+                 f"{textures['decode_s']:.3f} s and resizing them {textures['resize_s']:.3f} s, "
+                 f"timed apart)")
+    return (line + f" + renderer {b['renderer_s']:.3f} s (pools {b['pools_s']:.3f} s, material "
+            f"packing {b['packing_s']:.3f} s, BVH {b['bvh_s']:.3f} s)")
 
 
 def profile_config(name: str, renderer: Renderer, frames: int = 4, top: int = 12) -> dict:
@@ -443,7 +512,9 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(card_line(), flush=True)
     for name in args.config.split(","):
+        textures = texture_times(args.small) if name == "helmet" else None
         result, renderer = run_config(name, args.small, args.warmup, args.iters)
+        print(build_line(name, result, textures), flush=True)
         print(json.dumps(result), flush=True)
         if args.profile:
             print(json.dumps(profile_config(name, renderer)), flush=True)

@@ -1,7 +1,9 @@
 """Minimal PNG reading and the float -> uint8 convention of the goldens.
 
-Reads 8-bit, non-interlaced greyscale / RGB / RGBA PNGs with the standard
-library's zlib, so golden checks need no imaging package.
+Reads 8-bit, non-interlaced greyscale, grey + alpha, RGB and RGBA PNGs with
+the standard library's zlib, so golden checks and texture imports need no
+imaging package. Palette, 16-bit and interlaced PNGs raise
+NotImplementedError naming the kind.
 """
 
 from __future__ import annotations
@@ -54,12 +56,11 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def load_png(path: str) -> np.ndarray:
-    """(H, W, C) uint8 pixels of an 8-bit non-interlaced PNG."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_png(data: bytes) -> np.ndarray:
+    """(H, W, C) uint8 samples of an 8-bit non-interlaced PNG held in
+    ``data``: C is 1 (grey), 2 (grey + alpha), 3 (RGB) or 4 (RGBA)."""
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError("not a PNG file")
     pos, idat, hdr = 8, [], None
     while pos < len(data):
         (n,) = struct.unpack(">I", data[pos:pos + 4])
@@ -73,10 +74,22 @@ def load_png(path: str) -> np.ndarray:
         elif kind == b"IEND":
             break
     if hdr is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError("PNG without an IHDR chunk")
     w, h, depth, ctype, _comp, _filt, interlace = hdr
-    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
-        raise ValueError(f"{path}: only 8-bit non-interlaced grey/RGB/RGBA PNGs are read")
+    if ctype == 3:
+        raise NotImplementedError("palette PNG (colour type 3) is not supported")
+    if depth != 8:
+        raise NotImplementedError(f"{depth}-bit PNG is not supported (8-bit only)")
+    if interlace != 0:
+        raise NotImplementedError("interlaced (Adam7) PNG is not supported")
+    if ctype not in _CHANNELS:
+        raise ValueError(f"bad PNG colour type {ctype}")
     ch = _CHANNELS[ctype]
     rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
     return rows.reshape(h, w, ch)
+
+
+def load_png(path: str) -> np.ndarray:
+    """(H, W, C) uint8 samples of the PNG file at ``path`` (``decode_png``)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read())

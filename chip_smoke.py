@@ -105,17 +105,32 @@ result line):
      version bit for bit and whose camera and sun rasters (from the skinned
      and morphed pool) are held bit for bit against the plain raster, all
      captured as the frame makes them and timed as in phases 3 and 10.
+ 13. the helmet (glTF import): the port's JPEG decoder (csrc/jpeg_decode.c,
+     host C built here with the host compiler) on the DamagedHelmet's five
+     2048^2 textures, each equal to the SHA-256 of PIL's pixels recorded on
+     a machine with PIL; the 256^2 helmet golden (tests/goldens/helmet.png)
+     rendered on the card; then the helmet frame (36 DamagedHelmets, 556,274
+     triangles, 1024^2 textures, RT sun shadows, DDGI at 256 rays x 1,024
+     probes of a 16x4x16 grid) through the bench as in phase 11, with the
+     host's build time by stage, each counted frame finite, covered and
+     moving every DDGI atlas, the camera raster only and three traces a
+     frame (sun mask, ddgi probe, ddgi sun), the camera's dropped bin
+     entries; then one more frame's camera raster and three traces,
+     captured as the frame makes them, bit for bit against their plain
+     versions and timed as in phases 3 and 10.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
-per-frame ddgi sun), each with its launches in the runs of the frame kinds
-that launch it, and one entry per trace the traversal kernel serves in the
-rt, showcase, flagship and ddgi frames, each with its launches by its label
-in that kind's run; the last line is {"ok": true, "device": {...}}.
+per-frame ddgi sun, helmet camera), each with its launches in the runs of
+the frame kinds that launch it, and one entry per trace the traversal
+kernel serves in the rt, showcase, flagship, ddgi and helmet frames, each
+with its launches by its label in that kind's run; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import sys
@@ -138,6 +153,17 @@ TRACE_SOURCE = "arkoserenderer_torch/csrc/bvh_trace.cu"
 RT_TRACES = ("sun mask", "spot mask 0", "reflection", "sun occlusion", "spot occlusion 0")
 # Frame kind -> (traces a frame, DDGI rays a trace: probes a frame x rays a probe).
 PHASE11 = {"showcase": (5, 64 * 128), "flagship": (11, 1024 * 256)}
+# SHA-256 of PIL's Image.open(...).convert("RGBA") pixels of each helmet
+# texture (Pillow 12.1.0 with libjpeg-turbo), which the port's decoder,
+# built where the script runs, must give too.
+HELMET_TEXTURES = {
+    "Default_albedo.jpg": "57eeab31e3b820cce2e296942937868102d38ef4905d7130e8bddf2fa7ed692a",
+    "Default_normal.jpg": "8720e7d1cd61e6b5ddac62f07a70e8cd7e9ef8a32d9b4b8dbaa6759c8ed7f338",
+    "Default_metalRoughness.jpg":
+        "b4120c6874a5b28cd7a00dc7fe8a6001b98abcdacddf52e5a58c7d480d3e0497",
+    "Default_emissive.jpg": "318c6044e80796641ce63514f23bb1ce8e49e1ca8fbb960e2e60286e724cdb2d",
+    "Default_AO.jpg": "1fb7529f9a51067f96dc1a1d296019530cba344953551db0c4b035c0e680fb7a",
+}
 
 
 def random_case(rng, n, big: bool, width: int, height: int):
@@ -409,7 +435,7 @@ def main() -> None:
     # stress frames it stands still, so the motion vectors are the grid's.
     MIN_VELOCITY_PX = {"forward": 1.0, "full_post": 1.0, "bindless": 1.0, "test_spot": 1.0,
                        "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5, "rt": 1.0,
-                       "showcase": 1.0, "flagship": 1.0, "ddgi": 1.0}
+                       "showcase": 1.0, "flagship": 1.0, "ddgi": 1.0, "helmet": 1.0}
     by_kind = {}
     for name in PHASE8:
         by_kind[name] = run_kind(name)[2]
@@ -555,6 +581,39 @@ def main() -> None:
                      *rasters[S, S, True])
     del renderer, cases, rasters
 
+    # -- 13. the helmet: the decoder, the golden, the frame and its kernels -----------
+    from arkoserenderer_torch.assets import imagecodec
+    from arkoserenderer_torch.assets.sample_scenes import build_helmet_golden_scene
+
+    t0 = time.perf_counter()
+    imagecodec.build_decoder()
+    print(f"decoder: {imagecodec.SOURCE.name} built with {imagecodec.host_compiler()} and "
+          f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name, want in HELMET_TEXTURES.items():
+        data = (ROOT / "assets" / "sample" / "DamagedHelmet" / name).read_bytes()
+        t0 = time.perf_counter()
+        px = imagecodec.decode_image(data)
+        ms = (time.perf_counter() - t0) * 1e3
+        got = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+        if got != want:
+            raise AssertionError(f"decoder: {name} pixels hash {got}, PIL's {want}")
+        print(f"decoder: {name} {px.shape} equals PIL's pixels (SHA-256 {got[:16]}...), "
+              f"{ms:.1f} ms on the host", flush=True)
+    g_scene, g_cam = build_helmet_golden_scene()
+    check_golden("helmet", Renderer(g_scene, g_cam, g_cfg, device=dev, taa=False,
+                                    bloom=False).render_frame())
+    textures = bench.texture_times()
+    res, renderer = run_traced_kind("helmet", 3)
+    print(bench.build_line("helmet", res, textures), flush=True)
+    rasters, cases = rb.capture_rasters(lambda: tb.kind_traces(renderer, "helmet"))
+    if not (sorted(rasters) == sorted(bench.expected_launches_by_shape(renderer, 1))
+            == [(H, W, False)]):
+        raise AssertionError(f"a helmet frame rastered {sorted(rasters)}")
+    kind_traces += check_kind_traces("helmet", res, cases, 1024 * 256)
+    compare_and_time("camera_helmet", f"helmet camera {W}x{H}, tile 8x128 (556,274 triangles)",
+                     2, *rasters[H, W, False])
+    del renderer, cases, rasters
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
         "camera": (PHASE8 + ("rt", "showcase"), (H, W, False)),
@@ -566,6 +625,7 @@ def main() -> None:
         "camera_flagship": (("flagship",), (H, W, False)),
         "camera_ddgi": (("ddgi",), (H, W, False)),
         "sun_ddgi": (("ddgi",), (S, S, True)),
+        "camera_helmet": (("helmet",), (H, W, False)),
     }
     launches = {e: sum(by_kind[k].get(shape, 0) for k in kinds)
                 for e, (kinds, shape) in entries.items()}

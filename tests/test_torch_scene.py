@@ -267,15 +267,18 @@ def test_port_imports_neither_jax_nor_reference():
         "import arkoserenderer_torch.rendering.passes.ddgi\n"
         "import arkoserenderer_torch.scene.animation, arkoserenderer_torch.ops.skinning\n"
         "import arkoserenderer_torch.rendering.passes.ssss\n"
+        "import arkoserenderer_torch.assets.imagecodec, arkoserenderer_torch.assets.gltf\n"
+        "import arkoserenderer_torch.assets.sample_scenes\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k.startswith('arkoserenderer_tpu'))\n"
+        "             or k.startswith('arkoserenderer_tpu') or k == 'PIL'\n"
+        "             or k.startswith('PIL.'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 63  # every module of the slices was imported
+    assert int(res.stdout.split()[0]) >= 66  # every module of the slices was imported
 
 
 def test_renderer_device_is_explicit():

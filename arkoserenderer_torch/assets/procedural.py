@@ -1,6 +1,7 @@
 """Procedural geometry, the standard test scene, the animated test scene,
-the culling-stress scene with its animation, the bindless-pressure scene
-and the flagship scene (port of arkoserenderer_tpu/assets/procedural.py,
+the culling-stress scene with its animation, the bindless-pressure scene,
+the flagship scene and the truth harness's flat scene (port of
+arkoserenderer_tpu/assets/procedural.py,
 the parts the frames use, and of the reference bench's test_anim scene).
 Scene building is host numpy: the same code gives the same pools as the
 reference. ``make_stress_animator`` is the one function on tensors.
@@ -556,4 +557,50 @@ def build_bindless_scene(
     scene.ambient_lx = 6000.0
     cam = Camera(viewport=viewport)
     cam.look_at((extent * 0.10, 5.0, extent * 0.16), (0.0, 0.4, 0.0))
+    return scene, cam
+
+
+def build_flat_test_scene(viewport: tuple[int, int] = (128, 128)) -> tuple[Scene, Camera]:
+    """The truth harness's untextured scene: a floor, three diffuse spheres
+    of rising roughness, a box and a clearcoat sphere, lit by the sun alone
+    (no environment, no flat ambient). The path tracer's first-bounce NEE is
+    then the raster's direct term, so the two must agree pixel by pixel."""
+    lim = SceneLimits(
+        max_vertices=1 << 15, max_indices=3 << 15, max_drawables=64,
+        max_materials=32, max_textures=32, texture_pool_texels=1 << 16,
+    )
+    scene = Scene(limits=lim)
+    floor = make_plane(size=20.0)
+    floor.material = scene.add_material(Material(
+        base_color_factor=np.array([0.5, 0.5, 0.5, 1.0], np.float32), roughness_factor=0.8))
+    scene.add_instance(scene.add_segment(floor), np.eye(4, dtype=np.float32))
+    for i, rough in enumerate((0.2, 0.5, 0.9)):
+        seg = make_uv_sphere(0.6, rings=24, sectors=48)
+        seg.material = scene.add_material(Material(
+            base_color_factor=np.array([0.8, 0.4, 0.3, 1.0], np.float32),
+            roughness_factor=rough, metallic_factor=0.0))
+        w = np.eye(4, dtype=np.float32)
+        w[:3, 3] = (-2.0 + 2.0 * i, 0.6, 0.0)
+        scene.add_instance(scene.add_segment(seg), w)
+    box = make_box((1.0, 1.4, 1.0))
+    box.material = scene.add_material(Material(
+        base_color_factor=np.array([0.3, 0.45, 0.8, 1.0], np.float32), roughness_factor=0.4))
+    wb = np.eye(4, dtype=np.float32)
+    wb[:3, 3] = (0.0, 0.7, -2.2)
+    scene.add_instance(scene.add_segment(box), wb)
+    # The clearcoat sphere: the Kelemen lobe must agree between the two.
+    cc = make_uv_sphere(0.5, rings=24, sectors=48)
+    cc.material = scene.add_material(Material(
+        base_color_factor=np.array([0.55, 0.1, 0.1, 1.0], np.float32),
+        roughness_factor=0.6, clearcoat=1.0, clearcoat_roughness=0.15))
+    wc = np.eye(4, dtype=np.float32)
+    wc[:3, 3] = (2.1, 0.5, 1.8)
+    scene.add_instance(scene.add_segment(cc), wc)
+    scene.sun = DirectionalLight(direction=np.array([0.4, -1.0, -0.3], np.float32),
+                                 illuminance_lux=90000.0)
+    scene.env_map = np.zeros((1, 2, 3), np.float32)
+    scene.env_brightness = 0.0
+    scene.ambient_lx = 0.0
+    cam = Camera(viewport=viewport)
+    cam.look_at((4.0, 2.5, 5.0), (0.0, 0.6, -0.5))
     return scene, cam

@@ -13,8 +13,9 @@ flattened to "lights.sun_view_proj" style keys; the morph tuples (one array
 per morphed instance) flatten to "morph_pos.0" style keys; the BVH (a
 dataclass in both packages) flattens to "bvh.*" keys, and the reference's
 one-leaf placeholder of a scene without one carries across as None. The
-skinning pools and palette carry across; fields the port does not carry
-(hair, the texture pool of the reference's unpacked path) are ignored.
+skinning pools, the palette and the RGBA8 texture pool (``textures``, which
+the path tracer samples; its uint32 texels become int32 with the same bits)
+carry across; fields the port does not carry (hair) are ignored.
 
 ``frame_state_from_numpy`` carries a frame state across: every resource a
 pass published (``ShadowMap.locals``, the G-buffer, the refitted

@@ -239,3 +239,38 @@ def frustum_test_spheres(planes: torch.Tensor, centers: torch.Tensor,
     """(6,4) planes vs (N,3) centres + (N,) radii -> (N,) bool visible."""
     d = centers @ planes[:, :3].T + planes[None, :, 3]
     return torch.all(d >= -radii[:, None], dim=-1)
+
+
+def onb(n: torch.Tensor):
+    """Branchless orthonormal basis of unit vectors (Frisvad, by Duff et
+    al.): (..., 3) -> (tangent, bitangent), each (..., 3)."""
+    s = torch.where(n[..., 2:3] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n[..., 2:3])
+    b = n[..., 0:1] * n[..., 1:2] * a
+    t = torch.cat([1.0 + s * n[..., 0:1] ** 2 * a, s * b, -s * n[..., 0:1]], dim=-1)
+    bt = torch.cat([b, s + n[..., 1:2] ** 2 * a, -n[..., 1:2]], dim=-1)
+    return t, bt
+
+
+def sample_cone(axis: torch.Tensor, cos_max, u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Uniform solid-angle direction inside the cone of half-angle
+    acos(``cos_max``) around the unit ``axis`` (..., 3); ``u1``, ``u2``
+    (...,) uniforms. ``cos_max`` 1 gives the axis exactly."""
+    t, b = onb(axis)
+    cos_t = 1.0 - u1 * (1.0 - cos_max)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 2.0 * np.pi * u2
+    d = (t * (torch.cos(phi) * sin_t)[..., None] + b * (torch.sin(phi) * sin_t)[..., None]
+         + axis * cos_t[..., None])
+    return normalize(d)
+
+
+def sample_disk_offset(axis: torch.Tensor, radius, u1: torch.Tensor,
+                       u2: torch.Tensor) -> torch.Tensor:
+    """Uniform offset on the disk of ``radius`` perpendicular to ``axis``
+    (..., 3): jitters a light's position for soft shadows (radius 0 gives
+    a zero offset)."""
+    t, b = onb(axis)
+    r = radius * torch.sqrt(u1)
+    phi = 2.0 * np.pi * u2
+    return t * (r * torch.cos(phi))[..., None] + b * (r * torch.sin(phi))[..., None]

@@ -16,11 +16,22 @@ The keys and the uniforms equal JAX's bit for bit. The normals may differ
 by a few ulps: XLA on the CPU evaluates log1p by its own approximation and
 contracts the polynomial's multiply-adds into FMAs; here log1p is rounded
 once from float64 and each multiply-add is rounded once, as an FMA is.
+
+The same generator runs on the device for draws too large for the host
+(the path tracer's, one or two words a pixel a bounce): ``device_key``,
+``fold_in`` on a key tensor, ``split`` and ``uniform`` equal
+``jax.random.PRNGKey``, ``fold_in``, ``split`` and ``uniform`` bit for bit
+(``split`` in the partitionable layout: key i is the hash of the counter
+pair (i >> 32, i & 0xffffffff)). torch has no uint32 arithmetic, so a
+word is an int64 in [0, 2^32): the hash masks each word it rotates to 32
+bits, and the other word of a round may carry bits above 32 (its low 32
+bits are the uint32 sum), masked at the end.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -61,12 +72,6 @@ def prng_key(seed: int) -> np.ndarray:
     return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
 
 
-def fold_in(key, data: int) -> np.ndarray:
-    """``jax.random.fold_in(key, data)``."""
-    a, b = threefry2x32(key, np.zeros(1, np.uint32), np.array([int(data) & 0xFFFFFFFF], np.uint32))
-    return np.concatenate([a, b])
-
-
 def random_bits(key, n: int) -> np.ndarray:
     """n uint32 words, the partitionable layout of ``jax.random.bits``."""
     count = np.arange(n, dtype=np.uint64)
@@ -104,3 +109,66 @@ def ddgi_rotation_normals(frame_index: int) -> np.ndarray:
     """The four normals DDGI's probe update draws in frame ``frame_index``:
     ``normal(fold_in(PRNGKey(7), frame_index), (4,))``."""
     return normal(fold_in(prng_key(7), frame_index), 4)
+
+
+# -- on the device ------------------------------------------------------------
+
+_MASK = 0xFFFFFFFF
+
+
+def _threefry_t(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor):
+    """threefry2x32 of int64 counter words under a (2,) int64 key tensor."""
+    k0, k1 = key[0], key[1]
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    a = x0 + ks[0]
+    b = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = a + b
+            b = torch.bitwise_or(b << r, b >> (32 - r)).bitwise_xor_(a).bitwise_and_(_MASK)
+        a = a + ks[(i + 1) % 3]
+        b = (b + ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_MASK)
+    return a & _MASK, b
+
+
+def device_key(seed: int, device) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` as a (2,) int64 tensor on ``device``."""
+    seed = int(seed)
+    key = torch.full((2,), seed & _MASK, dtype=torch.int64, device=device)
+    key[0] = (seed >> 32) & _MASK
+    return key
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)``: numpy words for a numpy key, a
+    (2,) int64 tensor on the key's device for a key tensor (``data`` an
+    int or a 0-d integer tensor there)."""
+    if not isinstance(key, torch.Tensor):
+        a, b = threefry2x32(key, np.zeros(1, np.uint32),
+                            np.array([int(data) & 0xFFFFFFFF], np.uint32))
+        return np.concatenate([a, b])
+    x1 = torch.full((1,), int(data) & _MASK, dtype=torch.int64, device=key.device) \
+        if not isinstance(data, torch.Tensor) else (data.to(torch.int64) & _MASK).reshape(1)
+    a, b = _threefry_t(key, torch.zeros_like(x1), x1)
+    return torch.cat([a, b])
+
+
+def _counters(n: int, device):
+    count = torch.arange(n, dtype=torch.int64, device=device)
+    return count >> 32, count & _MASK
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)``: (n, 2) int64 keys on the key's device."""
+    a, b = _threefry_t(key, *_counters(n, key.device))
+    return torch.stack([a, b], dim=-1)
+
+
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1) from the top 23
+    bits of each word (OR 1.0's bits, viewed as a float, minus 1)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = int(np.prod(shape))
+    a, b = _threefry_t(key, *_counters(n, key.device))
+    bits = ((a ^ b) >> 9) | 0x3F800000
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)

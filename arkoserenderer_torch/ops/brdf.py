@@ -1,7 +1,8 @@
-"""Filament-style BRDF (port of arkoserenderer_tpu/ops/brdf.py ``evaluate``):
-GGX NDF, height-correlated Smith visibility, Schlick Fresnel, Lambert
-diffuse and a Kelemen clearcoat lobe. Directions point away from the
-surface and are unit length."""
+"""Filament-style BRDF (port of arkoserenderer_tpu/ops/brdf.py: ``evaluate``
+and ``sample_ggx_vndf``): GGX NDF, height-correlated Smith visibility,
+Schlick Fresnel, Lambert diffuse and a Kelemen clearcoat lobe, and the
+GGX visible-normal sampler of the path tracer's specular bounces.
+Directions point away from the surface and are unit length."""
 
 from __future__ import annotations
 
@@ -76,3 +77,28 @@ def env_fresnel_roughness(n_dot_v, f0, roughness):
     reflection terms."""
     f90 = torch.maximum(1.0 - roughness, f0)
     return f0 + (f90 - f0) * (1.0 - n_dot_v) ** 5
+
+
+def sample_ggx_vndf(v_ts: torch.Tensor, alpha: torch.Tensor, u1: torch.Tensor,
+                    u2: torch.Tensor) -> torch.Tensor:
+    """A half vector from the GGX distribution of visible normals (Heitz
+    2018): ``v_ts`` (N, 3) view direction in tangent space (+Z the normal),
+    ``alpha`` (N,) -> (N, 3) half vector in tangent space."""
+    a = alpha
+    vh = normalize(torch.stack([a * v_ts[:, 0], a * v_ts[:, 1], v_ts[:, 2]], dim=-1))
+    lensq = vh[:, 0] ** 2 + vh[:, 1] ** 2
+    inv = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
+    t1 = torch.where((lensq > 1e-12)[:, None],
+                     torch.stack([-vh[:, 1] * inv, vh[:, 0] * inv, torch.zeros_like(inv)], dim=-1),
+                     torch.tensor([1.0, 0.0, 0.0], device=vh.device).expand_as(vh))
+    t2 = torch.cross(vh, t1, dim=-1)
+    r = torch.sqrt(u1)
+    phi = 2.0 * math.pi * u2
+    p1 = r * torch.cos(phi)
+    p2 = r * torch.sin(phi)
+    s = 0.5 * (1.0 + vh[:, 2])
+    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1 * p1, min=0.0)) + s * p2
+    p3 = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    nh = p1[:, None] * t1 + p2[:, None] * t2 + p3[:, None] * vh
+    ne = torch.stack([a * nh[:, 0], a * nh[:, 1], torch.clamp(nh[:, 2], min=0.0)], dim=-1)
+    return normalize(ne)

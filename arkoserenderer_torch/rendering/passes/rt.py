@@ -10,10 +10,17 @@ reflections with their denoiser, traced through the scene's two-level BVH
 
   * RTShadowPass: one any-hit ray per pixel toward the sun, off the depth
     buffer; publishes ShadowMask.sun, which replaces the sun's shadow map
-    in shading.
+    in shading. A sun with an angular radius (a soft sun) cone-samples its
+    disk by blue noise (salts 13 and 14) and runs the noisy mask through
+    the shadow denoiser (``ops/shadow_denoise``) over RTShadow.history /
+    .moments / .depth.
   * RTLocalShadowPass: one any-hit ray per pixel to each shadow-casting spot
     and point light, stopping just short of it; publishes
     ShadowMask.locals and ShadowMask.points (1 where a light casts none).
+    A light with a source radius jitters its target on the disk facing
+    the receiver (blue noise, salts 20 + 2i for spot i, 40 + 2i for point
+    i); those soft planes are denoised as one stack over
+    RTLocalShadow.history / .moments / .depth.
   * RTReflectionsPass: mirror rays of the surfaces under the roughness
     cutoff, shaded at their hits (``ops/rt.shade_hits``), weighted by
     Fresnel, then denoised (``ops/reflection_denoise``: prefilter,
@@ -22,10 +29,11 @@ reflections with their denoiser, traced through the scene's two-level BVH
     grid the hits' diffuse ambient is the probes' irradiance.
 
 Rays of pixels that trace nothing (sky, surfaces past the cutoff) start
-far below the scene, so they leave the BVH in one step. The hard-shadow
-branches only: a sun with an angular radius or a light with a source
-radius (soft shadows and their denoiser) and half-rate tracing
-(``PipelineConfig.rt_scale``) are not ported and raise.
+far below the scene, so they leave the BVH in one step. The denoisers'
+guides are derived in the pass (it runs before the shading pass that
+publishes SceneNormal and SceneVelocity): normals from the depth buffer's
+world positions and the camera's motion. Half-rate tracing
+(``PipelineConfig.rt_scale``) and pixel-band sharding are not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ from arkoserenderer_torch.core import mathx as mx
 from arkoserenderer_torch.ops import brdf as brdf_ops
 from arkoserenderer_torch.ops import ddgi as ddgi_ops
 from arkoserenderer_torch.ops import reflection_denoise as dn
+from arkoserenderer_torch.ops import shadow_denoise as sdn
 from arkoserenderer_torch.ops.bvh import Hit, refit_bvh, trace_rays
+from arkoserenderer_torch.ops.noise import sample_blue_noise
 from arkoserenderer_torch.ops.rt import PARK, shade_hits, trace_shadow_mask
 from arkoserenderer_torch.ops.ssao import inverse4, reconstruct_world_pos
 from arkoserenderer_torch.rendering.pipeline import (
@@ -88,35 +98,67 @@ def scene_with_live_bvh(state: dict, ctx: FrameContext):
 
 
 def _receivers(state: dict, ctx: FrameContext, px, py, w: int, h: int, covered):
-    """World positions of the depth buffer's pixels; uncovered ones parked."""
+    """World positions of the depth buffer's pixels, and the same with the
+    uncovered ones parked."""
     inv_vp = inverse4(ctx.camera.unjittered_view_proj)
     world = reconstruct_world_pos(state["SceneDepth"].reshape(-1), px, py, inv_vp, w, h)
-    return torch.where(covered[:, None], world, PARK)
+    return world, torch.where(covered[:, None], world, PARK)
+
+
+def _denoised(noisy, world, state: dict, ctx: FrameContext, px, py, w: int, h: int,
+              prefix: str) -> dict:
+    """The shadow denoiser over the (H, W, C) noisy planes, its guides
+    derived from the unparked world positions; returns the resolved planes
+    and the new ``prefix``.history / .moments / .depth."""
+    depth = state["SceneDepth"]
+    world_img = world.reshape(h, w, 3)
+    normal = sdn.normals_from_depth(world_img)
+    vel = sdn.camera_velocity(world_img, px, py, ctx.camera.prev_view_proj, w, h)
+    resolved, mom = sdn.denoise(noisy, depth, normal, vel, state[f"{prefix}.history"],
+                                state[f"{prefix}.moments"], state[f"{prefix}.depth"], px, py,
+                                ctx.frame_index == 0)
+    return {f"{prefix}.history": resolved, f"{prefix}.moments": mom, f"{prefix}.depth": depth}
+
+
+def _soft_state(reg: Registry, prefix: str, h: int, w: int, c: int) -> None:
+    """The persistent state of a denoised stack of ``c`` planes."""
+    reg.create(f"{prefix}.history", (h, w, c), torch.float32, persistent=True)
+    reg.create(f"{prefix}.moments", (h, w, 2 * c + 1), torch.float32, persistent=True)
+    reg.create(f"{prefix}.depth", (h, w), torch.float32, persistent=True)
 
 
 class RTShadowPass(RenderPass):
-    """Per-pixel any-hit sun shadow mask (replaces the sun's shadow map)."""
+    """Per-pixel any-hit sun shadow mask (replaces the sun's shadow map);
+    with a soft sun, a blue-noise cone sample of its disk, denoised."""
 
     name = "RTShadow"
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
-        if cfg.scene.sun_angular_radius_deg > 0.0:
-            raise NotImplementedError("rt_shadows with a sun angular_radius_deg > 0 (soft "
-                                      "shadows and their denoiser) is not ported yet")
         h, w = cfg.height, cfg.width
         reg.get("SceneDepth")
         reg.get("Visibility")
         uses_live_bvh(reg)
+        soft = cfg.scene.sun_angular_radius_deg > 0.0
+        if soft:
+            _soft_state(reg, "RTShadow", h, w, 1)
         reg.create("ShadowMask.sun", (h, w), torch.float32, clear=1.0)
         px, py = pixel_centers(cfg, device)
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             covered = state["Visibility"].reshape(-1) >= 0
-            world = _receivers(state, ctx, px, py, w, h, covered)
-            mask = trace_shadow_mask(scene_with_live_bvh(state, ctx), world,
-                                     -ctx.scene.lights.sun_direction, covered,
-                                     label="sun mask")
-            return {"ShadowMask.sun": mask.reshape(h, w)}
+            world, parked = _receivers(state, ctx, px, py, w, h, covered)
+            lights = ctx.scene.lights
+            light_dir = -lights.sun_direction
+            if soft:
+                u1 = sample_blue_noise(px, py, ctx.frame_index, salt=13)
+                u2 = sample_blue_noise(px, py, ctx.frame_index, salt=14)
+                light_dir = mx.sample_cone(light_dir[None, :], lights.sun_cos_radius, u1, u2)
+            mask = trace_shadow_mask(scene_with_live_bvh(state, ctx), parked, light_dir,
+                                     covered, label="sun mask").reshape(h, w)
+            if not soft:
+                return {"ShadowMask.sun": mask}
+            out = _denoised(mask[..., None], world, state, ctx, px, py, w, h, "RTShadow")
+            return {"ShadowMask.sun": out["RTShadow.history"][..., 0], **out}
 
         return execute
 
@@ -125,24 +167,31 @@ class RTLocalShadowPass(RenderPass):
     """Per-pixel any-hit shadow masks of the local lights: one (H, W) plane
     per spot and per point light, traced to the light with t_max just short
     of it; lights that cast no shadow keep a plane of ones. Which lights
-    cast, and their source radii, come from ``cfg.scene``."""
+    cast, and their source radii, come from ``cfg.scene``; a casting light
+    with a radius is soft: disk-jittered, and denoised with the others."""
 
     name = "RTLocalShadow"
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         st = cfg.scene
         spot_casters, point_casters = st.spot_shadow_casters, st.point_shadow_casters
-        for kind, casters, radii in (("spot", spot_casters, st.spot_source_radius),
-                                     ("point", point_casters, st.point_source_radius)):
-            for i, cast in enumerate(casters):
-                if cast and i < len(radii) and float(radii[i]) > 0.0:
-                    raise NotImplementedError(
-                        f"rt_shadows for a {kind} light with source_radius > 0 (soft shadows "
-                        "and their denoiser) is not ported yet")
+
+        def radii(casters, source_radius):
+            return tuple(float(source_radius[i]) if i < len(source_radius) else 0.0
+                         for i in range(len(casters)))
+
+        spot_radii = radii(spot_casters, st.spot_source_radius)
+        point_radii = radii(point_casters, st.point_source_radius)
+        # The soft planes, in the denoised stack's order: ("spot" | "point", i).
+        soft_channels = (
+            [("spot", i) for i, c in enumerate(spot_casters) if c and spot_radii[i] > 0.0]
+            + [("point", i) for i, c in enumerate(point_casters) if c and point_radii[i] > 0.0])
         h, w = cfg.height, cfg.width
         reg.get("SceneDepth")
         reg.get("Visibility")
         uses_live_bvh(reg)
+        if soft_channels:
+            _soft_state(reg, "RTLocalShadow", h, w, len(soft_channels))
         n_s, n_p = len(spot_casters), len(point_casters)
         reg.create("ShadowMask.locals", (max(n_s, 1), h, w), torch.float32, clear=1.0)
         reg.create("ShadowMask.points", (max(n_p, 1), h, w), torch.float32, clear=1.0)
@@ -150,26 +199,43 @@ class RTLocalShadowPass(RenderPass):
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             covered = state["Visibility"].reshape(-1) >= 0
-            world = _receivers(state, ctx, px, py, w, h, covered)
+            world, parked = _receivers(state, ctx, px, py, w, h, covered)
             bvh = scene_with_live_bvh(state, ctx).bvh
 
-            def mask_to(light_pos, label):
-                to_l = light_pos[None, :] - world
+            def mask_to(light_pos, label, radius=0.0, salt=0):
+                to_l = light_pos[None, :] - parked
                 dist = torch.sqrt(torch.clamp(mx.vdot(to_l, to_l), min=1e-12))
                 l_dir = to_l / dist
-                occ = trace_rays(bvh, world + l_dir * 3e-2, l_dir,
+                if radius > 0.0:
+                    # The light's position jittered on the disk facing the
+                    # receiver (a spherical source's occlusion).
+                    u1 = sample_blue_noise(px, py, ctx.frame_index, salt=salt)
+                    u2 = sample_blue_noise(px, py, ctx.frame_index, salt=salt + 1)
+                    to_l = to_l + mx.sample_disk_offset(l_dir, radius, u1, u2)
+                    dist = torch.sqrt(torch.clamp(mx.vdot(to_l, to_l), min=1e-12))
+                    l_dir = to_l / dist
+                occ = trace_rays(bvh, parked + l_dir * 3e-2, l_dir.contiguous(),
                                  t_max=torch.clamp(dist[:, 0] - 6e-2, min=1e-3), any_hit=True,
                                  label=label)
                 return torch.where(covered, (~occ.hit).to(torch.float32), 1.0).reshape(h, w)
 
             ones = torch.ones((h, w), dtype=torch.float32, device=world.device)
             lights = ctx.scene.lights
-            spots = [mask_to(lights.spot_pos[i], f"spot mask {i}") if cast else ones
-                     for i, cast in enumerate(spot_casters)] or [ones]
-            points = [mask_to(lights.point_pos[i], f"point mask {i}") if cast else ones
-                      for i, cast in enumerate(point_casters)] or [ones]
-            return {"ShadowMask.locals": torch.stack(spots),
-                    "ShadowMask.points": torch.stack(points)}
+            planes = {
+                "spot": [mask_to(lights.spot_pos[i], f"spot mask {i}", spot_radii[i], 20 + 2 * i)
+                         if cast else ones for i, cast in enumerate(spot_casters)] or [ones],
+                "point": [mask_to(lights.point_pos[i], f"point mask {i}", point_radii[i],
+                                  40 + 2 * i)
+                          if cast else ones for i, cast in enumerate(point_casters)] or [ones],
+            }
+            out = {}
+            if soft_channels:
+                noisy = torch.stack([planes[kind][i] for kind, i in soft_channels], dim=-1)
+                out = _denoised(noisy, world, state, ctx, px, py, w, h, "RTLocalShadow")
+                for ci, (kind, i) in enumerate(soft_channels):
+                    planes[kind][i] = out["RTLocalShadow.history"][..., ci]
+            return {"ShadowMask.locals": torch.stack(planes["spot"]),
+                    "ShadowMask.points": torch.stack(planes["point"]), **out}
 
         return execute
 

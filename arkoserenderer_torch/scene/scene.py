@@ -39,6 +39,7 @@ from arkoserenderer_torch.assets import meshopt
 from arkoserenderer_torch.core.types import SceneLimits
 from arkoserenderer_torch.ops import bvh as bvh_ops
 from arkoserenderer_torch.ops import mattex
+from arkoserenderer_torch.ops import texture as tex_ops
 from arkoserenderer_torch.scene.lights import (
     DirectionalLight,
     LightArrays,
@@ -54,8 +55,8 @@ BLEND_TRANSLUCENT = 2
 MAX_JOINTS = 256  # skinning palette capacity, every skeleton instance together
 LOD_FAR = 3.4e38  # 'infinite' LOD band end (finite: no inf in device buffers)
 
-WRAP_REPEAT = 0  # texture address modes
-WRAP_CLAMP = 1
+WRAP_REPEAT = tex_ops.WRAP_REPEAT  # texture address modes
+WRAP_CLAMP = tex_ops.WRAP_CLAMP
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,6 +184,7 @@ class SceneArrays(NamedTuple):
     inst_valid: torch.Tensor       # (Dmax,) bool
     inst_lod_band: torch.Tensor    # (Dmax, 2) camera-distance band [near, far)
     materials: MaterialArrays
+    textures: tex_ops.TexturePool  # the RGBA8 bindless pool (linear-space mips)
     tri_material: torch.Tensor     # (Tmax,) i32
     mat_records: torch.Tensor      # (Mmax, 32) f32 packed material records
     mat_tex: mattex.PackedTexturePool
@@ -214,6 +216,7 @@ TUPLE_FIELDS = ("morph_pos", "morph_nrm", "morph_weights")
 # Nested NamedTuple fields of SceneArrays, by field name.
 NESTED_FIELDS = {
     "materials": MaterialArrays,
+    "textures": tex_ops.TexturePool,
     "mat_tex": mattex.PackedTexturePool,
     "lights": LightArrays,
 }
@@ -279,12 +282,11 @@ class Scene:
         self.build_times: dict[str, float] = {}  # host seconds of the last build_host
         self._mirror: dict[str, np.ndarray] | None = None  # instance pools of the last build
         self._seg_bounds: dict[int, tuple[np.ndarray, float]] = {}
-        # Bindless texture list (img_rgba8, srgb, wrap); ids 0-3 are the
-        # defaults white, black, flat normal and mid-gray.
-        self.images: list[tuple[np.ndarray, bool, int]] = []
-        for rgba in ([255, 255, 255, 255], [0, 0, 0, 255],
-                     [128, 128, 255, 255], [128, 128, 128, 255]):
-            self.add_texture(np.full((1, 1, 4), rgba, np.uint8), srgb=False)
+        # Bindless textures: the RGBA8 pool (``ops/texture``), whose image
+        # list (``images``) the packed pool is built from too; ids 0-3 are
+        # the defaults white, black, flat normal and mid-gray.
+        self.texture_builder = tex_ops.TexturePoolBuilder(
+            max_textures=self.limits.max_textures, pool_capacity=self.limits.texture_pool_texels)
         self.sun: DirectionalLight | None = None
         self.spots: list[SpotLight] = []
         self.points: list[PointLight] = []
@@ -300,18 +302,15 @@ class Scene:
         self.materials.append(mat)
         return len(self.materials) - 1
 
+    @property
+    def images(self) -> list[tuple[np.ndarray, bool, int]]:
+        """The bindless textures by id: (RGBA8 image, srgb, wrap)."""
+        return self.texture_builder.images
+
     def add_texture(self, img: np.ndarray, *, srgb: bool, wrap: int = WRAP_REPEAT) -> int:
-        """Add an (H, W, C<=4) uint8 image; returns its bindless texture id."""
-        if len(self.images) >= self.limits.max_textures:
-            raise ValueError("texture id capacity exceeded")
-        if img.ndim == 2:
-            img = img[..., None]
-        if img.shape[2] < 4:
-            pad = np.zeros(img.shape[:2] + (4 - img.shape[2],), np.uint8)
-            pad[..., -1] = 255  # alpha defaults to opaque
-            img = np.concatenate([img, pad], axis=-1)
-        self.images.append((img, srgb, wrap))
-        return len(self.images) - 1
+        """Add an (H, W, C<=4) uint8 image to both texture pools; returns its
+        bindless texture id."""
+        return self.texture_builder.add(img, srgb=srgb, wrap=wrap)
 
     def add_segment(self, seg: MeshSegment) -> int:
         self.segments.append(seg)
@@ -585,6 +584,7 @@ class Scene:
                 [tex_rows, np.zeros((cap_rows - tex_rows.shape[0], 3), np.uint32)]
             )
         out["mat_tex.rows"] = tex_rows
+        out.update({f"textures.{k}": v for k, v in self.texture_builder.host_fields().items()})
         mat_records = np.zeros((mmax, 32), np.float32)
         for i, x in enumerate(ms):
             mat_records[i, 0:4] = x.base_color_factor

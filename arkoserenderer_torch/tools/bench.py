@@ -12,6 +12,10 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
              sun's and the spot's shadows are rays (RTShadow, RTLocalShadow)
              and RTReflections traces mirror rays and their sun and spot
              occlusion rays, five traces a frame through the two-level BVH
+  rt_soft    the rt frame with soft shadows: a sun of 10 degrees' angular
+             radius and a spot of 0.35 source radius (the values of
+             tests/test_soft_shadows.py), so both masks are blue-noise
+             samples of the light's disk run through the shadow denoiser
   stress     4,096 animated grid cells, each a two-level LOD chain (983,042
              triangles in the pool): the forward passes with the animation
              in the frame (``make_stress_animator``), so the sun map is
@@ -42,6 +46,14 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
              (a 16x4x16 grid, 256 rays x 1,024 probes a frame): three traces
              a frame (sun mask, ddgi probe, ddgi sun) and the camera raster
 
+and, apart from those Renderer frames, the app's path tracer:
+
+  pathtraced the test scene at 1920x1080 through ``PathTracer(max_bounces=3,
+             tonemap_mode="agx", seed=0, aa=True)``, one sample a pixel a
+             call: per sample four closest-hit traces of 2,073,600 rays
+             (the camera's and three bounces') and three sun-occlusion
+             traces, every lane traced (``run_pathtraced``)
+
 at 1920x1080, raster tile 8x128 with 256 triangles a tile, and an 8192^2 sun
 shadow map (``--small``: 256x256, tile 8x16, a 256^2 map, 64 materials over
 16 chains, 256 stress cells; the flagship 256 spheres, 64 materials, 16
@@ -51,7 +63,7 @@ frame, so the motion vectors, the history reprojections and the motion
 blur do real work; in ``stress`` and ``meshlet`` it stands still and the
 motion is the grid's.
 
-    python -m arkoserenderer_torch.tools.bench [--config forward,full_post] [--small]
+    python -m arkoserenderer_torch.tools.bench [--config forward,full_post,pathtraced] [--small]
                                                [--warmup 4] [--iters 16] [--profile]
 
 prints the card's name and power limit, then for each frame kind a line
@@ -70,7 +82,7 @@ with DDGI, how far each atlas moved in the frame). With ``--profile`` it then ru
 kind under ``torch.profiler`` and prints a second JSON line: the device's
 kernel ms per frame, its busy share of the frame, launches per frame, the
 operators and kernels that take the most device time, and each pass's span
-on the device. Needs a
+on the device (for the path tracer: 4 samples, no passes). Needs a
 GPU; run from the root of a checkout.
 """
 
@@ -79,6 +91,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import time
 
 import numpy as np
@@ -95,6 +108,7 @@ from arkoserenderer_torch.assets.procedural import (
     make_stress_animator,
 )
 from arkoserenderer_torch.core.types import RasterConfig
+from arkoserenderer_torch.models.pathtracer import PathTracer
 from arkoserenderer_torch.models.standard import Renderer
 from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
 from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
@@ -117,6 +131,9 @@ CONFIGS = {
     "test_spot": ("test_spot", {}, "forward + one shadow-casting spot light (LocalShadow + PCF)"),
     "rt": ("test_spot", dict(rt_shadows=True, rt_reflections=True),
            "RT shadows + RT reflections + denoise, one shadow-casting spot light"),
+    "rt_soft": ("test_spot_soft", dict(rt_shadows=True, rt_reflections=True),
+                "soft RT shadows (10 degree sun, 0.35 m spot) + shadow denoiser + RT "
+                "reflections"),
     "stress": ("stress", {}, "4096 animated instances with LOD chains (culling stress)"),
     "meshlet": ("meshlet", {}, "meshlet visbuf + per-meshlet culling, 4096 instances"),
     "forward_upscaled": ("test_upscaled", {}, "forward at 2/3 scale + temporal upscale to 1080p"),
@@ -132,7 +149,12 @@ CONFIGS = {
     "helmet": ("helmet", dict(rt_shadows=True, ddgi="helmet"),
                "helmet zoo: 36x DamagedHelmet (~556K tris, real textures), RT shadows + DDGI"),
 }
+# The path tracer's kind (not a Renderer frame: ``run_pathtraced``).
+PATHTRACED = "pathtraced"
+KINDS = (*CONFIGS, PATHTRACED)
 ANIMATED = ("stress", "meshlet")  # scene kinds whose grid moves; their camera stands still
+# The soft kind's light sizes (tests/test_soft_shadows.py:119 and :185).
+SOFT_SUN_DEG, SOFT_SPOT_RADIUS = 10.0, 0.35
 STATS_FRAMES = 4  # frames after the timed ones whose culling and bin counts are read
 
 
@@ -190,12 +212,15 @@ def build_scene(name: str, small: bool = False, cfg: PipelineConfig | None = Non
                 center, radius, dims=(16, 8, 16), rays_per_probe=256, probes_per_frame=1024))
     else:
         scene, camera = build_test_scene(viewport=viewport)
-    if kind == "test_spot":
+    if kind in ("test_spot", "test_spot_soft"):
         scene.spots.append(SpotLight(
             position=np.array([1.5, 3.0, 1.0], np.float32),
             direction=np.array([-0.3, -1.0, -0.2], np.float32),
             luminous_intensity_cd=30000.0,
         ))
+    if kind == "test_spot_soft":
+        scene.sun.angular_radius_deg = SOFT_SUN_DEG
+        scene.spots[0].source_radius = SOFT_SPOT_RADIUS
     return scene, camera, cfg, kw
 
 
@@ -239,13 +264,27 @@ def expected_launches_by_shape(renderer: Renderer, frames: int) -> dict:
     return out
 
 
-def expected_trace_launches_by_label(renderer: Renderer, frames: int) -> dict:
+def expected_trace_launches_by_label(renderer, frames: int) -> dict:
     """Traversal launches of ``frames`` frames by trace, one a frame each:
     with RTShadow the sun mask and a mask per shadow-casting spot and point
     light ("spot mask 0", ...: the light's index); with RTReflections the
     reflection rays and, at their hits, the sun's occlusion rays and one
     trace per casting spot and point light; with DDGI the probe rays and,
-    at their hits, the same occlusion rays."""
+    at their hits, the same occlusion rays. For a ``PathTracer``
+    (``frames`` samples): each bounce b's closest-hit rays "pt ray b" (the
+    camera's at b = 0, one more than the bounces), and at each bounce's
+    hits the sun's "pt sun b" and each casting light's "pt spot i b" /
+    "pt point i b"."""
+    if isinstance(renderer, PathTracer):
+        lights = renderer._lights
+        traces = [f"pt ray {b}" for b in range(renderer.max_bounces + 1)]
+        for b in range(renderer.max_bounces):
+            traces += [f"pt sun {b}",
+                       *(f"pt spot {i} {b}" for i in range(lights["n_spots"])
+                         if i >= len(lights["spot_casters"]) or lights["spot_casters"][i]),
+                       *(f"pt point {i} {b}" for i in range(lights["n_points"])
+                         if i >= len(lights["point_casters"]) or lights["point_casters"][i])]
+        return {label: frames for label in traces}
     st = renderer.cfg.scene
     names = _pass_names(renderer)
     spot_casters = [i for i, cast in enumerate(st.spot_shadow_casters) if cast]
@@ -391,6 +430,70 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
     return result, renderer
 
 
+def build_pathtracer(small: bool = False, device="cuda", scene=None) -> PathTracer:
+    """The ``pathtraced`` kind's tracer: the app's default scene and
+    settings at 1920x1080 (``small``: 256x256); ``scene`` is that scene and
+    its camera when the caller built them."""
+    w, h = (256, 256) if small else (1920, 1080)
+    scene, camera = scene or build_test_scene(viewport=(w, h))
+    return PathTracer(scene, camera, w, h, max_bounces=3, tonemap_mode="agx", seed=0, aa=True,
+                      device=device)
+
+
+def run_pathtraced(small: bool = False, warmup: int = 4, iters: int = 16):
+    """Bench the path tracer on the card: ``warmup`` + ``iters`` samples,
+    each timed by CUDA events; ms a sample (median, min, max), rays a
+    second (every lane of every trace counted), the traversal launches by
+    trace against those implied, finite radiance and LDR, peak memory and
+    the host build. Returns (result dict, PathTracer)."""
+    dev = torch.device("cuda")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace_rays_cuda.launches_by_label.clear()
+    t0 = time.perf_counter()
+    scene = build_test_scene(viewport=(256, 256) if small else (1920, 1080))
+    t1 = time.perf_counter()
+    tracer = build_pathtracer(small, dev, scene)
+    torch.cuda.synchronize(dev)
+    host_build = {"scene_s": t1 - t0, "renderer_s": time.perf_counter() - t1,
+                  **tracer.scene.build_times}
+    tracer.render_sample(warmup)
+    events = []
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tracer.render_sample(1)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t2) * 1e3 / max(iters, 1)
+    sample_ms = [s.elapsed_time(e) for s, e in events]
+    samples = tracer.sample_count
+    want = expected_trace_launches_by_label(tracer, samples)
+    rays = tracer.width * tracer.height * len(want)
+    ms = statistics.median(sample_ms)
+    radiance = tracer.radiance()
+    ldr = tracer.ldr()
+    result = {
+        "config": PATHTRACED, "frame": "path tracer: test scene, 3 bounces, AgX, AA",
+        "width": tracer.width, "height": tracer.height, "max_bounces": tracer.max_bounces,
+        "ms_per_sample": ms, "ms_min": min(sample_ms), "ms_max": max(sample_ms),
+        "wall_ms_per_sample": wall_ms, "sample_ms": sample_ms, "samples": samples,
+        "rays_per_sample": rays, "rays_per_s": rays / (ms * 1e-3),
+        "trace_launches": dict(trace_rays_cuda.launches_by_label),
+        "trace_launches_expected": want, "host_build": host_build,
+        "radiance_finite": bool(torch.isfinite(radiance).all()),
+        "ldr_finite": bool(torch.isfinite(ldr).all()),
+        "mean_radiance": radiance.mean().item(), "mean_ldr": ldr.mean().item(),
+        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "device": torch.cuda.get_device_name(0), "card": card_line(),
+    }
+    return result, tracer
+
+
 def texture_times(small: bool = False) -> dict:
     """Host seconds to decode the helmet's five textures
     (``imagecodec.decode_image``) and to LANCZOS-resize them to the bench's
@@ -425,39 +528,49 @@ def build_line(name: str, result: dict, textures: dict | None = None) -> str:
             f"packing {b['packing_s']:.3f} s, BVH {b['bvh_s']:.3f} s)")
 
 
-def profile_config(name: str, renderer: Renderer, frames: int = 4, top: int = 12) -> dict:
+def profile_config(name: str, renderer, frames: int = 4, top: int = 12) -> dict:
     """``frames`` more frames of ``renderer`` under torch.profiler: kernel
     time and launches per frame, the device's busy share of the frame's
     wall clock, the ``top`` operators and kernels by device time, and each
     pass's span on the device (every pass runs inside a ``record_function``
-    range of its name)."""
+    range of its name). For a ``PathTracer`` a frame is one sample, and
+    there are no passes."""
     import time
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
-    pipeline = renderer.pipeline
-    plain = pipeline._executes
+    if isinstance(renderer, PathTracer):
+        def step():
+            renderer.render_sample(1)
+        pipeline = None
+    else:
+        move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
 
-    def ranged(pass_name, execute):
-        def run(state, ctx):
-            with record_function(f"pass::{pass_name}"):
-                return execute(state, ctx)
-        return run
+        def step():
+            if move is not None:
+                move(renderer.frame_index)
+            renderer.render_frame()
+        pipeline = renderer.pipeline
+        plain = pipeline._executes
 
-    pipeline._executes = [(n, ranged(n, e)) for n, e in plain]
+        def ranged(pass_name, execute):
+            def run(state, ctx):
+                with record_function(f"pass::{pass_name}"):
+                    return execute(state, ctx)
+            return run
+
+        pipeline._executes = [(n, ranged(n, e)) for n, e in plain]
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(frames):
-                if move is not None:
-                    move(renderer.frame_index)
-                renderer.render_frame()
+                step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     finally:
-        pipeline._executes = plain
+        if pipeline is not None:
+            pipeline._executes = plain
 
     def self_ms(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
@@ -498,13 +611,13 @@ def profile_config(name: str, renderer: Renderer, frames: int = 4, top: int = 12
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", default=",".join(CONFIGS),
+    ap.add_argument("--config", default=",".join(KINDS),
                     help="comma-joined frame kinds (default: all of %(default)s)")
     ap.add_argument("--small", action="store_true", help="256x256 frames")
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--iters", type=int, default=16)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile 4 frames of each kind with torch.profiler")
+                    help="also profile 4 frames (samples) of each kind with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench: torch.cuda.is_available() is False; this needs a GPU")
@@ -512,6 +625,14 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(card_line(), flush=True)
     for name in args.config.split(","):
+        if name == PATHTRACED:
+            result, tracer = run_pathtraced(args.small, args.warmup, args.iters)
+            print(build_line(name, result), flush=True)
+            print(json.dumps(result), flush=True)
+            if args.profile:
+                print(json.dumps(profile_config(name, tracer)), flush=True)
+            del tracer
+            continue
         textures = texture_times(args.small) if name == "helmet" else None
         result, renderer = run_config(name, args.small, args.warmup, args.iters)
         print(build_line(name, result, textures), flush=True)

@@ -41,6 +41,7 @@ Prints the card line, one line per case, and one JSON line. Needs a GPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 from pathlib import Path
@@ -95,6 +96,30 @@ def capture_traces(renderer) -> list[dict]:
     it makes, in order: {label, bvh, origins, directions, t_max (a float or
     a per-ray tensor), any_hit}, the rays as copies on the card, ``bvh`` the
     one the trace walked."""
+    return capture_calls(renderer.render_frame)
+
+
+@contextlib.contextmanager
+def plain_traces():
+    """Within it, ``ops/bvh.trace_rays`` on CUDA tensors walks with
+    ``trace_wide_plain`` instead of the kernel (nothing is counted): the
+    plain side of a comparison made through a caller of the traversal."""
+    kernel = bvh_cuda.trace_rays_cuda
+
+    def plain(bvh, origins, directions, label=None, **kw):
+        return bvh_ops.trace_wide_plain(bvh, origins, directions, **kw)
+
+    bvh_cuda.trace_rays_cuda = plain
+    try:
+        yield
+    finally:
+        bvh_cuda.trace_rays_cuda = kernel
+
+
+def capture_calls(fn) -> list[dict]:
+    """Call ``fn()`` and return the inputs of each trace it makes, as
+    ``capture_traces`` does for a frame (a path tracer's sample: ``lambda:
+    tracer.render_sample(1)``)."""
     captured = []
     kernel = bvh_cuda.trace_rays_cuda
 
@@ -108,7 +133,7 @@ def capture_traces(renderer) -> list[dict]:
     record.launches_by_label = kernel.launches_by_label
     bvh_cuda.trace_rays_cuda = record
     try:
-        renderer.render_frame()
+        fn()
     finally:
         bvh_cuda.trace_rays_cuda = kernel
     torch.cuda.synchronize()

@@ -118,13 +118,35 @@ result line):
      entries; then one more frame's camera raster and three traces,
      captured as the frame makes them, bit for bit against their plain
      versions and timed as in phases 3 and 10.
+ 14. ground truth: the 256^2 pathtraced golden (tests/goldens/pathtraced.png:
+     PathTracer, two bounces, 4 samples) rendered on the card; the
+     pathtraced kind through the bench (the test scene at 1920x1080, three
+     bounces, AgX, AA: 4 warm-up + 16 timed samples; finite radiance and
+     LDR; the traversal launches by trace as implied, seven a sample: "pt
+     ray 0-3", "pt sun 0-2"), then every trace of one more sample, captured
+     as the sample makes it, bit for bit against the plain walk and timed
+     as in phase 10; the truth check at 1920x1080: the flat scene's
+     forward frame (sun only, RT shadows, no vignette) against one
+     PathTracer(aa=False, max_bounces=1) sample under tests/test_truth.py's
+     thresholds (smooth pixels > 70 %, mean rel < 0.01, < 1.5 % of them off
+     by > 5 %); and bake_vertex_ao over the helmet scene of phase 13 (64
+     rays a hemisphere: 128 traces), timed, AO in [0, 1], a 4,096-vertex
+     subset equal to the plain walk's AO and bent normals, and its first
+     trace captured and measured.
+ 15. the rt_soft frame (the rt frame with a 10 degree sun and a 0.35 m
+     spot: blue-noise disk samples through the shadow denoiser) through the
+     bench as phase 10 runs rt: five traces a frame, the camera raster only,
+     a penumbra (pixels with 0.15 < mask < 0.85) in ShadowMask.sun and in
+     the spot's plane, then every trace of one more frame bit for bit
+     against the plain walk and timed.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
 per-frame ddgi sun, helmet camera), each with its launches in the runs of
 the frame kinds that launch it, and one entry per trace the traversal
-kernel serves in the rt, showcase, flagship, ddgi and helmet frames, each
-with its launches by its label in that kind's run; the last line is
+kernel serves in the rt, showcase, flagship, ddgi, helmet and rt_soft
+frames, the pathtraced sample and the AO bake, each with its launches by
+its label in that kind's run; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -197,6 +219,21 @@ def check_golden(name: str, img: torch.Tensor) -> None:
                              f"{(diff > 24).mean():.4%} pixels off by > 24")
     print(f"golden {name} 256x256 on the card: mean abs diff {diff.mean():.4f} (< 1.5), "
           f"{(diff > 24).mean():.4%} pixels off by > 24 (< 0.5%)", flush=True)
+
+
+def truth_metrics(raster: np.ndarray, pt: np.ndarray):
+    """tests/test_truth.py's per-pixel metric: (mask of the smooth pixels,
+    where no 3x3 neighbour crosses a luminance step of 0.03; relative
+    error of the path-traced pixel against the raster's)."""
+    lum = raster.mean(-1)
+    gx = np.abs(np.diff(lum, axis=1, prepend=lum[:, :1]))
+    gy = np.abs(np.diff(lum, axis=0, prepend=lum[:1]))
+    g = (gx + gy) > 0.03
+    edge = g.copy()
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            edge |= np.roll(np.roll(g, dy, 0), dx, 1)
+    return ~edge, np.abs(pt - raster).max(-1) / (raster.mean(-1) + 0.02)
 
 
 def print_frame_table(result: dict, card: str) -> None:
@@ -435,7 +472,8 @@ def main() -> None:
     # stress frames it stands still, so the motion vectors are the grid's.
     MIN_VELOCITY_PX = {"forward": 1.0, "full_post": 1.0, "bindless": 1.0, "test_spot": 1.0,
                        "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5, "rt": 1.0,
-                       "showcase": 1.0, "flagship": 1.0, "ddgi": 1.0, "helmet": 1.0}
+                       "showcase": 1.0, "flagship": 1.0, "ddgi": 1.0, "helmet": 1.0,
+                       "rt_soft": 1.0}
     by_kind = {}
     for name in PHASE8:
         by_kind[name] = run_kind(name)[2]
@@ -612,11 +650,123 @@ def main() -> None:
     kind_traces += check_kind_traces("helmet", res, cases, 1024 * 256)
     compare_and_time("camera_helmet", f"helmet camera {W}x{H}, tile 8x128 (556,274 triangles)",
                      2, *rasters[H, W, False])
+    helmet_arrays = renderer.scene_arrays  # phase 14 bakes its AO
     del renderer, cases, rasters
+
+    # -- 14. ground truth: the path tracer, the truth check, AO baking ----------------
+    from arkoserenderer_torch.assets.procedural import build_flat_test_scene
+    from arkoserenderer_torch.models.pathtracer import PathTracer, world_space_vertices
+    from arkoserenderer_torch.ops.bake_ao import bake_ao, bake_vertex_ao, world_normals
+
+    g_scene, g_cam = build_test_scene(viewport=(256, 256), n_spheres=1)
+    g_tracer = PathTracer(g_scene, g_cam, 256, 256, max_bounces=2, seed=7, device=dev)
+    g_tracer.render_sample(4)
+    check_golden("pathtraced", g_tracer.ldr())
+    del g_tracer
+    res, tracer = bench.run_pathtraced(warmup=WARMUP, iters=FRAMES - WARMUP)
+    n = res["samples"]
+    pt_launches = res["trace_launches"]
+    if (pt_launches != res["trace_launches_expected"] or sum(pt_launches.values()) != 7 * n
+            or (res["width"], res["height"]) != (W, H)):
+        raise AssertionError(f"pathtraced: traversal launches {pt_launches} in {n} samples, "
+                             f"expected {res['trace_launches_expected']} (7 a sample)")
+    if not (res["radiance_finite"] and res["ldr_finite"] and res["mean_ldr"] > 0.0):
+        raise AssertionError(f"pathtraced: radiance or LDR not finite, or black: {res}")
+    print(bench.build_line("pathtraced", res), flush=True)
+    print(f"pathtraced {W}x{H}, {res['max_bounces']} bounces: {n} samples, median "
+          f"{res['ms_per_sample']:.4f} ms/sample over {FRAMES - WARMUP} (CUDA events; min "
+          f"{res['ms_min']:.4f}, max {res['ms_max']:.4f}; host wall clock "
+          f"{res['wall_ms_per_sample']:.4f}), {res['rays_per_sample']} rays a sample, "
+          f"{res['rays_per_s'] / 1e9:.4f} Grays/s, traversal launches {pt_launches}, mean LDR "
+          f"{res['mean_ldr']:.4f}, peak memory {res['peak_memory_gib']:.3f} GiB [{card}]",
+          flush=True)
+    print(json.dumps(res), flush=True)
+    cases = tb.capture_calls(lambda: tracer.render_sample(1))
+    for c in cases:
+        c["trace"] = c["label"]
+        c["label"] = f"pathtraced {c['label']}"
+    if sorted(c["trace"] for c in cases) != sorted(res["trace_launches_expected"]):
+        raise AssertionError(f"a pathtraced sample traced {[c['trace'] for c in cases]}")
+    measured = [tb.measure(c["bvh"], c) for c in cases]
+    for t in measured:
+        print(tb.describe(t, card), flush=True)
+    kind_traces += [(pt_launches, t) for t in measured]
+    del tracer, cases
+
+    t_scene, t_cam = build_flat_test_scene(viewport=(W, H))
+    truth_raster = Renderer(t_scene, t_cam, full_cfg, device=dev, rt_shadows=True, taa=False,
+                            bloom=False, vignette=0.0).render_frame().cpu().numpy()
+    t_scene, t_cam = build_flat_test_scene(viewport=(W, H))
+    truth_tracer = PathTracer(t_scene, t_cam, W, H, max_bounces=1, seed=3, aa=False, device=dev)
+    truth_tracer.render_sample(1)
+    truth_pt = truth_tracer.ldr().cpu().numpy()
+    del truth_tracer
+    mask, rel = truth_metrics(truth_raster, truth_pt)
+    mean_rel, frac_bad = rel[mask].mean(), (rel[mask] > 0.05).mean()
+    if not (np.isfinite(truth_pt).all() and mask.mean() > 0.7 and mean_rel < 0.01
+            and frac_bad < 0.015):
+        raise AssertionError(f"truth check {W}x{H}: smooth {mask.mean():.4f}, mean rel "
+                             f"{mean_rel:.6f}, {frac_bad:.4%} of smooth pixels off by > 5%")
+    print(f"truth check {W}x{H} on the card (flat scene, sun only, RT shadows): raster vs one "
+          f"path-traced sample, smooth pixels {mask.mean():.4f} (> 0.7), mean rel "
+          f"{mean_rel:.6f} (< 0.01), {frac_bad:.4%} of smooth pixels off by > 5% (< 1.5%)",
+          flush=True)
+
+    trace_rays_cuda = tb.bvh_cuda.trace_rays_cuda
+    trace_rays_cuda.launches_by_label.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ao, bent = bake_vertex_ao(helmet_arrays)
+    ao_ms = (time.perf_counter() - t0) * 1e3
+    ao_launches = dict(trace_rays_cuda.launches_by_label)
+    n_used = int(helmet_arrays.indices.max()) + 1
+    if ao_launches != {"ao": 128} or not (np.isfinite(ao).all() and (ao >= 0).all()
+                                          and (ao <= 1).all() and np.isfinite(bent).all()):
+        raise AssertionError(f"bake_vertex_ao: launches {ao_launches}, AO in "
+                             f"[{ao.min()}, {ao.max()}]")
+    idx = torch.linspace(0, n_used - 1, 4096, device=dev).long()
+    wp = torch.from_numpy(world_space_vertices(helmet_arrays).astype(np.float32)).to(dev)
+    nrm = world_normals(helmet_arrays)
+    with tb.plain_traces():
+        ao_p, bent_p = bake_ao(helmet_arrays.bvh, wp[idx], nrm[idx])
+    sub = idx.cpu().numpy()
+    if not (np.array_equal(ao[sub], ao_p.cpu().numpy())
+            and np.array_equal(bent[sub], bent_p.cpu().numpy())):
+        raise AssertionError("bake_vertex_ao: the kernel's AO differs from the plain walk's")
+    print(f"bake_vertex_ao helmet scene: {ao.shape[0]} pool vertices ({n_used} used), 128 "
+          f"traces, {ao_ms:.2f} ms on the host's clock, AO in [{ao[:n_used].min():.4f}, "
+          f"{ao[:n_used].max():.4f}] (mean {ao[:n_used].mean():.4f}), 4,096-vertex subset "
+          f"equal to the plain walk's AO and bent normals bit for bit [{card}]", flush=True)
+    ao_case = tb.capture_calls(lambda: bake_ao(helmet_arrays.bvh, wp[:n_used], nrm[:n_used],
+                                               num_rays=1))[0]
+    ao_case.update(trace="ao", label="helmet ao (first direction)")
+    measured = tb.measure(ao_case["bvh"], ao_case)
+    print(tb.describe(measured, card), flush=True)
+    kind_traces.append((ao_launches, measured))
+    del helmet_arrays, wp, nrm, ao_case
+
+    # -- 15. soft RT shadows: the rt_soft frame -----------------------------------------
+    res, renderer, by_kind["rt_soft"] = run_kind("rt_soft")
+    n = res["frames"]
+    if (res["trace_launches"] != res["trace_launches_expected"]
+            or sum(res["trace_launches"].values()) != 5 * n):
+        raise AssertionError(f"rt_soft: traversal launches {res['trace_launches']} in {n} "
+                             f"frames, expected {res['trace_launches_expected']} (5 a frame)")
+    sun_mask = renderer.state["ShadowMask.sun"]
+    spot_mask = renderer.state["ShadowMask.locals"][0]
+    penumbra = [int(((m > 0.15) & (m < 0.85)).sum()) for m in (sun_mask, spot_mask)]
+    if min(penumbra) < 100 or not {"RTShadow.history", "RTLocalShadow.history"} <= set(
+            renderer.state):
+        raise AssertionError(f"rt_soft: penumbra pixels (sun, spot) {penumbra}")
+    print(f"rt_soft: traversal launches {res['trace_launches']} in {n} frames (5 a frame); "
+          f"penumbra pixels (0.15 < mask < 0.85): sun {penumbra[0]}, spot {penumbra[1]}",
+          flush=True)
+    kind_traces += check_kind_traces("rt_soft", res, tb.kind_traces(renderer, "rt_soft"), 0)
+    del renderer
 
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
-        "camera": (PHASE8 + ("rt", "showcase"), (H, W, False)),
+        "camera": (PHASE8 + ("rt", "showcase", "rt_soft"), (H, W, False)),
         "sun": (PHASE8 + ("forward_upscaled",), (S, S, True)),
         "local": (PHASE8, (A, A, True)),
         "camera_stress": (("stress", "meshlet"), (H, W, False)),

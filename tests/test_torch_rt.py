@@ -2,7 +2,8 @@
 (the test scene with one sphere and a shadow-casting spot, rt_shadows and
 rt_reflections, TAA and Bloom) pass by pass at 96^2 over two frames of a
 moving camera, frame 0's persistent state fed to frame 1; the `rt` golden
-at 256^2; and the RT options that are not ported raise by name.
+at 256^2; the RT options that are not ported raise by name, and the soft
+shadows' options (ported since) construct and render.
 
 The walk is test_torch_passes.py's: each torch pass gets the JAX input
 state of that pass, so differences cannot compound. Both scenes are built
@@ -190,9 +191,41 @@ UNPORTED_RT = {
 }
 
 
+# Soft RT shadows are ported (test_torch_soft_shadows.py): these cases now
+# construct their pipeline and render a frame of a scene with such a light.
+SOFT_RT = ("soft sun", "soft spot", "soft point")
+
+
+def _render_soft(case):
+    import arkoserenderer_torch.assets.procedural as tproc
+    import arkoserenderer_torch.scene.lights as tlights
+    from arkoserenderer_torch.models.standard import Renderer
+
+    scene, cam = tproc.build_test_scene(viewport=(32, 16), n_spheres=1)
+    if case == "soft sun":
+        scene.sun.angular_radius_deg = 0.5
+    elif case == "soft spot":
+        scene.spots.append(tlights.SpotLight(
+            position=np.array([0.5, 3.0, 1.0], np.float32),
+            direction=np.array([-0.2, -1.0, -0.1], np.float32), cast_shadows=True,
+            source_radius=0.1))
+    else:
+        scene.points.append(tlights.PointLight(position=np.array([1.0, 2.0, 1.0], np.float32),
+                                               cast_shadows=True, source_radius=0.05))
+    r = Renderer(scene, cam, _cfg(), device="cpu", rt_shadows=True)
+    img = r.render_frames(2)
+    prefix = "RTShadow" if case == "soft sun" else "RTLocalShadow"
+    assert {f"{prefix}.history", f"{prefix}.moments", f"{prefix}.depth"} <= set(r.state)
+    assert img.shape == (16, 32, 3) and bool(torch.isfinite(img).all())
+
+
 @pytest.mark.parametrize("case", sorted(UNPORTED_RT))
 def test_unported_rt_options_raise_by_name(case):
     scene, flags, name = UNPORTED_RT[case]
+    if case in SOFT_RT:
+        t_make_pipeline(_cfg(**scene), device="cpu", **flags)
+        _render_soft(case)
+        return
     with pytest.raises(NotImplementedError, match=name):
         t_make_pipeline(_cfg(**scene), device="cpu", **flags)
 

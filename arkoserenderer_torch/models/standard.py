@@ -8,18 +8,25 @@ VisibilityShading -> [RTReflections] -> [SSAO] -> LightingCompose ->
 [TAA] -> Output -> [FXAA] -> [CAS] -> [TemporalUpscale | Upscale]. With
 ``rt_shadows``, ``rt_reflections`` or ``ddgi`` the Renderer builds the
 scene with its two-level BVH, and on a skinned or morphed scene refits it
-every frame (``rt_refit``). Translucency, auto-exposure, the DDGI probe
-overlay and the other debug overlays are later slices; asking for one
-raises ``NotImplementedError`` naming the flag.
+every frame (``rt_refit``). Translucency, the DDGI probe overlay and the
+other debug overlays are later slices; asking for one raises
+``NotImplementedError`` naming the flag.
+
+``Renderer`` is the host frame loop, with the reference's host API:
+checkpoints of the persistent state (the reference's npz layout, so one
+package's checkpoint loads into the other), picking, the frame retry and
+the pipeline rebuild that keeps the persistent state, and auto-exposure.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 import statistics
 import time
 
+import numpy as np
 import torch
 
 from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
@@ -61,7 +68,7 @@ UNPORTED_FLAGS = {
     "ddgi_probe_debug": False, "light_icons": False, "oit_layers": 1, "debug_draw": None,
 }
 # Keywords of the reference's Renderer whose features are not ported yet.
-UNPORTED_RENDERER_KW = ("auto_exposure", "debug_draw")
+UNPORTED_RENDERER_KW = ("debug_draw",)
 
 
 def make_forward_pipeline(
@@ -171,8 +178,11 @@ def make_forward_pipeline(
 class Renderer:
     """Host frame loop: owns the pipeline, the persistent frame state and
     the camera's previous-frame bookkeeping. Nothing is read back from the
-    device per frame. It runs on the card unless ``device`` asks for the CPU;
-    without a card the default raises, as torch does.
+    device per frame, unless ``auto_exposure`` is on: then, as in the
+    reference, each frame reads the metered Metering.avgLum back (one
+    scalar) and nudges ``camera.exposure_compensation`` toward mid-grey at
+    ``camera.adaption_rate``. It runs on the card unless ``device`` asks
+    for the CPU; without a card the default raises, as torch does.
 
     Moving instances: ``scene_animator`` (``fn(scene_arrays, frame_index,
     delta_time) -> scene_arrays``) animates the scene inside each frame;
@@ -202,11 +212,13 @@ class Renderer:
 
     def __init__(self, scene: Scene, camera: Camera, cfg: PipelineConfig,
                  device="cuda", dynamic_transforms: bool = False, scene_animator=None,
-                 **pipeline_kw):
+                 auto_exposure: bool = False, **pipeline_kw):
         for name in UNPORTED_RENDERER_KW:
             if pipeline_kw.pop(name, False):
                 raise NotImplementedError(f"{name} is not ported yet")
         self.device = torch.device(device)
+        self.auto_exposure = auto_exposure
+        self.scene_animator = scene_animator
         self.scene = scene
         self.camera = camera
         self.dynamic_transforms = dynamic_transforms
@@ -222,6 +234,7 @@ class Renderer:
         self.animated = static.has_skin or static.has_morphs
         if use_rt and self.animated:
             pipeline_kw.setdefault("rt_refit", True)
+        self._pipeline_kw = dict(pipeline_kw)  # for reconstruct(rebuild_passes=True)
         self.pipeline = make_forward_pipeline(self.cfg, device=self.device, **pipeline_kw)
         self.pipeline.scene_animator = scene_animator
         self.scene_arrays = scene.build(self.device, with_bvh=use_rt)
@@ -242,14 +255,114 @@ class Renderer:
         if "scene.version" in persistent:
             inputs["scene.version"] = self._scene_version
         cam_state = self.camera.state(self.frame_index, self.device)
-        self.state = self.pipeline.frame_fn(
+        self.state = self.pipeline.render_frame(
             inputs, self.scene_arrays, cam_state, self.frame_index, delta_time,
             pass_events=pass_events,
         )
         self.camera.post_render()
+        if self.auto_exposure and "Metering.avgLum" in self.state:
+            # Eye adaption: the metered pre-exposed luminance nudges the
+            # relative EV toward mid-grey (the reference's loop, R2: it
+            # reads the scalar back every frame).
+            avg = float(self.state["Metering.avgLum"])
+            cam = self.camera
+            cam.exposure_compensation += float(
+                np.clip(np.log2(0.18 / max(avg, 1e-6)), -4, 4)
+            ) * min(cam.adaption_rate * 60.0 * delta_time * 20, 1.0)
+            cam.exposure_compensation = float(np.clip(cam.exposure_compensation, -8.0, 8.0))
         self.frame_index += 1
         self.time += delta_time
         return self.state.get("LDRDisplay", self.state["LDR"])
+
+    def render_frame_safe(self, delta_time: float = 1 / 60, retries: int = 2) -> torch.Tensor:
+        """``render_frame`` with recovery: when a frame raises, the pipeline
+        is rebuilt with its persistent state kept (``reconstruct``) and the
+        frame retried, up to ``retries`` times; the last failure raises."""
+        for attempt in range(retries + 1):
+            try:
+                return self.render_frame(delta_time)
+            except Exception:
+                if attempt == retries:
+                    raise
+                self.reconstruct()
+
+    def reconstruct(self, rebuild_passes: bool = False) -> None:
+        """Construct the pipeline again, keeping the persistent state: it
+        is copied to the host first and uploaded into the fresh state where
+        the resource keeps its shape. ``rebuild_passes`` makes new pass
+        instances from this module's (possibly reloaded) code first."""
+        persistent = set(self.pipeline.registry.persistent_names)
+        host = {k: v.cpu().clone() if isinstance(v, torch.Tensor) else v
+                for k, v in self.state.items() if k in persistent}
+        if rebuild_passes:
+            module = importlib.import_module(__name__)
+            self.pipeline = module.make_forward_pipeline(self.cfg, device=self.device,
+                                                         **self._pipeline_kw)
+        self.pipeline.scene_animator = self.scene_animator
+        self.pipeline.construct_all()
+        fresh = self.pipeline.initial_state()
+        for k, v in host.items():
+            if k not in fresh:
+                continue
+            if not isinstance(v, torch.Tensor):
+                fresh[k] = v
+            elif tuple(fresh[k].shape) == tuple(v.shape):
+                fresh[k] = v.to(self.device)
+        self.state = fresh
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the resumable state to ``path`` (npz): ``__meta__`` (frame
+        index, time, exposure compensation, float64) and ``state.<name>``
+        for each persistent resource (TAA history, DDGI atlases, the
+        reflection history, the cached sun map and its version), the
+        reference's layout."""
+        persist = {}
+        for k in self.pipeline.registry.persistent_names:
+            if k in self.state:
+                v = self.state[k]
+                persist[f"state.{k}"] = v.cpu().numpy() if isinstance(v, torch.Tensor) \
+                    else np.asarray(v)
+        np.savez_compressed(
+            path,
+            __meta__=np.array([self.frame_index, self.time,
+                               self.camera.exposure_compensation], np.float64),
+            **persist,
+        )
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from a checkpoint of either package: the frame index, time
+        and exposure compensation, and each persistent resource it holds
+        (host values as Python ints, tensors in this pipeline's dtype on
+        this renderer's device)."""
+        reg = self.pipeline.registry
+        with np.load(path) as z:
+            meta = z["__meta__"]
+            self.frame_index = int(meta[0])
+            self.time = float(meta[1])
+            self.camera.exposure_compensation = float(meta[2])
+            for k in reg.persistent_names:
+                key = f"state.{k}"
+                if key not in z:
+                    continue
+                dtype = reg.desc(k).dtype
+                if dtype is None:
+                    self.state[k] = int(z[key])
+                else:
+                    self.state[k] = torch.from_numpy(np.array(z[key])).to(self.device, dtype)
+
+    def pick(self, x: int, y: int) -> dict:
+        """What lies under pixel (x, y) of the last frame: the instance,
+        the scene triangle (the setup row's original triangle: near-clipped
+        pieces map back), the reverse-Z depth and the view distance near /
+        depth (None, and -1 ids, on the sky)."""
+        vis = int(self.state["Visibility"][y, x])
+        depth = float(self.state["SceneDepth"][y, x])
+        if vis < 0:
+            return {"instance": -1, "triangle": -1, "depth": depth, "distance": None}
+        tri = int(self.state["vis.setup"].orig_tri[vis])
+        inst = int(self.scene_arrays.tri_instance[tri])
+        distance = self.camera.near / max(depth, 1e-8)
+        return {"instance": inst, "triangle": tri, "depth": depth, "distance": distance}
 
     def upload_animation(self) -> None:
         """Evaluate the scene's animations at ``time`` on the host and

@@ -266,14 +266,29 @@ def sample_packed(
     duv_dy: torch.Tensor,
     lod_bias: float = 0.0,  # negative when rendering below display resolution
     quality: str = "trilinear",
+    noise: torch.Tensor | None = None,  # (N,) or (N, 3) in [0, 1): the stochastic draws
 ) -> MaterialSample:
-    """Gradient-correct packed material sample. ``quality="trilinear"``
-    (8 row gathers) or ``"bilinear"`` (the nearest mip, 4 row gathers: the
-    ray-hit shading's); the reference's anisotropic and stochastic filters
-    are not ported yet and raise. ``lod_bias`` is added to the mip level
-    before the clamp."""
-    if quality not in ("trilinear", "bilinear"):
-        raise NotImplementedError(f"texture quality {quality!r} is not ported yet")
+    """Gradient-correct packed material sample; ``lod_bias`` is added to the
+    mip level before the clamp. ``quality``:
+
+      * "trilinear" (8 row gathers; "auto" and "sorted" resolve to it);
+      * "bilinear": the nearest mip, 4 row gathers (the ray-hit shading's);
+      * "anisoN" (N from the name, 4 when it has none): N bilinear taps
+        marched along the major gradient axis, each trilinear at the mip of
+        the minor axis (clamped to major / N);
+      * "stochastic": bilinear at a jittered mip, round(lod + u - 0.5), whose
+        expectation is trilinear (``noise`` (N,), or lane 0 of (N, 3));
+      * "stochastic1": one texel, from the jittered mip (lane 0) and a
+        jittered nearest texel within the bilinear footprint (lanes 1-2:
+        round(x + u - 0.5) per axis); ``noise`` (N, 3).
+
+    The stochastic qualities fall back to bilinear without their noise, as
+    the reference's do."""
+    if quality in ("auto", "sorted"):
+        quality = "trilinear"
+    aniso = quality.startswith("aniso")
+    if not aniso and quality not in ("trilinear", "bilinear", "stochastic", "stochastic1"):
+        raise ValueError(f"unknown texture quality {quality!r}")
     wrap = meta[:, 0].to(torch.int32)
     w0 = meta[:, 1].to(torch.int32)
     h0 = meta[:, 2].to(torch.int32)
@@ -283,24 +298,63 @@ def sample_packed(
     size0 = torch.stack([meta[:, 1], meta[:, 2]], dim=-1)
     dx = duv_dx * size0
     dy = duv_dy * size0
-    rho2 = torch.maximum(torch.sum(dx * dx, -1), torch.sum(dy * dy, -1))
-    lod = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
+    lx2 = torch.sum(dx * dx, -1)
+    ly2 = torch.sum(dy * dy, -1)
+    lod = 0.5 * torch.log2(torch.clamp(torch.maximum(lx2, ly2), min=1e-12))
     if lod_bias:
         lod = lod + lod_bias
     max_lod = n_mips - 1.0
     lod = torch.minimum(torch.clamp(lod, min=0.0), max_lod)
 
-    def level_fetch(level):
+    def level_fetch(level, at=uv):
         off = _select13(offs, level).to(torch.int32)
-        return _fetch_level(rows, off, wrap, _mip_dim(w0, level), _mip_dim(h0, level), uv)
+        return _fetch_level(rows, off, wrap, _mip_dim(w0, level), _mip_dim(h0, level), at)
 
-    if quality == "bilinear":
-        c = level_fetch(torch.round(lod).to(torch.int32))  # lod is clamped to the chain
-    else:
-        l0 = torch.floor(lod).to(torch.int32)
+    def trilinear(lod_, at=uv):
+        l0 = torch.floor(lod_).to(torch.int32)
         l1 = torch.minimum(l0 + 1, max_lod.to(torch.int32))
-        f = (lod - l0.to(torch.float32))[:, None]
-        c = level_fetch(l0) * (1 - f) + level_fetch(l1) * f
+        f = (lod_ - l0.to(torch.float32))[:, None]
+        return level_fetch(l0, at) * (1 - f) + level_fetch(l1, at) * f
+
+    if aniso:
+        n_taps = max(int(quality[5:] or "4"), 1)
+        major_is_x = lx2 >= ly2
+        rho_maj2 = torch.clamp(torch.where(major_is_x, lx2, ly2), min=1e-12)
+        rho_min2 = torch.clamp(torch.where(major_is_x, ly2, lx2), min=1e-12)
+        rho_eff2 = torch.maximum(rho_min2, rho_maj2 / float(n_taps * n_taps))
+        lod_a = 0.5 * torch.log2(rho_eff2)
+        if lod_bias:
+            lod_a = lod_a + lod_bias
+        lod_a = torch.minimum(torch.clamp(lod_a, min=0.0), max_lod)
+        maj_uv = torch.where(major_is_x[:, None], duv_dx, duv_dy)
+        c = None
+        for k in range(n_taps):
+            t = (k + 0.5) / n_taps - 0.5
+            tap = trilinear(lod_a, uv + maj_uv * t)
+            c = tap if c is None else c + tap
+        c = c / n_taps
+    elif quality == "trilinear":
+        c = trilinear(lod)
+    elif quality == "stochastic1" and noise is not None and noise.ndim == 2:
+        level = torch.round(torch.minimum(torch.clamp(lod + (noise[:, 0] - 0.5), min=0.0),
+                                          max_lod)).to(torch.int32)
+        off = _select13(offs, level).to(torch.int32)
+        wl = _mip_dim(w0, level)
+        hl = _mip_dim(h0, level)
+        x = uv[:, 0] * wl.to(torch.float32) - 0.5 + (noise[:, 1] - 0.5)
+        y = uv[:, 1] * hl.to(torch.float32) - 0.5 + (noise[:, 2] - 0.5)
+        xi = torch.round(x).to(torch.int32)
+        yi = torch.round(y).to(torch.int32)
+        xi = torch.where(wrap == 0, xi & (wl - 1), torch.minimum(torch.clamp(xi, min=0), wl - 1))
+        yi = torch.where(wrap == 0, yi & (hl - 1), torch.minimum(torch.clamp(yi, min=0), hl - 1))
+        idx = torch.clamp(off + yi * wl + xi, 0, rows.shape[0] - 1)
+        c = _unpack12(rows[idx.long()])
+    elif quality == "stochastic" and noise is not None:
+        u = noise[:, 0] if noise.ndim == 2 else noise
+        lod_j = torch.minimum(torch.clamp(lod + (u - 0.5), min=0.0), max_lod)
+        c = level_fetch(torch.round(lod_j).to(torch.int32))
+    else:  # bilinear at the nearest mip (lod is clamped to the chain)
+        c = level_fetch(torch.round(lod).to(torch.int32))
 
     n_xy = c[:, 4:6] * 2.0 - 1.0
     n_z = torch.sqrt(torch.clamp(1.0 - torch.sum(n_xy * n_xy, -1, keepdim=True), min=0.0))

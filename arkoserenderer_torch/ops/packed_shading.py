@@ -29,6 +29,7 @@ import torch
 
 from arkoserenderer_torch.core import mathx as mx
 from arkoserenderer_torch.ops import brdf, mattex
+from arkoserenderer_torch.ops.noise import sample_blue_noise
 from arkoserenderer_torch.ops.raster import TriSetup
 from arkoserenderer_torch.ops.shading import GBuffer
 from arkoserenderer_torch.ops.shadow import sample_shadow_pcf, sample_vsm
@@ -178,7 +179,9 @@ def shade_packed(
     n_points: int = 0,
     any_tex: bool = True,
     mip_bias: float = 0.0,
-    texture_quality: str = "trilinear",  # | "bilinear"
+    texture_quality: str = "trilinear",  # ops.mattex.sample_packed's quality
+    shadow_filter: str = "bilinear",     # | "stochastic" (one jittered VSM tap)
+    frame_index: int = 0,                # the stochastic filters' blue-noise frame
     *,
     layout: RecLayout,
 ) -> GBuffer:
@@ -188,7 +191,11 @@ def shade_packed(
     flagged) and ``n_points`` point lights (by ``rt_point_masks`` when
     given) through the Filament BRDF, emissive, and the velocity G-buffer.
     ``mip_bias`` biases the texture LOD (the upscaler's drive);
-    ``texture_quality`` is ``ops.mattex.sample_packed``'s ``quality``."""
+    ``texture_quality`` is ``ops.mattex.sample_packed``'s ``quality`` and
+    ``shadow_filter`` ``ops.shadow.sample_vsm``'s ``taps``. The stochastic
+    filters draw per-pixel blue noise of ``frame_index``: salt 0 picks the
+    mip ("stochastic"), salts 0, 3 and 4 the mip and the texel
+    ("stochastic1"), salts 1 and 2 the VSM texel."""
     cs = layout.c_stride
     valid = vis_flat >= 0
     rec = records[torch.clamp(vis_flat, min=0).long()]   # the per-pixel gather
@@ -258,10 +265,19 @@ def shade_packed(
     cc_rough = mrec[:, M_CCR:M_CCR + 1]
     subsurface = mrec[:, M_SSS]
 
+    def pixel_noise(salt: int) -> torch.Tensor:
+        return sample_blue_noise(px, py, frame_index, salt)
+
     if any_tex:
+        if texture_quality == "stochastic1":
+            noise = torch.stack([pixel_noise(0), pixel_noise(3), pixel_noise(4)], dim=-1)
+        elif texture_quality == "stochastic":
+            noise = pixel_noise(0)
+        else:
+            noise = None
         ms = mattex.sample_packed(
             scene.mat_tex.rows, mrec[:, M_TEXMETA:M_TEXMETA + mattex.META_LANES],
-            uv, duv_dx, duv_dy, lod_bias=mip_bias, quality=texture_quality,
+            uv, duv_dx, duv_dy, lod_bias=mip_bias, quality=texture_quality, noise=noise,
         )
         base_color = ms.base[:, :3] * base_factor[:, :3]
         roughness = torch.clamp(ms.rough_metal[:, 0:1] * roughness_f, 0.0, 1.0)
@@ -295,7 +311,10 @@ def shade_packed(
         shadow = shadow_mask
     elif shadow_moments is not None:
         n_dot_l_geo = torch.clamp(mx.vdot(world_nrm, sun_l, keepdims=False), 0.0, 1.0)
-        shadow = sample_vsm(shadow_moments, sun_shadow_vp, world_pos, n_dot_l_geo)
+        noise2 = (torch.stack([pixel_noise(1), pixel_noise(2)], dim=-1)
+                  if shadow_filter == "stochastic" else None)
+        shadow = sample_vsm(shadow_moments, sun_shadow_vp, world_pos, n_dot_l_geo,
+                            taps=shadow_filter, noise2=noise2)
     else:
         shadow = torch.ones((n,), dtype=color.dtype, device=color.device)
     sun_fr = brdf.evaluate(

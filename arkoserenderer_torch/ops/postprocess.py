@@ -1,21 +1,28 @@
 """Post-process image functions: fog, motion blur, depth of field, FXAA, CAS
-(port of arkoserenderer_tpu/ops/postprocess.py, the dense branches: every
-tap is a bilinear fetch; the stochastic few-tap variants that lean on TAA
-are not ported).
+(port of arkoserenderer_tpu/ops/postprocess.py).
 
   * fog            exponential height fog along the view distance
   * motion blur    McGuire-style tileMax -> neighborMax -> reconstruction
   * depth of field physically based circle of confusion + bokeh gather blur
   * FXAA           luma-driven edge blend on the LDR image
   * CAS            contrast-adaptive sharpening on the LDR image
+
+Motion blur and depth of field have a dense branch (every tap a bilinear
+fetch) and a stochastic one (a few jittered nearest taps, drawn from the
+frame's blue noise, whose expectation is the dense result; TAA converges
+them), which the temporal passes take.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from arkoserenderer_torch.core.halton import fibonacci_disc
 from arkoserenderer_torch.ops.image import bilinear_sample_many, luminance, shift_img
+from arkoserenderer_torch.ops.noise import MASK32, mul_u32, sample_blue_noise
 
 
 def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -27,6 +34,44 @@ def _pixel_centers(h: int, w: int, device):
     xs = torch.arange(w, dtype=torch.float32, device=device) + 0.5
     ys = torch.arange(h, dtype=torch.float32, device=device) + 0.5
     return xs.repeat(h), ys.repeat_interleave(w)
+
+
+def _nearest_sample_many(imgs, x: torch.Tensor, y: torch.Tensor) -> list[torch.Tensor]:
+    """Nearest fetch of several (H, W, C_i) images of one size at pixel-centre
+    coordinates (clamped): one index for all, each image gathered apart
+    (``ops/image.bilinear_sample_many`` says why). With a uniform jitter in
+    [-0.5, 0.5) added to the coordinates its expectation is the bilinear
+    fetch: the stochastic taps' primitive."""
+    h, w = imgs[0].shape[0], imgs[0].shape[1]
+    xi = torch.clamp(torch.round(x - 0.5).to(torch.int64), 0, w - 1)
+    yi = torch.clamp(torch.round(y - 0.5).to(torch.int64), 0, h - 1)
+    idx = yi * w + xi
+    return [img.reshape(-1, img.shape[-1])[idx] for img in imgs]
+
+
+def _nearest_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``_nearest_sample_many`` of one image: (N, C)."""
+    return _nearest_sample_many((img,), x, y)[0]
+
+
+def _pixel_noise(px, py, frame_index: int, salt: int) -> torch.Tensor:
+    """Per-pixel blue noise of the frame (``ops/noise.sample_blue_noise``)."""
+    return sample_blue_noise(px, py, frame_index, salt)
+
+
+def _white_pixel_noise(px, py, frame_index: int, salt: int) -> torch.Tensor:
+    """The reference's integer-hash white noise in [0, 1): its uint32
+    arithmetic in int64 words, masked to 32 bits after every multiply and
+    add."""
+    fi = int(frame_index or 0) & MASK32
+    seed = ((px.to(torch.int64) & MASK32) + mul_u32(py.to(torch.int64) & MASK32, 19349663)
+            + ((fi * 83492791) & MASK32) + ((salt * 374761393) & MASK32)) & MASK32
+    seed = seed ^ (seed >> 16)
+    seed = mul_u32(seed, 0x7FEB352D)
+    seed = seed ^ (seed >> 15)
+    seed = mul_u32(seed, 0x846CA68B)
+    seed = seed ^ (seed >> 16)
+    return (seed >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
 def apply_fog(
@@ -56,9 +101,14 @@ def motion_blur(
     tile: int = 16,
     num_taps: int = 8,
     max_blur_px: float = 24.0,
+    stochastic: bool = False,  # jittered nearest taps (2 are plenty) + TAA
+    frame_index: int = 0,
 ) -> torch.Tensor:
     """Blur along the dominant velocity of each pixel's tile neighbourhood;
-    H and W must be multiples of ``tile``."""
+    H and W must be multiples of ``tile``. ``stochastic``: each of the
+    ``num_taps`` taps is one nearest fetch at a stratified jittered shutter
+    position plus a sub-texel jitter (blue noise of ``frame_index``, salts
+    11+i, 21+i and 31+i), weighted as 8 / num_taps dense taps."""
     h, w = color.shape[0], color.shape[1]
     vel = velocity * shutter_scale
     speed = _norm(vel, keepdim=True)
@@ -86,9 +136,22 @@ def motion_blur(
     acc = color.reshape(-1, 3)
     wsum = torch.ones((acc.shape[0], 1), dtype=color.dtype, device=color.device)
     for i in range(num_taps):
-        t = (i + 1) / (num_taps + 1) - 0.5  # [-0.5, 0.5)
-        c, tap_vel = bilinear_sample_many((color, vel), px + nv[:, 0] * t, py + nv[:, 1] * t)
+        if stochastic:
+            u = _pixel_noise(px, py, frame_index, 11 + i)
+            t = (i + u) / num_taps - 0.5
+            jx = _pixel_noise(px, py, frame_index, 21 + i) - 0.5
+            jy = _pixel_noise(px, py, frame_index, 31 + i) - 0.5
+            c, tap_vel = _nearest_sample_many((color, vel), px + nv[:, 0] * t + jx,
+                                              py + nv[:, 1] * t + jy)
+        else:
+            t = (i + 1) / (num_taps + 1) - 0.5  # [-0.5, 0.5)
+            c, tap_vel = bilinear_sample_many((color, vel), px + nv[:, 0] * t,
+                                              py + nv[:, 1] * t)
         wgt = torch.clamp(_norm(tap_vel, keepdim=True), max=1.0)
+        if stochastic:
+            # Each jittered tap stands for 8 / num_taps dense taps, which
+            # keeps the centre's weight against the taps.
+            wgt = wgt * (8.0 / num_taps)
         acc = acc + c * wgt
         wsum = wsum + wgt
     return (acc / wsum).reshape(h, w, 3)
@@ -110,16 +173,41 @@ def compute_coc(
     return torch.clamp(signed, -max_coc, max_coc)
 
 
-def depth_of_field(color: torch.Tensor, coc: torch.Tensor, num_taps: int = 24) -> torch.Tensor:
+def depth_of_field(color: torch.Tensor, coc: torch.Tensor, num_taps: int = 24,
+                   stochastic_taps: int | None = None, frame_index: int = 0) -> torch.Tensor:
     """Scatter-as-gather bokeh blur of (H, W, 3) by a signed (H, W) CoC: disc
     taps scaled by |CoC|, each weighted by whether its own CoC reaches back
-    to the centre pixel."""
+    to the centre pixel. ``stochastic_taps``: that many nearest taps of the
+    Fibonacci disc instead, rotated per pixel (blue-noise salt 41) with an
+    area-preserving radius jitter (salts 51+i) and each weighted as
+    num_taps / stochastic_taps dense taps."""
     h, w = color.shape[0], color.shape[1]
     px, py = _pixel_centers(h, w, color.device)
     r = torch.abs(coc).reshape(-1)
     acc = color.reshape(-1, 3)
     wsum = torch.ones((acc.shape[0], 1), dtype=color.dtype, device=color.device)
     coc1 = coc[..., None]
+    if stochastic_taps:
+        abs_coc = torch.abs(coc1)
+        ang = _pixel_noise(px, py, frame_index, 41) * (2.0 * math.pi)
+        ca, sa = torch.cos(ang), torch.sin(ang)
+        base = fibonacci_disc(stochastic_taps).astype(np.float32)
+        for i in range(stochastic_taps):
+            b0, b1 = base[i]
+            u = _pixel_noise(px, py, frame_index, 51 + i)
+            rad = r * torch.sqrt(torch.clamp(float(b0 * b0 + b1 * b1)
+                                             + (u - 0.5) * (2.0 / stochastic_taps), 0.0, 1.0))
+            phi = np.arctan2(b1, b0)
+            cp, sp = float(np.cos(phi)), float(np.sin(phi))
+            dx = rad * (cp * ca - sp * sa)
+            dy = rad * (sp * ca + cp * sa)
+            dist = torch.sqrt(dx * dx + dy * dy)
+            c, tap_coc = _nearest_sample_many((color, abs_coc), px + dx, py + dy)
+            wgt = torch.clamp(tap_coc - dist[:, None] + 1.0, 0.0, 1.0)
+            wgt = wgt * (num_taps / stochastic_taps)
+            acc = acc + c * wgt
+            wsum = wsum + wgt
+        return (acc / wsum).reshape(h, w, 3)
     for tap_x, tap_y in fibonacci_disc(num_taps).tolist():
         dx = tap_x * r
         dy = tap_y * r

@@ -3,9 +3,9 @@ disc PCF for the spot lights (port of arkoserenderer_tpu/ops/shadow.py).
 
 The depth-only raster of the sun's view (ops/raster) is turned into
 prefiltered moments (E[d], E[d^2]) at half resolution; receivers take one
-bilinear moment tap and a Chebyshev bound. A spot light's map is compared
-directly, over a Fibonacci disc of nearest taps. Depth is reverse-Z
-throughout.
+bilinear (or one jittered nearest) moment tap and a Chebyshev bound. A spot
+light's map is compared directly, over a Fibonacci disc of nearest taps.
+Depth is reverse-Z throughout.
 """
 
 from __future__ import annotations
@@ -85,9 +85,13 @@ def sample_vsm(
     slope_bias: float = 2.0e-3,
     min_variance: float = 1e-6,
     bleed_reduction: float = 0.25,
+    taps: str = "bilinear",                # | "stochastic"
+    noise2: torch.Tensor | None = None,    # (N, 2) in [0, 1): the stochastic tap's draws
 ) -> torch.Tensor:
-    """(N,) sun visibility from one bilinear moment tap (Chebyshev upper
-    bound, light bleeding clipped by rescaling the tail)."""
+    """(N,) sun visibility from one moment tap (Chebyshev upper bound, light
+    bleeding clipped by rescaling the tail). The tap is bilinear, or with
+    ``taps="stochastic"`` and ``noise2`` one jittered nearest texel,
+    round(x + u - 0.5) per axis, whose expectation is the bilinear tap."""
     s = moments.shape[0]
     uv, depth = project_to_shadow_uv(shadow_vp, world_pos)
     slope = torch.sqrt(torch.clamp(1.0 - n_dot_l ** 2, min=0.0)) / torch.clamp(n_dot_l, min=0.1)
@@ -97,22 +101,27 @@ def sample_vsm(
     x = torch.clamp(uv[:, 0] * s - 0.5, 0.0, s - 1.0)
     y = torch.clamp(uv[:, 1] * s - 0.5, 0.0, s - 1.0)
     flat = moments.reshape(-1, 2)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    fx = (x - x0)[:, None]
-    fy = (y - y0)[:, None]
-    x0i = x0.to(torch.int64)
-    y0i = y0.to(torch.int64)
-    x1i = torch.clamp(x0i + 1, max=s - 1)
-    y1i = torch.clamp(y0i + 1, max=s - 1)
     last = flat.shape[0] - 1
 
     def tap(yi, xi):  # clamped like the reference's gather (NaN uv only)
         return flat[torch.clamp(yi * s + xi, 0, last)]
 
-    m00, m10 = tap(y0i, x0i), tap(y0i, x1i)
-    m01, m11 = tap(y1i, x0i), tap(y1i, x1i)
-    m = (m00 * (1 - fx) + m10 * fx) * (1 - fy) + (m01 * (1 - fx) + m11 * fx) * fy
+    if taps == "stochastic" and noise2 is not None:
+        xi = torch.clamp(torch.round(x + noise2[:, 0] - 0.5), 0.0, s - 1.0).to(torch.int64)
+        yi = torch.clamp(torch.round(y + noise2[:, 1] - 0.5), 0.0, s - 1.0).to(torch.int64)
+        m = tap(yi, xi)
+    else:
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = (x - x0)[:, None]
+        fy = (y - y0)[:, None]
+        x0i = x0.to(torch.int64)
+        y0i = y0.to(torch.int64)
+        x1i = torch.clamp(x0i + 1, max=s - 1)
+        y1i = torch.clamp(y0i + 1, max=s - 1)
+        m00, m10 = tap(y0i, x0i), tap(y0i, x1i)
+        m01, m11 = tap(y1i, x0i), tap(y1i, x1i)
+        m = (m00 * (1 - fx) + m10 * fx) * (1 - fy) + (m01 * (1 - fx) + m11 * fx) * fy
 
     mean = m[:, 0]
     var = torch.clamp(m[:, 1] - mean * mean, min=min_variance)

@@ -1,11 +1,13 @@
 """Screen-space ambient occlusion, hemisphere kernel (port of
-arkoserenderer_tpu/ops/ssao.py, the dense branch: every kernel sample,
-every frame).
+arkoserenderer_tpu/ops/ssao.py).
 
 N hemisphere samples oriented by the pixel normal are projected back into
 the depth buffer; a sample is occluded when the scene surface lies in front
 of it, weighted by a range check. The kernel is rotated per pixel by a hash
 of the pixel centre; the pass blurs the result 3x3 to hide that noise.
+With ``samples_per_frame`` M < N each pixel takes M kernel rows a frame,
+picked by an integer hash of the pixel and the frame (temporal SSAO: the
+expectation is the N-sample estimate, and TAA converges it).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from arkoserenderer_torch.core import mathx as mx
 from arkoserenderer_torch.core.halton import halton_sequence_2d
 from arkoserenderer_torch.ops.image import clamped_index
+from arkoserenderer_torch.ops.noise import MASK32, mul_u32
 
 
 def make_ssao_kernel(n_samples: int = 16, seed_bias: float = 0.35) -> np.ndarray:
@@ -74,6 +77,8 @@ def ssao(
     bias: float = 0.02,   # metres
     intensity: float = 1.0,
     rotation=None,        # kernel_rotation(px, py), when the caller keeps it
+    samples_per_frame: int | None = None,  # a hashed subset of the kernel a frame
+    frame_index: int = 0,
 ) -> torch.Tensor:
     """(N,) ambient visibility in [0, 1] (1 = unoccluded)."""
     depth_flat = depth.reshape(-1)
@@ -90,9 +95,10 @@ def ssao(
     b = -t0 * sa[:, None] + b0 * ca[:, None]
 
     sample_h = depth.shape[0]
-    occ = torch.zeros_like(depth_flat)
-    for k in np.asarray(kernel, np.float32):
-        k0, k1, k2 = float(k[0]), float(k[1]), float(k[2])
+    kern = torch.from_numpy(np.asarray(kernel, np.float32)).to(depth.device)
+    n_samples = kern.shape[0]
+
+    def occlusion(k0, k1, k2):
         sample = world + (t * k0 + b * k1 + n * k2) * radius
         clip = mx.transform_points_h(cam_view_proj, sample)
         w_c = torch.clamp(clip[:, 3], min=1e-6)
@@ -108,6 +114,22 @@ def ssao(
         # far from the sample are faded out.
         occluded = scene_z < w_c - bias
         range_w = torch.clamp(1.0 - torch.abs(scene_z - w_c) / radius, 0.0, 1.0)
-        occ = occ + occluded.to(torch.float32) * range_w
-    ao = 1.0 - intensity * occ / len(kernel)
+        return occluded.to(torch.float32) * range_w
+
+    occ = torch.zeros_like(depth_flat)
+    if samples_per_frame is not None and samples_per_frame < n_samples:
+        # The reference's hash: an int32 sum that wraps, cast to uint32,
+        # then uint32 multiplies; here int64 words masked to 32 bits.
+        seed = (px.to(torch.int64) * 7 + py.to(torch.int64) * 73856093
+                + int(frame_index) * 19349663) & MASK32
+        for j in range(samples_per_frame):
+            h_ = mul_u32((seed + ((j * 374761393) & MASK32)) & MASK32, 0x9E3779B1)
+            h_ = mul_u32(h_ ^ (h_ >> 16), 0x85EBCA6B)
+            k3 = kern[((h_ >> 8) % n_samples)]
+            occ = occ + occlusion(k3[:, 0:1], k3[:, 1:2], k3[:, 2:3])
+        occ = occ * (n_samples / samples_per_frame)
+    else:
+        for k in np.asarray(kernel, np.float32):
+            occ = occ + occlusion(float(k[0]), float(k[1]), float(k[2]))
+    ao = 1.0 - intensity * occ / n_samples
     return torch.where(valid_flat, torch.clamp(ao, 0.0, 1.0), 1.0)

@@ -1,6 +1,6 @@
-"""Display mapping: tonemap operators, vignette and film grain (port of
-arkoserenderer_tpu/ops/tonemap.py). All operators are elementwise on
-(..., 3) linear RGB.
+"""Display mapping: tonemap operators, the PQ encode, vignette and film
+grain (port of arkoserenderer_tpu/ops/tonemap.py). All operators are
+elementwise on (..., 3) linear RGB.
 
   * ACES: Stephen Hill's RRT+ODT fit.
   * AgX: the minimal AgX approximation (Wrensch / Sobotka).
@@ -120,6 +120,18 @@ _TONEMAP_FNS = {
 
 def tonemap(c, mode: int):
     return _TONEMAP_FNS[mode](c)
+
+
+def encode_st2084(c_nits: torch.Tensor) -> torch.Tensor:
+    """PQ / SMPTE ST 2084 inverse EOTF of absolute nits (clipped to 10,000)."""
+    m1 = 2610.0 / 16384.0
+    m2 = 2523.0 / 4096.0 * 128.0
+    c1 = 3424.0 / 4096.0
+    c2 = 2413.0 / 4096.0 * 32.0
+    c3 = 2392.0 / 4096.0 * 32.0
+    y = torch.clamp(c_nits / 10000.0, 0.0, 1.0)
+    yp = torch.pow(y, m1)
+    return torch.pow((c1 + c2 * yp) / (1.0 + c3 * yp), m2)
 
 
 def vignette(color, uv, intensity: float):

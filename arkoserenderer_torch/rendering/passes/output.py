@@ -1,12 +1,15 @@
-"""Output pass: tonemap, vignette, film grain and sRGB encode (port of
-arkoserenderer_tpu/rendering/passes/output.py; the 3D colour-grade LUT is
-not ported and raises). SceneColor is already pre-exposed. Also meters the
-average log-luminance (Metering.avgLum) on the device."""
+"""Output pass: tonemap, vignette, film grain, sRGB encode and the optional
+3D colour-grade LUT on the display-encoded values (port of
+arkoserenderer_tpu/rendering/passes/output.py). SceneColor is already
+pre-exposed. Also meters the average log-luminance (Metering.avgLum) on
+the device."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from arkoserenderer_torch.assets.external import apply_lut3d
 from arkoserenderer_torch.ops import tonemap as tm
 from arkoserenderer_torch.ops.texture import linear_to_srgb
 from arkoserenderer_torch.rendering.pipeline import (
@@ -24,11 +27,10 @@ class OutputPass(RenderPass):
     def __init__(self, mode: str | None = None, vignette_intensity: float = 0.18,
                  film_grain_gain: float = 0.0, color_grade_lut=None):
         """``mode`` is a key of ``ops.tonemap.MODES``, or None for the
-        config's ``tonemap_mode``."""
-        if color_grade_lut is not None:
-            raise NotImplementedError("color_grade_lut (the 3D colour-grade LUT) is not "
-                                      "ported yet")
+        config's ``tonemap_mode``; ``color_grade_lut`` an
+        ``assets.external.CubeLUT``."""
         self.mode = mode
+        self.color_grade_lut = color_grade_lut
         self.vignette_intensity = vignette_intensity
         self.film_grain_gain = film_grain_gain
 
@@ -42,6 +44,9 @@ class OutputPass(RenderPass):
         grain = self.film_grain_gain
         px, py = pixel_centers(cfg, device)
         xpx, ypx = px.reshape(h, w), py.reshape(h, w)
+        lut = None
+        if self.color_grade_lut is not None:
+            lut = torch.from_numpy(np.asarray(self.color_grade_lut.table, np.float32)).to(device)
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             c = torch.clamp(state["SceneColor"], min=0.0)
@@ -52,7 +57,9 @@ class OutputPass(RenderPass):
                 c = tm.vignette(c, torch.stack([xpx / w, ypx / h], dim=-1), vign)
             if grain > 0.0:
                 c = tm.film_grain(c, torch.stack([xpx, ypx], dim=-1), ctx.frame_index, grain)
-            return {"LDR": torch.clamp(linear_to_srgb(c), 0.0, 1.0),
-                    "Metering.avgLum": avg_log_lum}
+            out = torch.clamp(linear_to_srgb(c), 0.0, 1.0)
+            if lut is not None:
+                out = apply_lut3d(lut, out)
+            return {"LDR": out, "Metering.avgLum": avg_log_lum}
 
         return execute

@@ -1,8 +1,10 @@
 """Post-chain passes (port of arkoserenderer_tpu/rendering/passes/post.py):
 SSAO, LightingCompose, Fog, MotionBlur, DepthOfField, FXAA and CAS. Each
-wraps a function of ops/ssao or ops/postprocess; all take their dense
-branch (every sample and tap, every frame), which is what the reference's
-default texture quality resolves to.
+wraps a function of ops/ssao or ops/postprocess. SSAO, MotionBlur and
+DepthOfField take their dense branch (every sample and tap, every frame)
+unless ``temporal``: then a few hashed or jittered samples a frame, which
+TAA converges. ``temporal=None`` turns it on under the stochastic texture
+qualities, as in the reference.
 
 LightingCompose adds to the direct light (already in SceneColor) the
 diffuse ambient: the DDGI probes' irradiance at each pixel when the DDGI
@@ -35,13 +37,24 @@ from arkoserenderer_torch.rendering.passes.ddgi import ddgi_state
 from arkoserenderer_torch.rendering.registry import Registry
 
 
+def temporal_of(cfg: PipelineConfig, temporal: bool | None) -> bool:
+    """A pass's ``temporal`` flag, with None resolved as the reference
+    resolves it: on under the stochastic texture qualities."""
+    if temporal is None:
+        return cfg.texture_quality in ("stochastic", "stochastic1")
+    return temporal
+
+
 class SSAOPass(RenderPass):
     name = "SSAO"
 
-    def __init__(self, num_samples: int = 16, radius: float = 0.5, intensity: float = 1.0):
+    def __init__(self, num_samples: int = 16, radius: float = 0.5, intensity: float = 1.0,
+                 temporal: bool | None = None, samples_per_frame: int = 2):
         self.kernel = ssao_ops.make_ssao_kernel(num_samples)
         self.radius = radius
         self.intensity = intensity
+        self.temporal = temporal
+        self.samples_per_frame = samples_per_frame
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
@@ -52,6 +65,7 @@ class SSAOPass(RenderPass):
         px, py = pixel_centers(cfg, device)
         rotation = ssao_ops.kernel_rotation(px, py)  # a constant of the pixel grid
         kernel, radius, intensity = self.kernel, self.radius, self.intensity
+        spf = self.samples_per_frame if temporal_of(cfg, self.temporal) else None
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             ao = ssao_ops.ssao(
@@ -61,6 +75,7 @@ class SSAOPass(RenderPass):
                 px, py,
                 ctx.camera.unjittered_view_proj, ctx.camera.near,
                 w, h, kernel, radius=radius, intensity=intensity, rotation=rotation,
+                samples_per_frame=spf, frame_index=ctx.frame_index,
             )
             return {"SSAO": blur3(ao.reshape(h, w, 1))[..., 0]}
 
@@ -157,15 +172,20 @@ class FogPass(RenderPass):
 class MotionBlurPass(RenderPass):
     name = "MotionBlur"
 
-    def __init__(self, num_taps: int = 8, shutter_scale: float = 0.5):
+    def __init__(self, num_taps: int = 8, shutter_scale: float = 0.5,
+                 temporal: bool | None = None, stochastic_taps: int = 2):
         self.num_taps = num_taps
         self.shutter_scale = shutter_scale
+        self.temporal = temporal
+        self.stochastic_taps = stochastic_taps
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         reg.get("SceneColor")
         reg.get("SceneVelocity")
         reg.get("SceneDepth")
-        shutter, taps = self.shutter_scale, self.num_taps
+        temporal = temporal_of(cfg, self.temporal)
+        shutter = self.shutter_scale
+        taps = self.stochastic_taps if temporal else self.num_taps
         tile = 16 if cfg.height % 16 == 0 and cfg.width % 16 == 0 else 8
         if cfg.height % tile or cfg.width % tile:
             raise ValueError("motion blur needs a frame size that is a multiple of 8")
@@ -174,6 +194,7 @@ class MotionBlurPass(RenderPass):
             out = pp.motion_blur(
                 state["SceneColor"], state["SceneVelocity"], state["SceneDepth"],
                 shutter_scale=shutter, num_taps=taps, tile=tile,
+                stochastic=temporal, frame_index=ctx.frame_index,
             )
             return {"SceneColor": out}
 
@@ -183,9 +204,12 @@ class MotionBlurPass(RenderPass):
 class DepthOfFieldPass(RenderPass):
     name = "DepthOfField"
 
-    def __init__(self, num_taps: int = 24, max_coc: float = 16.0):
+    def __init__(self, num_taps: int = 24, max_coc: float = 16.0,
+                 temporal: bool | None = None, stochastic_taps: int = 4):
         self.num_taps = num_taps
         self.max_coc = max_coc
+        self.temporal = temporal
+        self.stochastic_taps = stochastic_taps
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
@@ -194,6 +218,7 @@ class DepthOfFieldPass(RenderPass):
         reg.get("SceneCoverage")
         reg.create("SceneCoC", (h, w), torch.float32)
         taps, max_coc = self.num_taps, self.max_coc
+        sto = self.stochastic_taps if temporal_of(cfg, self.temporal) else None
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             coc = pp.compute_coc(
@@ -201,8 +226,9 @@ class DepthOfFieldPass(RenderPass):
                 ctx.camera.near, ctx.camera.focus_depth, ctx.camera.aperture_px,
                 max_coc=max_coc,
             )
-            return {"SceneColor": pp.depth_of_field(state["SceneColor"], coc, num_taps=taps),
-                    "SceneCoC": coc}
+            out = pp.depth_of_field(state["SceneColor"], coc, num_taps=taps,
+                                    stochastic_taps=sto, frame_index=ctx.frame_index)
+            return {"SceneColor": out, "SceneCoC": coc}
 
         return execute
 

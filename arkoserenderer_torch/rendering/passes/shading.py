@@ -1,11 +1,11 @@
 """Deferred shading pass (port of
 arkoserenderer_tpu/rendering/passes/shading.py ``VisibilityShadingPass``,
-packed branch: ``cfg.texture_quality`` trilinear or bilinear textures
-("auto" is trilinear) and the bilinear VSM sun; the reference's other
-texture and shadow filters are not ported yet and PipelineConfig refuses
-them). Spot and point lights are shaded at the scene's static counts; a
-spot flagged as a shadow caster samples its tile of ShadowMap.locals when
-the LocalShadow pass ran before this one. The ray-traced masks win where
+packed branch): textures filtered by ``cfg.texture_quality`` ("auto" is
+trilinear), the sun's VSM tapped by ``cfg.shadow_filter`` ("auto" is
+bilinear); the stochastic filters draw blue noise of the frame index.
+Spot and point lights are shaded at the scene's static counts; a spot
+flagged as a shadow caster samples its tile of ShadowMap.locals when the
+LocalShadow pass ran before this one. The ray-traced masks win where
 their passes ran: ShadowMask.sun (RTShadow) over the sun's map,
 ShadowMask.locals and ShadowMask.points (RTLocalShadow) for the local
 lights.
@@ -61,6 +61,7 @@ class VisibilityShadingPass(RenderPass):
         px, py = pixel_centers(cfg, device)
         layout = record_layout_for(st)
         quality = "trilinear" if cfg.texture_quality == "auto" else cfg.texture_quality
+        shadow_filter = "bilinear" if cfg.shadow_filter == "auto" else cfg.shadow_filter
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             gb = shade_packed(
@@ -81,6 +82,8 @@ class VisibilityShadingPass(RenderPass):
                 any_tex=any_tex,
                 mip_bias=cfg.mip_bias,
                 texture_quality=quality,
+                shadow_filter=shadow_filter,
+                frame_index=ctx.frame_index,
                 layout=layout,
             )
             return {

@@ -12,6 +12,11 @@ Two phases, as in the reference:
 ``FrameContext`` bundles what every execute callback receives: the scene
 tensors, the camera state and the frame index (a host int).
 
+``RenderPipeline.render_frame`` is the entry point a frame loop calls (the
+eager counterpart of the reference's ``compile`` + ``render_frame``);
+``validate_frame`` runs a frame one pass at a time and reports every
+non-finite value a pass writes.
+
 ``RenderPipeline.scene_animator``, when set, is the frame's prologue:
 ``fn(scene, frame_index, delta_time) -> scene`` runs before the first pass
 and the passes see the scene it returns (the stress grid's animation).
@@ -39,12 +44,10 @@ class FrameContext(NamedTuple):
     delta_time: float
 
 
-# Values of the reference's PipelineConfig fields that the port does not
-# implement yet: a value listed here raises NotImplementedError naming the
-# field. anisoN (any N) is matched by its prefix.
-UNPORTED_TEXTURE_QUALITIES = ("stochastic", "stochastic1", "sorted")
-TEXTURE_QUALITIES = ("auto", "trilinear", "bilinear")
-SHADOW_FILTERS = ("auto", "bilinear")
+# The texture filters and sun-shadow taps the port takes; anisoN (N taps,
+# "aniso" alone is 4) is matched by its prefix.
+TEXTURE_QUALITIES = ("auto", "trilinear", "bilinear", "stochastic", "stochastic1", "sorted")
+SHADOW_FILTERS = ("auto", "bilinear", "stochastic")
 
 
 @dataclasses.dataclass
@@ -61,8 +64,11 @@ class PipelineConfig:
     local_shadow_map_size: int = 512  # each spot light's shadow map
     tonemap_mode: str = "agx"  # a key of ops.tonemap.MODES
     # Texture filter: "auto" (make_forward_pipeline resolves it to
-    # "trilinear"), "trilinear" or "bilinear"; the reference's anisoN,
-    # stochastic, stochastic1 and sorted are not ported.
+    # "trilinear"), "trilinear" (8 taps), "bilinear" (the nearest mip, 4
+    # taps), "anisoN" (N bilinear taps along the major gradient axis, e.g.
+    # "aniso4"), "stochastic" / "stochastic1" (jittered taps that TAA
+    # converges; they also turn on the temporal SSAO, MotionBlur, DoF and
+    # SSSS branches) or "sorted" (trilinear on the packed path).
     texture_quality: str = "auto"
     # Deferred-shading path: "packed" (the reference's "reference" path is
     # not ported).
@@ -70,8 +76,8 @@ class PipelineConfig:
     # TAA history filter: "catmull" (16-tap Catmull-Rom, sharp history) or
     # "bilinear" (4 taps).
     taa_filter: str = "catmull"
-    # Sun shadow receiver filter: "auto" (resolved to "bilinear") or
-    # "bilinear"; the stochastic single tap is not ported.
+    # Sun shadow receiver filter: "auto" (resolved to "bilinear"),
+    # "bilinear" or "stochastic" (one jittered nearest VSM tap).
     shadow_filter: str = "auto"
     # Texture LOD bias; negative when rendering below display resolution
     # (make_forward_pipeline sets log2(render / display) for upscaling).
@@ -96,17 +102,13 @@ class PipelineConfig:
                                       "ported yet")
 
         q = self.texture_quality
-        if q.startswith("aniso") or q in UNPORTED_TEXTURE_QUALITIES:
-            unported("texture_quality", "the reference's anisotropic, stochastic and sorted "
-                     "texture filters")
-        if q not in TEXTURE_QUALITIES:
+        aniso = q.startswith("aniso") and (q[5:] == "" or q[5:].isdigit())
+        if not aniso and q not in TEXTURE_QUALITIES:
             raise ValueError(f"unknown texture_quality {q!r}")
         if self.shading_mode == "reference":
             unported("shading_mode", "the per-field reference shading path")
         if self.shading_mode != "packed":
             raise ValueError(f"unknown shading_mode {self.shading_mode!r}")
-        if self.shadow_filter == "stochastic":
-            unported("shadow_filter", "the stochastic single-tap VSM filter")
         if self.shadow_filter not in SHADOW_FILTERS:
             raise ValueError(f"unknown shadow_filter {self.shadow_filter!r}")
         if self.sky_fetch_scale != 1:
@@ -202,6 +204,54 @@ class RenderPipeline:
             if updates:
                 state.update(updates)
         return state
+
+    def render_frame(self, state: dict, scene: SceneArrays, camera_state: CameraState,
+                     frame_index: int, delta_time: float = 1 / 60,
+                     pass_events: list | None = None) -> dict:
+        """One frame from the persistent ``state``: ``frame_fn``, run
+        eagerly. A frame loop calls this (``Renderer.render_frame`` does)."""
+        return self.frame_fn(state, scene, camera_state, frame_index, delta_time,
+                             pass_events=pass_events)
+
+
+def _float_leaves(value, path: str = ""):
+    """(path, tensor) of every floating tensor in a resource: a tensor, or
+    the fields of a NamedTuple or dataclass (the raster setup, the BVH),
+    nested; the paths read ".field"."""
+    if isinstance(value, torch.Tensor):
+        if value.is_floating_point():
+            yield path, value
+    elif hasattr(value, "_asdict"):
+        for k, v in value._asdict().items():
+            yield from _float_leaves(v, f"{path}.{k}")
+    elif dataclasses.is_dataclass(value) and not isinstance(value, type):
+        for f in dataclasses.fields(value):
+            yield from _float_leaves(getattr(value, f.name), f"{path}.{f.name}")
+
+
+def validate_frame(pipeline: RenderPipeline, state: dict, scene: SceneArrays,
+                   camera_state: CameraState, frame_index: int = 0,
+                   delta_time: float = 1 / 60) -> list[dict]:
+    """Run one frame a pass at a time and report every non-finite value a
+    pass writes: one finding {pass, resource, non_finite, shape} for each
+    floating tensor of each pass's updates that holds one, the resource
+    named with its leaf's path ("vis.setup.screen_xy"). A debugging
+    harness; an empty list is a clean frame."""
+    pipeline._require_constructed()
+    ctx = FrameContext(scene=scene, camera=camera_state, frame_index=int(frame_index),
+                       delta_time=float(delta_time))
+    findings = []
+    state = dict(state)
+    for name, execute in pipeline._executes:
+        updates = execute(state, ctx) or {}
+        for key, value in updates.items():
+            for path, leaf in _float_leaves(value):
+                bad = int((~torch.isfinite(leaf)).sum())
+                if bad:
+                    findings.append({"pass": name, "resource": key + path, "non_finite": bad,
+                                     "shape": tuple(leaf.shape)})
+        state.update(updates)
+    return findings
 
 
 def pixel_centers(cfg: PipelineConfig, device):

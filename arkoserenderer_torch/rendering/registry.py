@@ -77,6 +77,10 @@ class Registry:
     def has(self, name: str) -> bool:
         return name in self._published_by
 
+    def desc(self, name: str) -> ResourceDesc:
+        """The declaration of a created resource."""
+        return self._resources[name]
+
     # -- runtime ------------------------------------------------------------------
 
     def initial_state(self, device) -> dict:

@@ -95,6 +95,7 @@ class Camera:
     shutter_speed: float = 1.0 / 400.0
     iso: float = 400.0
     exposure_compensation: float = 0.0
+    adaption_rate: float = 0.0018  # auto-exposure eye adaption rate a frame
 
     focus_depth: float = 5.0  # meters
     near: float = 0.25

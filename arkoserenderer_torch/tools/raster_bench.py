@@ -63,7 +63,8 @@ ROUNDS = 3
 GRAPH_LAUNCHES = 50
 WRAPPER_CALLS = {"camera": 50, "sun": 10, "local": 50, "camera_stress": 20,
                  "sun_stress": 10, "camera_720p": 50, "camera_flagship": 20,
-                 "camera_ddgi": 20, "sun_ddgi": 10, "camera_helmet": 20}
+                 "camera_ddgi": 20, "sun_ddgi": 10, "camera_helmet": 20, "camera_app": 20,
+                 "sun_app": 50}
 # The adversarial case: viewport and numpy seed.
 ADVERSARIAL_SIZE, ADVERSARIAL_SEED = 64, 7
 

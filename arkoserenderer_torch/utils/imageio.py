@@ -1,9 +1,11 @@
-"""Minimal PNG reading and the float -> uint8 convention of the goldens.
+"""Minimal PNG reading and writing, and the float -> uint8 convention of
+the goldens.
 
 Reads 8-bit, non-interlaced greyscale, grey + alpha, RGB and RGBA PNGs with
 the standard library's zlib, so golden checks and texture imports need no
 imaging package. Palette, 16-bit and interlaced PNGs raise
-NotImplementedError naming the kind.
+NotImplementedError naming the kind. Writes 8-bit PNGs of those four kinds
+(filter 0 on every row, zlib and the chunks' CRC-32): the apps' frames.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+_COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
 
 
 def to_u8(img) -> np.ndarray:
@@ -93,3 +96,41 @@ def load_png(path: str) -> np.ndarray:
     """(H, W, C) uint8 samples of the PNG file at ``path`` (``decode_png``)."""
     with open(path, "rb") as f:
         return decode_png(f.read())
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(img) -> bytes:
+    """PNG bytes of an (H, W) or (H, W, C) image, C in 1-4 (grey, grey +
+    alpha, RGB, RGBA); a float image is converted with ``to_u8`` first."""
+    a = np.asarray(img)
+    if a.dtype != np.uint8:
+        a = to_u8(a)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, ch = a.shape
+    if ch not in _COLOUR_TYPE:
+        raise ValueError(f"cannot write a PNG of {ch} channels")
+    rows = np.zeros((h, 1 + w * ch), np.uint8)  # filter byte 0, then the samples
+    rows[:, 1:] = np.ascontiguousarray(a).reshape(h, w * ch)
+    header = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPE[ch], 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def save_png(path: str, img) -> None:
+    """Write ``img`` (``encode_png``) to ``path``."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def load_image_rgba(path: str) -> np.ndarray:
+    """(H, W, 4) uint8 RGBA pixels of the PNG or JPEG file at ``path``, as
+    PIL's ``Image.open(...).convert("RGBA")`` gives them."""
+    from arkoserenderer_torch.assets.imagecodec import decode_image
+
+    with open(path, "rb") as f:
+        return decode_image(f.read())

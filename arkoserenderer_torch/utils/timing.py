@@ -1,0 +1,92 @@
+"""Per-pass timing on the card (port of arkoserenderer_tpu/utils/timing.py),
+with CUDA events.
+
+``time_passes`` times the whole frame first, so the headline row always
+lands: frames fed forward serially through their persistent outputs, as a
+frame loop runs them. Then it times each pass on its own, in pipeline
+order, on the state the passes before it published, until ``deadline_s``
+runs out; ``emit`` receives each row as it lands, so a process cut short
+still leaves a partial table.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from arkoserenderer_torch.rendering.pipeline import FrameContext, RenderPipeline
+from arkoserenderer_torch.scene.camera import CameraState
+from arkoserenderer_torch.scene.scene import SceneArrays
+
+
+def _events_ms(fn, iters: int) -> tuple[float, object]:
+    """Mean ms of ``iters`` calls of ``fn`` between two CUDA events, after
+    one warm-up call; returns (ms, the last call's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, out
+
+
+def time_passes(
+    pipe: RenderPipeline,
+    state: dict,
+    scene: SceneArrays,
+    camera: CameraState,
+    frame_index: int = 1,
+    iters: int = 5,
+    deadline_s: float | None = None,
+    emit: Callable[[str], None] | None = None,
+) -> dict[str, float]:
+    """{name: ms} with "<frame>" (the whole frame) first, then each pass.
+    The pipeline must be on the card; on another device it raises
+    RuntimeError."""
+    if pipe.device.type != "cuda":
+        raise RuntimeError("time_passes times the card; the pipeline is on " + str(pipe.device))
+    t_start = time.perf_counter()
+    results: dict[str, float] = {}
+
+    def note(name: str, ms: float) -> None:
+        results[name] = ms
+        if emit is not None:
+            emit(f"{name:24s} {ms:9.3f} ms")
+
+    persistent = set(pipe.registry.persistent_names)
+    cur = {"state": pipe.initial_state()}
+
+    def frame():
+        fed = {k: v for k, v in cur["state"].items() if k in persistent}
+        cur["state"] = pipe.render_frame(fed, scene, camera, frame_index)
+        return cur["state"]
+
+    note("<frame>", _events_ms(frame, iters)[0])
+
+    ctx = FrameContext(scene=scene, camera=camera, frame_index=int(frame_index),
+                       delta_time=1 / 60)
+    st = dict(state)
+    for name, execute in pipe._executes:
+        if deadline_s is not None and time.perf_counter() - t_start > deadline_s:
+            if emit is not None:
+                emit(f"# deadline {deadline_s:.0f}s reached; partial table "
+                     f"({len(results) - 1}/{len(pipe._executes)} passes)")
+            break
+        ms, updates = _events_ms(lambda: execute(st, ctx), iters)
+        note(name, ms)
+        st.update(updates or {})
+    return results
+
+
+def format_timings(timings: dict[str, float], budget_ms: float = 16.667) -> str:
+    lines = [f"{'pass':24s} {'ms':>9s}   vs 16.667 ms budget"]
+    for name, ms in timings.items():
+        flag = "" if ms < budget_ms else "  <-- over budget"
+        lines.append(f"{name:24s} {ms:9.3f}{flag}")
+    return "\n".join(lines)

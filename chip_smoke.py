@@ -139,14 +139,37 @@ result line):
      a penumbra (pixels with 0.15 < mask < 0.85) in ShadowMask.sun and in
      the spot's plane, then every trace of one more frame bit for bit
      against the plain walk and timed.
+ 16. the showcase app (arkoserenderer_torch/apps/showcase.py) at 1920x1080
+     in this process, through its build_scene, make_renderer, render and
+     main: (a) --texture-quality stochastic1 --ssao --motion-blur --dof
+     --ssss --fog --frames 8 --timings --timings-deadline 30, with the
+     stochastic VSM tap (shadow_filter="stochastic" through make_renderer):
+     every frame finite, the frame loop's rasters by shape as implied (the
+     camera every frame, the 1024^2 sun once), the per-pass table and
+     <frame> ms, the PNG read back as a (1080, 1920, 3) uint8 image with a
+     std above 5, and the last camera (tile 8x16, 512 a tile) and sun rasters
+     the run made held bit for bit against the plain raster and timed as in
+     phase 3; VisibilityShading's ms under stochastic1 against trilinear on
+     the same scene (Renderer.benchmark, in turns, with the per-pass table
+     of each flag set's second run); then the Renderer API:
+     a checkpoint after 3 frames restored into a fresh renderer gives the
+     uninterrupted frame 4 within 1e-5, validate_frame finds nothing,
+     pick at the centre pixel hits an instance, memstats reports the bytes
+     in use; (b) --texture-quality aniso4 --rt-shadows --rt-reflections
+     --ddgi --frames 4 through main, its traversal launches by label as
+     implied, its per-pass table (Renderer.benchmark, 4 frames), then
+     every trace of one more frame bit for bit against the plain walk and
+     timed; (c) --pathtracer --samples 2 through main: a
+     finite PNG and its traces launched.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
-per-frame ddgi sun, helmet camera), each with its launches in the runs of
-the frame kinds that launch it, and one entry per trace the traversal
-kernel serves in the rt, showcase, flagship, ddgi, helmet and rt_soft
-frames, the pathtraced sample and the AO bake, each with its launches by
-its label in that kind's run; the last line is
+per-frame ddgi sun, helmet camera, the app's camera and sun), each with its
+launches in the runs of the frame kinds that launch it, and one entry per
+trace the traversal kernel serves in the rt, showcase, flagship, ddgi,
+helmet and rt_soft frames, the pathtraced sample, the AO bake and the
+app's RT frame, each with its launches by its label in that kind's run;
+the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -186,6 +209,15 @@ HELMET_TEXTURES = {
     "Default_emissive.jpg": "318c6044e80796641ce63514f23bb1ce8e49e1ca8fbb960e2e60286e724cdb2d",
     "Default_AO.jpg": "1fb7529f9a51067f96dc1a1d296019530cba344953551db0c4b035c0e680fb7a",
 }
+
+
+# Phase 16: the showcase app's argv, at 1920x1080.
+APP_SIZE = ["--width", "1920", "--height", "1080"]
+APP_STOCHASTIC = ["--texture-quality", "stochastic1", "--ssao", "--motion-blur", "--dof",
+                  "--ssss", "--fog", "--frames", "8", "--timings", "--timings-deadline", "30"]
+APP_RT = ["--texture-quality", "aniso4", "--rt-shadows", "--rt-reflections", "--ddgi",
+          "--frames", "4"]
+APP_PATHTRACER = ["--pathtracer", "--samples", "2"]
 
 
 def random_case(rng, n, big: bool, width: int, height: int):
@@ -242,6 +274,161 @@ def print_frame_table(result: dict, card: str) -> None:
     for name, ms in result["pass_ms"].items():
         print(f"  {name:20s} {ms:10.4f}")
     print(f"  {'sum of passes':20s} {sum(result['pass_ms'].values()):10.4f}", flush=True)
+
+
+def check_png(path: Path) -> None:
+    """The app's PNG read back through the port's reader: (1080, 1920, 3|4)
+    uint8 with a std above 5."""
+    from arkoserenderer_torch.utils.imageio import load_png
+
+    img = load_png(str(path))
+    if img.shape[:2] != (1080, 1920) or img.shape[2] not in (3, 4) \
+            or img.dtype != np.uint8 or not img.std() > 5:
+        raise AssertionError(f"{path.name}: {img.shape} {img.dtype}, std {img.std():.3f}")
+
+
+def run_app(dev, card: str, compare_and_time, check_kind_traces) -> dict:
+    """Phase 16: the showcase app's three runs and the Renderer API at
+    1920x1080 (see the module docstring). Returns {"traces": the RT run's
+    measured traces with its launches by label, "raster_launches": the
+    app's camera and sun raster launches}."""
+    from arkoserenderer_torch.apps import showcase
+    from arkoserenderer_torch.ops import raster_cuda
+    from arkoserenderer_torch.rendering.pipeline import validate_frame
+    from arkoserenderer_torch.tools import bench
+    from arkoserenderer_torch.tools import raster_bench as rb
+    from arkoserenderer_torch.tools import trace_bench as tb
+    from arkoserenderer_torch.utils import memstats
+
+    H, W, S = 1080, 1920, 1024
+    raster_k = raster_cuda.rasterize_tiles_cuda
+    trace_k = tb.bvh_cuda.trace_rays_cuda
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+
+    # (a) the stochastic frame, with the stochastic VSM tap.
+    args = showcase.build_arg_parser().parse_args(
+        APP_SIZE + APP_STOCHASTIC + ["--out", str(out_dir / "app_stochastic.png")])
+
+    def stochastic_renderer():
+        scene, cam = showcase.build_scene(args)
+        return showcase.make_renderer(args, scene, cam, dev, shadow_filter="stochastic")
+
+    r = stochastic_renderer()
+    finite, loop_counts = [], []
+    render_frame = r.render_frame
+
+    def checked_frame(*a, **kw):
+        img = render_frame(*a, **kw)
+        finite.append(torch.isfinite(img).all())  # read after the run
+        loop_counts.append(dict(raster_k.launches_by_shape))
+        return img
+
+    r.render_frame = checked_frame
+    raster_k.launches_by_shape.clear()
+    rasters, result = rb.capture_rasters(lambda: showcase.render(args, r))
+    by_shape_a = dict(raster_k.launches_by_shape)
+    del r.render_frame
+    n = 1 + args.frames
+    want = bench.expected_launches_by_shape(r, n)
+    if len(finite) != n or not all(bool(f) for f in finite) or loop_counts[n - 1] != want:
+        raise AssertionError(f"app (a): {len(finite)} frames, finite {[bool(f) for f in finite]}, "
+                             f"rasters {loop_counts[-1:]} against {want}")
+    check_png(Path(args.out))
+    timings = result["timings"]
+    if "<frame>" not in timings or "VisibilityShading" not in timings:
+        raise AssertionError(f"app (a): per-pass table {timings}")
+    print(f"app (a) {W}x{H} stochastic1 + stochastic VSM, SSAO, MotionBlur, DoF, SSSS, Fog: "
+          f"{n} frames finite, {result['ms_per_frame']:.4f} ms/frame (host clock over "
+          f"{args.frames}), <frame> {timings['<frame>']:.4f} ms (CUDA events), frame-loop "
+          f"rasters {loop_counts[n - 1]}, rasters in the run with --timings {by_shape_a} "
+          f"[{card}]", flush=True)
+    app_raster = r.cfg.raster
+    compare_and_time("camera_app", f"app camera {W}x{H}, tile 8x16 (512 a tile)", 2,
+                     *rasters[H, W, False], rcfg=app_raster)
+    compare_and_time("sun_app", f"app sun {S}x{S} depth-only", 5, *rasters[S, S, True],
+                     rcfg=app_raster)
+    del rasters
+
+    # VisibilityShading under stochastic1 against trilinear, in turns.
+    tri_args = showcase.build_arg_parser().parse_args(
+        APP_SIZE + ["--ssao", "--motion-blur", "--dof", "--ssss", "--fog"])
+    r_tri = showcase.make_renderer(tri_args, *showcase.build_scene(tri_args), dev)
+    for i, (name, renderer) in enumerate((("stochastic1", r), ("trilinear", r_tri),
+                                          ("trilinear", r_tri), ("stochastic1", r))):
+        res = renderer.benchmark(warmup=2, iters=6)
+        print(f"app VisibilityShading {name}: {res['pass_ms']['VisibilityShading']:.4f} ms "
+              f"(median of 6), frame {res['ms_per_frame']:.4f} ms [{card}]", flush=True)
+        if i >= 2:
+            print(f"app (a) flags under {name}, in the frame:")
+            print_frame_table(res, card)
+    del r, r_tri
+
+    # The Renderer API at 1920x1080.
+    ckpt = out_dir / "app_checkpoint.npz"
+    r1 = stochastic_renderer()
+    for _ in range(3):
+        r1.render_frame()
+    r1.save_checkpoint(str(ckpt))
+    expected = r1.render_frame().clone()
+    del r1
+    r2 = stochastic_renderer()
+    r2.load_checkpoint(str(ckpt))
+    err = (r2.render_frame() - expected).abs().max().item()
+    if not err <= 1e-5:
+        raise AssertionError(f"app checkpoint: resumed frame 4 differs by {err}")
+    inputs = {k: r2.state[k] for k in r2.pipeline.registry.persistent_names if k in r2.state}
+    findings = validate_frame(r2.pipeline, inputs, r2.scene_arrays,
+                              r2.camera.state(r2.frame_index, dev), r2.frame_index)
+    hit = r2.pick(W // 2, H // 2)
+    snap = memstats.snapshot(dev)
+    history = memstats.MemHistory()
+    history.poll(dev)
+    if findings or hit["instance"] < 0 or snap.bytes_in_use <= 0:
+        raise AssertionError(f"app API: validate_frame {findings}, pick {hit}, memory {snap}")
+    print(f"app API {W}x{H}: checkpoint after 3 frames resumed, frame 4 max diff {err:.3e} "
+          f"(<= 1e-5); validate_frame: no finding; pick({W // 2}, {H // 2}) = {hit}; "
+          f"memstats: {history.format()} [{card}]", flush=True)
+    del r2
+
+    # (b) the anisotropic RT frame, through main.
+    out_b = out_dir / "app_rt.png"
+    raster_k.launches_by_shape.clear()
+    trace_k.launches_by_label.clear()
+    r_b = showcase.main(APP_SIZE + APP_RT + ["--out", str(out_b)], device=dev)
+    raster_b, trace_b = dict(raster_k.launches_by_shape), dict(trace_k.launches_by_label)
+    n_b = 1 + 4
+    want_t = bench.expected_trace_launches_by_label(r_b, n_b)
+    if trace_b != want_t or raster_b != bench.expected_launches_by_shape(r_b, n_b):
+        raise AssertionError(f"app (b): traces {trace_b} against {want_t}, rasters {raster_b}")
+    check_png(out_b)
+    print(f"app (b) {W}x{H} aniso4, RT shadows and reflections, DDGI: {n_b} frames, traversal "
+          f"launches {trace_b}, rasters {raster_b} [{card}]", flush=True)
+    print_frame_table(r_b.benchmark(warmup=1, iters=4), card)
+    cases = tb.kind_traces(r_b, "app")
+    grid = next(p.grid for p in r_b.pipeline.passes if p.name == "DDGI")
+    traces = check_kind_traces("app", {"trace_launches": trace_b,
+                                       "trace_launches_expected": want_t},
+                               cases, grid.probes_per_frame * grid.rays_per_probe)
+    del r_b, cases
+
+    # (c) the path tracer, through main.
+    out_c = out_dir / "app_pathtraced.png"
+    trace_k.launches_by_label.clear()
+    tracer = showcase.main(APP_SIZE + APP_PATHTRACER + ["--out", str(out_c)], device=dev)
+    trace_c = dict(trace_k.launches_by_label)
+    if trace_c != bench.expected_trace_launches_by_label(tracer, 2) or not bool(
+            torch.isfinite(tracer.radiance()).all()):
+        raise AssertionError(f"app (c): traces {trace_c}, radiance finite "
+                             f"{bool(torch.isfinite(tracer.radiance()).all())}")
+    check_png(out_c)
+    print(f"app (c) {W}x{H} path tracer, 2 samples: finite, traversal launches {trace_c}; "
+          f"phase 16 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    del tracer
+    return {"traces": traces,
+            "raster_launches": {"camera_app": by_shape_a[H, W, False] + raster_b[H, W, False],
+                                "sun_app": by_shape_a[S, S, True]}}
 
 
 def main() -> None:
@@ -357,19 +544,20 @@ def main() -> None:
                                      full_raster)
     timed = {}
 
-    def compare_and_time(name, label, p_iters, setup, bins, w, h, depth_only):
-        err = compare(label, setup, bins, w, h, full_raster, depth_only)[0]
-        device_ms = rb.kernel_ms(lib, setup, bins, w, h, full_raster, depth_only)
-        k_ms = rb.events_ms(lambda: rasterize_tiles_cuda(setup, bins, w, h, full_raster,
+    def compare_and_time(name, label, p_iters, setup, bins, w, h, depth_only,
+                         rcfg=full_raster):
+        err = compare(label, setup, bins, w, h, rcfg, depth_only)[0]
+        device_ms = rb.kernel_ms(lib, setup, bins, w, h, rcfg, depth_only)
+        k_ms = rb.events_ms(lambda: rasterize_tiles_cuda(setup, bins, w, h, rcfg,
                                                          depth_only=depth_only),
                             rb.WRAPPER_CALLS[name])
-        p_ms = rb.events_ms(lambda: raster.rasterize_tiles_plain(setup, bins, w, h, full_raster,
+        p_ms = rb.events_ms(lambda: raster.rasterize_tiles_plain(setup, bins, w, h, rcfg,
                                                                  depth_only=depth_only), p_iters)
-        before, after = rb.pixel_tests(setup, bins, w, h, full_raster)
+        before, after = rb.pixel_tests(setup, bins, w, h, rcfg)
         bound, kind = rb.bound_ms(setup, bins, w, h, depth_only, after)
         timed[name] = dict(max_abs_err=err, ms=k_ms, device_ms=device_ms, plain_ms=p_ms,
                            bound_ms=bound, bound_by=kind, shape=label)
-        counts, px = bins.counts.float(), full_raster.tile_h * full_raster.tile_w
+        counts, px = bins.counts.float(), rcfg.tile_h * rcfg.tile_w
         print(f"{label}: {counts.numel()} tiles, {int(counts.sum())} binned pairs (mean "
               f"{counts.mean().item():.4f}, max {int(counts.max())} a tile), "
               f"{int(bins.global_count)} global; (tile, triangle) pairs walked "
@@ -764,6 +952,10 @@ def main() -> None:
     kind_traces += check_kind_traces("rt_soft", res, tb.kind_traces(renderer, "rt_soft"), 0)
     del renderer
 
+    # -- 16. the showcase app at 1920x1080 ----------------------------------------------
+    app = run_app(dev, card, compare_and_time, check_kind_traces)
+    kind_traces += app["traces"]
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
         "camera": (PHASE8 + ("rt", "showcase", "rt_soft"), (H, W, False)),
@@ -789,6 +981,11 @@ def main() -> None:
         "launches_forward_slice": slice1_launches.get(entries[name][1], 0),
         **timed[name], "library_ms": None,
     } for name in entries]
+    rows += [{
+        "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": app["raster_launches"][name], **timed[name],
+        "library_ms": None,
+    } for name in ("camera_app", "sun_app")]
 
     def trace_row(t, launches):
         return {

@@ -1,6 +1,7 @@
 """The port's PipelineConfig and OutputPass take the reference's fields.
 
 Every field of the reference's PipelineConfig constructs at its default;
+the texture qualities and shadow filters the reference takes construct;
 each value the port does not implement raises NotImplementedError naming
 the field; "auto" resolves as the reference's make_forward_pipeline
 resolves it. OutputPass's ``mode`` matches JAX's at 96^2 for every
@@ -41,10 +42,7 @@ RES = 96
 REFERENCE_FIELDS = ["texture_quality", "shading_mode", "shadow_filter", "sky_fetch_scale",
                     "ddgi_sample_scale", "shard_axis", "full_height", "shard_count"]
 # (field, value) the port does not implement; each raises naming the field.
-UNPORTED = [("texture_quality", "aniso4"), ("texture_quality", "aniso16"),
-            ("texture_quality", "stochastic"), ("texture_quality", "stochastic1"),
-            ("texture_quality", "sorted"), ("shading_mode", "reference"),
-            ("shadow_filter", "stochastic"), ("sky_fetch_scale", 2),
+UNPORTED = [("shading_mode", "reference"), ("sky_fetch_scale", 2),
             ("ddgi_sample_scale", 2), ("shard_axis", "x"), ("shard_count", 2),
             ("full_height", 2 * RES)]
 
@@ -67,7 +65,13 @@ def test_unported_values_raise_by_name(field, value):
 
 @pytest.mark.parametrize("field,value", [("texture_quality", "trilinear"),
                                          ("texture_quality", "bilinear"),
-                                         ("shadow_filter", "bilinear"), ("full_height", RES),
+                                         ("texture_quality", "aniso4"),
+                                         ("texture_quality", "aniso16"),
+                                         ("texture_quality", "stochastic"),
+                                         ("texture_quality", "stochastic1"),
+                                         ("texture_quality", "sorted"),
+                                         ("shadow_filter", "bilinear"),
+                                         ("shadow_filter", "stochastic"), ("full_height", RES),
                                          ("shard_count", 1), ("sky_fetch_scale", 1)])
 def test_ported_values_construct(field, value):
     cfg = TPipelineConfig(width=RES, height=RES, **{field: value})
@@ -136,7 +140,8 @@ def test_unported_ddgi_options_raise_by_name(option):
 def test_ssss_and_refit_construct_and_their_unported_branches_raise(case):
     """``ssss`` and ``rt_refit`` are ported and construct in the reference's
     places (SSSS after LightingCompose, BVHRefit after Geometry when a pass
-    traces rays); hair and SSSS's temporal branch raise naming them."""
+    traces rays); hair raises naming it. SSSS's temporal branch constructs
+    when asked for, and under the stochastic texture qualities by default."""
     from arkoserenderer_torch.rendering.passes.ssss import SSSSPass
     from arkoserenderer_torch.scene.scene import SceneStatic
 
@@ -157,14 +162,23 @@ def test_ssss_and_refit_construct_and_their_unported_branches_raise(case):
             t_make_pipeline(dataclasses.replace(cfg, scene=SceneStatic(has_hair=True)),
                             device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="temporal"):
-            SSSSPass(temporal=True).construct(cfg, TRegistry(), torch.device("cpu"))
+        for sto_cfg, kw in ((cfg, dict(temporal=True)),
+                            (dataclasses.replace(cfg, texture_quality="stochastic1"), {})):
+            reg = TRegistry()
+            for name, shape in (("SceneColor", (16, 32, 3)), ("SceneMaterial", (16, 32, 4)),
+                                ("SceneDepth", (16, 32))):
+                reg.create(name, shape, torch.float32)
+            assert callable(SSSSPass(**kw).construct(sto_cfg, reg, torch.device("cpu")))
+        assert names(dataclasses.replace(cfg, texture_quality="stochastic"),
+                     ssss=True)[4:7] == ["LightingCompose", "SSSS", "SkyView"]
 
 
 def test_output_pass_takes_the_reference_keywords():
+    from arkoserenderer_torch.assets.external import CubeLUT
+
     TOutputPass(mode="agx", vignette_intensity=0.0, film_grain_gain=0.1)
-    with pytest.raises(NotImplementedError, match="color_grade_lut"):
-        TOutputPass(color_grade_lut=object())
+    lut = CubeLUT.identity(4)
+    assert TOutputPass(color_grade_lut=lut).color_grade_lut is lut
 
 
 @pytest.mark.parametrize("mode", sorted(t_tonemap.MODES))

@@ -202,7 +202,7 @@ def test_unported_flags_raise_by_name(flag, value):
     assert set(UNPORTED_FLAGS) | set(PARTLY_PORTED) == {f for f, _ in UNPORTED}
 
 
-@pytest.mark.parametrize("keyword", ["auto_exposure", "debug_draw"])
+@pytest.mark.parametrize("keyword", ["debug_draw"])
 def test_unported_renderer_keywords_raise_by_name(keyword):
     """The reference's Renderer keywords of unported features raise
     NotImplementedError naming the keyword, before anything is built; off,
@@ -273,6 +273,8 @@ def test_port_imports_neither_jax_nor_reference():
         "import arkoserenderer_torch.ops.texture, arkoserenderer_torch.ops.pathtrace\n"
         "import arkoserenderer_torch.models.pathtracer, arkoserenderer_torch.ops.bake_ao\n"
         "import arkoserenderer_torch.ops.shadow_denoise\n"
+        "import arkoserenderer_torch.apps.showcase, arkoserenderer_torch.assets.external\n"
+        "import arkoserenderer_torch.utils.timing, arkoserenderer_torch.utils.memstats\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('arkoserenderer_tpu') or k == 'PIL'\n"
         "             or k.startswith('PIL.'))\n"
@@ -300,18 +302,23 @@ def test_renderer_device_is_explicit():
 
 
 def _entry_points():
+    from arkoserenderer_torch.apps import showcase
     from arkoserenderer_torch.models.standard import Renderer, make_forward_pipeline
     from arkoserenderer_torch.rendering.pipeline import RenderPipeline
     from arkoserenderer_torch.scene.camera import Camera
     from arkoserenderer_torch.scene.scene import Scene
+    from arkoserenderer_torch.utils import memstats
 
     return {"Renderer": Renderer.__init__, "make_forward_pipeline": make_forward_pipeline,
             "RenderPipeline": RenderPipeline.__init__, "Scene.build": Scene.build,
-            "Camera.state": Camera.state}
+            "Camera.state": Camera.state, "showcase.main": showcase.main,
+            "showcase.make_renderer": showcase.make_renderer,
+            "memstats.snapshot": memstats.snapshot}
 
 
 @pytest.mark.parametrize("name", ["Renderer", "make_forward_pipeline", "RenderPipeline",
-                                  "Scene.build", "Camera.state"])
+                                  "Scene.build", "Camera.state", "showcase.main",
+                                  "showcase.make_renderer", "memstats.snapshot"])
 def test_entry_points_default_to_the_card(name):
     """The port runs on the card unless the caller asks for the CPU; the
     check reads the signature and builds nothing."""

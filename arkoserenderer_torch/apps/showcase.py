@@ -1,21 +1,23 @@
 """Showcase app: the renderer's demo and headless frame loop (port of
 arkoserenderer_tpu/apps/showcase.py).
 
-Builds a scene (the procedural test scene, or a glTF file), renders N
-frames of the forward pipeline with the flags' passes, and writes the last
-frame as a PNG; ``--pathtracer`` renders the path tracer's samples instead.
-It runs on the card.
+Builds a scene (the procedural test scene, a glTF file, or the reference's
+own .arklvl level or .arkmsh mesh, JSON or binary), renders N frames of the
+forward pipeline with the flags' passes, and writes the last frame as a
+PNG; ``--pathtracer`` renders the path tracer's samples instead. It runs on
+the card.
 
 Usage:
   python -m arkoserenderer_torch.apps.showcase --frames 8 --out frame.png
   python -m arkoserenderer_torch.apps.showcase --gltf path/to.gltf --width 512
+  python -m arkoserenderer_torch.apps.showcase --gltf level.arklvl --oit-layers 2
   python -m arkoserenderer_torch.apps.showcase --pathtracer --samples 64
 
 The flags are the reference's, with its defaults (``--out`` defaults to a
 file in the temporary directory). Those whose features the port lacks
-(``--debug-draw``, ``--light-icons``, ``--ddgi-probe-debug``,
-``--oit-layers`` above 1, and .arklvl / .arkmsh inputs) raise
-NotImplementedError naming the flag, before any scene is built.
+(``--debug-draw``, ``--light-icons``, ``--ddgi-probe-debug``) raise
+NotImplementedError naming the flag, before any scene is built; so does a
+level whose object names a hair asset, when it is loaded.
 
 The pieces are functions so a caller can hold the app's own frames:
 ``build_scene(args)``, ``make_renderer(args, scene, cam, device)``,
@@ -93,20 +95,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def check_flags(args) -> None:
     """Raise NotImplementedError naming the first flag the port lacks."""
     for flag, on in (("--debug-draw", args.debug_draw), ("--light-icons", args.light_icons),
-                     ("--ddgi-probe-debug", args.ddgi_probe_debug),
-                     ("--oit-layers", args.oit_layers > 1)):
+                     ("--ddgi-probe-debug", args.ddgi_probe_debug)):
         if on:
             raise NotImplementedError(f"{flag} is not ported yet")
-    if args.gltf is not None and str(args.gltf).endswith((".arklvl", ".arkmsh")):
-        raise NotImplementedError(f"--gltf {args.gltf}: .arklvl and .arkmsh inputs are not "
-                                  "ported yet")
 
 
 def build_scene(args):
-    """(scene, camera): the procedural test scene, or the glTF file of
-    ``--gltf`` (textures at most 256 texels a side) under a default sun and
-    the gradient sky, the camera framing its bounding sphere. The flags the
-    port lacks raise first (``check_flags``)."""
+    """(scene, camera): the procedural test scene, or the file of ``--gltf``
+    (textures at most 256 texels a side): a glTF, an .arkmsh (each segment
+    instanced at the origin) or an .arklvl (its objects, lights, first
+    camera and environment map). A default sun lights a scene that brings
+    none, the gradient sky stands in for a missing environment map, and
+    without a level camera the camera frames the bounding sphere. The flags
+    the port lacks raise first (``check_flags``)."""
     from arkoserenderer_torch.assets.procedural import build_test_scene, gradient_env_map
     from arkoserenderer_torch.core.types import SceneLimits
     from arkoserenderer_torch.scene.camera import Camera
@@ -122,11 +123,29 @@ def build_scene(args):
         max_vertices=1 << 19, max_indices=3 << 19, max_drawables=1024,
         max_materials=256, max_textures=256, texture_pool_texels=1 << 23,
     ))
-    load_gltf(scene, str(args.gltf), max_texture_size=256)
+    lvl_cam, env_loaded = None, False
+    src = str(args.gltf)
+    if src.endswith(".arklvl"):
+        from arkoserenderer_torch.assets.ark import load_arklvl
+
+        res = load_arklvl(scene, src, max_texture_size=256)
+        lvl_cam = res["cameras"][0] if res["cameras"] else None
+        env_loaded = res["env"]
+    elif src.endswith(".arkmsh"):
+        from arkoserenderer_torch.assets.ark import load_arkmsh
+
+        for sid in load_arkmsh(scene, src, max_texture_size=256):
+            scene.add_instance(sid, np.eye(4, dtype=np.float32))
+    else:
+        load_gltf(scene, src, max_texture_size=256)
     if scene.sun is None:
         scene.sun = DirectionalLight(direction=np.array([0.35, -1.0, -0.25], np.float32))
-    scene.set_env_map(gradient_env_map(32), brightness=8000.0)
-    scene.ambient_lx = 6000.0
+    if not env_loaded:
+        scene.set_env_map(gradient_env_map(32), brightness=8000.0)
+        scene.ambient_lx = 6000.0
+    if lvl_cam is not None:
+        lvl_cam.viewport = (args.width, args.height)
+        return scene, lvl_cam
     cam = Camera(viewport=(args.width, args.height))
     center, radius = scene.bounding_sphere()
     cam.look_at(center + np.array([radius * 1.2, radius * 0.5, radius * 1.2]), center)
@@ -159,7 +178,7 @@ def make_renderer(args, scene, cam, device="cuda", **cfg_kw):
         ssao=args.ssao, motion_blur=args.motion_blur, depth_of_field=args.dof,
         rt_shadows=args.rt_shadows, rt_reflections=args.rt_reflections,
         ddgi=True if args.ddgi else None, ssss=args.ssss, fog=args.fog,
-        upscale_to=upscale_to, upscale_mode=args.upscale_mode,
+        upscale_to=upscale_to, upscale_mode=args.upscale_mode, oit_layers=args.oit_layers,
     )
 
 

@@ -1,8 +1,10 @@
-"""Meshlet building (port of arkoserenderer_tpu/assets/meshopt.py,
-``build_meshlets`` and its NumPy greedy scan).
+"""Meshlet building and the BC4 block decoder (port of
+arkoserenderer_tpu/assets/meshopt.py: ``build_meshlets`` with its NumPy
+greedy scan, and the NumPy ``decompress_bc4``).
 
-The reference also builds the scan as a native g++ library; the port needs
-no native code for it: meshlets are built once per segment at scene build.
+The reference also builds both as a native g++ library; the port needs no
+native code for them: meshlets are built once per segment at scene build,
+and BC4 blocks are decoded once per DDS image at load.
 """
 
 from __future__ import annotations
@@ -79,3 +81,28 @@ def build_meshlets(positions: np.ndarray, indices: np.ndarray,
         np.array(offs, np.int32), np.array(cnts, np.int32),
         np.array(spheres, np.float32), np.array(cones, np.float32),
     )
+
+
+def decompress_bc4(blocks: np.ndarray, height: int, width: int) -> np.ndarray:
+    """(nblocks, 8) uint8 BC4 blocks -> (height, width) uint8: two
+    endpoints and 3-bit indices into the 8-entry palette (6 interpolated
+    entries when e0 > e1, else 4 and the constants 0 and 255)."""
+    blk = np.ascontiguousarray(blocks.reshape(-1), np.uint8).reshape(-1, 8)
+    e0 = blk[:, 0].astype(np.int32)
+    e1 = blk[:, 1].astype(np.int32)
+    pal = np.zeros((len(blk), 8), np.int32)
+    pal[:, 0] = e0
+    pal[:, 1] = e1
+    for i in range(1, 7):
+        interp = ((7 - i) * e0 + i * e1) // 7
+        alt = ((5 - i) * e0 + i * e1) // 5 if i < 5 else (0 if i == 5 else 255)
+        pal[:, 1 + i] = np.where(e0 > e1, interp, alt)
+    bits = np.zeros(len(blk), np.uint64)
+    for i in range(6):
+        bits |= blk[:, 2 + i].astype(np.uint64) << np.uint64(8 * i)
+    texels = np.zeros((len(blk), 16), np.uint8)
+    for i in range(16):
+        code = ((bits >> np.uint64(3 * i)) & np.uint64(7)).astype(np.int64)
+        texels[:, i] = pal[np.arange(len(blk)), code]
+    bh, bw = height // 4, width // 4
+    return texels.reshape(bh, bw, 4, 4).transpose(0, 2, 1, 3).reshape(height, width)

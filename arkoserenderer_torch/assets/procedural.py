@@ -15,7 +15,13 @@ import torch
 from arkoserenderer_torch.core.types import SceneLimits
 from arkoserenderer_torch.scene.camera import Camera
 from arkoserenderer_torch.scene.lights import DirectionalLight, PointLight, SpotLight
-from arkoserenderer_torch.scene.scene import Material, MeshSegment, Scene, generate_tangents_uv
+from arkoserenderer_torch.scene.scene import (
+    BLEND_TRANSLUCENT,
+    Material,
+    MeshSegment,
+    Scene,
+    generate_tangents_uv,
+)
 
 
 def make_plane(size: float = 1.0, uv_scale: float = 1.0) -> MeshSegment:
@@ -166,6 +172,30 @@ def build_test_scene(
     cam.look_at((4.0, 2.5, 5.0), (0.0, 0.6, -0.5))
     cam.focus_depth = 6.0
     return scene, cam
+
+
+def add_glass_panes(scene: Scene, with_back: bool = True, alpha: float = 0.5) -> None:
+    """Two translucent panes (thin boxes of ``alpha``) in front of the test
+    scene's camera, as tests/test_translucent.py places them: a 1.6 red
+    pane at (-2, 1, 2.2) and, with ``with_back``, a 2.4 blue pane 0.9
+    further along the ray from the camera's (4, 2.5, 5) through it, which
+    only depth peeling reveals."""
+    front = scene.add_material(Material(
+        base_color_factor=np.array([0.9, 0.3, 0.2, alpha], np.float32),
+        roughness_factor=0.1, blend_mode=BLEND_TRANSLUCENT))
+    back = scene.add_material(Material(
+        base_color_factor=np.array([0.2, 0.4, 0.9, alpha], np.float32),
+        roughness_factor=0.1, blend_mode=BLEND_TRANSLUCENT))
+    cam_pos = np.array([4.0, 2.5, 5.0], np.float32)
+    p_front = np.array([-2.0, 1.0, 2.2], np.float32)
+    ray = (p_front - cam_pos) / np.linalg.norm(p_front - cam_pos)
+    panes = [(front, p_front, 1.6)] + ([(back, p_front + ray * 0.9, 2.4)] if with_back else [])
+    for mat, pos, size in panes:
+        pane = make_box((size, size, 0.05))
+        pane.material = mat
+        w = np.eye(4, dtype=np.float32)
+        w[:3, 3] = pos
+        scene.add_instance(scene.add_segment(pane), w)
 
 
 def build_anim_scene(viewport: tuple[int, int] = (256, 256)) -> tuple[Scene, Camera]:

@@ -207,6 +207,17 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + q[..., 3:4] * t + torch.cross(qv, t, dim=-1)
 
 
+def apply_rows(mats: torch.Tensor, p: torch.Tensor, translate: bool = True) -> torch.Tensor:
+    """(N, 3, 4) (or (N, 3, 3) without ``translate``) per-row matrices applied
+    to (N, 3) vectors, row by row, elementwise: the affine transform with
+    the fourth column, else the linear part (+ 0.0, so -0.0 lanes read +0.0)."""
+    lanes = []
+    for r in range(3):
+        v = mats[:, r, 0] * p[:, 0] + mats[:, r, 1] * p[:, 1] + mats[:, r, 2] * p[:, 2]
+        lanes.append(v + mats[:, r, 3] if translate else v + 0.0)
+    return torch.stack(lanes, dim=-1)
+
+
 def transform_point_lanes(m: torch.Tensor, p: torch.Tensor, rows=(0, 1, 2, 3)):
     """(4,4) m, (N,3) p -> tuple of (N,) homogeneous lanes for ``rows``."""
     return tuple(

@@ -4,13 +4,15 @@ arkoserenderer_tpu/models/standard.py, the raster and ray-traced frames).
 The pass order is the reference's: Scene -> Geometry -> [BVHRefit] ->
 [DDGI] -> (SunShadow -> [LocalShadow] | RTShadow -> [RTLocalShadow]) ->
 VisibilityShading -> [RTReflections] -> [SSAO] -> LightingCompose ->
-[SSSS] -> SkyView -> [Fog] -> [MotionBlur] -> [DepthOfField] -> [Bloom] ->
+[SSSS] -> SkyView -> [ForwardTranslucent] -> [Fog] -> [MotionBlur] ->
+[DepthOfField] -> [Bloom] ->
 [TAA] -> Output -> [FXAA] -> [CAS] -> [TemporalUpscale | Upscale]. With
 ``rt_shadows``, ``rt_reflections`` or ``ddgi`` the Renderer builds the
 scene with its two-level BVH, and on a skinned or morphed scene refits it
-every frame (``rt_refit``). Translucency, the DDGI probe overlay and the
-other debug overlays are later slices; asking for one raises
-``NotImplementedError`` naming the flag.
+every frame (``rt_refit``). A scene with translucent materials gets the
+depth-peeled ForwardTranslucent pass (``oit_layers`` layers). The DDGI
+probe overlay and the other debug overlays are later slices; asking for
+one raises ``NotImplementedError`` naming the flag.
 
 ``Renderer`` is the host frame loop, with the reference's host API:
 checkpoints of the persistent state (the reference's npz layout, so one
@@ -47,6 +49,7 @@ from arkoserenderer_torch.rendering.passes import (
     SunShadowPass,
     TAAPass,
     TemporalUpscalePass,
+    TranslucentPass,
     UpscalePass,
     VisibilityShadingPass,
 )
@@ -64,9 +67,7 @@ from arkoserenderer_torch.scene.scene import Scene
 
 # Flags of the reference's make_forward_pipeline whose passes are not ported
 # yet, with the value that leaves each one off.
-UNPORTED_FLAGS = {
-    "ddgi_probe_debug": False, "light_icons": False, "oit_layers": 1, "debug_draw": None,
-}
+UNPORTED_FLAGS = {"ddgi_probe_debug": False, "light_icons": False, "debug_draw": None}
 # Keywords of the reference's Renderer whose features are not ported yet.
 UNPORTED_RENDERER_KW = ("debug_draw",)
 
@@ -88,6 +89,7 @@ def make_forward_pipeline(
     ddgi: ProbeGridConfig | None = None,
     ssss: bool = False,
     rt_refit: bool = False,
+    oit_layers: int = 1,
     upscale_to: tuple[int, int] | None = None,  # display (width, height)
     upscale_mode: str = "temporal",  # "temporal" (TemporalUpscale, no TAA) | "spatial"
     film_grain: float = 0.0,
@@ -152,6 +154,8 @@ def make_forward_pipeline(
     if ssss:
         pipe.add_pass(SSSSPass())
     pipe.add_pass(SkyPass())
+    if st.has_translucent:
+        pipe.add_pass(TranslucentPass(layers=oit_layers))
     if fog:
         pipe.add_pass(FogPass())
     if motion_blur:

@@ -105,20 +105,13 @@ def build_vertex_world(scene, positions, normals, tangents,
         off += 12
     n_rot = m[:, off:off + 9].reshape(-1, 3, 3)
 
-    def apply34(rot, p, translate=True):
-        lanes = []
-        for r in range(3):
-            v = rot[:, r, 0] * p[:, 0] + rot[:, r, 1] * p[:, 1] + rot[:, r, 2] * p[:, 2]
-            lanes.append(v + rot[:, r, 3] if translate else v + 0.0)
-        return torch.stack(lanes, dim=-1)
-
-    wpos = apply34(w_rot, positions)
+    wpos = mx.apply_rows(w_rot, positions)
     parts = [wpos]
     if layout.has_prev:
-        parts.append(apply34(p_rot, positions))
-    parts.append(mx.normalize(apply34(n_rot, normals, translate=False)))
+        parts.append(mx.apply_rows(p_rot, positions))
+    parts.append(mx.normalize(mx.apply_rows(n_rot, normals, translate=False)))
     if layout.has_tan:
-        parts.append(mx.normalize(apply34(w_rot, tangents[:, :3], translate=False)))
+        parts.append(mx.normalize(mx.apply_rows(w_rot, tangents[:, :3], translate=False)))
         parts.append(tangents[:, 3:4])
     parts.append(scene.uvs)
     return torch.cat(parts, dim=-1)

@@ -1,8 +1,9 @@
 """The RGBA8 bindless texture pool and its filtered sampling (port of
 arkoserenderer_tpu/ops/texture.py: ``TexturePool``, ``generate_mip_chain``,
 ``pack_rgba8``, ``TexturePoolBuilder``, ``unpack_rgba8``,
-``srgb_to_linear``, ``linear_to_srgb``, ``_fetch_bilinear`` and
-``sample_trilinear``).
+``srgb_to_linear``, ``linear_to_srgb``, ``_fetch_bilinear``,
+``compute_lod``, ``sample_trilinear``, ``sample_bilinear_nearest_mip`` and
+``sample_grad``).
 
 Every mip of every texture lives in one flat pool of packed RGBA8 texels
 (r | g << 8 | b << 16 | a << 24), addressed as
@@ -18,6 +19,10 @@ raster's shading (``ops/mattex``), whose mips average the encoded values.
 The pool is built on the host in numpy, as the reference builds it, and
 moved to the device once (``Scene.build``). On the device the texels are
 int32 with the uint32's bits.
+
+``sample_grad`` is the reference shading mode's material sampler
+(``ops/shading.shade_visibility_buffer``): an isotropic LOD from the
+analytic UV gradients, then trilinear or nearest-mip bilinear filtering.
 """
 
 from __future__ import annotations
@@ -105,6 +110,7 @@ class TexturePoolBuilder:
         self._srgb = np.zeros((max_textures,), bool)
         self._wrap = np.zeros((max_textures,), np.int32)
         self._cursor = 0
+        self._count = 0  # texture ids handed out (a loaded baked scene restores it)
         self.images: list[tuple[np.ndarray, bool, int]] = []  # (img RGBA8, srgb, wrap)
         for rgba in DEFAULT_TEXTURES:
             self.add(np.full((1, 1, 4), rgba, np.uint8), srgb=False, mipmapped=False)
@@ -113,7 +119,7 @@ class TexturePoolBuilder:
             mipmapped: bool = True) -> int:
         """Add an (H, W, C<=4) uint8 image (alpha opaque where absent);
         returns its bindless texture id."""
-        tid = len(self.images)
+        tid = self._count
         if tid >= self.max_textures:
             raise ValueError("texture id capacity exceeded")
         if img.ndim == 2:
@@ -138,6 +144,7 @@ class TexturePoolBuilder:
         self._srgb[tid] = srgb
         self._wrap[tid] = wrap
         self.images.append((img, srgb, wrap))
+        self._count += 1
         return tid
 
     def host_fields(self) -> dict[str, np.ndarray]:
@@ -226,9 +233,56 @@ def sample_trilinear(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor,
         lod = torch.zeros(tex_id.shape, dtype=torch.float32, device=uv.device)
     max_lod = (pool.n_mips[tex_id.long()] - 1).to(torch.float32)
     lod = torch.minimum(torch.maximum(lod, torch.zeros_like(lod)), max_lod)
-    l0 = torch.floor(lod).to(torch.int32)
+    # A NaN LOD (a lane no geometry covers) reads mip 0: masked before the cast.
+    l0 = torch.floor(torch.nan_to_num(lod, nan=0.0)).to(torch.int32)
     l1 = torch.minimum(l0 + 1, max_lod.to(torch.int32))
     f = (lod - l0.to(torch.float32))[:, None]
     c0 = _fetch_bilinear(pool, tex_id, l0, uv, decode_srgb, pow2=pow2)
     c1 = _fetch_bilinear(pool, tex_id, l1, uv, decode_srgb, pow2=pow2)
     return c0 * (1 - f) + c1 * f
+
+
+def compute_lod(pool: TexturePool, tex_id: torch.Tensor, duv_dx: torch.Tensor,
+                duv_dy: torch.Tensor) -> torch.Tensor:
+    """(N,) isotropic mip LOD from the analytic UV gradients: half the log2
+    of the larger squared texel-space gradient. A NaN gradient (a lane no
+    geometry covers) gives a NaN LOD; the samplers clamp its level."""
+    size0 = pool.mip_size[tex_id.long(), 0].to(torch.float32)  # (N, 2)
+    dx = duv_dx * size0
+    dy = duv_dy * size0
+    rho2 = torch.maximum(torch.sum(dx * dx, dim=-1), torch.sum(dy * dy, dim=-1))
+    return 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
+
+
+def sample_bilinear_nearest_mip(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor,
+                                lod: torch.Tensor, decode_srgb: bool = True,
+                                pow2: bool = False) -> torch.Tensor:
+    """4-tap bilinear at the rounded mip (half the taps of trilinear). The
+    level is clamped to the texture's mips; a NaN LOD reads mip 0."""
+    max_lod = (pool.n_mips[tex_id.long()] - 1).to(torch.float32)
+    level = torch.minimum(torch.clamp(torch.round(lod), min=0.0), max_lod)
+    level = torch.nan_to_num(level, nan=0.0).to(torch.int32)
+    return _fetch_bilinear(pool, tex_id, level, uv, decode_srgb, pow2=pow2)
+
+
+def sample_grad(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor,
+                duv_dx: torch.Tensor, duv_dy: torch.Tensor, decode_srgb: bool = True,
+                quality: str = "trilinear", pow2: bool = False) -> torch.Tensor:
+    """Gradient-correct sample, the reference shading mode's material path:
+    "trilinear" or "bilinear" (the nearest mip) at ``compute_lod``'s LOD;
+    "auto" and "stochastic" are trilinear, as in the reference, whose
+    per-field path has no stochastic filter. "sorted" (the reference's
+    tile-median one-hot gather) raises NotImplementedError; other values
+    raise ValueError."""
+    if quality in ("auto", "stochastic"):
+        quality = "trilinear"
+    if quality == "sorted":
+        raise NotImplementedError(
+            "texture_quality='sorted' (the one-hot tile gather of the reference shading "
+            "mode) is not ported")
+    if quality not in ("trilinear", "bilinear"):
+        raise ValueError(f"unknown texture quality {quality!r} (trilinear|bilinear|sorted)")
+    lod = compute_lod(pool, tex_id, duv_dx, duv_dy)
+    if quality == "bilinear":
+        return sample_bilinear_nearest_mip(pool, tex_id, uv, lod, decode_srgb, pow2=pow2)
+    return sample_trilinear(pool, tex_id, uv, lod, decode_srgb=decode_srgb, pow2=pow2)

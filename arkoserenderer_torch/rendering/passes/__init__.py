@@ -19,5 +19,6 @@ from arkoserenderer_torch.rendering.passes.post import (  # noqa: F401
 from arkoserenderer_torch.rendering.passes.sky import SkyPass  # noqa: F401
 from arkoserenderer_torch.rendering.passes.bloom import BloomPass  # noqa: F401
 from arkoserenderer_torch.rendering.passes.taa import TAAPass  # noqa: F401
+from arkoserenderer_torch.rendering.passes.translucent import TranslucentPass  # noqa: F401
 from arkoserenderer_torch.rendering.passes.output import OutputPass  # noqa: F401
 from arkoserenderer_torch.rendering.passes.upscale import TemporalUpscalePass, UpscalePass  # noqa: F401

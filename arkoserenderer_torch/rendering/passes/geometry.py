@@ -1,17 +1,19 @@
-"""Geometry pass: world-space vertices -> visibility buffer (port of
-arkoserenderer_tpu/rendering/passes/geometry.py, packed branch without
-translucency).
+"""Geometry pass: vertices -> visibility buffer (port of
+arkoserenderer_tpu/rendering/passes/geometry.py).
 
 Instance frustum + LOD culling, per-meshlet sphere and cone culling when the
 scene has meshlets, triangle setup with near clipping, binning,
-the stage-4 tile raster (the CUDA kernel on the card) and the per-triangle
-shading records.
+the stage-4 tile raster (the CUDA kernel on the card) and, under the packed
+shading mode, the per-triangle shading records. The packed mode projects
+the world-space pool (geom.vtx_world); the reference mode transforms the
+object-space pool by the instance matrices. Translucent triangles are left
+to the ForwardTranslucent pass.
 
 Publishes:
   SceneDepth    (H, W) f32 reverse-Z
   Visibility    (H, W) i32 setup-row id (VIS_NONE background)
   vis.setup     TriSetup
-  vis.records   (T', rec_size) f32 shading records
+  vis.records   (T', rec_size) f32 shading records (packed mode only)
   vis.overflow  () i32 bin entries dropped
 """
 
@@ -25,6 +27,7 @@ from arkoserenderer_torch.ops import raster
 from arkoserenderer_torch.ops.packed_shading import build_records, record_layout_for
 from arkoserenderer_torch.rendering.pipeline import FrameContext, PipelineConfig, RenderPass
 from arkoserenderer_torch.rendering.registry import Registry
+from arkoserenderer_torch.scene.scene import BLEND_TRANSLUCENT
 
 
 def lod_instance_mask(scene, cam_pos: torch.Tensor) -> torch.Tensor:
@@ -44,6 +47,13 @@ def transform_vertices_clip(scene, view_proj: torch.Tensor,
     return torch.stack(
         [m[:, r, 0] * p[:, 0] + m[:, r, 1] * p[:, 1] + m[:, r, 2] * p[:, 2] + m[:, r, 3]
          for r in range(4)], dim=-1)
+
+
+def translucent_triangles(scene) -> torch.Tensor:
+    """(Tmax,) bool: triangles whose instance's material blends
+    (BLEND_TRANSLUCENT)."""
+    mat_of_tri = scene.inst_material[scene.tri_instance.long()].long()
+    return scene.materials.blend_mode[mat_of_tri] == BLEND_TRANSLUCENT
 
 
 def world_to_clip(view_proj: torch.Tensor, wpos: torch.Tensor) -> torch.Tensor:
@@ -97,35 +107,42 @@ class GeometryPass(RenderPass):
     name = "Geometry"
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
-        if cfg.scene.has_translucent:
-            raise NotImplementedError("translucency is not ported yet")
+        packed = cfg.shading_mode == "packed"
         reg.get("geom.positions")
-        reg.get("geom.vtx_world")
-        reg.publish("vis.records")
+        if packed:
+            reg.get("geom.vtx_world")
+            reg.publish("vis.records")
         reg.create("SceneDepth", (cfg.height, cfg.width), torch.float32, clear=DEPTH_FAR)
         reg.create("Visibility", (cfg.height, cfg.width), torch.int32, clear=VIS_NONE)
         reg.publish("vis.setup")
         w, h, rcfg = cfg.width, cfg.height, cfg.raster
         layout = record_layout_for(cfg.scene)
         has_meshlets = cfg.scene.has_meshlets
+        has_translucent = cfg.scene.has_translucent
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             s, cam = ctx.scene, ctx.camera
             view_proj = cam.view_proj
-            clip = world_to_clip(view_proj, state["geom.vtx_world"][:, 0:3])
+            if packed:
+                clip = world_to_clip(view_proj, state["geom.vtx_world"][:, 0:3])
+            else:
+                clip = transform_vertices_clip(s, view_proj, state["geom.positions"])
             tri_visible, _ = camera_visible_triangles(s, view_proj, cam.position, has_meshlets)
+            if has_translucent:
+                tri_visible = tri_visible & ~translucent_triangles(s)
             setup = raster.setup_triangles(clip, s.indices, tri_visible, w, h, w_eps=cam.near)
             bins = raster.bin_triangles(setup, w, h, rcfg)
             vis, depth = raster.rasterize_tiles(setup, bins, w, h, rcfg)
-            return {
+            out = {
                 "SceneDepth": depth,
                 "Visibility": vis,
                 "vis.setup": setup,
                 "vis.overflow": bins.overflow,
-                "vis.records": build_records(
-                    setup, state["geom.vtx_world"], s.indices, s.tri_material,
-                    s.mat_records, layout=layout,
-                ),
             }
+            if packed:
+                out["vis.records"] = build_records(
+                    setup, state["geom.vtx_world"], s.indices, s.tri_material,
+                    s.mat_records, layout=layout)
+            return out
 
         return execute

@@ -2,8 +2,8 @@
 arkoserenderer_tpu/rendering/passes/scenepass.py).
 
 Publishes the object-space geometry (geom.positions / normals / tangents)
-and the world-space packed vertex pool (geom.vtx_world) that the geometry,
-shadow and shading passes consume. On an animated scene it first blends
+and, under the packed shading mode, the world-space packed vertex pool
+(geom.vtx_world) that the geometry, shadow and shading passes consume. On an animated scene it first blends
 each morphed instance's targets, then skins the pool with the frame's
 palette (``ops/skinning``); both build new tensors, so the scene's base
 pools stay as built. Hair is not ported.
@@ -29,7 +29,9 @@ class ScenePass(RenderPass):
         reg.publish("geom.positions")
         reg.publish("geom.normals")
         reg.publish("geom.tangents")
-        reg.publish("geom.vtx_world")
+        packed = cfg.shading_mode == "packed"
+        if packed:
+            reg.publish("geom.vtx_world")
         layout = record_layout_for(st)
         has_skin = st.has_skin
         morph_bases = st.morph_vertex_base
@@ -42,11 +44,9 @@ class ScenePass(RenderPass):
                                     base)
             if has_skin:
                 p, n, t = skin_vertices(p, n, t, s.skin_joints, s.skin_weights, s.palette)
-            return {
-                "geom.positions": p,
-                "geom.normals": n,
-                "geom.tangents": t,
-                "geom.vtx_world": build_vertex_world(s, p, n, t, layout=layout),
-            }
+            out = {"geom.positions": p, "geom.normals": n, "geom.tangents": t}
+            if packed:
+                out["geom.vtx_world"] = build_vertex_world(s, p, n, t, layout=layout)
+            return out
 
         return execute

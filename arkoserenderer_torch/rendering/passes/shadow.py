@@ -6,7 +6,9 @@ SunShadow
 
 A depth-only raster from the sun's ortho view (no backface culling, so
 single-sided geometry casts) through the same stage-4 kernel as the camera,
-then prefiltered VSM moments.
+then, under the packed shading mode, prefiltered VSM moments; the
+reference mode shades with PCF taps of the map itself and makes no
+moments. Translucent triangles cast no shadow (in both passes).
 
 Static-shadow cache: when nothing that casts shadows can move, the map is
 rendered once and reused until the host bumps the scene version. The
@@ -15,8 +17,8 @@ holds both versions as Python ints, so it is a plain branch and the frame
 reads nothing back. A dynamic scene (moving instances, skinning, morph
 targets, hair) rasters the sun every frame, and both maps are transient.
 
-Publishes: ShadowMap.sun (S, S) f32 reverse-Z depth and ShadowMoments.sun
-(S/2, S/2, 2) f32.
+Publishes: ShadowMap.sun (S, S) f32 reverse-Z depth and, packed,
+ShadowMoments.sun (S/2, S/2, 2) f32.
 
 LocalShadow
 -----------
@@ -37,6 +39,7 @@ from arkoserenderer_torch.ops import raster
 from arkoserenderer_torch.ops.shadow import shadow_moments
 from arkoserenderer_torch.rendering.passes.geometry import (
     transform_vertices_clip,
+    translucent_triangles,
     visible_triangles,
     world_to_clip,
 )
@@ -57,13 +60,13 @@ class SunShadowPass(RenderPass):
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         s = cfg.shadow_map_size
         st = cfg.scene
-        if st.has_translucent:
-            raise NotImplementedError("translucent shadow casters are not ported yet")
+        packed = cfg.shading_mode == "packed"
         reg.get("geom.positions")
-        reg.get("geom.vtx_world")
         cacheable = sun_shadow_cacheable(st)
-        reg.create("ShadowMoments.sun", (s // 2, s // 2, 2), torch.float32,
-                   persistent=cacheable)
+        if packed:
+            reg.get("geom.vtx_world")
+            reg.create("ShadowMoments.sun", (s // 2, s // 2, 2), torch.float32,
+                       persistent=cacheable)
         reg.create("ShadowMap.sun", (s, s), torch.float32, clear=DEPTH_FAR,
                    persistent=cacheable)
         if cacheable:
@@ -73,31 +76,33 @@ class SunShadowPass(RenderPass):
         if s % rcfg.tile_h or s % rcfg.tile_w:
             raise ValueError("shadow map size must be a multiple of the raster tile")
 
-        def render(state: dict, ctx: FrameContext):
-            sun_vp = ctx.scene.lights.sun_view_proj
-            clip = world_to_clip(sun_vp, state["geom.vtx_world"][:, 0:3])
-            setup = raster.setup_triangles(
-                clip, ctx.scene.indices,
-                visible_triangles(ctx.scene, sun_vp, ctx.camera.position), s, s,
-                cull_backfaces=False,
-            )
+        def render(state: dict, ctx: FrameContext) -> dict:
+            sc = ctx.scene
+            sun_vp = sc.lights.sun_view_proj
+            if packed:
+                clip = world_to_clip(sun_vp, state["geom.vtx_world"][:, 0:3])
+            else:
+                clip = transform_vertices_clip(sc, sun_vp, state["geom.positions"])
+            casters = visible_triangles(sc, sun_vp, ctx.camera.position)
+            if st.has_translucent:
+                casters = casters & ~translucent_triangles(sc)
+            setup = raster.setup_triangles(clip, sc.indices, casters, s, s,
+                                           cull_backfaces=False)
             bins = raster.bin_triangles(setup, s, s, rcfg)
             _, depth = raster.rasterize_tiles(setup, bins, s, s, rcfg, depth_only=True)
-            return depth, shadow_moments(depth)
+            if packed:
+                return {"ShadowMap.sun": depth, "ShadowMoments.sun": shadow_moments(depth)}
+            return {"ShadowMap.sun": depth}
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             if not cacheable:
-                depth, moments = render(state, ctx)
-                return {"ShadowMap.sun": depth, "ShadowMoments.sun": moments}
+                return render(state, ctx)
             version = state["scene.version"]
             if ctx.frame_index == 0 or version != state["SunShadow.version"]:
-                depth, moments = render(state, ctx)
+                out = render(state, ctx)
             else:
-                depth, moments = state["ShadowMap.sun"], state["ShadowMoments.sun"]
-            return {
-                "ShadowMap.sun": depth, "ShadowMoments.sun": moments,
-                "SunShadow.version": version, "scene.version": version,
-            }
+                out = {k: state[k] for k in ("ShadowMap.sun", "ShadowMoments.sun") if k in state}
+            return {**out, "SunShadow.version": version, "scene.version": version}
 
         return execute
 
@@ -108,8 +113,6 @@ class LocalShadowPass(RenderPass):
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         a = cfg.local_shadow_map_size
         st = cfg.scene
-        if st.has_translucent:
-            raise NotImplementedError("translucent shadow casters are not ported yet")
         n_tiles = max(st.n_spots, 1)
         casters = st.spot_shadow_casters
         reg.get("geom.positions")
@@ -120,6 +123,7 @@ class LocalShadowPass(RenderPass):
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             tiles = []
+            opaque = ~translucent_triangles(ctx.scene) if st.has_translucent else None
             for i in range(n_tiles):
                 if i >= len(casters) or not casters[i]:
                     tiles.append(torch.full((a, a), DEPTH_FAR, dtype=torch.float32,
@@ -127,11 +131,11 @@ class LocalShadowPass(RenderPass):
                     continue
                 vp = ctx.scene.lights.spot_view_proj[i]
                 clip = transform_vertices_clip(ctx.scene, vp, state["geom.positions"])
-                setup = raster.setup_triangles(
-                    clip, ctx.scene.indices,
-                    visible_triangles(ctx.scene, vp, ctx.camera.position), a, a,
-                    cull_backfaces=False,
-                )
+                tris = visible_triangles(ctx.scene, vp, ctx.camera.position)
+                if opaque is not None:
+                    tris = tris & opaque
+                setup = raster.setup_triangles(clip, ctx.scene.indices, tris, a, a,
+                                               cull_backfaces=False)
                 bins = raster.bin_triangles(setup, a, a, rcfg)
                 tiles.append(raster.rasterize_tiles(setup, bins, a, a, rcfg, depth_only=True)[1])
             return {"ShadowMap.locals": torch.stack(tiles)}

@@ -68,10 +68,14 @@ class PipelineConfig:
     # taps), "anisoN" (N bilinear taps along the major gradient axis, e.g.
     # "aniso4"), "stochastic" / "stochastic1" (jittered taps that TAA
     # converges; they also turn on the temporal SSAO, MotionBlur, DoF and
-    # SSSS branches) or "sorted" (trilinear on the packed path).
+    # SSSS branches) or "sorted" (trilinear on the packed path; not ported
+    # under the reference shading mode). The reference shading mode takes
+    # trilinear and bilinear ("auto" and "stochastic" are trilinear there).
     texture_quality: str = "auto"
-    # Deferred-shading path: "packed" (the reference's "reference" path is
-    # not ported).
+    # Deferred-shading path: "packed" (one record gather per pixel,
+    # channel-packed material textures, VSM sun shadows) or "reference"
+    # (ops/shading.shade_visibility_buffer: per-field gathers, the RGBA8
+    # texture pool, PCF sun shadows).
     shading_mode: str = "packed"
     # TAA history filter: "catmull" (16-tap Catmull-Rom, sharp history) or
     # "bilinear" (4 taps).
@@ -105,10 +109,11 @@ class PipelineConfig:
         aniso = q.startswith("aniso") and (q[5:] == "" or q[5:].isdigit())
         if not aniso and q not in TEXTURE_QUALITIES:
             raise ValueError(f"unknown texture_quality {q!r}")
-        if self.shading_mode == "reference":
-            unported("shading_mode", "the per-field reference shading path")
-        if self.shading_mode != "packed":
+        if self.shading_mode not in ("packed", "reference"):
             raise ValueError(f"unknown shading_mode {self.shading_mode!r}")
+        if self.shading_mode == "reference" and q == "sorted":
+            unported("texture_quality", "the one-hot tile gather of the reference shading "
+                     "mode")
         if self.shadow_filter not in SHADOW_FILTERS:
             raise ValueError(f"unknown shadow_filter {self.shadow_filter!r}")
         if self.sky_fetch_scale != 1:

@@ -128,6 +128,7 @@ class MeshSegment:
     skeleton: int = -1                      # Scene.skeletons index when skinned
     morph_pos: np.ndarray | None = None     # (B, V, 3) position deltas
     morph_nrm: np.ndarray | None = None     # (B, V, 3) normal deltas
+    name: str = ""                          # the asset's name (.arkmsh, glTF mesh)
 
     def __post_init__(self):
         v = self.positions.shape[0]

@@ -8,6 +8,12 @@ The frame kinds (the reference's ``bench.py`` configs of the same names):
   bindless   256 materials over 64 texture chains + MotionBlur + DepthOfField
   test_spot  the test scene with one shadow-casting spot light: its shadow
              map is rastered every frame (LocalShadow) and PCF-sampled
+  translucent the forward frame with the two translucent panes of
+             tests/test_translucent.py in front of the camera
+             (``procedural.add_glass_panes``) and ``oit_layers=4``: the
+             ForwardTranslucent pass peels four layers, each a camera-sized
+             raster with ``depth_limit`` and a per-field shade of the whole
+             screen (``ops/shading.shade_visibility_buffer``)
   rt         the same scene and spot with rt_shadows and rt_reflections: the
              sun's and the spot's shadows are rays (RTShadow, RTLocalShadow)
              and RTReflections traces mirror rays and their sun and spot
@@ -100,6 +106,7 @@ import torch
 from arkoserenderer_torch.assets import imagecodec, sample_scenes
 from arkoserenderer_torch.assets.gltf import parse_gltf
 from arkoserenderer_torch.assets.procedural import (
+    add_glass_panes,
     build_anim_scene,
     build_bindless_scene,
     build_flagship_scene,
@@ -129,6 +136,8 @@ CONFIGS = {
     "bindless": ("bindless", dict(motion_blur=True, depth_of_field=True),
                  "256 materials / 64 textures bindless + TAA + motion blur + DoF"),
     "test_spot": ("test_spot", {}, "forward + one shadow-casting spot light (LocalShadow + PCF)"),
+    "translucent": ("test_panes", dict(oit_layers=4),
+                    "forward + two translucent panes, 4-layer depth-peeled OIT"),
     "rt": ("test_spot", dict(rt_shadows=True, rt_reflections=True),
            "RT shadows + RT reflections + denoise, one shadow-casting spot light"),
     "rt_soft": ("test_spot_soft", dict(rt_shadows=True, rt_reflections=True),
@@ -212,6 +221,8 @@ def build_scene(name: str, small: bool = False, cfg: PipelineConfig | None = Non
                 center, radius, dims=(16, 8, 16), rays_per_probe=256, probes_per_frame=1024))
     else:
         scene, camera = build_test_scene(viewport=viewport)
+    if kind == "test_panes":
+        add_glass_panes(scene)
     if kind in ("test_spot", "test_spot_soft"):
         scene.spots.append(SpotLight(
             position=np.array([1.5, 3.0, 1.0], np.float32),
@@ -250,12 +261,16 @@ def _pass_names(renderer: Renderer) -> set:
 def expected_launches_by_shape(renderer: Renderer, frames: int) -> dict:
     """Raster launches of ``frames`` frames from a fresh Renderer whose scene
     stays as built, by (height, width, depth_only): the camera's every
-    frame; with shadow maps, the sun's once under the static shadow cache,
-    else every frame, and one per shadow-casting spot per frame; with
-    ray-traced shadows no other raster."""
+    frame, and with ForwardTranslucent one more per peeled layer; with
+    shadow maps, the sun's once under the static shadow cache, else every
+    frame, and one per shadow-casting spot per frame; with ray-traced
+    shadows no other raster."""
     cfg = renderer.cfg
     s, a = cfg.shadow_map_size, cfg.local_shadow_map_size
     out = {(cfg.height, cfg.width, False): frames}
+    for p in renderer.pipeline.passes:
+        if p.name == "ForwardTranslucent":
+            out[(cfg.height, cfg.width, False)] += p.layers * frames
     if "SunShadow" in _pass_names(renderer):
         out[(s, s, True)] = 1 if sun_shadow_cacheable(cfg.scene) else frames
         casters = sum(cfg.scene.spot_shadow_casters)

@@ -3,7 +3,9 @@
 Helpers used by chip_smoke.py and the tests: the forward frame's camera and
 sun raster inputs, a spot light's local-shadow raster inputs, the rasters
 of one frame captured as the frame makes them (``capture_rasters``: on an
-animated scene, from the skinned and morphed pool), the (tile, triangle)
+animated scene, from the skinned and morphed pool; ``capture_raster_calls``
+keeps every call in order, with its ``depth_limit``: the translucent
+pass's peel layers share the camera's shape), the (tile, triangle)
 pairs a raster walks and its pixel
 tests before and after exact tile rejection (``ops.raster.tile_rejects``),
 the kernel's bound, and two timings: the wrapper's (CUDA events around
@@ -64,7 +66,7 @@ GRAPH_LAUNCHES = 50
 WRAPPER_CALLS = {"camera": 50, "sun": 10, "local": 50, "camera_stress": 20,
                  "sun_stress": 10, "camera_720p": 50, "camera_flagship": 20,
                  "camera_ddgi": 20, "sun_ddgi": 10, "camera_helmet": 20, "camera_app": 20,
-                 "sun_app": 50}
+                 "sun_app": 50, "peel": 20, "peel_app": 20}
 # The adversarial case: viewport and numpy seed.
 ADVERSARIAL_SIZE, ADVERSARIAL_SEED = 64, 7
 
@@ -160,17 +162,19 @@ def forward_raster_inputs(scene_arrays, cam_state, scene_static, width: int, hei
     }
 
 
-def capture_rasters(frame) -> tuple[dict, object]:
-    """Call ``frame()``, which renders one frame, and return (the inputs of
-    each raster the frame launches, by (height, width, depth_only): (setup,
-    bins, width, height, depth_only), as the passes formed them; what
-    ``frame()`` returned). The launches count as usual."""
-    captured = {}
+def capture_raster_calls(frame) -> tuple[list, object]:
+    """Call ``frame()`` and return (every raster it launches, in launch
+    order, as a dict of setup, bins, width, height, depth_only and
+    depth_limit; what ``frame()`` returned). The launches count as usual."""
+    calls = []
     kernel = raster_cuda.rasterize_tiles_cuda
 
-    def record(setup, bins, width, height, cfg, depth_only=False, **kw):
-        captured[height, width, bool(depth_only)] = (setup, bins, width, height, depth_only)
-        return kernel(setup, bins, width, height, cfg, depth_only=depth_only, **kw)
+    def record(setup, bins, width, height, cfg, depth_only=False, y_offset=0,
+               depth_limit=None):
+        calls.append(dict(setup=setup, bins=bins, width=width, height=height,
+                          depth_only=bool(depth_only), depth_limit=depth_limit))
+        return kernel(setup, bins, width, height, cfg, depth_only=depth_only,
+                      y_offset=y_offset, depth_limit=depth_limit)
 
     record.launches = kernel.launches
     record.launches_by_shape = kernel.launches_by_shape
@@ -181,7 +185,19 @@ def capture_rasters(frame) -> tuple[dict, object]:
         raster_cuda.rasterize_tiles_cuda = kernel
         kernel.launches = record.launches
     torch.cuda.synchronize()
-    return captured, out
+    return calls, out
+
+
+def capture_rasters(frame) -> tuple[dict, object]:
+    """Call ``frame()``, which renders one frame, and return (the inputs of
+    each raster the frame launches, by (height, width, depth_only): (setup,
+    bins, width, height, depth_only), as the passes formed them, the last
+    of a shape kept; what ``frame()`` returned). The launches count as
+    usual."""
+    calls, out = capture_raster_calls(frame)
+    return {(c["height"], c["width"], c["depth_only"]):
+            (c["setup"], c["bins"], c["width"], c["height"], c["depth_only"])
+            for c in calls}, out
 
 
 def local_shadow_raster_inputs(scene_arrays, cam_state, size: int, cfg: RasterConfig,
@@ -226,7 +242,7 @@ def pixel_tests(setup, bins, width: int, height: int, cfg: RasterConfig) -> tupl
 
 
 def bound_ms(setup, bins, width: int, height: int, depth_only: bool,
-             tests: int) -> tuple[float, str]:
+             tests: int, depth_limit: bool = False) -> tuple[float, str]:
     """The least time the card could take: the larger of the bytes the
     kernel must move over the HBM rate and the operations of ``tests``
     pixel tests over the float32 rate. The bytes are each one read or
@@ -234,13 +250,14 @@ def bound_ms(setup, bins, width: int, height: int, depth_only: bool,
     list entries in use (binned, and the global list once), the setup rows
     (corner xy and z) of the distinct triangles the lists name, and the
     depth (and vis) written. The unused capacity of the lists and the
-    setup rows no list names are not read."""
+    setup rows no list names are not read. With ``depth_limit`` the limit
+    is read once too."""
     ntiles = bins.counts.numel()
     n_ids = int(bins.counts.sum()) + int(bins.global_count)
     rows = torch.unique(tile_list_pairs(bins)[1]).numel()
     row_bytes = (setup.screen_xy[0].numel() + setup.z_ndc[0].numel()) * 4
     nbytes = ntiles * 8 + 4 + n_ids * 4 + rows * row_bytes
-    nbytes += width * height * (4 if depth_only else 8)
+    nbytes += width * height * ((4 if depth_only else 8) + (4 if depth_limit else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = tests * OPS_PER_TEST / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -280,7 +297,7 @@ def graph_ms(fn) -> float:
 
 
 def kernel_ms(lib, setup, bins, width: int, height: int, cfg: RasterConfig,
-              depth_only: bool) -> float:
+              depth_only: bool, depth_limit: torch.Tensor | None = None) -> float:
     """Device ms of one launch of ``lib``'s kernel into outputs made once.
     Between launches the outputs stay in place, and at the camera's size
     (16.6 MB) they stay in the 50 MB L2 as well."""
@@ -288,7 +305,7 @@ def kernel_ms(lib, setup, bins, width: int, height: int, cfg: RasterConfig,
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     vis = torch.full((height, width), -1, dtype=torch.int32, device=dev)
     return graph_ms(lambda: raster_cuda.launch_raw(lib, setup, bins, width, height, cfg,
-                                                   depth_only, 0, None, depth, vis))
+                                                   depth_only, 0, depth_limit, depth, vis))
 
 
 def load_wrapper(root: Path):

@@ -160,11 +160,33 @@ result line):
      implied, its per-pass table (Renderer.benchmark, 4 frames), then
      every trace of one more frame bit for bit against the plain walk and
      timed; (c) --pathtracer --samples 2 through main: a
-     finite PNG and its traces launched.
+     finite PNG and its traces launched;
+ 17. translucency and the reference shading mode: (a) the bench's
+     translucent kind at 1920x1080 (the forward scene with the two panes of
+     tests/test_translucent.py, oit_layers=4, tile 8x128) through the bench
+     as in phase 8, a frame's rasters being the camera's, four peel layers
+     and the cached sun; ForwardTranslucent's ms at 4 layers and at 1, and
+     peak memory; then every raster of one more frame captured, each peel
+     layer (the camera's shape, each below the last layer's depth) held bit
+     for bit against the plain raster and timed as in phase 3; the panes
+     blend: at 1080p the pixels they cover differ from the frame without
+     them, and by less than 0.95-alpha panes move them; (b) the 96^2 two-pane frame
+     at 1 and 4 layers and the 128^2 forward frame under
+     shading_mode="reference", each rendered on the card and on the CPU,
+     within the goldens' bound of each other; (c) the forward kind at
+     1920x1080 under shading_mode="reference" and packed, in turns, their
+     ms/frame and VisibilityShading ms; (d) the showcase app at 1920x1080
+     on the .arklvl of tools/ark_level.write_level (binary and JSON
+     .arkmsh, a PNG-textured and a translucent .arkmat, an .arkset, a BC7
+     .dds sky), --oit-layers 2 --frames 4 --timings: the level's
+     instances, lights and environment map in the scene, its frames finite,
+     the launches as implied, and one more frame's peel layers at the app's
+     tile 8x16 bit for bit and timed.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
-per-frame ddgi sun, helmet camera, the app's camera and sun), each with its
+per-frame ddgi sun, helmet camera, the app's camera and sun, the translucent
+kind's and the app's peel layers), each with its
 launches in the runs of the frame kinds that launch it, and one entry per
 trace the traversal kernel serves in the rt, showcase, flagship, ddgi,
 helmet and rt_soft frames, the pathtraced sample, the AO bake and the
@@ -218,6 +240,9 @@ APP_STOCHASTIC = ["--texture-quality", "stochastic1", "--ssao", "--motion-blur",
 APP_RT = ["--texture-quality", "aniso4", "--rt-shadows", "--rt-reflections", "--ddgi",
           "--frames", "4"]
 APP_PATHTRACER = ["--pathtracer", "--samples", "2"]
+# Phase 17: the translucent kind's peel layers, and the app's on the level.
+TRANSLUCENT_LAYERS, APP_LEVEL_LAYERS = 4, 2
+APP_LEVEL = ["--oit-layers", str(APP_LEVEL_LAYERS), "--frames", "4", "--timings"]
 
 
 def random_case(rng, n, big: bool, width: int, height: int):
@@ -239,18 +264,25 @@ def random_case(rng, n, big: bool, width: int, height: int):
     return torch.from_numpy(clip), torch.from_numpy(idx)
 
 
+def golden_bound(a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
+    """(mean abs diff, share of values off by > 24) of two uint8 images:
+    the goldens' measure."""
+    diff = np.abs(a.astype(int) - b.astype(int))
+    return float(diff.mean()), float((diff > 24).mean())
+
+
 def check_golden(name: str, img: torch.Tensor) -> None:
     """Hold a 256x256 LDR image rendered on the card against
     tests/goldens/<name>.png under the golden test's thresholds."""
     from arkoserenderer_torch.utils.imageio import load_png, to_u8
 
     golden = load_png(str(ROOT / "tests" / "goldens" / f"{name}.png"))[..., :3]
-    diff = np.abs(to_u8(img.cpu().numpy()).astype(int) - golden.astype(int))
-    if not (diff.mean() < 1.5 and (diff > 24).mean() < 0.005):
-        raise AssertionError(f"golden {name}: mean abs diff {diff.mean():.4f}, "
-                             f"{(diff > 24).mean():.4%} pixels off by > 24")
-    print(f"golden {name} 256x256 on the card: mean abs diff {diff.mean():.4f} (< 1.5), "
-          f"{(diff > 24).mean():.4%} pixels off by > 24 (< 0.5%)", flush=True)
+    mean, off = golden_bound(to_u8(img.cpu().numpy()), golden)
+    if not (mean < 1.5 and off < 0.005):
+        raise AssertionError(f"golden {name}: mean abs diff {mean:.4f}, {off:.4%} pixels off "
+                             "by > 24")
+    print(f"golden {name} 256x256 on the card: mean abs diff {mean:.4f} (< 1.5), "
+          f"{off:.4%} pixels off by > 24 (< 0.5%)", flush=True)
 
 
 def truth_metrics(raster: np.ndarray, pt: np.ndarray):
@@ -431,6 +463,193 @@ def run_app(dev, card: str, compare_and_time, check_kind_traces) -> dict:
                                 "sun_app": by_shape_a[S, S, True]}}
 
 
+def run_translucency(dev, card: str, compare_and_time, run_kind) -> dict:
+    """Phase 17 (see the module docstring). Returns {"timed": the peel
+    rasters' measurements by entry ("peel", "peel_app"), "launches": the
+    peel launches of the runs that made them}."""
+    import dataclasses
+    import tempfile
+
+    from arkoserenderer_torch.apps import showcase
+    from arkoserenderer_torch.assets import ark
+    from arkoserenderer_torch.assets.procedural import add_glass_panes, build_test_scene
+    from arkoserenderer_torch.core.types import RasterConfig, SceneLimits
+    from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.ops import raster_cuda
+    from arkoserenderer_torch.rendering.pipeline import PipelineConfig
+    from arkoserenderer_torch.scene.scene import Scene
+    from arkoserenderer_torch.tools import bench
+    from arkoserenderer_torch.tools import raster_bench as rb
+    from arkoserenderer_torch.tools.ark_level import write_level
+    from arkoserenderer_torch.utils.imageio import to_u8
+
+    H, W = 1080, 1920
+    kernel = raster_cuda.rasterize_tiles_cuda
+    t_phase = time.perf_counter()
+    timed, launches = {}, {}
+
+    def peel_layers(calls, layers):
+        """The peel layers among one frame's rasters: of the camera-sized
+        ones (shadow maps aside), the camera's first, then the layers,
+        layer 0 unlimited."""
+        shapes = [(c["height"], c["width"], c["depth_only"]) for c in calls]
+        frame = [c for c, shape in zip(calls, shapes) if shape == (H, W, False)]
+        limits = [c["depth_limit"] is not None for c in frame]
+        if limits != [False, False] + [True] * (layers - 1):
+            raise AssertionError(f"a translucent frame rastered {shapes}, limits {limits}")
+        return frame[1:]
+
+    # (a) the translucent kind at 1920x1080, four layers.
+    res, r, by_shape = run_kind("translucent")
+    n = res["frames"]
+    if by_shape[(H, W, False)] != (1 + TRANSLUCENT_LAYERS) * n or "ForwardTranslucent" not in \
+            res["pass_ms"]:
+        raise AssertionError(f"translucent: rasters {by_shape} in {n} frames, passes "
+                             f"{list(res['pass_ms'])}")
+    launches["peel"] = by_shape[(H, W, False)] - n
+    calls, _ = rb.capture_raster_calls(lambda: r.render_frame())
+    layers = [compare_and_time("peel", f"translucent peel layer {i} {W}x{H}, tile 8x128"
+                               f"{', depth_limit' if c['depth_limit'] is not None else ''}", 2,
+                               c["setup"], c["bins"], W, H, False, r.cfg.raster,
+                               depth_limit=c["depth_limit"])
+              for i, c in enumerate(peel_layers(calls, TRANSLUCENT_LAYERS))]
+    timed["peel"] = dict(layers[1], per_layer=layers)
+    del r, calls
+
+    scene, cam, cfg, kw = bench.build_scene("translucent")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r1 = Renderer(scene, cam, cfg, device=dev, **dict(kw, oit_layers=1))
+    one = r1.benchmark(warmup=2, iters=8, before_frame=bench.camera_mover(r1))
+    print(f"translucent {W}x{H}: ForwardTranslucent {res['pass_ms']['ForwardTranslucent']:.4f} "
+          f"ms at {TRANSLUCENT_LAYERS} layers (frame {res['ms_per_frame']:.4f}, peak memory "
+          f"{res['peak_memory_gib']:.3f} GiB), {one['pass_ms']['ForwardTranslucent']:.4f} ms at "
+          f"1 layer (frame {one['ms_per_frame']:.4f}, median of 8, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB) [{card}]", flush=True)
+    del r1
+
+    def pane_frame(alpha):
+        sc, cm = build_test_scene(viewport=(W, H))
+        if alpha is not None:
+            add_glass_panes(sc, alpha=alpha)
+        rr = Renderer(sc, cm, bench.pipeline_config(), device=dev, taa=False, bloom=False,
+                      oit_layers=TRANSLUCENT_LAYERS)
+        return rr.render_frame().float()
+
+    img_none, img_05, img_95 = (pane_frame(a) for a in (None, 0.5, 0.95))
+    d_05 = (img_05 - img_none).abs().mean(-1)
+    changed = d_05 > 0.02
+    d_95 = (img_95 - img_none).abs().mean(-1)[changed].mean().item()
+    if not (bool(torch.isfinite(img_05).all()) and changed.sum().item() > 1000
+            and d_05[changed].mean().item() < d_95):
+        raise AssertionError(f"translucent {W}x{H}: {changed.sum().item()} pane pixels, "
+                             f"alpha 0.5 moves them {d_05[changed].mean().item():.4f}, 0.95 "
+                             f"{d_95:.4f}")
+    print(f"translucent {W}x{H} blend: {changed.sum().item()} pixels moved by the panes "
+          f"(> 0.02), by {d_05[changed].mean().item():.4f} at alpha 0.5 and {d_95:.4f} at "
+          f"0.95 (less: the background shows through) [{card}]", flush=True)
+    del img_none, img_05, img_95, d_05, changed
+
+    # (b) the card against the port on the CPU, same inputs.
+    tile16 = RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256)
+    for label, size, n_layers, mode in (("two panes 96x96, 1 layer", 96, 1, "packed"),
+                                        ("two panes 96x96, 4 layers", 96, 4, "packed"),
+                                        ("forward 128x128, reference mode", 128, 1,
+                                         "reference")):
+        imgs = []
+        for device in (dev, "cpu"):
+            sc, cm = build_test_scene(viewport=(size, size), n_spheres=1 if size == 96 else 3)
+            if size == 96:
+                add_glass_panes(sc)
+            c = PipelineConfig(width=size, height=size, raster=tile16, shadow_map_size=128,
+                               shading_mode=mode)
+            imgs.append(Renderer(sc, cm, c, device=device, taa=False, bloom=False,
+                                 oit_layers=n_layers).render_frame().cpu().numpy())
+        mean, off = golden_bound(*(to_u8(img) for img in imgs))
+        if not (np.isfinite(imgs[0]).all() and mean < 1.5 and off < 0.005):
+            raise AssertionError(f"{label}: card vs CPU mean abs diff {mean}, {off:.4%} off")
+        print(f"{label} card vs CPU: mean abs diff {mean:.4f} (< 1.5), {off:.4%} of values "
+              f"off by > 24 (< 0.5%) [{card}]", flush=True)
+
+    # (c) the reference shading mode at 1920x1080, against packed, in turns.
+    renderers = {}
+    for mode in ("packed", "reference"):
+        sc, cm, c, kw_ = bench.build_scene("forward")
+        renderers[mode] = Renderer(sc, cm, dataclasses.replace(c, shading_mode=mode),
+                                   device=dev, **kw_)
+    for i, mode in enumerate(("packed", "reference", "reference", "packed")):
+        rr = renderers[mode]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = rr.benchmark(warmup=2, iters=8, before_frame=bench.camera_mover(rr))
+        ldr = rr.state["LDR"]
+        if not bool(torch.isfinite(ldr).all()) or (mode == "reference") == (
+                "vis.records" in rr.state):
+            raise AssertionError(f"forward {mode}: LDR finite {bool(torch.isfinite(ldr).all())}, "
+                                 f"state {sorted(rr.state)}")
+        print(f"forward {W}x{H} shading_mode={mode}: {out['ms_per_frame']:.4f} ms/frame (median "
+              f"of 8; min {min(out['frame_ms']):.4f}, max {max(out['frame_ms']):.4f}), "
+              f"VisibilityShading {out['pass_ms']['VisibilityShading']:.4f} ms, peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB [{card}]", flush=True)
+        if i == 2:
+            print_frame_table(out, card)
+    del renderers, rr
+
+    # (d) the showcase app on a level in the reference's formats.
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        paths = write_level(Path(tmp))
+        info = ark.load_arklvl(Scene(SceneLimits()), paths["level"])
+        args = showcase.build_arg_parser().parse_args(
+            APP_SIZE + ["--gltf", str(paths["level"])] + APP_LEVEL
+            + ["--out", str(out_dir / "app_level.png")])
+        scene, cam = showcase.build_scene(args)
+        n_lights = int(scene.sun is not None) + len(scene.spots) + len(scene.points)
+        if not (info["env"] and info["instances"] == len(scene.instances) == 6
+                and info["lights"] == n_lights == 3 and scene.env_map.shape == (32, 64, 3)
+                and scene.static_info().has_translucent):
+            raise AssertionError(f"app level: {info}, {len(scene.instances)} instances, "
+                                 f"{n_lights} lights, sky {scene.env_map.shape}")
+        r = showcase.make_renderer(args, scene, cam, dev)
+    finite, loop_counts = [], []
+    render_frame = r.render_frame
+
+    def checked_frame(*a, **kw_):
+        img = render_frame(*a, **kw_)
+        finite.append(torch.isfinite(img).all())
+        loop_counts.append(dict(kernel.launches_by_shape))
+        return img
+
+    r.render_frame = checked_frame
+    kernel.launches_by_shape.clear()
+    result = showcase.render(args, r)
+    del r.render_frame
+    frames = 1 + args.frames
+    want = bench.expected_launches_by_shape(r, frames)
+    if len(finite) != frames or not all(bool(f) for f in finite) or \
+            loop_counts[frames - 1] != want:
+        raise AssertionError(f"app level: {len(finite)} frames, rasters {loop_counts[-1:]} "
+                             f"against {want}")
+    check_png(Path(args.out))
+    launches["peel_app"] = loop_counts[frames - 1][(H, W, False)] - frames
+    print(f"app {W}x{H} on the .arklvl (6 instances, sun + spot + point, BC7 sky loaded): "
+          f"{frames} frames finite, {result['ms_per_frame']:.4f} ms/frame (host clock over "
+          f"{args.frames}), <frame> {result['timings']['<frame>']:.4f} ms (CUDA events), "
+          f"ForwardTranslucent {result['timings']['ForwardTranslucent']:.4f} ms, frame-loop "
+          f"rasters {loop_counts[frames - 1]} [{card}]", flush=True)
+    calls, _ = rb.capture_raster_calls(lambda: r.render_frame())
+    app_layers = [compare_and_time("peel_app", f"app peel layer {i} {W}x{H}, tile 8x16"
+                                   f"{', depth_limit' if c['depth_limit'] is not None else ''}",
+                                   2, c["setup"], c["bins"], W, H, False, r.cfg.raster,
+                                   depth_limit=c["depth_limit"])
+                  for i, c in enumerate(peel_layers(calls, APP_LEVEL_LAYERS))]
+    timed["peel_app"] = dict(app_layers[1], per_layer=app_layers)
+    del r, calls
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return {"timed": timed, "launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -545,16 +764,17 @@ def main() -> None:
     timed = {}
 
     def compare_and_time(name, label, p_iters, setup, bins, w, h, depth_only,
-                         rcfg=full_raster):
-        err = compare(label, setup, bins, w, h, rcfg, depth_only)[0]
-        device_ms = rb.kernel_ms(lib, setup, bins, w, h, rcfg, depth_only)
-        k_ms = rb.events_ms(lambda: rasterize_tiles_cuda(setup, bins, w, h, rcfg,
-                                                         depth_only=depth_only),
+                         rcfg=full_raster, depth_limit=None):
+        kw = dict(depth_only=depth_only, depth_limit=depth_limit)
+        err = compare(label, setup, bins, w, h, rcfg, **kw)[0]
+        device_ms = rb.kernel_ms(lib, setup, bins, w, h, rcfg, depth_only, depth_limit)
+        k_ms = rb.events_ms(lambda: rasterize_tiles_cuda(setup, bins, w, h, rcfg, **kw),
                             rb.WRAPPER_CALLS[name])
-        p_ms = rb.events_ms(lambda: raster.rasterize_tiles_plain(setup, bins, w, h, rcfg,
-                                                                 depth_only=depth_only), p_iters)
+        p_ms = rb.events_ms(lambda: raster.rasterize_tiles_plain(setup, bins, w, h, rcfg, **kw),
+                            p_iters)
         before, after = rb.pixel_tests(setup, bins, w, h, rcfg)
-        bound, kind = rb.bound_ms(setup, bins, w, h, depth_only, after)
+        bound, kind = rb.bound_ms(setup, bins, w, h, depth_only, after,
+                                  depth_limit=depth_limit is not None)
         timed[name] = dict(max_abs_err=err, ms=k_ms, device_ms=device_ms, plain_ms=p_ms,
                            bound_ms=bound, bound_by=kind, shape=label)
         counts, px = bins.counts.float(), rcfg.tile_h * rcfg.tile_w
@@ -567,6 +787,7 @@ def main() -> None:
               f"rejection, {after} after; bound {bound:.4f} ms ({kind}), "
               f"{bound / device_ms:.1%} of the bound on device time, {bound / k_ms:.1%} on "
               f"the wrapper's [{card}]", flush=True)
+        return timed[name]
 
     for name, label, p_iters in (("camera", f"camera {W}x{H}, tile 8x128", 5),
                                  ("sun", f"sun {S}x{S} depth-only", 2)):
@@ -661,7 +882,7 @@ def main() -> None:
     MIN_VELOCITY_PX = {"forward": 1.0, "full_post": 1.0, "bindless": 1.0, "test_spot": 1.0,
                        "forward_upscaled": 1.0, "stress": 0.5, "meshlet": 0.5, "rt": 1.0,
                        "showcase": 1.0, "flagship": 1.0, "ddgi": 1.0, "helmet": 1.0,
-                       "rt_soft": 1.0}
+                       "rt_soft": 1.0, "translucent": 1.0}
     by_kind = {}
     for name in PHASE8:
         by_kind[name] = run_kind(name)[2]
@@ -956,6 +1177,9 @@ def main() -> None:
     app = run_app(dev, card, compare_and_time, check_kind_traces)
     kind_traces += app["traces"]
 
+    # -- 17. translucency, the reference shading mode, the app on an .arklvl ----------
+    translucency = run_translucency(dev, card, compare_and_time, run_kind)
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
         "camera": (PHASE8 + ("rt", "showcase", "rt_soft"), (H, W, False)),
@@ -986,6 +1210,11 @@ def main() -> None:
         "replaces": TPU_KERNEL, "launches": app["raster_launches"][name], **timed[name],
         "library_ms": None,
     } for name in ("camera_app", "sun_app")]
+    rows += [{
+        "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": translucency["launches"][name],
+        **translucency["timed"][name], "library_ms": None,
+    } for name in ("peel", "peel_app")]
 
     def trace_row(t, launches):
         return {

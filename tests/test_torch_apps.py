@@ -1,8 +1,11 @@
 """The port's showcase app (``arkoserenderer_torch/apps/showcase.py``) on the
 CPU, against the JAX package's app.
 
-* The same argv through both apps at 64^2, 2 frames: the default flags, and
-  ``--texture-quality stochastic1 --ssao --dof``. The port's PNG is held to
+* The same argv through both apps at 64^2, 2 frames: the default flags,
+  ``--texture-quality stochastic1 --ssao --dof``, and the .arklvl level
+  (with ``--oit-layers 2`` and without) and the JSON .arkmsh of
+  ``tools/ark_level.write_level``, whose translucent sphere runs
+  ForwardTranslucent. The port's PNG is held to
   the JAX app's under the golden thresholds (tests/test_golden.py: mean abs
   diff < 1.5, under 0.5 % of pixels off by more than 24). The JAX app runs
   with its persistent compile cache off (ARKTPU_COMPILE_CACHE=0), so this
@@ -33,12 +36,14 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 HELMET = ROOT / "assets" / "sample" / "DamagedHelmet" / "DamagedHelmet.gltf"
 SIZE = ["--width", "64", "--height", "64", "--frames", "2"]
+# "{level}" and "{mesh}" stand for the .arklvl and the JSON .arkmsh (a
+# translucent sphere) of tools/ark_level.write_level, written per test.
 PARITY_ARGV = {"default": [], "stochastic1": ["--texture-quality", "stochastic1", "--ssao",
-                                              "--dof"]}
+                                              "--dof"],
+               "oit_layers": ["--gltf", "{level}", "--oit-layers", "2"],
+               "arklvl": ["--gltf", "{level}"], "arkmsh": ["--gltf", "{mesh}"]}
 UNPORTED = {"--debug-draw": ["--debug-draw"], "--light-icons": ["--light-icons"],
-            "--ddgi-probe-debug": ["--ddgi", "--ddgi-probe-debug"],
-            "--oit-layers": ["--oit-layers", "2"],
-            ".arklvl": ["--gltf", "level.arklvl"], ".arkmsh": ["--gltf", "mesh.arkmsh"]}
+            "--ddgi-probe-debug": ["--ddgi", "--ddgi-probe-debug"]}
 
 
 def assert_golden_close(ours, ref):
@@ -51,8 +56,13 @@ def assert_golden_close(ours, ref):
 def test_app_matches_the_jax_app(case, tmp_path, monkeypatch):
     from arkoserenderer_tpu.apps.showcase import main as jax_main
 
+    from arkoserenderer_torch.tools.ark_level import write_level
+
     monkeypatch.setenv("ARKTPU_COMPILE_CACHE", "0")
     argv = SIZE + PARITY_ARGV[case]
+    if any("{" in a for a in argv):
+        paths = write_level(tmp_path / "tree")
+        argv = [a.format(level=paths["level"], mesh=paths["sphere"]) for a in argv]
     ours_png, ref_png = tmp_path / "ours.png", tmp_path / "ref.png"
     r = showcase.main(argv + ["--out", str(ours_png)], device="cpu")
     jax_main(argv + ["--out", str(ref_png)])
@@ -62,6 +72,11 @@ def test_app_matches_the_jax_app(case, tmp_path, monkeypatch):
     assert r.frame_index == 3 and r.cfg.texture_quality == (
         "stochastic1" if case == "stochastic1" else "trilinear")
     assert r.cfg.raster.tile_w == 16 and r.cfg.shadow_map_size == 1024
+    names = [p.name for p in r.pipeline.passes]
+    if case in ("oit_layers", "arklvl", "arkmsh"):
+        layers = r.pipeline.passes[names.index("ForwardTranslucent")].layers
+        assert layers == (2 if case == "oit_layers" else 1)
+        assert len(r.scene.instances) == (6 if case != "arkmsh" else 1)
 
 
 @pytest.mark.parametrize("case", ["gltf", "pathtracer", "upscale"])

@@ -42,9 +42,12 @@ RES = 96
 REFERENCE_FIELDS = ["texture_quality", "shading_mode", "shadow_filter", "sky_fetch_scale",
                     "ddgi_sample_scale", "shard_axis", "full_height", "shard_count"]
 # (field, value) the port does not implement; each raises naming the field.
-UNPORTED = [("shading_mode", "reference"), ("sky_fetch_scale", 2),
+UNPORTED = [("texture_quality", "sorted"), ("sky_fetch_scale", 2),
             ("ddgi_sample_scale", 2), ("shard_axis", "x"), ("shard_count", 2),
             ("full_height", 2 * RES)]
+# The rest of the config an unported value needs: "sorted" is unported only
+# under the reference shading mode (the packed mode takes it as trilinear).
+UNPORTED_WITH = {"texture_quality": {"shading_mode": "reference"}}
 
 
 @pytest.mark.parametrize("field", REFERENCE_FIELDS + ["frame_height", "num_pixels"])
@@ -56,11 +59,12 @@ def test_reference_fields_construct_at_their_defaults(field):
 
 @pytest.mark.parametrize("field,value", UNPORTED, ids=[f"{f}={v}" for f, v in UNPORTED])
 def test_unported_values_raise_by_name(field, value):
-    JPipelineConfig(width=RES, height=RES, **{field: value})  # the reference takes it
+    base = UNPORTED_WITH.get(field, {})
+    JPipelineConfig(width=RES, height=RES, **base, **{field: value})  # the reference takes it
     with pytest.raises(NotImplementedError, match=field):
-        TPipelineConfig(width=RES, height=RES, **{field: value})
+        TPipelineConfig(width=RES, height=RES, **base, **{field: value})
     with pytest.raises(NotImplementedError, match=field):
-        dataclasses.replace(TPipelineConfig(width=RES, height=RES), **{field: value})
+        dataclasses.replace(TPipelineConfig(width=RES, height=RES, **base), **{field: value})
 
 
 @pytest.mark.parametrize("field,value", [("texture_quality", "trilinear"),
@@ -71,7 +75,8 @@ def test_unported_values_raise_by_name(field, value):
                                          ("texture_quality", "stochastic1"),
                                          ("texture_quality", "sorted"),
                                          ("shadow_filter", "bilinear"),
-                                         ("shadow_filter", "stochastic"), ("full_height", RES),
+                                         ("shadow_filter", "stochastic"),
+                                         ("shading_mode", "reference"), ("full_height", RES),
                                          ("shard_count", 1), ("sky_fetch_scale", 1)])
 def test_ported_values_construct(field, value):
     cfg = TPipelineConfig(width=RES, height=RES, **{field: value})

@@ -111,7 +111,7 @@ def test_forward_taa_bloom_matches_live_jax_render():
     assert (hist > 1e-3).mean() < 0.002
 
 
-@pytest.mark.parametrize("name", ["forward", "full_post", "bindless", "test_spot"])
+@pytest.mark.parametrize("name", ["forward", "full_post", "bindless", "test_spot", "translucent"])
 def test_bench_frame_kinds_render_on_cpu(name):
     """Each frame kind of the port's bench, built as the bench builds it (at
     a 96^2 config), renders two frames of a moving camera to a finite,
@@ -143,6 +143,7 @@ def test_bench_frame_kinds_render_on_cpu(name):
         assert (r.state["ShadowMap.locals"] > 0).float().mean() > 0.2
     if name == "bindless":
         assert len(r.scene.materials) == 66
+    assert ("ForwardTranslucent" in passes) == (name == "translucent")
 
 
 @pytest.mark.parametrize("name", ["forward", "full_post", "rt"])

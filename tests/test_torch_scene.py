@@ -172,8 +172,10 @@ def test_bindless_scene_matches_jax():
 
 
 UNPORTED = [("rt_shadows", True), ("rt_reflections", True), ("ddgi", True),
-            ("ddgi_probe_debug", True), ("light_icons", True), ("oit_layers", 2),
-            ("debug_draw", object())]
+            ("ddgi_probe_debug", True), ("light_icons", True), ("debug_draw", object())]
+# Flags this test held as unported that are ported since, with a value that
+# turns them on: each builds its pass and matches the reference's pipeline.
+PORTED_FLAGS = [("oit_layers", 2)]
 # Flags that are ported in part, with the config change whose branch is not
 # and still raises naming the flag: half-rate ray tracing (of RT shadows and
 # of RT reflections) and reduced-rate DDGI sampling. (Soft ray-traced
@@ -200,6 +202,25 @@ def test_unported_flags_raise_by_name(flag, value):
     with pytest.raises(TypeError):
         make_forward_pipeline(cfg, device="cpu", no_such_flag=True)
     assert set(UNPORTED_FLAGS) | set(PARTLY_PORTED) == {f for f, _ in UNPORTED}
+
+
+@pytest.mark.parametrize("flag,value", PORTED_FLAGS, ids=[f for f, _ in PORTED_FLAGS])
+def test_ported_flags_build_and_match_jax(flag, value):
+    """``oit_layers``: on a scene with a translucent material both packages
+    build ForwardTranslucent after SkyView with ``value`` layers, and the
+    port's frame matches the JAX Renderer's (test_torch_forward.py's bound:
+    2e-4 on all but 0.2 % of values, means within 1e-5)."""
+    from test_torch_translucent import glass_panes
+    from test_torch_translucent_frames import render_both
+
+    tr, jr, ours, ref = render_both(lambda pkg: glass_panes(pkg, True), **{
+        "layers" if flag == "oit_layers" else flag: value})
+    names = [p.name for p in tr.pipeline.passes]
+    assert names == [p.name for p in jr.pipeline.passes]
+    assert names[names.index("SkyView") + 1] == "ForwardTranslucent"
+    assert tr.pipeline.passes[names.index("ForwardTranslucent")].layers == value
+    diff = np.abs(ours - ref)
+    assert (diff > 2e-4).mean() < 0.002 and abs(ours.mean() - ref.mean()) < 1e-5
 
 
 @pytest.mark.parametrize("keyword", ["debug_draw"])
@@ -275,6 +296,10 @@ def test_port_imports_neither_jax_nor_reference():
         "import arkoserenderer_torch.ops.shadow_denoise\n"
         "import arkoserenderer_torch.apps.showcase, arkoserenderer_torch.assets.external\n"
         "import arkoserenderer_torch.utils.timing, arkoserenderer_torch.utils.memstats\n"
+        "import arkoserenderer_torch.assets.ark, arkoserenderer_torch.assets.baked\n"
+        "import arkoserenderer_torch.assets.bc7, arkoserenderer_torch.assets.cereal_binary\n"
+        "import arkoserenderer_torch.core.logging, arkoserenderer_torch.tools.ark_level\n"
+        "import arkoserenderer_torch.rendering.passes.translucent\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('arkoserenderer_tpu') or k == 'PIL'\n"
         "             or k.startswith('PIL.'))\n"

@@ -14,10 +14,10 @@ Usage:
   python -m arkoserenderer_torch.apps.showcase --pathtracer --samples 64
 
 The flags are the reference's, with its defaults (``--out`` defaults to a
-file in the temporary directory). Those whose features the port lacks
-(``--debug-draw``, ``--light-icons``, ``--ddgi-probe-debug``) raise
-NotImplementedError naming the flag, before any scene is built; so does a
-level whose object names a hair asset, when it is loaded.
+file in the temporary directory). The overlays: ``--debug-draw`` draws the
+world axes and a box of half the scene's bounding radius, ``--light-icons``
+the local lights' bulbs, and ``--ddgi-probe-debug`` (with ``--ddgi``) the
+probes.
 
 The pieces are functions so a caller can hold the app's own frames:
 ``build_scene(args)``, ``make_renderer(args, scene, cam, device)``,
@@ -92,29 +92,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_flags(args) -> None:
-    """Raise NotImplementedError naming the first flag the port lacks."""
-    for flag, on in (("--debug-draw", args.debug_draw), ("--light-icons", args.light_icons),
-                     ("--ddgi-probe-debug", args.ddgi_probe_debug)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet")
-
-
 def build_scene(args):
     """(scene, camera): the procedural test scene, or the file of ``--gltf``
     (textures at most 256 texels a side): a glTF, an .arkmsh (each segment
     instanced at the origin) or an .arklvl (its objects, lights, first
     camera and environment map). A default sun lights a scene that brings
     none, the gradient sky stands in for a missing environment map, and
-    without a level camera the camera frames the bounding sphere. The flags
-    the port lacks raise first (``check_flags``)."""
+    without a level camera the camera frames the bounding sphere."""
     from arkoserenderer_torch.assets.procedural import build_test_scene, gradient_env_map
     from arkoserenderer_torch.core.types import SceneLimits
     from arkoserenderer_torch.scene.camera import Camera
     from arkoserenderer_torch.scene.lights import DirectionalLight
     from arkoserenderer_torch.scene.scene import Scene
 
-    check_flags(args)
     if args.gltf is None:
         return build_test_scene(viewport=(args.width, args.height))
     from arkoserenderer_torch.assets.gltf import load_gltf
@@ -155,8 +145,10 @@ def build_scene(args):
 
 def make_renderer(args, scene, cam, device="cuda", **cfg_kw):
     """The app's Renderer: PipelineConfig at the flags' size and filters,
-    tile 8x16 with 512 triangles a tile, a 1024^2 sun map; ``cfg_kw``
-    overrides further PipelineConfig fields (a caller's, not a flag)."""
+    tile 8x16 with 512 triangles a tile, a 1024^2 sun map, and the
+    overlays the flags ask for (``--debug-draw``'s axes and box drawn into
+    ``renderer.debug``); ``cfg_kw`` overrides further PipelineConfig fields
+    (a caller's, not a flag)."""
     from arkoserenderer_torch.core.types import RasterConfig
     from arkoserenderer_torch.models.standard import Renderer
     from arkoserenderer_torch.rendering.pipeline import PipelineConfig
@@ -172,14 +164,21 @@ def make_renderer(args, scene, cam, device="cuda", **cfg_kw):
     upscale_to = None
     if args.upscale:
         upscale_to = (int(args.width * args.upscale), int(args.height * args.upscale))
-    return Renderer(
+    r = Renderer(
         scene, cam, cfg, device=device,
         taa=not args.no_taa, bloom=not args.no_bloom,
         ssao=args.ssao, motion_blur=args.motion_blur, depth_of_field=args.dof,
         rt_shadows=args.rt_shadows, rt_reflections=args.rt_reflections,
         ddgi=True if args.ddgi else None, ssss=args.ssss, fog=args.fog,
-        upscale_to=upscale_to, upscale_mode=args.upscale_mode, oit_layers=args.oit_layers,
+        ddgi_probe_debug=args.ddgi_probe_debug,
+        upscale_to=upscale_to, upscale_mode=args.upscale_mode,
+        debug_draw=args.debug_draw, light_icons=args.light_icons, oit_layers=args.oit_layers,
     )
+    if args.debug_draw:
+        r.debug.axes(size=1.0)
+        center, radius = scene.bounding_sphere()
+        r.debug.box(center - radius * 0.5, center + radius * 0.5)
+    return r
 
 
 def _sync(device: torch.device) -> None:
@@ -225,7 +224,7 @@ def main(argv=None, device="cuda"):
 
     args = build_arg_parser().parse_args(argv)
     device = torch.device(device)
-    scene, cam = build_scene(args)  # checks the flags first
+    scene, cam = build_scene(args)
     if args.sun_angular_radius > 0.0 and scene.sun is not None:
         scene.sun.angular_radius_deg = args.sun_angular_radius
 

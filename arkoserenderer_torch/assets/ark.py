@@ -34,10 +34,8 @@ works without re-export:
     float/float2/float3/float4 channels (Linear/Step/CubicSpline),
     name-bound targets -> runtime AnimationClip.
   * .arkhair — HairAsset.h:17: strand points + 0xFFFFFFFF-reset line-strip
-    indices, per-point thickness. The port writes it (``save_arkhair``);
-    loading it needs hair in the Scene, which the port lacks, so
-    ``load_arkhair`` and a level object that names a hair asset raise
-    NotImplementedError naming hair.
+    indices, per-point thickness -> ``Scene.add_hair`` strands (a level
+    object that names a hair asset loads it too).
 
 Writers (save_arkset/save_arkskel/save_arkanim/save_arkhair +
 LevelDocument.write) emit the same cereal-JSON dialect; formats with no
@@ -386,10 +384,13 @@ class LevelDocument:
                     missing.extend(info["missing"])
             hair_ref = obj.get("hair", "")
             if hair_ref:
-                raise NotImplementedError(
-                    f"{self.path and self.path.name}: level object {obj.get('name', '')!r} "
-                    f"names the hair asset {hair_ref!r}; hair (Scene.add_hair) is not "
-                    "ported yet")
+                p = _resolve(root, hair_ref)
+                if p is None:
+                    log.warning("%s: hair %r not found",
+                                self.path and self.path.name, hair_ref)
+                    missing.append(hair_ref)
+                else:
+                    load_arkhair(scene, p, transform=w)
             self.object_instances.append(inst_ids)
         return {"instances": n_inst, "missing": missing}
 
@@ -817,11 +818,53 @@ _HAIR_RESET = 0xFFFFFFFF
 
 def load_arkhair(scene, path: Path, transform: np.ndarray | None = None,
                  material: int = 0) -> dict:
-    """.arkhair -> hair strands into the Scene: not ported. The port's Scene
-    has no hair (``Scene.add_hair`` and the Scene pass's camera-facing
-    ribbons), so this raises NotImplementedError naming hair."""
-    raise NotImplementedError(
-        f"load_arkhair({Path(path).name}): hair (Scene.add_hair) is not ported yet")
+    """.arkhair -> hair strands into the Scene (HairAsset: positions and
+    line-strip indices with 0xFFFFFFFF strand resets, per-point thickness,
+    per-strand segment counts with scalar defaults). The points are
+    gathered strand after strand (what ``Scene.add_hair`` takes);
+    ``transform`` places them in the world; the radius is half the
+    thickness. Returns {"strands", "points", "segment_id"}."""
+    path = Path(path)
+    doc = read_ark_document(path, "hair")
+    raw_pos = _vec_array(doc.get("positions"), "xyz")
+    if raw_pos is None:
+        raw_pos = np.zeros((0, 3), np.float32)
+    indices = np.asarray(doc.get("indices", []), np.int64)
+    default_thickness = float(doc.get("defaultThickness", 1.0))
+    thickness = np.asarray(doc.get("thickness", []), np.float32)
+
+    # Split the index stream at the reset markers into strands.
+    strands: list[np.ndarray] = []
+    run: list[int] = []
+    for ix in indices:
+        if ix == _HAIR_RESET or ix == -1:
+            if len(run) >= 2:
+                strands.append(np.asarray(run, np.int64))
+            run = []
+        else:
+            run.append(int(ix))
+    if len(run) >= 2:
+        strands.append(np.asarray(run, np.int64))
+    if not strands and len(raw_pos):
+        # No index stream: the segment counts partition the positions.
+        raw_counts = doc.get("segmentCounts")
+        if raw_counts is None or len(raw_counts) == 0:
+            raw_counts = ([int(doc.get("defaultSegmentCount", 0))]
+                          * int(doc.get("strandCount", 0)))
+        start = 0
+        for sc in np.asarray(raw_counts, np.int64):
+            strands.append(np.arange(start, start + sc + 1, dtype=np.int64))
+            start += sc + 1
+
+    order = np.concatenate(strands) if strands else np.zeros(0, np.int64)
+    points = raw_pos[order]
+    if transform is not None:
+        w = np.asarray(transform, np.float32)
+        points = points @ w[:3, :3].T + w[:3, 3]
+    segments = np.array([len(s) - 1 for s in strands], np.int32)
+    radius = thickness[order] * 0.5 if len(thickness) else default_thickness * 0.5
+    seg_id = scene.add_hair(points, segments, material=material, radius=radius)
+    return {"strands": len(strands), "points": len(points), "segment_id": seg_id}
 
 
 def save_arkhair(path: Path, points: np.ndarray, segments: np.ndarray,

@@ -15,7 +15,7 @@ dataclass in both packages) flattens to "bvh.*" keys, and the reference's
 one-leaf placeholder of a scene without one carries across as None. The
 skinning pools, the palette and the RGBA8 texture pool (``textures``, which
 the path tracer samples; its uint32 texels become int32 with the same bits)
-carry across; fields the port does not carry (hair) are ignored.
+and the hair strands carry across too.
 
 ``frame_state_from_numpy`` carries a frame state across: every resource a
 pass published (``ShadowMap.locals``, the G-buffer, the refitted

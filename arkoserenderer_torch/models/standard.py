@@ -10,9 +10,10 @@ VisibilityShading -> [RTReflections] -> [SSAO] -> LightingCompose ->
 ``rt_shadows``, ``rt_reflections`` or ``ddgi`` the Renderer builds the
 scene with its two-level BVH, and on a skinned or morphed scene refits it
 every frame (``rt_refit``). A scene with translucent materials gets the
-depth-peeled ForwardTranslucent pass (``oit_layers`` layers). The DDGI
-probe overlay and the other debug overlays are later slices; asking for
-one raises ``NotImplementedError`` naming the flag.
+depth-peeled ForwardTranslucent pass (``oit_layers`` layers). The debug
+overlays come last, in the reference's order: DebugDraw (``debug_draw``, a
+``DebugLineBuffer``), DDGIProbeDebug (``ddgi_probe_debug``, with DDGI
+only) and IconBillboards (``light_icons``).
 
 ``Renderer`` is the host frame loop, with the reference's host API:
 checkpoints of the persistent state (the reference's npz layout, so one
@@ -54,6 +55,9 @@ from arkoserenderer_torch.rendering.passes import (
     VisibilityShadingPass,
 )
 from arkoserenderer_torch.rendering.passes.ddgi import DDGIPass
+from arkoserenderer_torch.rendering.passes.ddgi_debug import DDGIProbeDebugPass
+from arkoserenderer_torch.rendering.passes.debugdraw import DebugDrawPass, DebugLineBuffer
+from arkoserenderer_torch.rendering.passes.icons import IconBillboardPass
 from arkoserenderer_torch.rendering.passes.rt import (
     BVHRefitPass,
     RTLocalShadowPass,
@@ -64,12 +68,6 @@ from arkoserenderer_torch.rendering.passes.ssss import SSSSPass
 from arkoserenderer_torch.rendering.pipeline import PipelineConfig, RenderPipeline
 from arkoserenderer_torch.scene.camera import Camera
 from arkoserenderer_torch.scene.scene import Scene
-
-# Flags of the reference's make_forward_pipeline whose passes are not ported
-# yet, with the value that leaves each one off.
-UNPORTED_FLAGS = {"ddgi_probe_debug": False, "light_icons": False, "debug_draw": None}
-# Keywords of the reference's Renderer whose features are not ported yet.
-UNPORTED_RENDERER_KW = ("debug_draw",)
 
 
 def make_forward_pipeline(
@@ -87,6 +85,8 @@ def make_forward_pipeline(
     rt_shadows: bool = False,
     rt_reflections: bool = False,
     ddgi: ProbeGridConfig | None = None,
+    ddgi_probe_debug: bool = False,  # probe discs over the image (with ddgi)
+    light_icons: bool = False,       # bulb billboards at the local lights
     ssss: bool = False,
     rt_refit: bool = False,
     oit_layers: int = 1,
@@ -94,8 +94,8 @@ def make_forward_pipeline(
     upscale_mode: str = "temporal",  # "temporal" (TemporalUpscale, no TAA) | "spatial"
     film_grain: float = 0.0,
     vignette: float = 0.18,  # 0 disables
+    debug_draw: DebugLineBuffer | None = None,  # a line buffer adds the overlay
     device="cuda",
-    **later,
 ) -> RenderPipeline:
     """The raster backbone; passes run in the order they are added. The
     flags keep the reference's names and defaults. With ``upscale_to`` the
@@ -110,12 +110,10 @@ def make_forward_pipeline(
     ``bvh`` (build it with ``Scene.build(with_bvh=True)``, as ``Renderer``
     does); with ``rt_refit`` a BVHRefit pass after Geometry refits it to the
     frame's animated geometry first. ``ssss`` adds screen-space subsurface
-    scattering after LightingCompose."""
-    for name, value in later.items():
-        if name not in UNPORTED_FLAGS:
-            raise TypeError(f"make_forward_pipeline() got an unexpected keyword argument {name!r}")
-        if value != UNPORTED_FLAGS[name]:
-            raise NotImplementedError(f"{name} is not ported yet")
+    scattering after LightingCompose. The overlays draw over the final
+    image: ``debug_draw``'s lines, ``ddgi``'s probes under
+    ``ddgi_probe_debug`` (ignored without ``ddgi``, as in the reference)
+    and the local lights' icons under ``light_icons``."""
     if upscale_mode not in ("temporal", "spatial"):
         raise ValueError(f"unknown upscale_mode {upscale_mode!r}")
     if ddgi is not None and not isinstance(ddgi, ProbeGridConfig):
@@ -175,6 +173,12 @@ def make_forward_pipeline(
         pipe.add_pass(TemporalUpscalePass(*upscale_to))
     elif upscale_to is not None:
         pipe.add_pass(UpscalePass(*upscale_to))
+    if debug_draw is not None:
+        pipe.add_pass(DebugDrawPass(debug_draw))
+    if ddgi_probe_debug and ddgi is not None:
+        pipe.add_pass(DDGIProbeDebugPass(ddgi))
+    if light_icons:
+        pipe.add_pass(IconBillboardPass())
     pipe.construct_all()
     return pipe
 
@@ -201,7 +205,9 @@ class Renderer:
     ``delta_time``. Under ray tracing such a scene turns ``rt_refit`` on
     unless the caller sets it.
 
-    ``ddgi=True`` fits the probe grid to the scene's bounding sphere."""
+    ``ddgi=True`` fits the probe grid to the scene's bounding sphere.
+    ``debug_draw=True`` makes ``self.debug``, a ``DebugLineBuffer`` whose
+    lines each frame draws (its arrays uploaded as ``debug.lines``)."""
 
     @property
     def scene_arrays(self):
@@ -216,10 +222,11 @@ class Renderer:
 
     def __init__(self, scene: Scene, camera: Camera, cfg: PipelineConfig,
                  device="cuda", dynamic_transforms: bool = False, scene_animator=None,
-                 auto_exposure: bool = False, **pipeline_kw):
-        for name in UNPORTED_RENDERER_KW:
-            if pipeline_kw.pop(name, False):
-                raise NotImplementedError(f"{name} is not ported yet")
+                 auto_exposure: bool = False, debug_draw: bool = False, **pipeline_kw):
+        self.debug = None
+        if debug_draw:
+            self.debug = DebugLineBuffer()
+            pipeline_kw["debug_draw"] = self.debug
         self.device = torch.device(device)
         self.auto_exposure = auto_exposure
         self.scene_animator = scene_animator
@@ -258,6 +265,8 @@ class Renderer:
         inputs = {k: self.state[k] for k in persistent if k in self.state}
         if "scene.version" in persistent:
             inputs["scene.version"] = self._scene_version
+        if self.debug is not None:
+            inputs["debug.lines"] = self.debug.arrays(self.device)
         cam_state = self.camera.state(self.frame_index, self.device)
         self.state = self.pipeline.render_frame(
             inputs, self.scene_arrays, cam_state, self.frame_index, delta_time,

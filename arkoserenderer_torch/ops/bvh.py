@@ -362,11 +362,15 @@ def build_two_level_host(
     blas_owner: np.ndarray | None = None,  # (B,) owning instance of a deformable BLAS, else -1
     inst_id: np.ndarray | None = None,     # (I,) scene instance ids
     inst_cap: int | None = None,           # parked instance slots reserved up to this count
+    meta_out: dict | None = None,
 ) -> dict[str, np.ndarray]:
     """The two-level build on the host: every TwoLevelBVH field as a numpy
     array (``n_tlas`` an int). ``blas_geo[b]`` is (verts (V, 3) object
     space, tris (t, 3)) or (verts, tris, tri_ids) where ``tri_ids`` maps
-    each row of ``tris`` to the segment's original triangle."""
+    each row of ``tris`` to the segment's original triangle. ``meta_out``,
+    when a dict, receives what streaming wires a new instance with: the
+    real and total instance slots (``n_real``, ``n_inst``) and each BLAS's
+    root node and wide root (``roots_by_blas``, ``wide_root_of_blas``)."""
     n_inst = len(inst_blas)
     if n_inst == 0 or len(blas_geo) == 0:
         blas_geo = [(np.zeros((3, 3), np.float32), np.array([[0, 1, 2]], np.int32))]
@@ -456,7 +460,11 @@ def build_two_level_host(
     br = roots_by_blas[inst_blas].astype(np.int32)
     w_meta, w_src, w_root_of = _collapse_wide(
         node_min, node_max, left, right, count, [0] + [int(r) for r in roots_by_blas])
-    w_root_blas = np.asarray([w_root_of[int(r)] for r in roots_by_blas], np.int32)[inst_blas]
+    wide_root_of_blas = np.asarray([w_root_of[int(r)] for r in roots_by_blas], np.int32)
+    w_root_blas = wide_root_of_blas[inst_blas]
+    if meta_out is not None:
+        meta_out.update(n_real=n_real, n_inst=n_inst, roots_by_blas=roots_by_blas.copy(),
+                        wide_root_of_blas=wide_root_of_blas)
     tri_order = np.concatenate([s[0] for s in blas_slots])
     itb = inst_tri_base.astype(np.int32)
     # The records through the refit's torch derivations, on CPU tensors.
@@ -598,6 +606,18 @@ def refit_bvh(bvh: TwoLevelBVH, world_verts: torch.Tensor, tris: torch.Tensor,
         inst_o2w=o2w, inst_w2o=w2o, node_cbounds=cbounds, node_int=node_int,
         tri_quad=tri_quad, wide_cbounds=wide_cb, wide_rec=wide_rec, quad_rec=quad_rec,
         inst_rec=inst_rec)
+
+
+def refit_bvh_in_place(bvh: TwoLevelBVH, world_verts: torch.Tensor,
+                       tris: torch.Tensor) -> None:
+    """``refit_bvh`` (without new instance transforms) written back into
+    ``bvh``'s own tensors, which keep their storage: how a streamed
+    instance's rows join the live TLAS and traversal records."""
+    new = refit_bvh(bvh, world_verts, tris)
+    for f in ARRAY_FIELDS:
+        old_t, new_t = getattr(bvh, f), getattr(new, f)
+        if new_t is not old_t:
+            old_t.copy_(new_t)
 
 
 # ---------------------------------------------------------------------------

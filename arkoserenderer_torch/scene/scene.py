@@ -19,11 +19,23 @@ instance is one block of the vertex pool with its own weights
 (``assets/meshopt.build_meshlets``) and records their culling bounds.
 ``build(device, with_bvh=True)`` adds the two-level BVH over the LOD-0
 instances (``ops/bvh``), with the reference's parked TLAS slots for
-streamed instances; without it ``bvh`` is None. A skinned or morphed
-instance gets a BLAS of its own in world space, which the per-frame refit
-(``ops/bvh.refit_bvh``) re-reads from the deformed vertex pool.
+streamed instances; without it ``bvh`` is None. A skinned, morphed or
+hair instance gets a BLAS of its own in world space, which the per-frame
+refit (``ops/bvh.refit_bvh``) re-reads from the deformed vertex pool.
 
-Not ported: hair and streaming.
+Hair (``add_hair``, one batch a scene): strand points, tangents and radii
+become ``hair_points`` / ``hair_tangents`` / ``hair_radius``, and a ribbon
+segment of two vertices a point whose positions the Scene pass fills each
+frame with camera-facing ribbons.
+
+Streaming: after ``build``, ``stage_instance`` and ``stage_material`` plan
+the rows a new instance (of an existing segment, rigid or skinned) or a new
+material adds to the pools, from the host mirror of the last build, in a
+load-safe order; ``stream_instance`` and ``stream_material`` write such a
+plan at once (``rendering/streaming.StreamingManager`` writes it under a
+byte budget a frame). Every write goes into the existing pool tensors in
+place: each keeps its shape and its storage, and nothing is read back from
+the device.
 """
 
 from __future__ import annotations
@@ -80,6 +92,7 @@ class SceneStatic:
     uses_emissive_tex: bool = False
     uses_occlusion_tex: bool = False
     has_hair: bool = False
+    hair_vertex_base: int = 0  # vertex-pool row of the hair segment's first vertex
     has_translucent: bool = False
     has_meshlets: bool = False
     has_morphs: bool = False
@@ -207,9 +220,17 @@ class SceneArrays(NamedTuple):
     morph_pos: tuple               # of (B_i, V_i, 3) position deltas
     morph_nrm: tuple               # of (B_i, V_i, 3) normal deltas
     morph_weights: tuple           # of (B_i,)
+    # Hair strands (one placeholder row without hair): world-space control
+    # points that the Scene pass expands to camera-facing ribbons.
+    hair_points: torch.Tensor      # (Hp, 3)
+    hair_tangents: torch.Tensor    # (Hp, 3)
+    hair_radius: torch.Tensor      # (Hp,)
     # Ray tracing: ops.bvh.TwoLevelBVH when built with_bvh, else None.
     bvh: bvh_ops.TwoLevelBVH | None
 
+
+# The per-instance rows update_instance_transforms recomputes and uploads.
+INSTANCE_ROWS = ("world", "prev_world", "normal_mat", "inst_sphere", "inst_lod_band")
 
 # Tuple fields of SceneArrays: entry i is host key "<name>.<i>".
 TUPLE_FIELDS = ("morph_pos", "morph_nrm", "morph_weights")
@@ -259,6 +280,35 @@ def scene_arrays_from_host(fields: dict[str, np.ndarray], device) -> SceneArrays
     return SceneArrays(**out)
 
 
+def pool_of(arrays: SceneArrays, field: str) -> torch.Tensor:
+    """The pool tensor a plan's field names: "positions", or "mat_tex.rows"
+    and "bvh.inst_o2w" inside a nested field."""
+    obj = arrays
+    for part in field.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def write_rows(pool: torch.Tensor, offset: int, rows: np.ndarray) -> None:
+    """``pool[offset:offset + len(rows)] = rows`` in place (uint32 texel
+    rows as int32 with the same bits). The copy is blocking: it has read
+    ``rows`` when it returns, so the caller may reuse the host buffer."""
+    rows = np.ascontiguousarray(rows)
+    if rows.dtype == np.uint32:
+        rows = rows.view(np.int32)
+    n = rows.shape[0]
+    if offset < 0 or offset + n > pool.shape[0]:
+        raise IndexError(f"rows [{offset}, {offset + n}) outside a pool of {pool.shape[0]}")
+    pool[offset:offset + n].copy_(torch.from_numpy(rows), non_blocking=False)
+
+
+def write_lights(arrays: SceneArrays, lights: dict[str, np.ndarray]) -> None:
+    """Write host light arrays (``build_light_arrays``) into the scene's
+    light tensors in place."""
+    for k, v in lights.items():
+        getattr(arrays.lights, k).copy_(torch.from_numpy(np.array(v, copy=True)))
+
+
 class Scene:
     """Host scene container; ``build(device)`` freezes it to SceneArrays."""
 
@@ -281,7 +331,13 @@ class Scene:
         self._morph_weight_overrides: dict[int, np.ndarray] = {}
         self.enable_meshlets = False  # meshlet-granularity culling (build + Geometry)
         self.build_times: dict[str, float] = {}  # host seconds of the last build_host
-        self._mirror: dict[str, np.ndarray] | None = None  # instance pools of the last build
+        # Host mirror of the last build's pools, cursors and skinning facts:
+        # the instance-transform upload and streaming write it, never the
+        # device's copy.
+        self._mirror: dict | None = None
+        self._mattex: dict | None = None  # packed texel pool: cursor, capacity
+        self._bvh_stream: dict | None = None  # parked TLAS slots, static BLAS roots
+        self._hair: tuple | None = None  # (points, tangents, radius, segment id)
         self._seg_bounds: dict[int, tuple[np.ndarray, float]] = {}
         # Bindless textures: the RGBA8 pool (``ops/texture``), whose image
         # list (``images``) the packed pool is built from too; ids 0-3 are
@@ -424,6 +480,57 @@ class Scene:
             self.add_instance(sid, world, prev_world=prev_world,
                               lod_band=(edges[i], edges[i + 1]))
 
+    def add_hair(self, points: np.ndarray, segments: np.ndarray, material: int = 0,
+                 radius: float | np.ndarray = 0.002) -> int:
+        """Add hair strands: ``points`` (P, 3) world-space control points,
+        strand after strand, and ``segments`` (S,) each strand's point count
+        minus one; ``radius`` a scalar or one a point. The ribbon triangles
+        are made here (two vertices a point, two triangles a strand
+        segment) and the Scene pass places their vertices each frame. One
+        hair batch a scene; returns the hair segment's id (instanced once,
+        at the identity)."""
+        if self._hair is not None:
+            raise ValueError("one hair batch a scene")
+        points = np.asarray(points, np.float32)
+        p_total = len(points)
+        radius = (np.full(p_total, radius, np.float32) if np.isscalar(radius)
+                  else np.asarray(radius, np.float32))
+        tangents = np.zeros((p_total, 3), np.float32)
+        indices = []
+        start = 0
+        for seg_count in segments:
+            n_pts = int(seg_count) + 1
+            t = np.gradient(points[start:start + n_pts], axis=0)
+            t /= np.maximum(np.linalg.norm(t, axis=-1, keepdims=True), 1e-9)
+            tangents[start:start + n_pts] = t
+            for i in range(n_pts - 1):
+                l0, r0 = 2 * (start + i), 2 * (start + i) + 1
+                l1, r1 = 2 * (start + i + 1), 2 * (start + i + 1) + 1
+                indices.extend([l0, r0, l1, r0, r1, l1])
+            start += n_pts
+        seg = MeshSegment(
+            positions=np.zeros((2 * p_total, 3), np.float32),  # placed by the Scene pass
+            normals=np.tile(np.array([[0, 0, 1]], np.float32), (2 * p_total, 1)),
+            uvs=np.zeros((2 * p_total, 2), np.float32),
+            indices=np.array(indices, np.int32),
+            material=material,
+        )
+        sid = self.add_segment(seg)
+        self._hair = (points, tangents, radius, sid)
+        self.add_instance(sid, np.eye(4, dtype=np.float32))
+        return sid
+
+    def _hair_vertex_base(self) -> int:
+        """Vertex-pool row where the hair segment's instance starts."""
+        if self._hair is None:
+            return 0
+        base = 0
+        for sid, *_ in self.instances:
+            if sid == self._hair[3]:
+                return base
+            base += self.segments[sid].positions.shape[0]
+        raise ValueError("hair segment has no instance")
+
     def set_env_map(self, img: np.ndarray, brightness: float = 1.0):
         self.env_map = np.asarray(img, np.float32)
         self.env_brightness = brightness
@@ -524,11 +631,22 @@ class Scene:
             inst_lod_band[inst_id] = lod_band
             v_cursor += v
             t_cursor += t
-        # The host mirror of the instance pools: update_instance_transforms
-        # rewrites it and uploads copies, never reading the device back.
+        # The host mirror of the pools: update_instance_transforms and the
+        # streaming plans write it and upload copies, never reading the
+        # device back.
+        tri_material = inst_material[tri_instance].astype(np.int32)
         self._mirror = {
-            "world": world, "prev_world": prev_world, "normal_mat": normal_mat,
-            "inst_sphere": inst_sphere, "inst_lod_band": inst_lod_band,
+            "positions": positions, "normals": normals, "uvs": uvs, "tangents": tangents,
+            "vertex_instance": vertex_instance, "indices": indices,
+            "tri_instance": tri_instance, "tri_valid": tri_valid, "world": world,
+            "prev_world": prev_world, "normal_mat": normal_mat,
+            "inst_material": inst_material, "inst_sphere": inst_sphere,
+            "inst_valid": inst_valid, "inst_lod_band": inst_lod_band,
+            "tri_material": tri_material, "skin_joints": skin_joints,
+            "skin_weights": skin_weights, "v_cursor": v_cursor, "t_cursor": t_cursor,
+            "palette_cursor": palette_cursor,
+            # A skinned instance streams only into a scene whose frame skins.
+            "has_skin": any(self.segments[sid].skeleton >= 0 for sid, *_ in self.instances),
         }
 
         if len(self.materials) > mmax:
@@ -565,7 +683,7 @@ class Scene:
             "materials.clearcoat": _soa([x.clearcoat for x in ms], (mmax,)),
             "materials.clearcoat_roughness": _soa([x.clearcoat_roughness for x in ms], (mmax,)),
             "materials.subsurface": _soa([x.subsurface for x in ms], (mmax,)),
-            "tri_material": inst_material[tri_instance].astype(np.int32),
+            "tri_material": tri_material,
             "skin_joints": skin_joints, "skin_weights": skin_weights,
             "palette": self._palette_pool,
         }
@@ -574,12 +692,18 @@ class Scene:
             out[f"morph_nrm.{i}"] = self.segments[sid].morph_nrm.astype(np.float32)
         for i, w in enumerate(self._rebuild_morph_weights()):
             out[f"morph_weights.{i}"] = w
+        hair = self._hair
+        out["hair_points"] = hair[0] if hair else np.zeros((1, 3), np.float32)
+        out["hair_tangents"] = hair[1] if hair else np.zeros((1, 3), np.float32)
+        out["hair_radius"] = hair[2] if hair else np.zeros((1,), np.float32)
 
         # Packed material records + channel-packed texel pool, padded to the
         # configured pool size.
         t1 = time.perf_counter()
         tex_rows, tex_meta = mattex.build_packed_materials(ms, self.images)
         cap_rows = max(int(lim.texture_pool_texels), tex_rows.shape[0])
+        # Streamed materials append their chains into the padding.
+        self._mattex = {"cursor": tex_rows.shape[0], "capacity": cap_rows}
         if cap_rows > tex_rows.shape[0]:
             tex_rows = np.concatenate(
                 [tex_rows, np.zeros((cap_rows - tex_rows.shape[0], 3), np.uint32)]
@@ -614,6 +738,7 @@ class Scene:
         out["env_map"] = self.env_map
         out["env_brightness"] = np.asarray(self.env_brightness, np.float32)
         t3 = time.perf_counter()
+        self._bvh_stream = None
         if with_bvh:
             out.update({f"bvh.{k}": v for k, v in self._build_bvh(rt_stream_capacity).items()})
         self.build_times = {"pools_s": (t1 - t0) + (t3 - t2), "packing_s": t2 - t1,
@@ -636,8 +761,12 @@ class Scene:
         surface at several LOD levels. A skinned or morphed instance gets a
         BLAS of its own in world space (an identity transform) whose
         triangles the refit re-reads from the deformed pool
-        (``blas_owner``). Fully transparent triangles of masked materials
-        are left out (``_masked_tri_opacity``)."""
+        (``blas_owner``); so does the hair instance, whose pool rows the
+        Scene pass writes. Fully transparent triangles of masked materials
+        are left out (``_masked_tri_opacity``). With ``stream_capacity``
+        parked slots, the free slots and each static segment's BLAS roots
+        are kept for ``stage_instance``."""
+        hair_sid = self._hair[3] if self._hair else -1
         omm_cache: dict[int, np.ndarray | None] = {}
         blas_geo: list[tuple] = []
         blas_owner: list[int] = []
@@ -659,7 +788,7 @@ class Scene:
             if keep is not None:
                 tri_ids = np.nonzero(keep)[0].astype(np.int32)
                 tris = tris[keep]
-            if seg.skeleton >= 0 or seg.morph_pos is not None:
+            if seg.skeleton >= 0 or seg.morph_pos is not None or sid == hair_sid:
                 wm = np.asarray(w, np.float32)
                 wp = seg.positions @ wm[:3, :3].T + wm[:3, 3]
                 blas_geo.append((wp.astype(np.float32), tris, tri_ids))
@@ -675,7 +804,8 @@ class Scene:
                 inst_o2w.append(np.asarray(w, np.float32))
             inst_tri_base.append(base)
             inst_ids.append(inst_id)
-        return bvh_ops.build_two_level_host(
+        meta: dict = {}
+        out = bvh_ops.build_two_level_host(
             blas_geo,
             np.asarray(inst_blas, np.int32),
             np.stack(inst_o2w) if inst_o2w else np.zeros((0, 4, 4), np.float32),
@@ -683,7 +813,16 @@ class Scene:
             blas_owner=np.asarray(blas_owner, np.int32) if blas_owner else None,
             inst_id=np.asarray(inst_ids, np.int32),
             inst_cap=(len(inst_ids) + stream_capacity) if stream_capacity else None,
+            meta_out=meta,
         )
+        if stream_capacity:
+            self._bvh_stream = {
+                "free": list(range(meta["n_real"], meta["n_inst"])),
+                "seg_root": {sid: (int(meta["roots_by_blas"][b]),
+                                   int(meta["wide_root_of_blas"][b]))
+                             for sid, b in seg_blas.items()},
+            }
+        return out
 
     def _masked_tri_opacity(self, seg) -> np.ndarray | None:
         """(T,) keep-mask of a segment whose material is MASKED, or None when
@@ -718,12 +857,17 @@ class Scene:
 
     def _segment_bounds(self, sid: int) -> tuple[np.ndarray, float]:
         """Object-space bounding sphere (AABB centre, radius) of a segment,
-        computed once."""
+        computed once; the hair segment's from its strand points and radii
+        (its pool positions are placed each frame)."""
         if sid not in self._seg_bounds:
-            pos = self.segments[sid].positions
+            if self._hair is not None and sid == self._hair[3]:
+                pos, _, radius, _ = self._hair
+                pad = float(radius.max())
+            else:
+                pos, pad = self.segments[sid].positions, 0.0
             c = 0.5 * (pos.min(0) + pos.max(0))
             self._seg_bounds[sid] = (c.astype(np.float32),
-                                     float(np.linalg.norm(pos - c, axis=-1).max()))
+                                     float(np.linalg.norm(pos - c, axis=-1).max()) + pad)
         return self._seg_bounds[sid]
 
     def update_instance_transforms(self, arrays: SceneArrays) -> SceneArrays:
@@ -751,7 +895,191 @@ class Scene:
         mir["inst_sphere"][:n, 3] = radii * scale
         mir["inst_lod_band"][:n] = np.array([it[3] for it in insts], np.float32)
         dev = arrays.world.device
-        return arrays._replace(**{k: host_to_device(v, dev) for k, v in mir.items()})
+        return arrays._replace(**{k: host_to_device(mir[k], dev) for k in INSTANCE_ROWS})
+
+    # -- streaming ----------------------------------------------------------------
+
+    def stage_instance(self, segment_id: int, world: np.ndarray, lod_band=(0.0, LOD_FAR),
+                       clip: int | None = None) -> dict:
+        """Plan a new instance of an existing segment (rigid or skinned) in
+        the pools of the last build: allocate its vertex, triangle and
+        instance rows, write them to the host mirror, and return the upload
+        plan {"instance_id", "uploads": [(field, row offset, host rows)],
+        "lights" (the light arrays refitted to the grown bounds, as host
+        arrays), "bvh_refit", "tri_range", "vert_range"}. The uploads are in
+        a load-safe order: vertices, indices, the instance rows, and last
+        ``tri_valid`` and ``inst_valid``, so a partly written instance never
+        rasters. With parked TLAS slots left and a shared BLAS for the
+        segment, the plan also writes the instance's "bvh.*" rows, which
+        one refit folds into the TLAS and the traversal records. A skinned
+        segment takes a palette range and needs a scene whose frame skins
+        already. Full pools raise RuntimeError."""
+        mir = self._mirror
+        if mir is None:
+            raise RuntimeError("call build() before staging instances")
+        seg = self.segments[segment_id]
+        if seg.morph_pos is not None:
+            raise ValueError("a morphed segment cannot stream (morph blocks are built once)")
+        if seg.skeleton >= 0 and not mir["has_skin"]:
+            raise ValueError("cannot stream a skinned segment into a scene built without "
+                             "skinned instances (the frame has no skinning path)")
+        v, t = seg.positions.shape[0], seg.num_triangles
+        vc, tc = mir["v_cursor"], mir["t_cursor"]
+        inst_id = len(self.instances)
+        lim = self.limits
+        if vc + v > lim.max_vertices or tc + t > lim.max_triangles or \
+                inst_id >= lim.max_drawables:
+            raise RuntimeError("scene pools full — rebuild with larger limits")
+        w = np.asarray(world, np.float32)
+        self.instances.append((segment_id, w, None, lod_band))
+        if clip is not None:
+            self.instance_clips[inst_id] = clip
+        mir["positions"][vc:vc + v] = seg.positions
+        mir["normals"][vc:vc + v] = seg.normals
+        mir["uvs"][vc:vc + v] = seg.uvs
+        mir["tangents"][vc:vc + v] = seg.tangents
+        mir["vertex_instance"][vc:vc + v] = inst_id
+        skin_uploads = []
+        if seg.skeleton >= 0:
+            from arkoserenderer_torch.scene.animation import evaluate_pose
+
+            skel = self.skeletons[seg.skeleton]
+            base = mir["palette_cursor"]
+            if base + skel.num_joints > MAX_JOINTS:
+                raise RuntimeError("joint palette full — rebuild with fewer skinned instances")
+            mir["palette_cursor"] = base + skel.num_joints
+            mir["skin_joints"][vc:vc + v] = seg.skin_joints + base
+            mir["skin_weights"][vc:vc + v] = seg.skin_weights
+            self._bindings.append((seg.skeleton, base, clip))
+            pal0 = evaluate_pose(skel, None, 0.0)[0]
+            self._palette_pool[base:base + skel.num_joints] = pal0
+            skin_uploads = [
+                ("skin_joints", vc, (seg.skin_joints + base).astype(np.int32)),
+                ("skin_weights", vc, seg.skin_weights.astype(np.float32)),
+                ("palette", base, pal0.astype(np.float32)),
+            ]
+        mir["indices"][tc:tc + t] = seg.indices.reshape(t, 3) + vc
+        mir["tri_instance"][tc:tc + t] = inst_id
+        mir["tri_material"][tc:tc + t] = seg.material
+        mir["tri_valid"][tc:tc + t] = True
+        mir["world"][inst_id] = w
+        mir["prev_world"][inst_id] = w
+        mir["normal_mat"][inst_id] = np.linalg.inv(w[:3, :3]).T
+        mir["inst_material"][inst_id] = seg.material
+        center_obj = 0.5 * (seg.positions.min(0) + seg.positions.max(0))
+        r_obj = np.linalg.norm(seg.positions - center_obj, axis=-1).max()
+        scale = np.linalg.norm(w[:3, :3], axis=0).max()
+        mir["inst_sphere"][inst_id] = (*(w[:3, :3] @ center_obj + w[:3, 3]), r_obj * scale)
+        mir["inst_valid"][inst_id] = True
+        mir["inst_lod_band"][inst_id] = lod_band
+        mir["v_cursor"] = vc + v
+        mir["t_cursor"] = tc + t
+
+        # The sun's shadow fit follows the grown bounds, so a streamed scene
+        # renders as its rebuild does.
+        center, radius = self.bounding_sphere()
+        lights = build_light_arrays(
+            self.sun, self.spots, self.points, exposure=1.0,
+            scene_center=center, scene_radius=radius,
+            max_spots=lim.max_spot_lights, max_points=lim.max_point_lights,
+            ambient_lx=self.ambient_lx,
+        )
+        one = np.s_[inst_id:inst_id + 1]
+        uploads = skin_uploads + [
+            ("positions", vc, seg.positions.astype(np.float32)),
+            ("normals", vc, seg.normals.astype(np.float32)),
+            ("uvs", vc, seg.uvs.astype(np.float32)),
+            ("tangents", vc, seg.tangents.astype(np.float32)),
+            ("vertex_instance", vc, np.full((v,), inst_id, np.int32)),
+            ("indices", tc, (seg.indices.reshape(t, 3) + vc).astype(np.int32)),
+            ("tri_instance", tc, np.full((t,), inst_id, np.int32)),
+            ("tri_material", tc, np.full((t,), seg.material, np.int32)),
+        ] + [(f, inst_id, mir[f][one].copy()) for f in (
+            "world", "prev_world", "normal_mat", "inst_material", "inst_sphere",
+            "inst_lod_band")] + [
+            # Last: the geometry and the drawable become visible.
+            ("tri_valid", tc, np.ones((t,), bool)),
+            ("inst_valid", inst_id, np.ones((1,), bool)),
+        ]
+
+        # A parked TLAS slot makes the instance a leaf of the live BVH.
+        bvh_refit = False
+        bs = self._bvh_stream
+        if bs and bs["free"] and segment_id in bs["seg_root"]:
+            slot = bs["free"].pop(0)
+            root, wroot = bs["seg_root"][segment_id]
+            rot_inv = np.linalg.inv(w[:3, :3])
+            w2o = np.concatenate([rot_inv, (-rot_inv @ w[:3, 3])[:, None]],
+                                 axis=1).astype(np.float32)
+            uploads += [
+                ("bvh.inst_o2w", slot, w[:3, :4][None].astype(np.float32)),
+                ("bvh.inst_w2o", slot + 1, w2o[None]),  # row 0 is the identity
+                ("bvh.blas_root", slot, np.array([root], np.int32)),
+                ("bvh.wide_root_blas", slot, np.array([wroot], np.int32)),
+                ("bvh.inst_tri_base", slot, np.array([tc], np.int32)),
+                ("bvh.inst_id", slot, np.array([inst_id], np.int32)),
+                ("bvh.inst_active", slot, np.ones((1,), bool)),
+            ]
+            bvh_refit = True
+        return {"instance_id": inst_id, "uploads": uploads, "lights": lights,
+                "bvh_refit": bvh_refit, "tri_range": (tc, t), "vert_range": (vc, v)}
+
+    def stage_material(self, mat: Material) -> dict:
+        """Plan a new material whose texture chain appends to the packed
+        texel pool's padding: {"material_id", "uploads": the texel rows
+        first, the 32-lane record last (a material samples only once its
+        texels are in), "lights": None, "instance_id": -1, "bvh_refit":
+        False}. Its textures must be registered (``add_texture``) first.
+        A full material table or texel pool raises RuntimeError, and the
+        material is not kept."""
+        mm = self._mattex
+        if mm is None:
+            raise RuntimeError("call build() before staging materials")
+        if len(self.materials) >= self.limits.max_materials:
+            raise RuntimeError("material table full")
+        mid = len(self.materials)
+        rows, meta_row, new_cursor = mattex.pack_material_chain(mat, self.images, mm["cursor"])
+        if new_cursor > mm["capacity"]:
+            raise RuntimeError("texel pool full — rebuild with a larger texture_pool_texels")
+        self.materials.append(mat)
+        rec = np.zeros((1, 32), np.float32)
+        rec[0, 0:4] = mat.base_color_factor
+        rec[0, 4:7] = mat.emissive_factor
+        rec[0, 7] = mat.metallic_factor
+        rec[0, 8] = mat.roughness_factor
+        rec[0, 9] = 1.0 if mat.double_sided else 0.0
+        rec[0, 10] = mat.clearcoat
+        rec[0, 11] = mat.clearcoat_roughness
+        rec[0, 12] = mat.subsurface
+        rec[0, 13] = mat.alpha_cutoff
+        rec[0, 14] = mat.blend_mode
+        rec[0, 15:32] = meta_row
+        uploads = [("mat_tex.rows", mm["cursor"], rows), ("mat_records", mid, rec)]
+        mm["cursor"] = new_cursor
+        return {"material_id": mid, "uploads": uploads, "lights": None, "instance_id": -1,
+                "bvh_refit": False}
+
+    def stream_material(self, arrays: SceneArrays, mat: Material) -> tuple[SceneArrays, int]:
+        """``stage_material``'s plan written at once, in place; returns
+        (``arrays``, the material id)."""
+        plan = self.stage_material(mat)
+        for f, o, r in plan["uploads"]:
+            write_rows(pool_of(arrays, f), o, r)
+        return arrays, plan["material_id"]
+
+    def stream_instance(self, arrays: SceneArrays, segment_id: int, world: np.ndarray,
+                        lod_band=(0.0, LOD_FAR), clip: int | None = None) -> SceneArrays:
+        """``stage_instance``'s plan written at once, in place, with its
+        lights; when the plan wires a parked TLAS slot, one refit then
+        folds the new leaf into the BVH (its tensors rewritten in place
+        too). Returns ``arrays``: every pool keeps its tensor."""
+        plan = self.stage_instance(segment_id, world, lod_band, clip=clip)
+        for f, o, r in plan["uploads"]:
+            write_rows(pool_of(arrays, f), o, r)
+        write_lights(arrays, plan["lights"])
+        if plan["bvh_refit"]:
+            bvh_ops.refit_bvh_in_place(arrays.bvh, arrays.positions, arrays.indices)
+        return arrays
 
     def static_info(self) -> SceneStatic:
         mats = self.materials
@@ -771,6 +1099,8 @@ class Scene:
             uses_mr_tex=any(m.mr_tex != 0 for m in mats),
             uses_emissive_tex=any(m.emissive_tex != 0 for m in mats),
             uses_occlusion_tex=any(m.occlusion_tex != 0 for m in mats),
+            has_hair=self._hair is not None,
+            hair_vertex_base=self._hair_vertex_base(),
             has_translucent=any(m.blend_mode == BLEND_TRANSLUCENT for m in mats),
             has_meshlets=self.enable_meshlets,
             has_morphs=bool(morph_bases),

@@ -182,15 +182,43 @@ result line):
      instances, lights and environment map in the scene, its frames finite,
      the launches as implied, and one more frame's peel layers at the app's
      tile 8x16 bit for bit and timed.
+ 18. hair, streaming, the overlays and the other apps, at full size, each
+     through the entry point a user calls with the launch counts zeroed
+     just before it and read just after: (a) humandemo --orbit at
+     1920x1080, 8 frames (hair, SSSS, the rim spot, tile 8x16, 512 a tile,
+     a 1024^2 sun rastered every frame under hair): its rasters as implied,
+     ms/frame by CUDA events and the host's clock, the per-pass table, hair
+     pixels on screen, then one more frame's camera raster (with the
+     ribbons) and sun raster bit for bit against the plain raster and
+     timed; (b) a StreamingManager at its default 4 MiB budget streaming as
+     many spheres into the rt scene (1920x1080) as the pools and the
+     parked TLAS slots take during 8 timed frames: bytes a tick, the frame
+     all are LOADED, ms/frame with ticks, without, and of the scene without
+     them, every pool tensor's storage kept, the traces of one more frame
+     on the refitted BVH bit for bit against the plain walk, the streamed
+     forward frame within 1e-5 of a scene built with the spheres and the
+     streamed rt frame within the goldens' bound of it; (c) the showcase app
+     with --debug-draw --light-icons --ddgi --ddgi-probe-debug at
+     1920x1080, 4 frames: the three overlays' ms, and the card's 128^2
+     frame (two overlapping point-light icons and a spot added) against the
+     CPU's (mean abs diff < 0.3 of 255, no value off by more than 24);
+     (d) geodata at 1920x1080 at --grid 257 and 1025 (about 2.1M
+     triangles): ms/frame, Geometry and SunShadow ms, the triangles after
+     culling, the dropped bin entries, peak memory, and the camera raster
+     bit for bit and timed; (e) meshviewer on the DamagedHelmet at 1024^2:
+     the lit turntable (4 frames, the camera raster bit for bit and timed)
+     and --view normal, the PNGs checked.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
 per-frame ddgi sun, helmet camera, the app's camera and sun, the translucent
-kind's and the app's peel layers), each with its
-launches in the runs of the frame kinds that launch it, and one entry per
-trace the traversal kernel serves in the rt, showcase, flagship, ddgi,
-helmet and rt_soft frames, the pathtraced sample, the AO bake and the
-app's RT frame, each with its launches by its label in that kind's run;
+kind's and the app's peel layers, humandemo's camera with hair and its sun,
+the terrain cameras at both grids and meshviewer's 1024^2 helmet camera),
+each with its launches in the runs of the frame kinds or apps that launch
+it, and one entry per trace the traversal kernel serves in the rt,
+showcase, flagship, ddgi, helmet and rt_soft frames, the pathtraced sample,
+the AO bake, the app's RT frame and the streamed rt frame, each with its
+launches by its label in that run;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -243,6 +271,12 @@ APP_PATHTRACER = ["--pathtracer", "--samples", "2"]
 # Phase 17: the translucent kind's peel layers, and the app's on the level.
 TRANSLUCENT_LAYERS, APP_LEVEL_LAYERS = 4, 2
 APP_LEVEL = ["--oit-layers", str(APP_LEVEL_LAYERS), "--frames", "4", "--timings"]
+# Phase 18: the slice's apps, streaming and overlays at full size.
+HUMAN_ARGV = ["--frames", "8", "--orbit"]
+OVERLAY_FLAGS = ["--debug-draw", "--light-icons", "--ddgi", "--ddgi-probe-debug"]
+STREAM_FRAMES = 8
+TERRAIN_GRIDS = (257, 1025)
+VIEWER_SIZE = 1024
 
 
 def random_case(rng, n, big: bool, width: int, height: int):
@@ -308,13 +342,13 @@ def print_frame_table(result: dict, card: str) -> None:
     print(f"  {'sum of passes':20s} {sum(result['pass_ms'].values()):10.4f}", flush=True)
 
 
-def check_png(path: Path) -> None:
-    """The app's PNG read back through the port's reader: (1080, 1920, 3|4)
-    uint8 with a std above 5."""
+def check_png(path: Path, size: tuple[int, int] = (1080, 1920)) -> None:
+    """An app's PNG read back through the port's reader: (height, width,
+    3|4) uint8 with a std above 5."""
     from arkoserenderer_torch.utils.imageio import load_png
 
     img = load_png(str(path))
-    if img.shape[:2] != (1080, 1920) or img.shape[2] not in (3, 4) \
+    if img.shape[:2] != tuple(size) or img.shape[2] not in (3, 4) \
             or img.dtype != np.uint8 or not img.std() > 5:
         raise AssertionError(f"{path.name}: {img.shape} {img.dtype}, std {img.std():.3f}")
 
@@ -648,6 +682,318 @@ def run_translucency(dev, card: str, compare_and_time, run_kind) -> dict:
     del r, calls
     print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return {"timed": timed, "launches": launches}
+
+
+def tensor_pointers(tree, prefix: str = "") -> dict:
+    """{field path: data_ptr()} of every tensor of a SceneArrays (nested
+    tuples and the BVH's dataclass included)."""
+    out = {}
+    if isinstance(tree, torch.Tensor):
+        out[prefix] = tree.data_ptr()
+    elif hasattr(tree, "_asdict"):
+        for k, v in tree._asdict().items():
+            out.update(tensor_pointers(v, f"{prefix}{k}."))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            out.update(tensor_pointers(v, f"{prefix}{i}."))
+    elif tree is not None and hasattr(tree, "__dataclass_fields__"):
+        for k in tree.__dataclass_fields__:
+            out.update(tensor_pointers(getattr(tree, k), f"{prefix}{k}."))
+    return out
+
+
+def overlay_lights(scene) -> None:
+    """Two point lights a few pixels apart and a spot in view of the test
+    scene's camera: their icons overlap, so the overlay scatter has
+    collisions to resolve."""
+    from arkoserenderer_torch.scene.lights import PointLight, SpotLight
+
+    scene.points += [PointLight(position=np.array([0.0, 1.8, 0.0], np.float32),
+                                color=np.array([1.0, 0.2, 0.1], np.float32)),
+                     PointLight(position=np.array([0.04, 1.82, 0.0], np.float32),
+                                color=np.array([0.1, 1.0, 0.3], np.float32))]
+    scene.spots.append(SpotLight(position=np.array([-1.0, 2.0, 0.5], np.float32),
+                                 direction=np.array([0.0, -1.0, 0.0], np.float32),
+                                 color=np.array([0.2, 0.4, 1.0], np.float32)))
+
+
+def timed_frames(step, frames: int) -> dict:
+    """``step()`` ``frames`` times, each under CUDA events and the host's
+    clock (synchronised): per-frame ms of both, and their medians."""
+    dev_ms, host_ms = [], []
+    for _ in range(frames):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+    return {"ms": dev_ms, "host_ms": host_ms, "median_ms": float(np.median(dev_ms)),
+            "median_host_ms": float(np.median(host_ms))}
+
+
+def run_slice13(dev, card: str, compare_and_time, check_kind_traces, width: int = 1920,
+                height: int = 1080, small: bool = False, grids=TERRAIN_GRIDS,
+                viewer: int = VIEWER_SIZE) -> dict:
+    """Phase 18 (see the module docstring): humandemo, streaming on the rt
+    scene, the overlays through the showcase app, geodata at two grids and
+    meshviewer on the helmet, at ``width`` x ``height`` (the bench's
+    ``small`` rt scene for a rehearsal at a small size). Returns
+    {"raster_launches": the main paths' launches of the new raster entries,
+    "traces": the streamed frame's measured traces with its launches by
+    label}."""
+    from arkoserenderer_torch.apps import geodata, humandemo, meshviewer, showcase
+    from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.ops import raster_cuda
+    from arkoserenderer_torch.rendering.streaming import LOADED, StreamingManager
+    from arkoserenderer_torch.tools import bench
+    from arkoserenderer_torch.tools import raster_bench as rb
+    from arkoserenderer_torch.tools import trace_bench as tb
+    from arkoserenderer_torch.utils.imageio import to_u8
+
+    H, W = height, width
+    size = ["--width", str(W), "--height", str(H)]
+    raster_k = raster_cuda.rasterize_tiles_cuda
+    trace_k = tb.bvh_cuda.trace_rays_cuda
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    launches, traces = {}, []
+
+    # (a) humandemo at 1920x1080: hair ribbons, SSSS, the rim spot, --orbit.
+    out = out_dir / "humandemo.png"
+    raster_k.launches_by_shape.clear()
+    r = humandemo.main(size + HUMAN_ARGV + ["--out", str(out)], device=dev)
+    by_shape = dict(raster_k.launches_by_shape)
+    S = r.cfg.shadow_map_size
+    want = bench.expected_launches_by_shape(r, 8)
+    if by_shape != want or want.get((S, S, True)) != 8 or "SSSS" not in [
+            p.name for p in r.pipeline.passes]:
+        raise AssertionError(f"humandemo: rasters {by_shape} against {want}")
+    check_png(out, (H, W))
+    launches["camera_hair"], launches["sun_hair"] = by_shape[H, W, False], by_shape[S, S, True]
+    res = r.benchmark(warmup=1, iters=8,
+                      before_frame=lambda i: humandemo.orbit(r.camera, i % 8, 8))
+    vis = r.state["Visibility"]
+    orig = r.state["vis.setup"].orig_tri[vis[vis >= 0].long()]
+    hair_px = int((r.scene_arrays.tri_instance[orig.long()] == len(r.scene.instances) - 1).sum())
+    if hair_px <= 0 or not bool(torch.isfinite(r.state["LDR"]).all()):
+        raise AssertionError(f"humandemo: {hair_px} hair pixels")
+    print(f"humandemo {W}x{H} (hair, SSSS, spot, --orbit): rasters in main's 8 frames "
+          f"{by_shape}; {res['ms_per_frame']:.4f} ms/frame (CUDA events, median of 8), "
+          f"{res['wall_ms_per_frame']:.4f} ms/frame (host clock), {hair_px} hair pixels "
+          f"[{card}]", flush=True)
+    print_frame_table(res, card)
+    rasters, _ = rb.capture_rasters(lambda: r.render_frame())
+    compare_and_time("camera_hair", f"humandemo camera {W}x{H} with hair ribbons, tile 8x16 "
+                     "(512 a tile)", 2, *rasters[H, W, False], rcfg=r.cfg.raster)
+    compare_and_time("sun_hair", f"humandemo sun {S}x{S} depth-only, every frame", 5,
+                     *rasters[S, S, True], rcfg=r.cfg.raster)
+    del r, rasters
+
+    # (b) streaming into the rt scene under the default 4 MiB budget.
+    scene, cam, cfg, kw = bench.build_scene("rt", small)
+    r = Renderer(scene, cam, cfg, device=dev, **kw)
+    seg = 1  # the first sphere's segment: a shared static BLAS
+    lim, mirror, sphere = scene.limits, scene._mirror, scene.segments[seg]
+    n = min(lim.max_drawables - len(scene.instances), len(scene._bvh_stream["free"]),
+            (lim.max_vertices - mirror["v_cursor"]) // sphere.positions.shape[0],
+            (lim.max_triangles - mirror["t_cursor"]) // sphere.num_triangles)
+    if n < 16:
+        raise AssertionError(f"streaming: room for {n} instances only")
+    xs = np.linspace(-4.5, 4.5, 8)
+    worlds = []
+    for i in range(n):
+        w = np.eye(4, dtype=np.float32)
+        w[:3, 3] = (xs[i % 8], 0.3 + 0.9 * (i // 32), -5.0 + 1.25 * ((i // 8) % 4) + 0.6 * (i % 2))
+        worlds.append(w)
+    r.render_frame()
+    ptrs = tensor_pointers(r.scene_arrays)
+    mgr = StreamingManager(scene)
+    tickets = [mgr.enqueue_instance(seg, w) for w in worlds]
+    ticks, loaded_at = [], None
+
+    def stream_step():
+        nonlocal loaded_at
+        r.scene_arrays = mgr.tick(r.scene_arrays)
+        ticks.append(mgr.bytes_uploaded_last_tick)
+        if loaded_at is None and all(t.state == LOADED for t in tickets):
+            loaded_at = len(ticks)
+        r.render_frame()
+
+    raster_k.launches_by_shape.clear()
+    trace_k.launches_by_label.clear()
+    with_ticks = timed_frames(stream_step, STREAM_FRAMES)
+    stream_rasters, stream_traces = dict(raster_k.launches_by_shape), dict(
+        trace_k.launches_by_label)
+    want_r = bench.expected_launches_by_shape(r, STREAM_FRAMES)
+    want_t = bench.expected_trace_launches_by_label(r, STREAM_FRAMES)
+    active = int(r.scene_arrays.bvh.inst_active.sum())
+    if stream_rasters != want_r or stream_traces != want_t or loaded_at is None or \
+            mgr.pending or active != len(scene.instances):
+        raise AssertionError(f"streaming: rasters {stream_rasters} against {want_r}, traces "
+                             f"{stream_traces} against {want_t}, loaded after {loaded_at}, "
+                             f"{active} active TLAS slots for {len(scene.instances)} instances")
+    if tensor_pointers(r.scene_arrays) != ptrs:
+        raise AssertionError("streaming replaced a pool tensor")
+    without = timed_frames(r.render_frame, STREAM_FRAMES)
+    twin = Renderer(*bench.build_scene("rt", small)[:3], device=dev, **kw)
+    twin.render_frame()
+    plain = timed_frames(twin.render_frame, STREAM_FRAMES)
+    del twin
+    print(f"streaming {n} spheres into the rt scene {W}x{H} (4 MiB a tick, "
+          f"{sum(t.bytes_total for t in tickets)} bytes in all): bytes a tick {ticks}, all "
+          f"LOADED after {loaded_at} frame(s); every pool tensor kept its storage; frames with "
+          f"ticks {[round(x, 4) for x in with_ticks['ms']]} ms (CUDA events; host clock "
+          f"{[round(x, 4) for x in with_ticks['host_ms']]}), then without ticks median "
+          f"{without['median_ms']:.4f} ms (host {without['median_host_ms']:.4f}), the scene "
+          f"without the spheres median {plain['median_ms']:.4f} ms (host "
+          f"{plain['median_host_ms']:.4f}) [{card}]", flush=True)
+    cases = tb.kind_traces(r, "stream")
+    if any(c["bvh"] is not r.scene_arrays.bvh for c in cases):
+        raise AssertionError("a streamed frame's trace walked another BVH than the scene's")
+    traces += check_kind_traces("stream", {"trace_launches": stream_traces,
+                                           "trace_launches_expected": want_t}, cases, 0)
+    res = r.benchmark(warmup=1, iters=8)
+    print(f"streamed rt scene {W}x{H}, {len(scene.instances)} instances: "
+          f"{res['ms_per_frame']:.4f} ms/frame (median of 8) [{card}]", flush=True)
+    print_frame_table(res, card)
+    del r, cases, mgr
+
+    def streamed_and_rebuilt(flags, after):
+        """The streamed frame ``after`` frames past the stream, and the frame
+        of the same index from a Renderer built with the spheres."""
+        sc, cm, cf, _ = bench.build_scene("rt", small)
+        rs = Renderer(sc, cm, cf, device=dev, taa=False, bloom=False, **flags)
+        rs.render_frame()
+        for w in worlds:
+            rs.scene_arrays = sc.stream_instance(rs.scene_arrays, seg, w)
+        for _ in range(after):
+            img_s = rs.render_frame()
+        sc, cm, cf, _ = bench.build_scene("rt", small)
+        for w in worlds:
+            sc.add_instance(seg, w)
+        rr = Renderer(sc, cm, cf, device=dev, taa=False, bloom=False, **flags)
+        for _ in range(rs.frame_index):
+            img_r = rr.render_frame()
+        return img_s.float(), img_r.float()
+
+    img_s, img_r = streamed_and_rebuilt({}, 1)
+    err = (img_s - img_r).abs().max().item()
+    if not err <= 1e-5:
+        raise AssertionError(f"streamed forward frame differs from the rebuilt one by {err}")
+    print(f"streamed forward frame {W}x{H} (SunShadow + LocalShadow) against the rebuilt "
+          f"scene's: max abs diff {err:.3e} (<= 1e-5) [{card}]", flush=True)
+    img_s, img_r = streamed_and_rebuilt(dict(rt_shadows=True, rt_reflections=True), 8)
+    mean, off = golden_bound(to_u8(img_s.cpu().numpy()), to_u8(img_r.cpu().numpy()))
+    if not (mean < 1.5 and off < 0.005):
+        raise AssertionError(f"streamed rt frame: mean abs diff {mean}, {off:.4%} off by > 24")
+    print(f"streamed rt frame {W}x{H} 8 frames on against the rebuilt scene's (a streamed TLAS "
+          f"leaf against a rebuilt tree): mean abs diff {mean:.4f} of 255 (< 1.5), {off:.4%} "
+          f"of values off by > 24 (< 0.5%) [{card}]", flush=True)
+    del img_s, img_r
+
+    # (c) the overlays through the showcase app at 1920x1080, 4 frames.
+    out = out_dir / "app_overlays.png"
+    raster_k.launches_by_shape.clear()
+    trace_k.launches_by_label.clear()
+    r = showcase.main(size + OVERLAY_FLAGS + ["--frames", "4", "--out", str(out)], device=dev)
+    by_shape, by_label = dict(raster_k.launches_by_shape), dict(trace_k.launches_by_label)
+    names = [p.name for p in r.pipeline.passes]
+    if by_shape != bench.expected_launches_by_shape(r, 5) or \
+            by_label != bench.expected_trace_launches_by_label(r, 5) or \
+            names[-3:] != ["DebugDraw", "DDGIProbeDebug", "IconBillboards"]:
+        raise AssertionError(f"app overlays: rasters {by_shape}, traces {by_label}, passes "
+                             f"{names}")
+    check_png(out, (H, W))
+    res = r.benchmark(warmup=1, iters=4)
+    print(f"app {W}x{H} --debug-draw --light-icons --ddgi --ddgi-probe-debug: 5 frames, "
+          f"rasters {by_shape}, traces {by_label}; DebugDraw "
+          f"{res['pass_ms']['DebugDraw']:.4f} ms, DDGIProbeDebug "
+          f"{res['pass_ms']['DDGIProbeDebug']:.4f} ms, IconBillboards "
+          f"{res['pass_ms']['IconBillboards']:.4f} ms (no local light in the app's scene), "
+          f"frame {res['ms_per_frame']:.4f} ms (median of 4) [{card}]", flush=True)
+    print_frame_table(res, card)
+    del r
+    imgs = []
+    for device in (dev, "cpu"):
+        args = showcase.build_arg_parser().parse_args(
+            ["--width", "128", "--height", "128"] + OVERLAY_FLAGS)
+        sc, cm = showcase.build_scene(args)
+        overlay_lights(sc)
+        rr = showcase.make_renderer(args, sc, cm, device)
+        rr.render_frame()
+        imgs.append(to_u8(rr.render_frame().cpu().numpy()).astype(int))
+    diff = np.abs(imgs[0] - imgs[1])
+    if not (diff.mean() < 0.3 and diff.max() <= 24):
+        raise AssertionError(f"app overlays 128^2 card vs CPU: mean {diff.mean()}, max "
+                             f"{diff.max()}")
+    print(f"app overlays 128x128 (+ 2 point lights and a spot: icons that overlap) card vs CPU: "
+          f"mean abs diff {diff.mean():.4f} of 255 (< 0.3), max {diff.max()} (<= 24) [{card}]",
+          flush=True)
+
+    # (d) geodata at 1920x1080: the app's grid and 1025^2.
+    for grid in grids:
+        out = out_dir / f"geodata_{grid}.png"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        raster_k.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        r = geodata.main(size + ["--frames", "4", "--grid", str(grid), "--out", str(out)],
+                         device=dev)
+        host_s = time.perf_counter() - t0
+        by_shape = dict(raster_k.launches_by_shape)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if by_shape != bench.expected_launches_by_shape(r, 4):
+            raise AssertionError(f"geodata {grid}: rasters {by_shape}")
+        check_png(out, (H, W))
+        launches[f"camera_terrain_{grid}"] = by_shape[H, W, False]
+        res = r.benchmark(warmup=1, iters=8)
+        counts = bench.frame_counts(r)
+        tris = [s.num_triangles for s in r.scene.segments]
+        print(f"geodata --grid {grid} {W}x{H}: {tris} triangles (fine, coarse), main() "
+              f"{host_s:.2f} s with the build; {res['ms_per_frame']:.4f} ms/frame (median of "
+              f"8), Geometry {res['pass_ms']['Geometry']:.4f} ms, SunShadow "
+              f"{res['pass_ms']['SunShadow']:.4f} ms; after culling {counts['visible_tris']} "
+              f"triangles, dropped bin entries camera {counts['overflow_camera']} sun "
+              f"{counts['overflow_sun']}; peak memory {peak:.3f} GiB [{card}]", flush=True)
+        print_frame_table(res, card)
+        rasters, _ = rb.capture_rasters(lambda: r.render_frame())
+        compare_and_time(f"camera_terrain_{grid}", f"geodata camera {W}x{H}, --grid {grid}, "
+                         "tile 8x16 (512 a tile)", 1, *rasters[H, W, False], rcfg=r.cfg.raster)
+        del r, rasters
+
+    # (e) meshviewer on the DamagedHelmet at 1024^2.
+    helmet = ROOT / "assets" / "sample" / "DamagedHelmet" / "DamagedHelmet.gltf"
+    V = viewer
+    raster_k.launches_by_shape.clear()
+    r = meshviewer.main([str(helmet), "--frames", "4", "--size", str(V), "--out",
+                         str(out_dir / "meshviewer_{frame}.png")], device=dev)
+    by_shape = dict(raster_k.launches_by_shape)
+    if by_shape != bench.expected_launches_by_shape(r, 4):
+        raise AssertionError(f"meshviewer: rasters {by_shape}")
+    for f in range(4):
+        check_png(out_dir / f"meshviewer_{f}.png", (V, V))
+    launches["camera_helmet_1024"] = by_shape[V, V, False]
+    rasters, _ = rb.capture_rasters(lambda: r.render_frame())
+    compare_and_time("camera_helmet_1024", f"meshviewer helmet camera {V}x{V}, tile 8x16 "
+                     "(512 a tile)", 2, *rasters[V, V, False], rcfg=r.cfg.raster)
+    del r, rasters
+    r = meshviewer.main([str(helmet), "--frames", "2", "--size", str(V), "--view", "normal",
+                         "--out", str(out_dir / "meshviewer_normal_{frame}.png")], device=dev)
+    for f in range(2):
+        check_png(out_dir / f"meshviewer_normal_{f}.png", (V, V))
+    if r.pipeline.passes[-1].name != "DebugVisualize":
+        raise AssertionError("meshviewer --view normal: no DebugVisualize pass")
+    print(f"meshviewer DamagedHelmet {V}x{V}: lit turntable 4 frames (rasters {by_shape}) and "
+          f"--view normal 2 frames, PNGs checked; phase 18 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    del r
+    return {"raster_launches": launches, "traces": traces}
 
 
 def main() -> None:
@@ -1180,6 +1526,10 @@ def main() -> None:
     # -- 17. translucency, the reference shading mode, the app on an .arklvl ----------
     translucency = run_translucency(dev, card, compare_and_time, run_kind)
 
+    # -- 18. hair, streaming, the overlays, geodata and meshviewer ---------------------
+    slice13 = run_slice13(dev, card, compare_and_time, check_kind_traces)
+    kind_traces += slice13["traces"]
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
         "camera": (PHASE8 + ("rt", "showcase", "rt_soft"), (H, W, False)),
@@ -1215,6 +1565,10 @@ def main() -> None:
         "replaces": TPU_KERNEL, "launches": translucency["launches"][name],
         **translucency["timed"][name], "library_ms": None,
     } for name in ("peel", "peel_app")]
+    rows += [{
+        "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": launches_18, **timed[name], "library_ms": None,
+    } for name, launches_18 in slice13["raster_launches"].items()]
 
     def trace_row(t, launches):
         return {

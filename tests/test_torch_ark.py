@@ -12,7 +12,8 @@ against the JAX package's copies of the same modules.
   rotation, which XLA computes with fused multiply-adds in the reference).
 * .arkskel / .arkanim written by one package and read by both drive equal
   poses; ``LevelDocument`` edits, ``sync_from_scene`` and ``write`` give
-  the reference's file; hair raises naming hair.
+  the reference's file; .arkhair strands (alone or named by a level
+  object) load into the reference's scene.
 """
 
 import json
@@ -258,23 +259,32 @@ def test_level_document_edit_sync_and_write(tree, tmp_path):
 
 
 def test_hair_raises_naming_hair_and_writes_the_reference_file(tree, tmp_path):
-    """.arkhair: the port writes the reference's file, and loading it, or a
-    level object naming it, raises NotImplementedError naming hair."""
+    """.arkhair: the port writes the reference's file; loading it, and a
+    level object naming it, gives the reference's scene (hair is ported
+    since: the load no longer raises), every build array equal."""
     rng = np.random.default_rng(1)
     pts, segs = rng.normal(size=(10, 3)).astype(np.float32), np.array([4, 4])
     tark.save_arkhair(tmp_path / "t.arkhair", pts, segs, thickness=0.02)
     jark.save_arkhair(tmp_path / "j.arkhair", pts, segs, thickness=0.02)
     assert (tmp_path / "t.arkhair").read_bytes() == (tmp_path / "j.arkhair").read_bytes()
-    ts, _ = scenes()
-    with pytest.raises(NotImplementedError, match="hair"):
-        tark.load_arkhair(ts, tmp_path / "t.arkhair")
+    ts, js = scenes()
+    assert tark.load_arkhair(ts, tmp_path / "t.arkhair") == jark.load_arkhair(
+        js, tmp_path / "t.arkhair")
+    assert ts.static_info().has_hair
     doc = json.loads(Path(tree["level"]).read_text())
     doc["level"]["objects"][1]["hair"] = "assets/strands.arkhair"
+    (Path(tree["level"]).parent / "strands.arkhair").write_bytes(
+        (tmp_path / "t.arkhair").read_bytes())
     level = Path(tree["level"]).with_name("hairy.arklvl")
     level.write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match="hair"):
-        tark.load_arklvl(ts, level)
+    ts, js = scenes()
+    assert tark.load_arklvl(ts, level)["missing"] == jark.load_arklvl(js, level)["missing"]
+    ours, ref = ts.build_host(), bridge.numpy_fields(js.build())
+    assert ts.static_info().hair_vertex_base == js.static_info().hair_vertex_base > 0
+    for name in sorted(ours):
+        assert_field_equal(name, ours[name], ref[name])
     level.unlink()
+    (Path(tree["level"]).parent / "strands.arkhair").unlink()
 
 
 def test_missing_and_corrupt_references_warn_and_skip(tree, tmp_path):

@@ -110,8 +110,10 @@ DDGI_UNPORTED = ["ddgi_probe_debug", "ddgi_sample_scale", "hair"]
 
 @pytest.mark.parametrize("option", DDGI_UNPORTED)
 def test_unported_ddgi_options_raise_by_name(option):
-    """DDGI is ported; its probe overlay, its reduced-rate sampling and a
-    hair scene under it are not, and raise NotImplementedError naming the
+    """DDGI is ported, and so are its probe overlay and a hair scene under
+    it: the overlay builds DDGIProbeDebug last, and the hair scene's DDGI
+    Renderer constructs as the reference's does (tracing the BVH as
+    built). Its reduced-rate sampling is not ported and raises naming the
     flag. Without them the same DDGI frame builds."""
     from arkoserenderer_torch.models.standard import Renderer
     from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
@@ -122,8 +124,11 @@ def test_unported_ddgi_options_raise_by_name(option):
                           scene=scene.static_info())
     grid = ProbeGridConfig()
     if option == "ddgi_probe_debug":
-        with pytest.raises(NotImplementedError, match=option):
-            t_make_pipeline(cfg, device="cpu", ddgi=grid, ddgi_probe_debug=True)
+        names = [p.name for p in t_make_pipeline(cfg, device="cpu", ddgi=grid,
+                                                 ddgi_probe_debug=True).passes]
+        assert names[2] == "DDGI" and names[-1] == "DDGIProbeDebug"
+        assert "DDGIProbeDebug" not in [p.name for p in t_make_pipeline(
+            cfg, device="cpu", ddgi_probe_debug=True).passes]  # without DDGI: no overlay
     elif option == "ddgi_sample_scale":
         with pytest.raises(NotImplementedError, match=option):
             t_make_pipeline(dataclasses.replace(cfg, ddgi_sample_scale=2), device="cpu",
@@ -131,8 +136,8 @@ def test_unported_ddgi_options_raise_by_name(option):
     else:
         hair = dataclasses.replace(scene.static_info(), has_hair=True)
         scene.static_info = lambda: hair
-        with pytest.raises(NotImplementedError, match="hair"):
-            Renderer(scene, cam, cfg, device="cpu", ddgi=True)
+        r = Renderer(scene, cam, cfg, device="cpu", ddgi=True)
+        assert r.cfg.scene.has_hair and "BVHRefit" not in [p.name for p in r.pipeline.passes]
         scene.static_info = lambda: dataclasses.replace(hair, has_hair=False)
     r = Renderer(scene, cam, cfg, device="cpu", ddgi=True)
     assert [p.name for p in r.pipeline.passes][:3] == ["Scene", "Geometry", "DDGI"]
@@ -145,8 +150,10 @@ def test_unported_ddgi_options_raise_by_name(option):
 def test_ssss_and_refit_construct_and_their_unported_branches_raise(case):
     """``ssss`` and ``rt_refit`` are ported and construct in the reference's
     places (SSSS after LightingCompose, BVHRefit after Geometry when a pass
-    traces rays); hair raises naming it. SSSS's temporal branch constructs
-    when asked for, and under the stochastic texture qualities by default."""
+    traces rays); a hair scene, ported since, builds the reference's
+    forward passes with the sun map rastered every frame. SSSS's temporal
+    branch constructs when asked for, and under the stochastic texture
+    qualities by default."""
     from arkoserenderer_torch.rendering.passes.ssss import SSSSPass
     from arkoserenderer_torch.scene.scene import SceneStatic
 
@@ -163,9 +170,11 @@ def test_ssss_and_refit_construct_and_their_unported_branches_raise(case):
         assert names(cfg, rt_refit=True, rt_shadows=True)[:4] == [
             "Scene", "Geometry", "BVHRefit", "RTShadow"]
     elif case == "hair":
-        with pytest.raises(NotImplementedError, match="hair"):
-            t_make_pipeline(dataclasses.replace(cfg, scene=SceneStatic(has_hair=True)),
-                            device="cpu")
+        pipe = t_make_pipeline(dataclasses.replace(cfg, scene=SceneStatic(has_hair=True)),
+                               device="cpu")
+        assert [p.name for p in pipe.passes][:4] == ["Scene", "Geometry", "SunShadow",
+                                                     "VisibilityShading"]
+        assert "ShadowMap.sun" not in pipe.registry.persistent_names
     else:
         for sto_cfg, kw in ((cfg, dict(temporal=True)),
                             (dataclasses.replace(cfg, texture_quality="stochastic1"), {})):

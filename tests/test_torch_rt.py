@@ -183,12 +183,15 @@ UNPORTED_RT = {
                   dict(rt_shadows=True), "source_radius"),
     "soft point": (dict(n_points=1, point_shadow_casters=(True,), point_source_radius=(0.05,)),
                    dict(rt_shadows=True), "source_radius"),
-    # The refit is ported (test_torch_refit.py); hair, which it would
-    # re-read, is not.
+    # The refit is ported (test_torch_refit.py), and hair since: it builds.
     "hair": (dict(has_hair=True), dict(rt_shadows=True, rt_refit=True), "hair"),
-    # DDGI is ported (test_torch_showcase.py); its probe overlay is not.
+    # DDGI is ported (test_torch_showcase.py), and its probe overlay since;
+    # without DDGI the flag adds no pass, as in the reference.
     "ddgi": ({}, dict(rt_reflections=True, ddgi_probe_debug=True), "ddgi_probe_debug"),
 }
+# Ported since they were listed: the pipeline the reference builds.
+PORTED_RT = {"hair": ["Scene", "Geometry", "BVHRefit", "RTShadow", "VisibilityShading"],
+             "ddgi": ["Scene", "Geometry", "SunShadow", "VisibilityShading", "RTReflections"]}
 
 
 # Soft RT shadows are ported (test_torch_soft_shadows.py): these cases now
@@ -226,14 +229,20 @@ def test_unported_rt_options_raise_by_name(case):
         t_make_pipeline(_cfg(**scene), device="cpu", **flags)
         _render_soft(case)
         return
+    if case in PORTED_RT:
+        names = [p.name for p in t_make_pipeline(_cfg(**scene), device="cpu", **flags).passes]
+        assert names[:5] == PORTED_RT[case] and "DDGIProbeDebug" not in names
+        return
     with pytest.raises(NotImplementedError, match=name):
         t_make_pipeline(_cfg(**scene), device="cpu", **flags)
 
 
 def test_rt_scale_and_deformable_scenes_raise_by_name():
-    """Half-rate tracing and hair are not ported. A skinned or morphed scene
-    under RT refits its BVH every frame (BVHRefit after Geometry, unless
-    the caller turns rt_refit off); a rigid one does not."""
+    """Half-rate tracing is not ported. A hair scene (ported since) under RT
+    builds as the reference's does: the BVH traced as built, no refit of
+    the ribbons. A skinned or morphed scene under RT refits its BVH every
+    frame (BVHRefit after Geometry, unless the caller turns rt_refit off);
+    a rigid one does not."""
     import arkoserenderer_torch.assets.procedural as tproc
     from arkoserenderer_torch.models.standard import Renderer
 
@@ -242,8 +251,9 @@ def test_rt_scale_and_deformable_scenes_raise_by_name():
     scene, cam = tproc.build_test_scene(viewport=(32, 16))
     rigid = scene.static_info()
     scene.static_info = lambda: dataclasses.replace(rigid, has_hair=True)
-    with pytest.raises(NotImplementedError, match="hair"):
-        Renderer(scene, cam, _cfg(), device="cpu", rt_reflections=True)
+    r = Renderer(scene, cam, _cfg(), device="cpu", rt_reflections=True)
+    assert [p.name for p in r.pipeline.passes][1:4] == ["Geometry", "SunShadow",
+                                                         "VisibilityShading"]
     scene.static_info = lambda: dataclasses.replace(rigid, has_skin=True)
     r = Renderer(scene, cam, _cfg(), device="cpu", rt_shadows=True, rt_reflections=True)
     assert [p.name for p in r.pipeline.passes][1:7] == [

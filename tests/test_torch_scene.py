@@ -176,6 +176,10 @@ UNPORTED = [("rt_shadows", True), ("rt_reflections", True), ("ddgi", True),
 # Flags this test held as unported that are ported since, with a value that
 # turns them on: each builds its pass and matches the reference's pipeline.
 PORTED_FLAGS = [("oit_layers", 2)]
+# The debug overlays, ported since: each flag builds its overlay pass last,
+# in the reference's pipeline order (DDGIProbeDebug only with DDGI).
+PORTED_OVERLAYS = {"ddgi_probe_debug": "DDGIProbeDebug", "light_icons": "IconBillboards",
+                   "debug_draw": "DebugDraw"}
 # Flags that are ported in part, with the config change whose branch is not
 # and still raises naming the flag: half-rate ray tracing (of RT shadows and
 # of RT reflections) and reduced-rate DDGI sampling. (Soft ray-traced
@@ -187,21 +191,42 @@ PARTLY_PORTED = {"rt_shadows": {"rt_scale": 2},
 
 @pytest.mark.parametrize("flag,value", UNPORTED, ids=[f for f, _ in UNPORTED])
 def test_unported_flags_raise_by_name(flag, value):
+    """The partly ported flags raise naming the flag under the config
+    change whose branch is not ported; the debug overlays build their pass
+    last, as the reference's make_forward_pipeline orders them."""
     import dataclasses
 
-    from arkoserenderer_torch.models.standard import UNPORTED_FLAGS, make_forward_pipeline
+    from arkoserenderer_torch.models.standard import make_forward_pipeline
+    from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
+    from arkoserenderer_torch.rendering.passes.debugdraw import DebugLineBuffer
     from arkoserenderer_torch.rendering.pipeline import PipelineConfig
-    from arkoserenderer_torch.scene.scene import SceneStatic
+    from arkoserenderer_tpu.models.standard import make_forward_pipeline as j_make
+    from arkoserenderer_tpu.ops.ddgi import ProbeGridConfig as JGrid
+    from arkoserenderer_tpu.rendering.passes.debugdraw import DebugLineBuffer as JBuffer
+    from arkoserenderer_tpu.rendering.pipeline import PipelineConfig as JPipelineConfig
 
     cfg = PipelineConfig(width=32, height=16, shadow_map_size=32)
-    with pytest.raises(NotImplementedError, match=flag):
-        change = dict(PARTLY_PORTED.get(flag, {}))
-        if "scene" in change:
-            change["scene"] = SceneStatic(**change["scene"])
-        make_forward_pipeline(dataclasses.replace(cfg, **change), device="cpu", **{flag: value})
+    if flag in PORTED_OVERLAYS:
+        from arkoserenderer_torch.core.types import RasterConfig
+        from arkoserenderer_tpu.core.types import RasterConfig as JRasterConfig
+
+        tile = dict(tile_h=8, tile_w=16, max_tris_per_tile=64)
+        kw = {flag: DebugLineBuffer() if flag == "debug_draw" else True}
+        jkw = {flag: JBuffer() if flag == "debug_draw" else True}
+        if flag == "ddgi_probe_debug":
+            kw["ddgi"], jkw["ddgi"] = ProbeGridConfig(), JGrid()
+        names = [p.name for p in make_forward_pipeline(
+            dataclasses.replace(cfg, raster=RasterConfig(**tile)), device="cpu", **kw).passes]
+        ref = [p.name for p in j_make(JPipelineConfig(
+            width=32, height=16, shadow_map_size=32, raster=JRasterConfig(**tile)), **jkw).passes]
+        assert names == ref and names[-1] == PORTED_OVERLAYS[flag]
+    else:
+        with pytest.raises(NotImplementedError, match=flag):
+            make_forward_pipeline(dataclasses.replace(cfg, **PARTLY_PORTED[flag]),
+                                  device="cpu", **{flag: value})
     with pytest.raises(TypeError):
         make_forward_pipeline(cfg, device="cpu", no_such_flag=True)
-    assert set(UNPORTED_FLAGS) | set(PARTLY_PORTED) == {f for f, _ in UNPORTED}
+    assert set(PORTED_OVERLAYS) | set(PARTLY_PORTED) == {f for f, _ in UNPORTED}
 
 
 @pytest.mark.parametrize("flag,value", PORTED_FLAGS, ids=[f for f, _ in PORTED_FLAGS])
@@ -225,19 +250,22 @@ def test_ported_flags_build_and_match_jax(flag, value):
 
 @pytest.mark.parametrize("keyword", ["debug_draw"])
 def test_unported_renderer_keywords_raise_by_name(keyword):
-    """The reference's Renderer keywords of unported features raise
-    NotImplementedError naming the keyword, before anything is built; off,
-    they are accepted."""
+    """The reference's Renderer keyword ``debug_draw``, ported since: on, the
+    Renderer keeps a line buffer and ends its pipeline with DebugDraw, as
+    the reference's does; off, it has neither."""
     from arkoserenderer_torch.core.types import RasterConfig
     from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.rendering.passes.debugdraw import DebugLineBuffer
     from arkoserenderer_torch.rendering.pipeline import PipelineConfig
 
     scene, cam = t_build_test_scene(viewport=(32, 16))
     cfg = PipelineConfig(width=32, height=16, shadow_map_size=32,
                          raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=64))
-    with pytest.raises(NotImplementedError, match=keyword):
-        Renderer(scene, cam, cfg, device="cpu", **{keyword: True})
-    Renderer(scene, cam, cfg, device="cpu", taa=False, bloom=False, **{keyword: False})
+    on = Renderer(scene, cam, cfg, device="cpu", **{keyword: True})
+    assert isinstance(on.debug, DebugLineBuffer)
+    assert [p.name for p in on.pipeline.passes][-3:] == ["TAA", "Output", "DebugDraw"]
+    off = Renderer(scene, cam, cfg, device="cpu", taa=False, bloom=False, **{keyword: False})
+    assert off.debug is None and "DebugDraw" not in [p.name for p in off.pipeline.passes]
 
 
 def test_pipelines_build_in_reference_order():
@@ -300,6 +328,13 @@ def test_port_imports_neither_jax_nor_reference():
         "import arkoserenderer_torch.assets.bc7, arkoserenderer_torch.assets.cereal_binary\n"
         "import arkoserenderer_torch.core.logging, arkoserenderer_torch.tools.ark_level\n"
         "import arkoserenderer_torch.rendering.passes.translucent\n"
+        "import arkoserenderer_torch.core.taskgraph, arkoserenderer_torch.rendering.streaming\n"
+        "import arkoserenderer_torch.rendering.passes.debugdraw\n"
+        "import arkoserenderer_torch.rendering.passes.debugviz\n"
+        "import arkoserenderer_torch.rendering.passes.icons\n"
+        "import arkoserenderer_torch.rendering.passes.ddgi_debug\n"
+        "import arkoserenderer_torch.apps.humandemo, arkoserenderer_torch.apps.meshviewer\n"
+        "import arkoserenderer_torch.apps.geodata\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('arkoserenderer_tpu') or k == 'PIL'\n"
         "             or k.startswith('PIL.'))\n"
@@ -309,7 +344,7 @@ def test_port_imports_neither_jax_nor_reference():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 70  # every module of the slices was imported
+    assert int(res.stdout.split()[0]) >= 90  # every module of the slices was imported
 
 
 def test_renderer_device_is_explicit():
@@ -327,7 +362,7 @@ def test_renderer_device_is_explicit():
 
 
 def _entry_points():
-    from arkoserenderer_torch.apps import showcase
+    from arkoserenderer_torch.apps import geodata, humandemo, meshviewer, showcase
     from arkoserenderer_torch.models.standard import Renderer, make_forward_pipeline
     from arkoserenderer_torch.rendering.pipeline import RenderPipeline
     from arkoserenderer_torch.scene.camera import Camera
@@ -338,12 +373,14 @@ def _entry_points():
             "RenderPipeline": RenderPipeline.__init__, "Scene.build": Scene.build,
             "Camera.state": Camera.state, "showcase.main": showcase.main,
             "showcase.make_renderer": showcase.make_renderer,
-            "memstats.snapshot": memstats.snapshot}
+            "memstats.snapshot": memstats.snapshot, "humandemo.main": humandemo.main,
+            "geodata.main": geodata.main, "meshviewer.main": meshviewer.main}
 
 
 @pytest.mark.parametrize("name", ["Renderer", "make_forward_pipeline", "RenderPipeline",
                                   "Scene.build", "Camera.state", "showcase.main",
-                                  "showcase.make_renderer", "memstats.snapshot"])
+                                  "showcase.make_renderer", "memstats.snapshot",
+                                  "humandemo.main", "geodata.main", "meshviewer.main"])
 def test_entry_points_default_to_the_card(name):
     """The port runs on the card unless the caller asks for the CPU; the
     check reads the signature and builds nothing."""

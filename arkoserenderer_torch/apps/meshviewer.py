@@ -6,14 +6,16 @@ drills into one segment (bounds, UV range, meshlet statistics, the
 instances and LOD bands that use it), applies material edits and saves the
 scene as a baked .npz, counts meshlets, and renders a turntable in the lit
 pipeline or one G-buffer channel (``--view``, the DebugVisualize pass's
-modes). It renders on the card unless ``main``'s ``device`` asks for the
-CPU. ``--interactive`` (the reference's web orbit view) is not ported yet
-and raises NotImplementedError naming it before anything is loaded.
+modes), or with ``--interactive`` serves an orbit view over HTTP (the web
+System, ``system/webviewer.py``) until ``--frames`` frames ran (0: until
+Ctrl-C). It renders on the card unless ``main``'s ``device`` asks for the
+CPU.
 
 Usage:
   python -m arkoserenderer_torch.apps.meshviewer model.gltf --frames 8
   python -m arkoserenderer_torch.apps.meshviewer a.npz --inspect-segment 0
   python -m arkoserenderer_torch.apps.meshviewer a.npz --view normal
+  python -m arkoserenderer_torch.apps.meshviewer model.gltf --interactive --port 8667
   python -m arkoserenderer_torch.apps.meshviewer a.npz \\
       --set-material 1 roughness_factor=0.2 metallic_factor=1 --save b.npz
 """
@@ -23,6 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -123,7 +126,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--save", type=str, default=None,
                     help="write the (possibly edited) scene as baked .npz")
     ap.add_argument("--interactive", action="store_true",
-                    help="serve an orbit view over HTTP (not ported yet)")
+                    help="serve an orbit view over HTTP")
     ap.add_argument("--port", type=int, default=8667)
     return ap
 
@@ -189,12 +192,44 @@ def turntable_eye(center, radius: float, f: int, frames: int) -> np.ndarray:
     return center + radius * 2.0 * np.array([np.cos(angle), 0.35, np.sin(angle)], np.float32)
 
 
+def serve_orbit(args, r, center, radius) -> None:
+    """``--interactive``: the web System on ``--port`` shows the asset
+    orbiting at 0.4 rad/s of the host's clock, with the frame's ms (the
+    device synchronised before the clock stops), until the page quits,
+    Ctrl-C or ``--frames`` frames."""
+    from arkoserenderer_torch.apps.showcase import sync_device
+    from arkoserenderer_torch.system.webviewer import WebSystem
+
+    sysb = WebSystem(port=args.port)
+    sysb.create_window(args.size, args.size, "meshviewer")
+    print(f"meshviewer: http://127.0.0.1:{sysb.port}/  (Ctrl-C to stop)", flush=True)
+    t0 = time.perf_counter()
+    n = 0
+    try:
+        while sysb.new_frame():
+            angle = 0.4 * (time.perf_counter() - t0)
+            eye = center + radius * 2.0 * np.array([np.cos(angle), 0.35, np.sin(angle)],
+                                                   np.float32)
+            r.camera.look_at(eye, center)
+            ts = time.perf_counter()
+            img = r.render_frame()
+            sync_device(r.device)
+            ms = (time.perf_counter() - ts) * 1e3
+            sysb.present(img)
+            sysb.publish_stats(frame=n, ms=ms)
+            n += 1
+            if args.frames and n >= args.frames:
+                break
+    except KeyboardInterrupt:
+        pass
+    finally:
+        sysb.stop()
+
+
 def main(argv=None, device="cuda"):
     """Run the viewer with ``argv`` on ``device``; returns the Renderer of
-    the turntable (the Scene under ``--no-render``)."""
+    the turntable or the orbit view (the Scene under ``--no-render``)."""
     args = build_arg_parser().parse_args(argv)
-    if args.interactive:
-        raise NotImplementedError("--interactive (the web orbit view) is not ported yet")
     scene = load_asset(args.asset)
     print(describe(scene))
     if args.inspect_segment is not None:
@@ -217,6 +252,9 @@ def main(argv=None, device="cuda"):
     from arkoserenderer_torch.utils.imageio import save_png
 
     r, cam, center, radius = make_renderer(args, scene, torch.device(device))
+    if args.interactive:
+        serve_orbit(args, r, center, radius)
+        return r
     for f in range(args.frames):
         cam.look_at(turntable_eye(center, radius, f, args.frames), center)
         save_png(args.out.format(frame=f), r.render_frame().cpu().numpy())

@@ -181,7 +181,9 @@ def make_renderer(args, scene, cam, device="cuda", **cfg_kw):
     return r
 
 
-def _sync(device: torch.device) -> None:
+def sync_device(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU):
+    the apps stop their host clock after it."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -195,11 +197,11 @@ def render(args, r) -> dict:
     from arkoserenderer_torch.utils.imageio import save_png
 
     out = r.render_frame()
-    _sync(r.device)
+    sync_device(r.device)
     t0 = time.perf_counter()
     for _ in range(args.frames):
         out = r.render_frame()
-    _sync(r.device)
+    sync_device(r.device)
     dt = (time.perf_counter() - t0) / max(args.frames, 1)
     timings = None
     if args.timings:

@@ -183,6 +183,22 @@ def apply_jitter(proj, jitter_x, jitter_y, width: int, height: int) -> np.ndarra
     return proj + delta
 
 
+def np_quat_rotate(q, v) -> np.ndarray:
+    """Rotate vector(s) v by quaternion(s) q (the host controllers' and the
+    gizmo's; ``quat_rotate`` is the tensor version)."""
+    qv = q[..., :3]
+    qw = q[..., 3:4]
+    t = 2.0 * np.cross(qv, v)
+    return v + qw * t + np.cross(qv, t)
+
+
+def np_transform_points_h(m, p) -> np.ndarray:
+    """(4, 4) @ (N, 3) homogeneous -> (N, 4) clip positions, on the host."""
+    r = p @ np.swapaxes(m[..., :3, :3], -1, -2) + m[..., None, :3, 3]
+    w = p @ m[..., 3, :3] + m[..., None, 3, 3]
+    return np.concatenate([r, w[..., None]], axis=-1)
+
+
 # ---------------------------------------------------------------------------
 # Tensors
 

@@ -208,12 +208,37 @@ result line):
      bit for bit and timed; (e) meshviewer on the DamagedHelmet at 1024^2:
      the lit turntable (4 frames, the camera raster bit for bit and timed)
      and --view normal, the PNGs checked.
+ 19. the live viewer and its systems: (a) ``apps/viewer.main`` at 1920x1080
+     in a thread, 24 frames on a free port, driven over HTTP: ``w`` down and
+     up, a click on the sphere at the frame's centre (the pick selects it),
+     ``select 0``, ``g`` and ``ArrowUp`` held; the PNG, /stats and
+     /hierarchy read back; the moved instance's world on the device equal
+     to the host's; a camera and a 512^2 sun raster every frame (and
+     time_passes' on frame 0); frames a second of the loop, ms/frame by
+     CUDA events and by the host's clock, the LDR's readback and
+     encode_png's ms each frame, the per-pass table of one --timings-every
+     frame; then the viewer's camera and sun rasters bit for bit against
+     the plain raster and timed as in phase 3; (b) the same scripted
+     session through the viewer loop at 128^2 (fixed dt) on the card and on
+     the CPU: transforms and camera equal, the last LDR within the goldens'
+     bound; (c) BuiltinPhysicsBackend's stack of four boxes and a thrown
+     ball committed each frame into Renderer(dynamic_transforms=True) at
+     1920x1080, 16 frames: ms/frame, the host's step + commit and upload
+     ms, peak memory, the bodies' coverage moving every frame, the vertex
+     and index pools kept; (d) hot reload: a ModuleWatcher poll after a
+     watched module changes, reconstruct(rebuild_passes=True) on (a)'s
+     renderer keeping TAAHistory bit for bit, ops/raster_cuda reloaded and
+     the next frame's rasters through the kernel with build/kernels
+     unchanged; (e) profiling.trace around two frames with a zone each: the
+     trace names the zones and raster_tiles_kernel; (f) meshviewer
+     --interactive on the DamagedHelmet at 1024^2 over HTTP, 4 frames.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
 per-frame ddgi sun, helmet camera, the app's camera and sun, the translucent
 kind's and the app's peel layers, humandemo's camera with hair and its sun,
-the terrain cameras at both grids and meshviewer's 1024^2 helmet camera),
+the terrain cameras at both grids, meshviewer's 1024^2 helmet camera and
+the live viewer's camera and per-frame 512^2 sun),
 each with its launches in the runs of the frame kinds or apps that launch
 it, and one entry per trace the traversal kernel serves in the rt,
 showcase, flagship, ddgi, helmet and rt_soft frames, the pathtraced sample,
@@ -227,7 +252,9 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import re
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -277,6 +304,9 @@ OVERLAY_FLAGS = ["--debug-draw", "--light-icons", "--ddgi", "--ddgi-probe-debug"
 STREAM_FRAMES = 8
 TERRAIN_GRIDS = (257, 1025)
 VIEWER_SIZE = 1024
+# Phase 19: the live viewer's frames, the scripted session's size, the
+# physics frames and meshviewer --interactive's frames.
+VIEWER_FRAMES, SESSION_SIZE, PHYSICS_FRAMES, MESHVIEWER_FRAMES = 24, 128, 16, 4
 
 
 def random_case(rng, n, big: bool, width: int, height: int):
@@ -996,6 +1026,489 @@ def run_slice13(dev, card: str, compare_and_time, check_kind_traces, width: int 
     return {"raster_launches": launches, "traces": traces}
 
 
+def free_port() -> int:
+    """A free TCP port on localhost."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class HttpClient:
+    """GETs and POSTs against a local viewer; raises if the serving
+    thread has failed (``result["error"]``)."""
+
+    def __init__(self, port: int, result: dict):
+        self.base = f"http://127.0.0.1:{port}"
+        self.result = result
+
+    def get(self, path: str) -> bytes:
+        import urllib.request
+
+        self.check()
+        return urllib.request.urlopen(self.base + path, timeout=120).read()
+
+    def post(self, ev: dict) -> None:
+        import urllib.request
+
+        self.check()
+        rq = urllib.request.Request(self.base + "/event", data=json.dumps(ev).encode(),
+                                    method="POST")
+        urllib.request.urlopen(rq, timeout=120).read()
+
+    def stats(self) -> dict:
+        return json.loads(self.get("/stats"))
+
+    def check(self) -> None:
+        if "error" in self.result:
+            raise AssertionError(f"the viewer's thread failed: {self.result['error']}")
+
+    def first_png(self, timeout_s: float = 300.0) -> bytes:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout_s:
+            try:
+                png = self.get("/frame.png")
+                if png:
+                    return png
+            except OSError:
+                pass
+            time.sleep(0.05)
+        raise AssertionError(f"no frame served within {timeout_s} s")
+
+    def wait(self, cond, frames_timeout_s: float = 120.0) -> dict:
+        """Poll /stats until ``cond(stats)``; returns the stats."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < frames_timeout_s:
+            st = self.stats()
+            if cond(st):
+                return st
+            time.sleep(0.01)
+        raise AssertionError(f"the viewer's stats never met the condition: {self.stats()}")
+
+
+def serve_in_thread(fn, result: dict):
+    """Run ``fn()`` in a daemon thread; its return value lands in
+    result["value"], its exception (repr) in result["error"]."""
+    import threading
+
+    def body():
+        try:
+            result["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - the main thread raises it
+            result["error"] = repr(e)
+            raise
+
+    th = threading.Thread(target=body, daemon=True)
+    th.start()
+    return th
+
+
+def join_served(th, result: dict, what: str) -> object:
+    th.join(timeout=600)
+    if th.is_alive() or "error" in result:
+        raise AssertionError(f"{what}: thread alive {th.is_alive()}, {result.get('error')}")
+    return result["value"]
+
+
+# Phase 19 (b): the scripted session (frame, method, args); the click lands
+# on the middle sphere at the frame's centre, the select picks the box.
+def session_script(size: int) -> list:
+    c = size // 2
+    return [
+        (0, "push_key_down", ("w",)), (0, "push_mouse_move", (10.0, 5.0)),
+        (1, "click", (c, c)),
+        (2, "push_key_up", ("w",)), (2, "push_key_down", ("ArrowRight",)),
+        (3, "push_key_down", ("g",)), (3, "push_key_down", ("PageUp",)),
+        (4, "push_key_up", ("g",)),
+        (5, "push_key_down", ("g",)), (5, "push_mouse_move", (4.0, 9.0)),
+        (6, "push_key_up", ("g",)), (6, "push_key_up", ("ArrowRight",)), (6, "select", (4,)),
+        (7, "push_key_up", ("PageUp",)), (7, "push_key_down", ("ArrowUp",)),
+    ]
+
+
+def physics_stack_scene(width: int, height: int):
+    """Phase 19 (c): the test scene (one sphere, the physics' ball) with a
+    stack of four unit boxes over the floor; returns (scene, camera, instance ids of the
+    boxes, the sphere's instance)."""
+    from arkoserenderer_torch.assets.procedural import build_test_scene, make_box
+    from arkoserenderer_torch.scene.scene import Material
+
+    scene, cam = build_test_scene(viewport=(width, height), n_spheres=1)
+    mat = scene.add_material(Material(base_color_factor=np.array([0.85, 0.6, 0.2, 1.0],
+                                                                 np.float32),
+                                      roughness_factor=0.5))
+    box = make_box((1.0, 1.0, 1.0))
+    box.material = mat
+    seg = scene.add_segment(box)
+    boxes = []
+    for k in range(4):
+        w = np.eye(4, dtype=np.float32)
+        w[:3, 3] = (1.6, 0.5 + 1.001 * k, 0.6)
+        boxes.append(scene.add_instance(seg, w))
+    return scene, cam, boxes, 1
+
+
+def run_slice14(dev, card: str, compare_and_time, width: int = 1920, height: int = 1080,
+                frames: int = VIEWER_FRAMES, timings: bool = True,
+                session: int = SESSION_SIZE, helmet_size: int = VIEWER_SIZE) -> dict:
+    """Phase 19 (see the module docstring): the live viewer through
+    ``viewer.main`` over HTTP, a scripted session card against CPU, physics
+    into a dynamic Renderer, hot reload, profiling and meshviewer
+    --interactive. Returns {"raster_launches": the viewer's camera and sun
+    rasters' launches in (a)}."""
+    import importlib
+
+    from arkoserenderer_torch.apps import meshviewer, viewer
+    from arkoserenderer_torch.models import standard
+    from arkoserenderer_torch.ops import raster_cuda
+    from arkoserenderer_torch.physics.backend import (
+        BodyDesc,
+        BuiltinPhysicsBackend,
+        PhysicsScene,
+    )
+    from arkoserenderer_torch.system.webviewer import WebSystem
+    from arkoserenderer_torch.tools import bench
+    from arkoserenderer_torch.tools import raster_bench as rb
+    from arkoserenderer_torch.utils import profiling
+    from arkoserenderer_torch.utils.hotreload import ModuleWatcher
+    from arkoserenderer_torch.utils.imageio import decode_png, to_u8
+
+    H, W = height, width
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+
+    def counts() -> dict:
+        # Looked up each time: (d) reloads the wrapper's module.
+        return dict(raster_cuda.rasterize_tiles_cuda.launches_by_shape)
+
+    def zero_counts() -> None:
+        raster_cuda.rasterize_tiles_cuda.launches_by_shape.clear()
+
+    # (a) the live viewer through viewer.main, driven over HTTP.
+    class TimedWebSystem(WebSystem):
+        """The web System, timing each present: the LDR's copy to the
+        host and encode_png, and when the frame was presented."""
+
+        def __init__(self, port):
+            super().__init__(port=port)
+            self.readback_ms, self.encode_ms, self.presented_at = [], [], []
+
+        def present(self, ldr_image):
+            t0 = time.perf_counter()
+            host = ldr_image.cpu()
+            t1 = time.perf_counter()
+            super().present(host)
+            t2 = time.perf_counter()
+            self.readback_ms.append((t1 - t0) * 1e3)
+            self.encode_ms.append((t2 - t1) * 1e3)
+            self.presented_at.append(t2)
+
+    events, holder = [], {}
+    plain_render = standard.Renderer.render_frame
+
+    def timed_render(self, *a, **kw):
+        holder["renderer"] = self
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = plain_render(self, *a, **kw)
+        end.record()
+        events.append((start, end, t0))
+        return out
+
+    port = free_port()
+    sysb = TimedWebSystem(port)
+    argv = ["--width", str(W), "--height", str(H), "--port", str(port), "--frames", str(frames)]
+    if timings:
+        argv += ["--timings-every", "1000"]  # the per-pass table on frame 0 only
+    result = {}
+    standard.Renderer.render_frame = timed_render
+    zero_counts()
+    try:
+        th = serve_in_thread(lambda: viewer.main(argv, device=dev, system=sysb), result)
+        client = HttpClient(port, result)
+        png = client.first_png()
+        client.post({"type": "keydown", "key": "w"})
+        n0 = client.wait(lambda s: s["frame"] >= 1)["frame"]
+        client.wait(lambda s: s["frame"] >= n0 + 2)
+        client.post({"type": "keyup", "key": "w"})
+        client.post({"type": "click", "x": W // 2, "y": H // 2})
+        picked = client.wait(lambda s: s.get("selected", -1) >= 0)["selected"]
+        client.post({"type": "select", "instance": 0})
+        client.wait(lambda s: s.get("selected") == 0)
+        client.post({"type": "keydown", "key": "g"})
+        client.post({"type": "keyup", "key": "g"})
+        st = client.wait(lambda s: s.get("gizmo", "translate") != "translate")
+        client.post({"type": "keydown", "key": "ArrowUp"})
+        n1 = client.wait(lambda s: s["frame"] >= st["frame"] + 1)["frame"]
+        client.wait(lambda s: s["frame"] >= n1 + 3)
+        client.post({"type": "keyup", "key": "ArrowUp"})
+        page = client.get("/")
+        last_png = client.get("/frame.png")
+        stats = client.stats()
+        hier = json.loads(client.get("/hierarchy"))
+        rc = join_served(th, result, "viewer.main")
+    finally:
+        standard.Renderer.render_frame = plain_render
+    by_shape = counts()
+    r = holder["renderer"]
+    scene = r.scene
+    torch.cuda.synchronize()
+    dev_ms = [s.elapsed_time(e) for s, e, _ in events]
+    host_ms = [(p - t0) * 1e3 - rd - enc for (_, _, t0), p, rd, enc in
+               zip(events, sysb.presented_at, sysb.readback_ms, sysb.encode_ms)]
+    img = decode_png(last_png)
+    want = bench.expected_launches_by_shape(r, frames)
+    if timings:  # time_passes: two whole frames, then Geometry and SunShadow twice each
+        want = {k: v + 4 for k, v in want.items()}
+    S = r.cfg.shadow_map_size
+    world_dev = r.scene_arrays.world[0].cpu().numpy()
+    checks = {
+        "rc": rc == 0, "png": decode_png(png).shape == (H, W, 3) and img.shape == (H, W, 3)
+        and img.std() > 5, "page": b"viewer" in page,
+        "frames": stats["frame"] >= 1 and stats["ms"] > 0
+        and len(dev_ms) == len(sysb.presented_at) == frames,
+        "picked the centre's sphere": picked == 2,
+        "selected": stats["selected"] == 0, "gizmo": stats["gizmo"] == "rotate",
+        "hierarchy": len(hier) == len(scene.instances) and hier[0]["instance"] == 0,
+        "moved on the device as on the host": np.array_equal(world_dev, scene.instances[0][1])
+        and not np.array_equal(world_dev, np.eye(4, dtype=np.float32)),
+        "rasters": by_shape == want and want == {(H, W, False): frames + 4 * timings,
+                                                 (S, S, True): frames + 4 * timings},
+        "timings": not timings or {"<frame>", "Geometry", "SunShadow"} <= set(stats["timings"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"viewer: failed {[k for k, v in checks.items() if not v]}: "
+                             f"stats {stats}, rasters {by_shape} against {want}, picked {picked}")
+    span = sysb.presented_at[-1] - sysb.presented_at[0]
+    launches = {"camera_viewer": by_shape[H, W, False], "sun_viewer": by_shape[S, S, True]}
+    print(f"viewer {W}x{H} through viewer.main over HTTP ({frames} frames, tile 8x16, 512 a "
+          f"tile, {S}^2 sun every frame): {(frames - 1) / span:.4f} frames a second of the "
+          f"loop; ms/frame median {np.median(dev_ms):.4f} by CUDA events, "
+          f"{np.median(host_ms):.4f} by the host's clock (render_frame + synchronise; the "
+          f"stats' ms {stats['ms']:.4f}, an EMA); the LDR's readback median "
+          f"{np.median(sysb.readback_ms):.4f} ms, encode_png (zlib 6) median "
+          f"{np.median(sysb.encode_ms):.4f} ms a frame; rasters {by_shape} (with time_passes' "
+          f"on frame 0); picked instance {picked}, then selected 0, gizmo {stats['gizmo']} "
+          f"[{card}]", flush=True)
+    print(f"  per frame: CUDA events {[round(x, 4) for x in dev_ms]}")
+    print(f"  host clock {[round(x, 4) for x in host_ms]}")
+    print(f"  readback {[round(x, 4) for x in sysb.readback_ms]}")
+    print(f"  encode_png {[round(x, 4) for x in sysb.encode_ms]}", flush=True)
+    if timings:
+        print(f"  per-pass table of frame 0 (utils/timing.time_passes, iters=1) [{card}]:")
+        for name, ms in stats["timings"].items():
+            print(f"    {name:20s} {ms:10.4f}")
+    # The viewer's camera and sun rasters, bit for bit and timed.
+    rasters, _ = rb.capture_rasters(lambda: r.render_frame())
+    compare_and_time("camera_viewer", f"viewer camera {W}x{H}, tile 8x16 (512 a tile)", 2,
+                     *rasters[H, W, False], rcfg=r.cfg.raster)
+    compare_and_time("sun_viewer", f"viewer sun {S}x{S} depth-only, every frame "
+                     "(dynamic_transforms)", 5, *rasters[S, S, True], rcfg=r.cfg.raster)
+    del rasters
+
+    # (d) hot reload: a watched module changes; reconstruct on the viewer's renderer.
+    hot_dir = out_dir / "hot"
+    hot_dir.mkdir(exist_ok=True)
+    mod_file = hot_dir / "chip_hot_module.py"
+    mod_file.write_text("VALUE = 1\n")
+    sys.path.insert(0, str(hot_dir))
+    kernels_dir = raster_cuda.BUILD_DIR
+    built = {p.name: p.stat().st_mtime_ns for p in kernels_dir.iterdir()}
+    try:
+        hot = importlib.import_module("chip_hot_module")
+        watcher = ModuleWatcher(roots=[str(hot_dir)], poll_interval=0.0)
+        mod_file.write_text("VALUE = 2\n")
+        os.utime(mod_file, (time.time() + 2, time.time() + 2))
+        t0 = time.perf_counter()
+        reloaded = watcher.poll()
+        history = r.state["TAAHistory"].clone()
+        r.reconstruct(rebuild_passes=True)
+        torch.cuda.synchronize()
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        kept = torch.equal(r.state["TAAHistory"], history)
+        # The kernel wrapper's own module reloaded: its library handle resets,
+        # and the next launch loads the library already built.
+        lib_name = raster_cuda.build_kernels()._name
+        raster_cuda = importlib.reload(raster_cuda)
+        if raster_cuda._lib is not None:
+            raise AssertionError("reloading ops/raster_cuda.py kept the library handle")
+        zero_counts()
+        r.render_frame()
+        torch.cuda.synchronize()
+        after = counts()
+        hot_ok = reloaded == ["chip_hot_module"] and hot.VALUE == 2 and kept
+        lib_ok = raster_cuda._lib is not None and raster_cuda._lib._name == lib_name
+    finally:
+        sys.path.remove(str(hot_dir))
+        sys.modules.pop("chip_hot_module", None)
+    now = {p.name: p.stat().st_mtime_ns for p in kernels_dir.iterdir()}
+    if not (hot_ok and lib_ok and now == built and after == {(H, W, False): 1, (S, S, True): 1}):
+        raise AssertionError(f"hot reload: reloaded {reloaded}, TAAHistory kept {kept}, library "
+                             f"{lib_ok}, build/kernels unchanged {now == built}, rasters {after}")
+    print(f"hot reload: ModuleWatcher.poll reloaded {reloaded}; poll + "
+          f"reconstruct(rebuild_passes=True) on the {W}x{H} viewer renderer {reload_ms:.2f} ms; "
+          f"TAAHistory equal bit for bit across it; ops/raster_cuda reloaded, the next frame's "
+          f"rasters {after} through the CUDA kernel loading {Path(lib_name).name}; build/kernels "
+          f"unchanged ({len(now)} files) [{card}]", flush=True)
+
+    # (e) profiling: a trace of two frames with a zone each.
+    profiling.reset_zones()
+    log_dir = out_dir / "trace"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with profiling.trace(str(log_dir), device=dev):
+        for i in range(2):
+            with profiling.zone(f"viewer frame {i}"):
+                r.render_frame()
+                torch.cuda.synchronize()
+    traces = sorted(log_dir.glob("*.pt.trace.json"))
+    text = traces[0].read_text() if traces else ""
+    zones = profiling.zone_averages()
+    if len(traces) != 1 or "viewer frame 0" not in text or "viewer frame 1" not in text \
+            or "raster_tiles_kernel" not in text or set(zones) != {"viewer frame 0",
+                                                                  "viewer frame 1"}:
+        raise AssertionError(f"profiling: traces {traces}, zones {zones}, raster_tiles_kernel "
+                             f"named {'raster_tiles_kernel' in text}")
+    print(f"profiling.trace: {traces[0].name} ({len(text)} bytes) names both zones and "
+          f"raster_tiles_kernel; zone_averages {zones} ms [{card}]", flush=True)
+    del r, holder
+
+    # (b) the scripted session through the viewer loop, the card against the CPU.
+    script = session_script(session)
+    sides = []
+    for device in (dev, "cpu"):
+        args = viewer.build_arg_parser().parse_args(
+            ["--width", str(session), "--height", str(session), "--frames", "8"])
+        rs = viewer.make_renderer(args, device)
+        ss = viewer.ScriptedSystem(script, max_frames=8)
+        ticks = iter(range(1 << 30))
+        viewer.run(args, rs, ss, clock=lambda: next(ticks) / 60.0)
+        sides.append((rs, ss))
+    (rg, sg), (rc_, sc) = sides
+    mean, off = golden_bound(to_u8(sg.last_frame.cpu().numpy()), to_u8(sc.last_frame.numpy()))
+    same = all(np.array_equal(a[1], b[1]) and (a[2] is None) == (b[2] is None)
+               and (a[2] is None or np.array_equal(a[2], b[2]))
+               for a, b in zip(rg.scene.instances, rc_.scene.instances, strict=True))
+    same &= np.array_equal(rg.camera.position, rc_.camera.position) and np.array_equal(
+        rg.camera.orientation, rc_.camera.orientation)
+    moved = [i for i, it in enumerate(rg.scene.instances) if it[2] is not None]
+    if not (same and sg.stats["selected"] == sc.stats["selected"] == 4 and moved == [2, 4]
+            and mean < 1.5 and off < 0.005):
+        raise AssertionError(f"scripted session: transforms and camera equal {same}, selected "
+                             f"{sg.stats['selected']} / {sc.stats['selected']}, moved {moved}, "
+                             f"LDR mean abs diff {mean}, {off:.4%} off by > 24")
+    print(f"scripted viewer session {session}x{session}, 8 frames at dt 1/60 (fly, pick, select, "
+          f"gizmo translate / rotate / scale): instance transforms and camera equal card and CPU, "
+          f"moved {moved}; last LDR mean abs diff {mean:.4f} of 255 (< 1.5), {off:.4%} of values "
+          f"off by > 24 (< 0.5%) [{card}]", flush=True)
+    del sides, rg, rc_
+
+    # (c) physics committed into a dynamic Renderer at full size.
+    scene, cam, boxes, sphere_inst = physics_stack_scene(W, H)
+    args = viewer.build_arg_parser().parse_args(["--width", str(W), "--height", str(H)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = standard.Renderer(scene, cam, viewer.pipeline_config(args), device=dev,
+                          dynamic_transforms=True)
+    phys = BuiltinPhysicsBackend()
+    phys.add_static_plane((0, 1, 0), 0.0)
+    ps = PhysicsScene(phys, scene)
+    for inst in boxes:
+        body = phys.add_body(BodyDesc("box", np.array([0.5, 0.5, 0.5]), mass=1.0,
+                                      restitution=0.0), scene.instances[inst][1][:3, 3])
+        ps.attach(body, inst)
+    ball = phys.add_body(BodyDesc("sphere", np.array([0.6] * 3), mass=4.0, restitution=0.3),
+                         (-0.6, 1.4, 0.6), velocity=(5.0, 0.0, 0.0))
+    ps.attach(ball, sphere_inst)
+    upload_ms = []
+    plain_upload = scene.update_instance_transforms
+
+    def timed_upload(arrays):
+        t0 = time.perf_counter()
+        out = plain_upload(arrays)
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    scene.update_instance_transforms = timed_upload
+    r.render_frame()
+    before = r.scene_arrays
+    pools = (before.positions.data_ptr(), before.indices.data_ptr())
+    step_ms, frame_ms, coverage = [], [], []
+    bodies = torch.tensor(boxes + [sphere_inst], device=dev)
+    zero_counts()
+    for _ in range(PHYSICS_FRAMES):
+        t0 = time.perf_counter()
+        for _ in range(2):
+            phys.step(1 / 60.0)
+        ps.commit()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ldr = r.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+        if not bool(torch.isfinite(ldr).all()):
+            raise AssertionError("physics: a frame is not finite")
+        vis = r.state["Visibility"]
+        inst = torch.full_like(vis, -1)
+        hit = vis >= 0
+        inst[hit] = r.scene_arrays.tri_instance[
+            r.state["vis.setup"].orig_tri[vis[hit].long()].long()].int()
+        coverage.append(torch.isin(inst, bodies).float().mean().item())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    by_shape = counts()
+    world_ok = all(np.array_equal(r.scene_arrays.world[i].cpu().numpy(), scene.instances[i][1])
+                   for i in boxes + [sphere_inst])
+    moving = all(a != b for a, b in zip(coverage, coverage[1:]))
+    if not (r.scene_arrays.positions is before.positions and r.scene_arrays.indices is
+            before.indices and (r.scene_arrays.positions.data_ptr(),
+                                r.scene_arrays.indices.data_ptr()) == pools
+            and moving and min(coverage) > 0 and world_ok
+            and by_shape == bench.expected_launches_by_shape(r, PHYSICS_FRAMES)):
+        raise AssertionError(f"physics: pools kept {r.scene_arrays.positions is before.positions}"
+                             f", the bodies' coverage {coverage}, world {world_ok}, rasters "
+                             f"{by_shape}")
+    print(f"physics into Renderer(dynamic_transforms=True) {W}x{H}: 4 stacked boxes and a "
+          f"sphere thrown into them, {PHYSICS_FRAMES} frames (2 steps of 1/60 s each): ms/frame median "
+          f"{np.median(frame_ms):.4f} by CUDA events; host ms of step + commit median "
+          f"{np.median(step_ms):.4f}, of the transform upload median "
+          f"{np.median(upload_ms[1:]):.4f}; peak memory {peak:.3f} GiB; the bodies' share of the "
+          f"pixels, moving every frame, {[round(c, 4) for c in coverage]}; positions and "
+          f"indices kept their storage; "
+          f"rasters {by_shape} [{card}]", flush=True)
+    print(f"  frames {[round(x, 4) for x in frame_ms]}")
+    print(f"  step + commit {[round(x, 4) for x in step_ms]}", flush=True)
+    del r, before, ldr, vis, inst
+
+    # (f) meshviewer --interactive on the DamagedHelmet, over HTTP.
+    helmet = ROOT / "assets" / "sample" / "DamagedHelmet" / "DamagedHelmet.gltf"
+    V = helmet_size
+    port = free_port()
+    result = {}
+    zero_counts()
+    th = serve_in_thread(lambda: meshviewer.main(
+        [str(helmet), "--interactive", "--size", str(V), "--frames", str(MESHVIEWER_FRAMES),
+         "--port", str(port)], device=dev), result)
+    client = HttpClient(port, result)
+    first = decode_png(client.first_png())
+    st = client.wait(lambda s: s["frame"] >= 1)
+    r = join_served(th, result, "meshviewer --interactive")
+    by_shape = counts()
+    if first.shape != (V, V, 3) or not first.std() > 5 or not st["ms"] > 0 or \
+            by_shape != bench.expected_launches_by_shape(r, MESHVIEWER_FRAMES):
+        raise AssertionError(f"meshviewer --interactive: {first.shape}, stats {st}, rasters "
+                             f"{by_shape}")
+    print(f"meshviewer --interactive DamagedHelmet {V}x{V} over HTTP: {MESHVIEWER_FRAMES} orbit "
+          f"frames, PNG {first.shape}, stats {st}, rasters {by_shape}; phase 19 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    del r
+    return {"raster_launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -1530,6 +2043,9 @@ def main() -> None:
     slice13 = run_slice13(dev, card, compare_and_time, check_kind_traces)
     kind_traces += slice13["traces"]
 
+    # -- 19. the live viewer, its systems, physics, hot reload, profiling ----------------
+    slice14 = run_slice14(dev, card, compare_and_time)
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
         "camera": (PHASE8 + ("rt", "showcase", "rt_soft"), (H, W, False)),
@@ -1569,6 +2085,10 @@ def main() -> None:
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches_18, **timed[name], "library_ms": None,
     } for name, launches_18 in slice13["raster_launches"].items()]
+    rows += [{
+        "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": launches_19, **timed[name], "library_ms": None,
+    } for name, launches_19 in slice14["raster_launches"].items()]
 
     def trace_row(t, launches):
         return {

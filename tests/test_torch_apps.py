@@ -22,7 +22,7 @@ CPU, against the JAX package's app.
   the JAX app: ``describe``, ``--inspect-segment``, ``--meshlets``,
   ``--set-material ... --save`` and the saved file's round trip, and the
   ``--view normal`` turntable (PNGs under the goldens' bound);
-  ``--interactive`` raises naming it before anything is loaded.
+  ``--interactive``'s orbit view served over HTTP (frames and stats).
 * The geodata app (``apps/geodata.py``): the region crop, the terrain's
   arrays (both LOD levels, the texture, the scene's pools) equal to JAX's,
   and a 64^2 frame against the JAX app's under the goldens' bound.
@@ -248,17 +248,63 @@ def test_meshviewer_view_normal_matches_the_jax_app(tmp_path, capsys):
         assert ours.std() > 5
 
 
-def test_meshviewer_interactive_raises_by_name(monkeypatch, tmp_path):
-    """``--interactive`` (the web orbit view) is not ported: it raises
-    naming the flag before the asset is loaded."""
+def test_meshviewer_interactive_serves_orbit(tmp_path):
+    """``--interactive``: the orbit view over HTTP (the reference's
+    ``apps/meshviewer.py:207-233``) serves the frames as PNGs and the
+    stats, and returns the Renderer after ``--frames`` frames."""
+    import json
+    import socket
+    import threading
+    import time
+    import urllib.request
+
     from arkoserenderer_torch.apps import meshviewer
+    from arkoserenderer_torch.assets.baked import save_baked
+    from arkoserenderer_torch.assets.procedural import build_test_scene
+    from arkoserenderer_torch.utils.imageio import decode_png
 
-    def no_load(*a, **kw):
-        raise AssertionError("the asset was loaded")
+    scene, _ = build_test_scene(viewport=(64, 64), n_spheres=1)
+    src = str(tmp_path / "scene.npz")
+    save_baked(scene, src)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    result = {}
 
-    monkeypatch.setattr(meshviewer, "load_asset", no_load)
-    with pytest.raises(NotImplementedError, match="--interactive"):
-        meshviewer.main([str(tmp_path / "x.gltf"), "--interactive"], device="cpu")
+    def run():
+        try:
+            result["r"] = meshviewer.main([src, "--interactive", "--size", "64", "--frames", "4",
+                                           "--port", str(port)], device="cpu")
+        except Exception as e:  # noqa: BLE001 - reported by the assertion below
+            result["error"] = repr(e)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{port}"
+    png = b""
+    for _ in range(240):
+        try:
+            png = urllib.request.urlopen(base + "/frame.png", timeout=60).read()
+            if png:
+                break
+        except OSError:
+            pass
+        assert "error" not in result, result
+        time.sleep(0.25)
+    img = decode_png(png)
+    assert img.shape == (64, 64, 3) and img.std() > 5
+    for _ in range(480):  # the stats are published just after the frame
+        stats = json.loads(urllib.request.urlopen(base + "/stats", timeout=60).read())
+        if stats["ms"] > 0:
+            break
+        time.sleep(0.25)
+    assert stats["frame"] >= 0 and stats["ms"] > 0
+    assert b"viewer" in urllib.request.urlopen(base + "/", timeout=60).read()
+    th.join(timeout=240)
+    assert not th.is_alive() and "error" not in result, result
+    r = result["r"]
+    assert r.frame_index == 4 and r.cfg.width == 64
 
 
 # -- geodata --------------------------------------------------------------------------

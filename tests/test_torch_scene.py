@@ -335,6 +335,11 @@ def test_port_imports_neither_jax_nor_reference():
         "import arkoserenderer_torch.rendering.passes.ddgi_debug\n"
         "import arkoserenderer_torch.apps.humandemo, arkoserenderer_torch.apps.meshviewer\n"
         "import arkoserenderer_torch.apps.geodata\n"
+        "import arkoserenderer_torch.apps.viewer, arkoserenderer_torch.system.webviewer\n"
+        "import arkoserenderer_torch.system.input, arkoserenderer_torch.system.system\n"
+        "import arkoserenderer_torch.scene.controllers, arkoserenderer_torch.scene.editor\n"
+        "import arkoserenderer_torch.physics.backend, arkoserenderer_torch.utils.hotreload\n"
+        "import arkoserenderer_torch.utils.profiling\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('arkoserenderer_tpu') or k == 'PIL'\n"
         "             or k.startswith('PIL.'))\n"

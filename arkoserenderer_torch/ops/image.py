@@ -87,21 +87,45 @@ def shift_img(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     return along(along(img, dy, 0), dx, 1)
 
 
-def blur3(img: torch.Tensor) -> torch.Tensor:
-    """3x3 binomial ([1, 2, 1] / 4, separable) blur with edge clamp."""
+def blur3(img: torch.Tensor, halo_rows=None) -> torch.Tensor:
+    """3x3 binomial ([1, 2, 1] / 4, separable) blur with edge clamp.
+
+    ``halo_rows``: optional (top, bottom) single rows of the neighbouring
+    bands (``band_halo_rows``) in place of the row axis's edge clamp, so
+    the stencil is seam-exact under pixel-band sharding."""
 
     def conv_axis(x, axis):
         n = x.shape[axis]
-        p = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)], dim=axis)
+        if axis == 0 and halo_rows is not None:
+            p = torch.cat([halo_rows[0], x, halo_rows[1]], dim=0)
+        else:
+            p = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)], dim=axis)
         return (0.25 * p.narrow(axis, 0, n) + 0.5 * p.narrow(axis, 1, n)
                 + 0.25 * p.narrow(axis, 2, n))
 
     return conv_axis(conv_axis(img, 0), 1)
 
 
-def upsample2x(img: torch.Tensor) -> torch.Tensor:
-    """2x nearest upsample followed by the 3x3 binomial blur."""
-    return blur3(img.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1))
+def upsample2x(img: torch.Tensor, halo_rows=None) -> torch.Tensor:
+    """2x nearest upsample followed by the 3x3 binomial blur. ``halo_rows``
+    are the neighbouring bands' coarse rows (``band_halo_rows``): after the
+    repeat, the row next to the band's edge is the neighbour's coarse
+    boundary row."""
+    if halo_rows is not None:
+        halo_rows = tuple(r.repeat_interleave(2, dim=1) for r in halo_rows)
+    return blur3(img.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1), halo_rows)
+
+
+def band_halo_rows(img: torch.Tensor, band) -> tuple[torch.Tensor, torch.Tensor]:
+    """(top, bottom): the last row of the band above and the first row of
+    the band below this rank's band ``img``, for seam-exact banded
+    stencils. One all_gather of every band's first and last row over
+    ``band`` (a ``parallel.sharded.BandGroup``); the frame's first and last
+    bands keep their own edge row, the edge clamp of the whole frame."""
+    parts = band.all_gather(torch.cat([img[:1], img[-1:]]))
+    top = img[:1] if band.rank == 0 else parts[band.rank - 1][1:2]
+    bottom = img[-1:] if band.rank == band.size - 1 else parts[band.rank + 1][0:1]
+    return top, bottom
 
 
 def neighborhood_min_max(img: torch.Tensor):

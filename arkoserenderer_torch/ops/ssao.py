@@ -79,8 +79,14 @@ def ssao(
     rotation=None,        # kernel_rotation(px, py), when the caller keeps it
     samples_per_frame: int | None = None,  # a hashed subset of the kernel a frame
     frame_index: int = 0,
+    sample_depth: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """(N,) ambient visibility in [0, 1] (1 = unoccluded)."""
+    """(N,) ambient visibility in [0, 1] (1 = unoccluded).
+
+    ``sample_depth``: the whole frame's (full_h, W) depth for the occlusion
+    fetches when ``depth`` is one band of it (pixel-band sharding: a
+    sample may land in a neighbouring band); ``py`` and ``height`` are then
+    the frame's rows."""
     depth_flat = depth.reshape(-1)
     world = reconstruct_world_pos(depth_flat, px, py, inverse4(cam_view_proj), width, height)
 
@@ -94,7 +100,9 @@ def ssao(
     t = t0 * ca[:, None] + b0 * sa[:, None]
     b = -t0 * sa[:, None] + b0 * ca[:, None]
 
-    sample_h = depth.shape[0]
+    depth_img = depth if sample_depth is None else sample_depth
+    sample_h = depth_img.shape[0]
+    fetch = depth_img.reshape(-1)
     kern = torch.from_numpy(np.asarray(kernel, np.float32)).to(depth.device)
     n_samples = kern.shape[0]
 
@@ -108,7 +116,7 @@ def ssao(
         xi = clamped_index(sx, width)
         yi = clamped_index(sy, sample_h)
         # Reverse-Z with an infinite far plane: view distance = near / depth.
-        scene_z = cam_near / torch.clamp(depth_flat[yi * width + xi], min=1e-8)
+        scene_z = cam_near / torch.clamp(fetch[yi * width + xi], min=1e-8)
         # Occluded when the scene surface is in front of the sample point, in
         # view-space metres (w_c is the sample's view distance); occluders
         # far from the sample are faded out.

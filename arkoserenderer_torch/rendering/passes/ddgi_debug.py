@@ -31,13 +31,14 @@ class DDGIProbeDebugPass(RenderPass):
         reg.get("SceneDepth")
         reg.get("DDGI.irradiance")
         h, w = cfg.height, cfg.width
+        full_h = cfg.frame_height
         positions = torch.from_numpy(ddgi_ops.probe_positions(self.grid)).to(device)
         offs = disc_offsets(self.radius_px)
         boost, xray = self.exposure_boost, self.xray
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             irr = state["DDGI.irradiance"].mean(dim=(1, 2))  # (P, 3)
-            xi, yi, d, ok = project(ctx.camera.view_proj, positions, w, h)
+            xi, yi, d, ok = project(ctx.camera.view_proj, positions, w, full_h, ctx.row_offset)
             color = torch.clamp(irr * boost, 0.0, 1.0)
             return {"LDR": splat(state["LDR"], state["SceneDepth"], xi, yi, d, ok, color, offs,
                                  depth_test=not xray)}

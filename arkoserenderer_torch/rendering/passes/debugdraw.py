@@ -87,6 +87,7 @@ class DebugDrawPass(RenderPass):
         reg.get("SceneDepth")
         reg.publish("debug.lines")  # the host's input of each frame
         h, w = cfg.height, cfg.width
+        full_h = cfg.frame_height
         # jnp.linspace(0, 1, 64)'s values: i * float32(1 / 63).
         t = torch.from_numpy(np.arange(SAMPLES_PER_LINE, dtype=np.float32)
                              * np.float32(1.0 / (SAMPLES_PER_LINE - 1))).to(device)[None, :, None]
@@ -94,7 +95,7 @@ class DebugDrawPass(RenderPass):
         def execute(state: dict, ctx: FrameContext) -> dict:
             a, b, color, valid = state["debug.lines"]
             pts = (a[:, None, :] * (1 - t) + b[:, None, :] * t).reshape(-1, 3)
-            xi, yi, d, ok = project(ctx.camera.view_proj, pts, w, h)
+            xi, yi, d, ok = project(ctx.camera.view_proj, pts, w, full_h, ctx.row_offset)
             on = ok & (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
             on = on & (torch.repeat_interleave(valid, SAMPLES_PER_LINE) > 0)
             # Hidden behind the scene, with a slight bias so lines on a

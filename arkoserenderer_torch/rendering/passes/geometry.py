@@ -3,7 +3,8 @@ arkoserenderer_tpu/rendering/passes/geometry.py).
 
 Instance frustum + LOD culling, per-meshlet sphere and cone culling when the
 scene has meshlets, triangle setup with near clipping, binning,
-the stage-4 tile raster (the CUDA kernel on the card) and, under the packed
+the stage-4 tile raster (the CUDA kernel on the card; under pixel-band
+sharding, of this rank's band at its ``y_offset``) and, under the packed
 shading mode, the per-triangle shading records. The packed mode projects
 the world-space pool (geom.vtx_world); the reference mode transforms the
 object-space pool by the instance matrices. Translucent triangles are left
@@ -116,6 +117,7 @@ class GeometryPass(RenderPass):
         reg.create("Visibility", (cfg.height, cfg.width), torch.int32, clear=VIS_NONE)
         reg.publish("vis.setup")
         w, h, rcfg = cfg.width, cfg.height, cfg.raster
+        full_h = cfg.frame_height
         layout = record_layout_for(cfg.scene)
         has_meshlets = cfg.scene.has_meshlets
         has_translucent = cfg.scene.has_translucent
@@ -130,9 +132,13 @@ class GeometryPass(RenderPass):
             tri_visible, _ = camera_visible_triangles(s, view_proj, cam.position, has_meshlets)
             if has_translucent:
                 tri_visible = tri_visible & ~translucent_triangles(s)
-            setup = raster.setup_triangles(clip, s.indices, tri_visible, w, h, w_eps=cam.near)
-            bins = raster.bin_triangles(setup, w, h, rcfg)
-            vis, depth = raster.rasterize_tiles(setup, bins, w, h, rcfg)
+            # The screen mapping is the whole frame's; binning and the raster
+            # cover this rank's band (h rows from ctx.row_offset).
+            setup = raster.setup_triangles(clip, s.indices, tri_visible, w, full_h,
+                                           w_eps=cam.near)
+            bins = raster.bin_triangles(setup, w, h, rcfg, y_offset=ctx.row_offset)
+            vis, depth = raster.rasterize_tiles(setup, bins, w, h, rcfg,
+                                                y_offset=ctx.row_offset)
             out = {
                 "SceneDepth": depth,
                 "Visibility": vis,

@@ -31,6 +31,7 @@ class IconBillboardPass(RenderPass):
         reg.get("LDR")
         reg.get("SceneDepth")
         h, w = cfg.height, cfg.width
+        full_h = cfg.frame_height
         n_spots, n_points = cfg.scene.n_spots, cfg.scene.n_points
         offs = _bulb_offsets(self.radius_px)
         xray = self.xray
@@ -42,7 +43,7 @@ class IconBillboardPass(RenderPass):
             pos = torch.cat([lt.spot_pos[:n_spots], lt.point_pos[:n_points]])
             col = torch.cat([lt.spot_color[:n_spots], lt.point_color[:n_points]])
             tint = col / torch.clamp(col.max(dim=-1, keepdim=True).values, min=1e-6)
-            xi, yi, d, ok = project(ctx.camera.view_proj, pos, w, h)
+            xi, yi, d, ok = project(ctx.camera.view_proj, pos, w, full_h, ctx.row_offset)
             return {"LDR": splat(state["LDR"], state["SceneDepth"], xi, yi, d, ok, tint, offs,
                                  depth_test=not xray)}
 

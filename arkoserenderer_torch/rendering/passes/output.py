@@ -16,6 +16,7 @@ from arkoserenderer_torch.rendering.pipeline import (
     FrameContext,
     PipelineConfig,
     RenderPass,
+    frame_rows,
     pixel_centers,
 )
 from arkoserenderer_torch.rendering.registry import Registry
@@ -36,6 +37,7 @@ class OutputPass(RenderPass):
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
+        full_h = cfg.frame_height
         reg.get("SceneColor")
         reg.create("LDR", (h, w, 3), torch.float32)
         reg.create("Metering.avgLum", (), torch.float32)
@@ -43,7 +45,7 @@ class OutputPass(RenderPass):
         vign = self.vignette_intensity
         grain = self.film_grain_gain
         px, py = pixel_centers(cfg, device)
-        xpx, ypx = px.reshape(h, w), py.reshape(h, w)
+        xpx = px.reshape(h, w)
         lut = None
         if self.color_grade_lut is not None:
             lut = torch.from_numpy(np.asarray(self.color_grade_lut.table, np.float32)).to(device)
@@ -53,8 +55,9 @@ class OutputPass(RenderPass):
             luma = 0.2126 * c[..., 0] + 0.7152 * c[..., 1] + 0.0722 * c[..., 2]
             avg_log_lum = torch.exp(torch.mean(torch.log(luma + 1e-4)))
             c = tm.tonemap(c, mode)
+            ypx = frame_rows(py, ctx).reshape(h, w)  # vignette and grain in frame rows
             if vign > 0.0:
-                c = tm.vignette(c, torch.stack([xpx / w, ypx / h], dim=-1), vign)
+                c = tm.vignette(c, torch.stack([xpx / w, ypx / full_h], dim=-1), vign)
             if grain > 0.0:
                 c = tm.film_grain(c, torch.stack([xpx, ypx], dim=-1), ctx.frame_index, grain)
             out = torch.clamp(linear_to_srgb(c), 0.0, 1.0)

@@ -27,16 +27,20 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).to(torch.int64)
 
 
-def project(view_proj: torch.Tensor, pts: torch.Tensor, width: int, height: int):
+def project(view_proj: torch.Tensor, pts: torch.Tensor, width: int, height: int,
+            row_offset: int = 0):
     """(xi, yi, depth, in_front) of world points (N, 3): the reference's
     projection to integer pixel coordinates (columns and rows truncated),
-    the reverse-Z depth, and w > 1e-4."""
+    the reverse-Z depth, and w > 1e-4. ``height`` is the whole frame's;
+    under pixel-band sharding the rows are the band's, ``row_offset``
+    (its first frame row) taken off before the truncation as the
+    reference does, so each rank splats only into its own band."""
     clip = mx.transform_points_h(view_proj, pts)
     wc = clip[:, 3]
     ok = wc > 1e-4
     inv_w = torch.where(ok, 1.0 / torch.clamp(wc, min=1e-6), 0.0)
     sx = (clip[:, 0] * inv_w * 0.5 + 0.5) * width
-    sy = (0.5 - clip[:, 1] * inv_w * 0.5) * height
+    sy = (0.5 - clip[:, 1] * inv_w * 0.5) * height - row_offset
     return to_i32(sx), to_i32(sy), clip[:, 2] * inv_w, ok
 
 

@@ -12,6 +12,12 @@ pass ran (``ddgi_sample_scale=1``: every pixel samples), else SH-2
 environment irradiance and the flat ambient; modulated by diffuse albedo,
 material occlusion and, when the SSAO pass ran, its ambient visibility;
 plus SceneReflections where RTReflections ran.
+
+Under pixel-band sharding SSAO's occlusion fetches read the gathered
+whole-frame depth and its blur takes a halo row from each neighbouring
+band; the passes that reconstruct world positions (SSAO, the DDGI
+lookup, Fog) use frame rows. MotionBlur, DepthOfField, FXAA and CAS stay
+band-local and clamp at the band's edge, as in the reference.
 """
 
 from __future__ import annotations
@@ -25,11 +31,12 @@ from arkoserenderer_torch.ops import ddgi as ddgi_ops
 from arkoserenderer_torch.ops import postprocess as pp
 from arkoserenderer_torch.ops import ssao as ssao_ops
 from arkoserenderer_torch.ops.envmap import ambient_of_normal, average_radiance
-from arkoserenderer_torch.ops.image import blur3
+from arkoserenderer_torch.ops.image import band_halo_rows, blur3
 from arkoserenderer_torch.rendering.pipeline import (
     FrameContext,
     PipelineConfig,
     RenderPass,
+    frame_rows,
     pixel_centers,
 )
 from arkoserenderer_torch.rendering.passes.ddgi import STATE_KEYS as DDGI_KEYS
@@ -58,6 +65,7 @@ class SSAOPass(RenderPass):
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
+        full_h = cfg.frame_height
         reg.get("SceneDepth")
         reg.get("SceneNormal")
         reg.get("SceneCoverage")
@@ -68,16 +76,22 @@ class SSAOPass(RenderPass):
         spf = self.samples_per_frame if temporal_of(cfg, self.temporal) else None
 
         def execute(state: dict, ctx: FrameContext) -> dict:
+            depth, band = state["SceneDepth"], ctx.band
+            py_g = frame_rows(py, ctx)
             ao = ssao_ops.ssao(
-                state["SceneDepth"],
+                depth,
                 state["SceneNormal"].reshape(-1, 3),
                 state["SceneCoverage"].reshape(-1),
-                px, py,
+                px, py_g,
                 ctx.camera.unjittered_view_proj, ctx.camera.near,
-                w, h, kernel, radius=radius, intensity=intensity, rotation=rotation,
+                w, full_h, kernel, radius=radius, intensity=intensity,
+                rotation=rotation if band is None else None,
                 samples_per_frame=spf, frame_index=ctx.frame_index,
+                sample_depth=None if band is None else band.gather_rows(depth),
             )
-            return {"SSAO": blur3(ao.reshape(h, w, 1))[..., 0]}
+            ao_img = ao.reshape(h, w, 1)
+            halo = None if band is None else band_halo_rows(ao_img, band)
+            return {"SSAO": blur3(ao_img, halo)[..., 0]}
 
         return execute
 
@@ -90,6 +104,7 @@ class LightingComposePass(RenderPass):
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
+        full_h = cfg.frame_height
         grid = self.ddgi_grid
         use_ddgi = grid is not None and reg.has("DDGI.irradiance")
         if use_ddgi:
@@ -115,8 +130,8 @@ class LightingComposePass(RenderPass):
             nrm = state["SceneNormal"].reshape(-1, 3)
             if use_ddgi:
                 inv_vp = ssao_ops.inverse4(ctx.camera.unjittered_view_proj)
-                world = ssao_ops.reconstruct_world_pos(state["SceneDepth"].reshape(-1), px, py,
-                                                       inv_vp, w, h)
+                world = ssao_ops.reconstruct_world_pos(state["SceneDepth"].reshape(-1), px,
+                                                       frame_rows(py, ctx), inv_vp, w, full_h)
                 # Sky pixels carry zero normals, whose octahedral encode is
                 # NaN: give them a unit one (their result is not used).
                 nrm = torch.where(mx.vdot(nrm, nrm) > 0.25, nrm, up)
@@ -147,6 +162,7 @@ class FogPass(RenderPass):
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
+        full_h = cfg.frame_height
         reg.get("SceneColor")
         reg.get("SceneDepth")
         reg.get("SceneCoverage")
@@ -156,7 +172,7 @@ class FogPass(RenderPass):
         def execute(state: dict, ctx: FrameContext) -> dict:
             inv_vp = ssao_ops.inverse4(ctx.camera.unjittered_view_proj)
             world = ssao_ops.reconstruct_world_pos(
-                state["SceneDepth"].reshape(-1), px, py, inv_vp, w, h
+                state["SceneDepth"].reshape(-1), px, frame_rows(py, ctx), inv_vp, w, full_h
             ).reshape(h, w, 3)
             env_avg = average_radiance(ctx.scene.env_map) * ctx.scene.env_brightness
             out = pp.apply_fog(

@@ -33,10 +33,19 @@ far below the scene, so they leave the BVH in one step. The denoisers'
 guides are derived in the pass (it runs before the shading pass that
 publishes SceneNormal and SceneVelocity): normals from the depth buffer's
 world positions and the camera's motion. Half-rate tracing
-(``PipelineConfig.rt_scale``) and pixel-band sharding are not ported.
+(``PipelineConfig.rt_scale``) is not ported.
+
+Under pixel-band sharding each rank traces its band's rays (frame rows,
+so the blue noise of the soft shadows is the whole frame's), and the
+denoisers run replicated over gathered whole-frame planes, their guides
+derived from the gathered depth (their stencils clamp at the frame's
+edge, not the band's); each rank then cuts its band back out. The planes
+of one denoiser travel in one gather.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -53,6 +62,7 @@ from arkoserenderer_torch.rendering.pipeline import (
     FrameContext,
     PipelineConfig,
     RenderPass,
+    frame_rows,
     pixel_centers,
 )
 from arkoserenderer_torch.rendering.passes.ddgi import STATE_KEYS as DDGI_KEYS
@@ -97,26 +107,48 @@ def scene_with_live_bvh(state: dict, ctx: FrameContext):
     return ctx.scene if bvh is None else ctx.scene._replace(bvh=bvh)
 
 
-def _receivers(state: dict, ctx: FrameContext, px, py, w: int, h: int, covered):
-    """World positions of the depth buffer's pixels, and the same with the
-    uncovered ones parked."""
+def frame_pixel_centers(cfg: PipelineConfig, device):
+    """The whole frame's pixel centres for the replicated denoisers under
+    pixel-band sharding; None unsharded."""
+    if cfg.shard_axis is None:
+        return None
+    return pixel_centers(dataclasses.replace(cfg, height=cfg.frame_height), device)
+
+
+def _receivers(state: dict, ctx: FrameContext, px, py_g, w: int, full_h: int, covered):
+    """World positions of the depth buffer's pixels (``py_g`` in frame
+    rows), and the same with the uncovered ones parked."""
     inv_vp = inverse4(ctx.camera.unjittered_view_proj)
-    world = reconstruct_world_pos(state["SceneDepth"].reshape(-1), px, py, inv_vp, w, h)
+    world = reconstruct_world_pos(state["SceneDepth"].reshape(-1), px, py_g, inv_vp, w,
+                                  full_h)
     return world, torch.where(covered[:, None], world, PARK)
 
 
 def _denoised(noisy, world, state: dict, ctx: FrameContext, px, py, w: int, h: int,
-              prefix: str) -> dict:
+              prefix: str, frame_px=None) -> dict:
     """The shadow denoiser over the (H, W, C) noisy planes, its guides
     derived from the unparked world positions; returns the resolved planes
-    and the new ``prefix``.history / .moments / .depth."""
+    and the new ``prefix``.history / .moments / .depth. Under pixel-band
+    sharding it runs on the gathered frame (``frame_px``: the frame's
+    pixel centres), guides from the gathered depth, and keeps the band."""
     depth = state["SceneDepth"]
+    planes = (noisy, state[f"{prefix}.history"], state[f"{prefix}.moments"],
+              state[f"{prefix}.depth"])
+    band = ctx.band
+    if band is not None:
+        depth_in = depth
+        depth, *planes = band.gather_rows_many(depth, *planes)
+        px, py = frame_px
+        h = depth.shape[0]
+        world = reconstruct_world_pos(depth.reshape(-1), px, py,
+                                      inverse4(ctx.camera.unjittered_view_proj), w, h)
     world_img = world.reshape(h, w, 3)
     normal = sdn.normals_from_depth(world_img)
     vel = sdn.camera_velocity(world_img, px, py, ctx.camera.prev_view_proj, w, h)
-    resolved, mom = sdn.denoise(noisy, depth, normal, vel, state[f"{prefix}.history"],
-                                state[f"{prefix}.moments"], state[f"{prefix}.depth"], px, py,
+    resolved, mom = sdn.denoise(planes[0], depth, normal, vel, *planes[1:], px, py,
                                 ctx.frame_index == 0)
+    if band is not None:
+        resolved, mom, depth = band.band_rows(resolved), band.band_rows(mom), depth_in
     return {f"{prefix}.history": resolved, f"{prefix}.moments": mom, f"{prefix}.depth": depth}
 
 
@@ -143,21 +175,25 @@ class RTShadowPass(RenderPass):
             _soft_state(reg, "RTShadow", h, w, 1)
         reg.create("ShadowMask.sun", (h, w), torch.float32, clear=1.0)
         px, py = pixel_centers(cfg, device)
+        full_h = cfg.frame_height
+        frame_px = frame_pixel_centers(cfg, device) if soft else None
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             covered = state["Visibility"].reshape(-1) >= 0
-            world, parked = _receivers(state, ctx, px, py, w, h, covered)
+            py_g = frame_rows(py, ctx)
+            world, parked = _receivers(state, ctx, px, py_g, w, full_h, covered)
             lights = ctx.scene.lights
             light_dir = -lights.sun_direction
             if soft:
-                u1 = sample_blue_noise(px, py, ctx.frame_index, salt=13)
-                u2 = sample_blue_noise(px, py, ctx.frame_index, salt=14)
+                u1 = sample_blue_noise(px, py_g, ctx.frame_index, salt=13)
+                u2 = sample_blue_noise(px, py_g, ctx.frame_index, salt=14)
                 light_dir = mx.sample_cone(light_dir[None, :], lights.sun_cos_radius, u1, u2)
             mask = trace_shadow_mask(scene_with_live_bvh(state, ctx), parked, light_dir,
                                      covered, label="sun mask").reshape(h, w)
             if not soft:
                 return {"ShadowMask.sun": mask}
-            out = _denoised(mask[..., None], world, state, ctx, px, py, w, h, "RTShadow")
+            out = _denoised(mask[..., None], world, state, ctx, px, py, w, h, "RTShadow",
+                            frame_px)
             return {"ShadowMask.sun": out["RTShadow.history"][..., 0], **out}
 
         return execute
@@ -196,10 +232,13 @@ class RTLocalShadowPass(RenderPass):
         reg.create("ShadowMask.locals", (max(n_s, 1), h, w), torch.float32, clear=1.0)
         reg.create("ShadowMask.points", (max(n_p, 1), h, w), torch.float32, clear=1.0)
         px, py = pixel_centers(cfg, device)
+        full_h = cfg.frame_height
+        frame_px = frame_pixel_centers(cfg, device) if soft_channels else None
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             covered = state["Visibility"].reshape(-1) >= 0
-            world, parked = _receivers(state, ctx, px, py, w, h, covered)
+            py_g = frame_rows(py, ctx)
+            world, parked = _receivers(state, ctx, px, py_g, w, full_h, covered)
             bvh = scene_with_live_bvh(state, ctx).bvh
 
             def mask_to(light_pos, label, radius=0.0, salt=0):
@@ -209,8 +248,8 @@ class RTLocalShadowPass(RenderPass):
                 if radius > 0.0:
                     # The light's position jittered on the disk facing the
                     # receiver (a spherical source's occlusion).
-                    u1 = sample_blue_noise(px, py, ctx.frame_index, salt=salt)
-                    u2 = sample_blue_noise(px, py, ctx.frame_index, salt=salt + 1)
+                    u1 = sample_blue_noise(px, py_g, ctx.frame_index, salt=salt)
+                    u2 = sample_blue_noise(px, py_g, ctx.frame_index, salt=salt + 1)
                     to_l = to_l + mx.sample_disk_offset(l_dir, radius, u1, u2)
                     dist = torch.sqrt(torch.clamp(mx.vdot(to_l, to_l), min=1e-12))
                     l_dir = to_l / dist
@@ -231,7 +270,8 @@ class RTLocalShadowPass(RenderPass):
             out = {}
             if soft_channels:
                 noisy = torch.stack([planes[kind][i] for kind, i in soft_channels], dim=-1)
-                out = _denoised(noisy, world, state, ctx, px, py, w, h, "RTLocalShadow")
+                out = _denoised(noisy, world, state, ctx, px, py, w, h, "RTLocalShadow",
+                                frame_px)
                 for ci, (kind, i) in enumerate(soft_channels):
                     planes[kind][i] = out["RTLocalShadow.history"][..., ci]
             return {"ShadowMask.locals": torch.stack(planes["spot"]),
@@ -270,7 +310,9 @@ class RTReflectionsPass(RenderPass):
         reg.create("RTRefl.moments", (h, w, 3), torch.float32, persistent=True)
         reg.create("RTRefl.depth", (h, w), torch.float32, persistent=True)
         px, py = pixel_centers(cfg, device)
-        cone_spread = 1.0 / max(h, 1)  # ray cone ~ one pixel of the vertical FOV
+        full_h = cfg.frame_height
+        frame_px = frame_pixel_centers(cfg, device)
+        cone_spread = 1.0 / max(full_h, 1)  # ray cone ~ one pixel of the vertical FOV
         n_rays = h * w
         compact = n_rays >= (1 << 17)  # the reference compacts where it traces in chunks
         st = cfg.scene
@@ -280,7 +322,8 @@ class RTReflectionsPass(RenderPass):
             depth = state["SceneDepth"]
             valid0 = state["SceneCoverage"].reshape(-1)
             inv_vp = inverse4(ctx.camera.unjittered_view_proj)
-            world = reconstruct_world_pos(depth.reshape(-1), px, py, inv_vp, w, h)
+            world = reconstruct_world_pos(depth.reshape(-1), px, frame_rows(py, ctx), inv_vp,
+                                          w, full_h)
             world = torch.where(valid0[:, None], world, PARK)
             nrm = state["SceneNormal"].reshape(-1, 3)
             mat = state["SceneMaterial"].reshape(-1, 4)
@@ -324,13 +367,21 @@ class RTReflectionsPass(RenderPass):
             fresnel = brdf_ops.env_fresnel_roughness(n_dot_v, f0, rough)
             fade = torch.clamp((MAX_ROUGHNESS - rough) / (0.25 * MAX_ROUGHNESS), 0.0, 1.0)
             refl = torch.where(active[:, None], radiance * fresnel * fade, 0.0)
-            filtered = dn.prefilter(refl.reshape(h, w, 3), rough.reshape(h, w, 1),
-                                    nrm.reshape(h, w, 3), depth)
-            hist, mom, conf = dn.reproject(state["RTRefl.history"], state["RTRefl.moments"],
-                                           state["RTRefl.depth"], depth,
-                                           state["SceneVelocity"], px, py)
+            planes = (refl.reshape(h, w, 3), rough.reshape(h, w, 1), nrm.reshape(h, w, 3),
+                      depth, state["RTRefl.history"], state["RTRefl.moments"],
+                      state["RTRefl.depth"], state["SceneVelocity"])
+            dpx, dpy, band = px, py, ctx.band
+            if band is not None:
+                # The denoiser runs replicated on the gathered frame.
+                planes = band.gather_rows_many(*planes)
+                dpx, dpy = frame_px
+            refl_i, rough_i, nrm_i, depth_i, hist_i, mom_i, prev_depth, vel = planes
+            filtered = dn.prefilter(refl_i, rough_i, nrm_i, depth_i)
+            hist, mom, conf = dn.reproject(hist_i, mom_i, prev_depth, depth_i, vel, dpx, dpy)
             resolved, moments = dn.resolve_temporal(filtered, hist, mom, conf,
                                                     ctx.frame_index == 0)
+            if band is not None:
+                resolved, moments = band.band_rows(resolved), band.band_rows(moments)
             return {"SceneReflections": resolved, "RTRefl.history": resolved,
                     "RTRefl.moments": moments, "RTRefl.depth": depth}
 

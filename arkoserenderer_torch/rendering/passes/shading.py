@@ -30,6 +30,7 @@ from arkoserenderer_torch.rendering.pipeline import (
     FrameContext,
     PipelineConfig,
     RenderPass,
+    frame_rows,
     pixel_centers,
 )
 from arkoserenderer_torch.rendering.registry import Registry
@@ -40,6 +41,7 @@ class VisibilityShadingPass(RenderPass):
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
+        full_h = cfg.frame_height
         st = cfg.scene
         reg.get("Visibility")
         reg.get("SceneDepth")
@@ -79,12 +81,13 @@ class VisibilityShadingPass(RenderPass):
         shadow_filter = "bilinear" if cfg.shadow_filter == "auto" else cfg.shadow_filter
 
         def shade(state: dict, ctx: FrameContext):
+            py_g = frame_rows(py, ctx)
             if not packed:
                 sun_vp = ctx.scene.lights.sun_view_proj if use_map else None
                 return shade_visibility_buffer(
                     ctx.scene, ctx.camera,
                     state["Visibility"].reshape(-1), state["SceneDepth"].reshape(-1),
-                    state["vis.setup"], px, py, w, h,
+                    state["vis.setup"], px, py_g, w, full_h,
                     shadow_map=state["ShadowMap.sun"] if use_map else None,
                     sun_shadow_vp=sun_vp,
                     shadow_mask=state["ShadowMask.sun"].reshape(-1) if use_rt_shadow else None,
@@ -97,7 +100,7 @@ class VisibilityShadingPass(RenderPass):
             return shade_packed(
                 ctx.scene, ctx.camera,
                 state["Visibility"].reshape(-1), state["SceneDepth"].reshape(-1),
-                state["vis.records"], px, py, w, h,
+                state["vis.records"], px, py_g, w, full_h,
                 shadow_moments=state["ShadowMoments.sun"] if use_moments else None,
                 sun_shadow_vp=ctx.scene.lights.sun_view_proj if use_moments else None,
                 shadow_mask=state["ShadowMask.sun"].reshape(-1) if use_rt_shadow else None,

@@ -17,6 +17,11 @@ holds both versions as Python ints, so it is a plain branch and the frame
 reads nothing back. A dynamic scene (moving instances, skinning, morph
 targets, hair) rasters the sun every frame, and both maps are transient.
 
+Under pixel-band sharding each rank rasters its band of the map's rows,
+``[rank * S/n, (rank + 1) * S/n)`` at that ``y_offset``, and the bands are
+gathered into the whole map on every rank; the moments and the cache then
+run on the whole map as unsharded.
+
 Publishes: ShadowMap.sun (S, S) f32 reverse-Z depth and, packed,
 ShadowMoments.sun (S/2, S/2, 2) f32.
 
@@ -27,7 +32,8 @@ the same stage-4 kernel, at ``local_shadow_map_size``; shading PCF-samples
 each light's tile through the light's matrix.
 
 Publishes: ShadowMap.locals (n_spots, A, A) f32 reverse-Z depth; the tiles
-of lights that cast no shadow stay at the far clear value.
+of lights that cast no shadow stay at the far clear value. Under pixel-band
+sharding every rank rasters the whole (small) atlas, as the reference does.
 """
 
 from __future__ import annotations
@@ -73,8 +79,10 @@ class SunShadowPass(RenderPass):
             reg.create("scene.version", (), None, clear=-1)
             reg.create("SunShadow.version", (), None, clear=-2)
         rcfg = cfg.raster
-        if s % rcfg.tile_h or s % rcfg.tile_w:
-            raise ValueError("shadow map size must be a multiple of the raster tile")
+        band_s = s // cfg.shard_count  # the rows of the map each rank rasters
+        if band_s % rcfg.tile_h or s % rcfg.tile_w or s % cfg.shard_count:
+            raise ValueError("shadow map size must be a multiple of the raster tile in "
+                             "each band")
 
         def render(state: dict, ctx: FrameContext) -> dict:
             sc = ctx.scene
@@ -88,8 +96,15 @@ class SunShadowPass(RenderPass):
                 casters = casters & ~translucent_triangles(sc)
             setup = raster.setup_triangles(clip, sc.indices, casters, s, s,
                                            cull_backfaces=False)
-            bins = raster.bin_triangles(setup, s, s, rcfg)
-            _, depth = raster.rasterize_tiles(setup, bins, s, s, rcfg, depth_only=True)
+            if ctx.band is None:
+                bins = raster.bin_triangles(setup, s, s, rcfg)
+                _, depth = raster.rasterize_tiles(setup, bins, s, s, rcfg, depth_only=True)
+            else:
+                y0 = ctx.band.rank * band_s
+                bins = raster.bin_triangles(setup, s, band_s, rcfg, y_offset=y0)
+                _, band_depth = raster.rasterize_tiles(setup, bins, s, band_s, rcfg,
+                                                       depth_only=True, y_offset=y0)
+                depth = ctx.band.gather_rows(band_depth)
             if packed:
                 return {"ShadowMap.sun": depth, "ShadowMoments.sun": shadow_moments(depth)}
             return {"ShadowMap.sun": depth}

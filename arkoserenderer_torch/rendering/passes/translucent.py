@@ -33,6 +33,7 @@ from arkoserenderer_torch.rendering.pipeline import (
     FrameContext,
     PipelineConfig,
     RenderPass,
+    frame_rows,
     pixel_centers,
 )
 from arkoserenderer_torch.rendering.registry import Registry
@@ -49,6 +50,7 @@ class TranslucentPass(RenderPass):
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         layers = self.layers
         h, w, rcfg = cfg.height, cfg.width, cfg.raster
+        full_h = cfg.frame_height
         for name in ("geom.positions", "geom.normals", "geom.tangents", "SceneColor",
                      "SceneDepth", "SceneVelocity"):
             reg.get(name)
@@ -62,20 +64,24 @@ class TranslucentPass(RenderPass):
             scene, cam = ctx.scene, ctx.camera
             translucent = translucent_triangles(scene) & scene.tri_valid
             clip = transform_vertices_clip(scene, cam.view_proj, state["geom.positions"])
-            setup = raster.setup_triangles(clip, scene.indices, translucent, w, h,
+            setup = raster.setup_triangles(clip, scene.indices, translucent, w, full_h,
                                            cull_backfaces=False, w_eps=cam.near)
-            bins = raster.bin_triangles(setup, w, h, rcfg)
+            # Under pixel-band sharding the peel bins and rasters this
+            # rank's band.
+            bins = raster.bin_triangles(setup, w, h, rcfg, y_offset=ctx.row_offset)
+            py_g = frame_rows(py, ctx)
             opaque_depth = state["SceneDepth"]
             base_alpha = scene.materials.base_color_factor[:, 3]
 
             peeled = []  # (color (h,w,3), alpha (h,w,1), velocity (h,w,2)) front to back
             limit = None  # layer 0: the closest surface
             for _ in range(layers):
-                vis, depth = raster.rasterize_tiles(setup, bins, w, h, rcfg, depth_limit=limit)
+                vis, depth = raster.rasterize_tiles(setup, bins, w, h, rcfg,
+                                                    y_offset=ctx.row_offset, depth_limit=limit)
                 vis = torch.where(depth > opaque_depth, vis, -1)  # reverse-Z: in front
                 vis_flat = vis.reshape(-1)
                 gb = shade_visibility_buffer(
-                    scene, cam, vis_flat, depth.reshape(-1), setup, px, py, w, h,
+                    scene, cam, vis_flat, depth.reshape(-1), setup, px, py_g, w, full_h,
                     shadow_map=state["ShadowMap.sun"] if use_shadow else None,
                     sun_shadow_vp=scene.lights.sun_view_proj if use_shadow else None,
                     positions=state["geom.positions"], normals=state["geom.normals"],

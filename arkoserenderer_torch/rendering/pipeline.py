@@ -10,7 +10,9 @@ Two phases, as in the reference:
     it in a CUDA graph is later work).
 
 ``FrameContext`` bundles what every execute callback receives: the scene
-tensors, the camera state and the frame index (a host int).
+tensors, the camera state, the frame index (a host int) and, under
+pixel-band sharding (``parallel/sharded.py``), the band's first row in the
+frame and its band group.
 
 ``RenderPipeline.render_frame`` is the entry point a frame loop calls (the
 eager counterpart of the reference's ``compile`` + ``render_frame``);
@@ -42,6 +44,11 @@ class FrameContext(NamedTuple):
     camera: CameraState
     frame_index: int
     delta_time: float
+    # Pixel-band sharding: the first frame row of this rank's band (a host
+    # int, rank * band height) and the band group whose collectives join
+    # the bands (``parallel.sharded.BandGroup``); 0 and None unsharded.
+    row_offset: int = 0
+    band: object = None
 
 
 # The texture filters and sun-shadow taps the port takes; anisoN (N taps,
@@ -93,8 +100,10 @@ class PipelineConfig:
     rt_scale: int = 1
     # DDGI probe sampling at 1/k resolution: only 1 is ported.
     ddgi_sample_scale: int = 1
-    # Pixel-band sharding (a band of a taller frame on each device): not
-    # ported; the port renders the whole frame on one device.
+    # Pixel-band sharding (parallel/sharded.py): with ``shard_axis`` set the
+    # pipeline renders a horizontal band of a taller frame, ``height`` rows
+    # of ``full_height``, one band a rank of ``shard_count``; the band's
+    # place and the collectives come with each frame (FrameContext).
     shard_axis: str | None = None
     full_height: int | None = None
     shard_count: int = 1
@@ -122,12 +131,6 @@ class PipelineConfig:
             unported("rt_scale", "half-rate ray tracing for rt_shadows and rt_reflections")
         if self.ddgi_sample_scale != 1:
             unported("ddgi_sample_scale", "reduced-rate DDGI sampling")
-        if self.shard_axis is not None:
-            unported("shard_axis", "pixel-band sharding")
-        if self.shard_count != 1:
-            unported("shard_count", "pixel-band sharding")
-        if self.full_height is not None and self.full_height != self.height:
-            unported("full_height", "a band of a taller frame")
 
     @property
     def frame_height(self) -> int:
@@ -161,6 +164,8 @@ class RenderPipeline:
         self.registry = Registry()
         self._executes: list[tuple[str, ExecuteFn]] | None = None
         self.scene_animator: Callable | None = None
+        # The band group under pixel-band sharding (ShardedRenderer sets it).
+        self.band = None
 
     def add_pass(self, p: RenderPass) -> "RenderPipeline":
         self.passes.append(p)
@@ -195,7 +200,8 @@ class RenderPipeline:
         if self.scene_animator is not None:
             scene = self.scene_animator(scene, int(frame_index), float(delta_time))
         ctx = FrameContext(scene=scene, camera=camera,
-                           frame_index=int(frame_index), delta_time=float(delta_time))
+                           frame_index=int(frame_index), delta_time=float(delta_time),
+                           row_offset=self.row_offset, band=self.band)
         state = dict(state)
         for name, execute in self._executes:
             if pass_events is not None:
@@ -209,6 +215,11 @@ class RenderPipeline:
             if updates:
                 state.update(updates)
         return state
+
+    @property
+    def row_offset(self) -> int:
+        """The first frame row of this rank's band (0 unsharded)."""
+        return 0 if self.band is None else self.band.rank * self.cfg.height
 
     def render_frame(self, state: dict, scene: SceneArrays, camera_state: CameraState,
                      frame_index: int, delta_time: float = 1 / 60,
@@ -244,7 +255,8 @@ def validate_frame(pipeline: RenderPipeline, state: dict, scene: SceneArrays,
     harness; an empty list is a clean frame."""
     pipeline._require_constructed()
     ctx = FrameContext(scene=scene, camera=camera_state, frame_index=int(frame_index),
-                       delta_time=float(delta_time))
+                       delta_time=float(delta_time), row_offset=pipeline.row_offset,
+                       band=pipeline.band)
     findings = []
     state = dict(state)
     for name, execute in pipeline._executes:
@@ -260,9 +272,16 @@ def validate_frame(pipeline: RenderPipeline, state: dict, scene: SceneArrays,
 
 
 def pixel_centers(cfg: PipelineConfig, device):
-    """(N,) px / (N,) py flattened pixel-centre coordinates on ``device``."""
+    """(N,) px / (N,) py flattened pixel-centre coordinates of the band (of
+    the frame, unsharded) on ``device``; add ``FrameContext.row_offset`` to
+    py for frame rows."""
     xs = np.arange(cfg.width, dtype=np.float32) + 0.5
     ys = np.arange(cfg.height, dtype=np.float32) + 0.5
     px, py = np.meshgrid(xs, ys)
     return (torch.from_numpy(px.ravel()).to(device),
             torch.from_numpy(py.ravel()).to(device))
+
+
+def frame_rows(py: torch.Tensor, ctx: FrameContext) -> torch.Tensor:
+    """The band's pixel-centre rows ``py`` as rows of the whole frame."""
+    return py + ctx.row_offset if ctx.row_offset else py

@@ -68,7 +68,8 @@ WRAPPER_CALLS = {"camera": 50, "sun": 10, "local": 50, "camera_stress": 20,
                  "camera_ddgi": 20, "sun_ddgi": 10, "camera_helmet": 20, "camera_app": 20,
                  "sun_app": 50, "peel": 20, "peel_app": 20, "camera_hair": 20,
                  "sun_hair": 50, "camera_terrain_257": 20, "camera_terrain_1025": 10,
-                 "camera_helmet_1024": 20, "camera_viewer": 20, "sun_viewer": 50}
+                 "camera_helmet_1024": 20, "camera_viewer": 20, "sun_viewer": 50,
+                 "camera_band": 20, "sun_band": 10, "camera_band4": 50}
 # The adversarial case: viewport and numpy seed.
 ADVERSARIAL_SIZE, ADVERSARIAL_SEED = 64, 7
 
@@ -166,15 +167,17 @@ def forward_raster_inputs(scene_arrays, cam_state, scene_static, width: int, hei
 
 def capture_raster_calls(frame) -> tuple[list, object]:
     """Call ``frame()`` and return (every raster it launches, in launch
-    order, as a dict of setup, bins, width, height, depth_only and
-    depth_limit; what ``frame()`` returned). The launches count as usual."""
+    order, as a dict of setup, bins, width, height, depth_only, y_offset
+    and depth_limit; what ``frame()`` returned). The launches count as
+    usual."""
     calls = []
     kernel = raster_cuda.rasterize_tiles_cuda
 
     def record(setup, bins, width, height, cfg, depth_only=False, y_offset=0,
                depth_limit=None):
         calls.append(dict(setup=setup, bins=bins, width=width, height=height,
-                          depth_only=bool(depth_only), depth_limit=depth_limit))
+                          depth_only=bool(depth_only), y_offset=int(y_offset),
+                          depth_limit=depth_limit))
         return kernel(setup, bins, width, height, cfg, depth_only=depth_only,
                       y_offset=y_offset, depth_limit=depth_limit)
 
@@ -234,11 +237,14 @@ def tile_list_pairs(bins) -> tuple[torch.Tensor, torch.Tensor]:
     return tiles[order], torch.cat([b_tri, g_tri])[order]
 
 
-def pixel_tests(setup, bins, width: int, height: int, cfg: RasterConfig) -> tuple[int, int]:
+def pixel_tests(setup, bins, width: int, height: int, cfg: RasterConfig,
+                y_offset: int = 0) -> tuple[int, int]:
     """Pixel tests of a raster that walks every listed pair, and of one that
-    walks only the pairs ``tile_rejects`` keeps."""
+    walks only the pairs ``tile_rejects`` keeps (of a band at
+    ``y_offset``)."""
     tiles, tris = tile_list_pairs(bins)
-    kept = int((~raster.tile_rejects(setup, tiles, tris, width, height, cfg)).sum())
+    kept = int((~raster.tile_rejects(setup, tiles, tris, width, height, cfg,
+                                     y_offset=y_offset)).sum())
     pixels = cfg.tile_h * cfg.tile_w
     return tiles.numel() * pixels, kept * pixels
 
@@ -299,7 +305,8 @@ def graph_ms(fn) -> float:
 
 
 def kernel_ms(lib, setup, bins, width: int, height: int, cfg: RasterConfig,
-              depth_only: bool, depth_limit: torch.Tensor | None = None) -> float:
+              depth_only: bool, depth_limit: torch.Tensor | None = None,
+              y_offset: int = 0) -> float:
     """Device ms of one launch of ``lib``'s kernel into outputs made once.
     Between launches the outputs stay in place, and at the camera's size
     (16.6 MB) they stay in the 50 MB L2 as well."""
@@ -307,7 +314,8 @@ def kernel_ms(lib, setup, bins, width: int, height: int, cfg: RasterConfig,
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     vis = torch.full((height, width), -1, dtype=torch.int32, device=dev)
     return graph_ms(lambda: raster_cuda.launch_raw(lib, setup, bins, width, height, cfg,
-                                                   depth_only, 0, depth_limit, depth, vis))
+                                                   depth_only, y_offset, depth_limit, depth,
+                                                   vis))
 
 
 def load_wrapper(root: Path):

@@ -232,18 +232,39 @@ result line):
      unchanged; (e) profiling.trace around two frames with a zone each: the
      trace names the zones and raster_tiles_kernel; (f) meshviewer
      --interactive on the DamagedHelmet at 1024^2 over HTTP, 4 frames.
+ 20. pixel-band sharding (parallel/sharded.py) through ``run_bands``, the
+     ranks sharing this card over gloo (CUDA tensors; and over NCCL, one
+     rank a card, when the machine has two cards, else a line says it was
+     not run): (a) n = 2, the forward slice (no TAA, no Bloom) at 1920x1080
+     with tile 4x128 (the only tile that splits 1080 rows into two bands of
+     whole tiles) and the 8192^2 sun, 2 frames: each rank's rasters are one
+     1920x540 camera band a frame and one 8192x4096 sun band (cached), each
+     bit for bit against the plain raster at its y_offset; the gathered LDR
+     against the unsharded card frame at the same tile (unequal values,
+     largest difference, the share off by > 1e-5 below 1e-3); (b) n = 4 at
+     1920x1024 (tile 8x128) on the rt_soft scene with Bloom, SSAO, soft RT
+     sun and spot shadows, RT reflections and DDGI, no TAA, 3 frames: the
+     same bound, every band raster and every trace of the last frame bit
+     for bit against the plain versions, the replicated stages (the RT
+     denoisers' whole-frame outputs, the DDGI atlases) equal on all ranks by
+     SHA-256; (c) per rank ms/frame (CUDA events), the collectives' count,
+     ms and bytes a frame, backend and peak memory; then rank 1's band
+     rasters of (a) and (b) timed as in phase 3, and the last rank's
+     traces of (b) as in phase 10. One card shared by gloo
+     ranks makes (c) a correctness run, not a scaling measurement.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
 per-frame ddgi sun, helmet camera, the app's camera and sun, the translucent
 kind's and the app's peel layers, humandemo's camera with hair and its sun,
 the terrain cameras at both grids, meshviewer's 1024^2 helmet camera and
-the live viewer's camera and per-frame 512^2 sun),
+the live viewer's camera and per-frame 512^2 sun, phase 20's 1920x540 and
+1920x256 camera bands and 8192x4096 sun band),
 each with its launches in the runs of the frame kinds or apps that launch
 it, and one entry per trace the traversal kernel serves in the rt,
 showcase, flagship, ddgi, helmet and rt_soft frames, the pathtraced sample,
-the AO bake, the app's RT frame and the streamed rt frame, each with its
-launches by its label in that run;
+the AO bake, the app's RT frame, the streamed rt frame and the last
+rank's band of phase 20 (b), each with its launches by its label in that run;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1509,6 +1530,159 @@ def run_slice14(dev, card: str, compare_and_time, width: int = 1920, height: int
     return {"raster_launches": launches}
 
 
+def band_records(res: dict, name: str, card: str) -> list:
+    """Print (c) for each rank of a phase-20 run and check what every rank
+    must show: a finite frame, every captured raster and trace equal to its
+    plain version (``tools/shard_bench.rank_run`` raised otherwise), and the
+    replicated stages' hashes equal on all ranks."""
+    ranks = res["ranks"]
+    for r in ranks:
+        if not r["finite"]:
+            raise AssertionError(f"{name}: rank {r['rank']}'s band is not finite")
+        print(f"{name} rank {r['rank']} ({r['backend']}, {r['device']}): "
+              f"{r['ms_per_frame']:.4f} ms/frame (CUDA events; host "
+              f"{r['wall_ms_per_frame']:.4f}), collectives {r['collectives_per_frame']:.1f} a "
+              f"frame taking {r['collective_ms_per_frame']:.4f} ms, "
+              f"{r['gathered_mib_per_frame']:.3f} MiB gathered a frame, peak memory "
+              f"{r['peak_gib']:.3f} GiB; rasters {r['raster_launches_by_shape']} "
+              f"({len(r['rasters_equal'])} equal to the plain raster, y_offsets "
+              f"{sorted({c['y_offset'] for c in r['rasters_equal']})}); traces "
+              f"{r['trace_launches_by_label']} ({len(r['traces_equal'])} of the last frame "
+              f"equal to the plain walk) [{card}]", flush=True)
+    for key in ("cuts", "replicated"):
+        if any(r[key] != ranks[0][key] for r in ranks):
+            raise AssertionError(f"{name}: the replicated stages differ across ranks ({key}: "
+                                 f"{[r[key] for r in ranks]})")
+    print(f"{name}: {len(ranks[0]['cuts'])} replicated denoiser outputs and "
+          f"{sorted(ranks[0]['replicated'])} equal bit for bit on all {len(ranks)} ranks "
+          "(SHA-256)", flush=True)
+    return ranks
+
+
+def frame_agreement(name: str, ours: np.ndarray, ref: np.ndarray, card: str) -> None:
+    """The gathered frame against the unsharded card frame, within
+    tests/test_sharding.py's bound: the share of values off by more than
+    1e-5 below 1e-3."""
+    if ours.shape != ref.shape or not np.isfinite(ours).all():
+        raise AssertionError(f"{name}: gathered frame {ours.shape}, expected {ref.shape}, finite")
+    diff = np.abs(ours - ref)
+    share = float((diff > 1e-5).mean())
+    print(f"{name}: gathered LDR against the unsharded card frame: {int((diff > 0).sum())} of "
+          f"{diff.size} values unequal, largest difference {float(diff.max()):.3e}, share "
+          f"off by more than 1e-5 {share:.3e} (bound 1e-3) [{card}]", flush=True)
+    if share >= 1e-3:
+        raise AssertionError(f"{name}: the sharded frame diverges ({share:.4f} > 1e-3)")
+
+
+def run_slice15(dev, card: str, compare_and_time, width: int = 1920, iters: int = 6) -> dict:
+    """Phase 20: pixel-band sharding through ``parallel/sharded.run_bands``,
+    the ranks sharing this card over gloo (and over NCCL, one rank a card,
+    where the machine has the cards). Returns the band rows' launches and
+    the last rank's measured band traces."""
+    import functools
+
+    from arkoserenderer_torch.assets.procedural import build_test_scene
+    from arkoserenderer_torch.core.types import RasterConfig
+    from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.ops import raster
+    from arkoserenderer_torch.parallel.sharded import BandJob, band_config, run_bands
+    from arkoserenderer_torch.rendering.pipeline import PipelineConfig
+    from arkoserenderer_torch.tools import raster_bench as rb
+    from arkoserenderer_torch.tools import shard_bench as sb
+    from arkoserenderer_torch.tools import trace_bench as tb
+
+    t_phase = time.perf_counter()
+    S = 8192
+    out = {"raster_launches": {}, "traces": []}
+
+    # (a) n = 2, the forward slice at 1920x1080: only tile 4x128 splits 1080
+    # rows into two bands of whole tiles (540 = 135 * 4).
+    H = 1080
+    rcfg = RasterConfig(tile_h=4, tile_w=128, max_tris_per_tile=256)
+    cfg = PipelineConfig(width=width, height=H, raster=rcfg, shadow_map_size=S)
+    kw = dict(taa=False, bloom=False)
+    job = BandJob(functools.partial(build_test_scene, viewport=(width, H)), cfg, 2, kw)
+    scene, cam = job.scene()
+    ref = Renderer(scene, cam, cfg, device=dev, **kw)
+    ref_ldr = ref.render_frames(job.frames).cpu().numpy()
+    backends = [("gloo", ["cuda"] * 2)]
+    if torch.cuda.device_count() >= 2:
+        backends.append(("nccl", None))
+    else:
+        print("phase 20: NCCL across cards not run (one card)", flush=True)
+    band_h = band_config(cfg, 2).height
+    for backend, devices in backends:
+        name = f"sharded forward n=2 {width}x{H} tile 4x128 ({backend})"
+        res = run_bands(sb.rank_run, 2, backend, devices, job, iters)
+        ranks = band_records(res, name, card)
+        want = {f"{band_h}x{width}": job.frames, f"{S // 2}x{S} depth-only": 1}
+        for r in ranks:
+            if r["raster_launches_by_shape"] != want:
+                raise AssertionError(f"{name}: rank {r['rank']} rastered "
+                                     f"{r['raster_launches_by_shape']}, expected {want}")
+        frame_agreement(name, res["ldr"], ref_ldr, card)
+        if backend == "gloo":
+            out["raster_launches"]["camera_band"] = sum(r["raster_launches_by_shape"][
+                f"{band_h}x{width}"] for r in ranks)
+            out["raster_launches"]["sun_band"] = sum(r["raster_launches_by_shape"][
+                f"{S // 2}x{S} depth-only"] for r in ranks)
+    # Rank 1's band rasters, timed as phase 3 times the whole ones.
+    cases = rb.forward_raster_inputs(ref.scene_arrays, cam.state(0, dev), ref.cfg.scene, width,
+                                     H, S, rcfg)
+    cam_setup, sun_setup = cases["camera"][0], cases["sun"][0]
+    del cases
+    compare_and_time("camera_band", f"camera band {width}x{band_h} at y_offset {band_h}, tile "
+                     "4x128", 5, cam_setup, raster.bin_triangles(cam_setup, width, band_h, rcfg,
+                                                                 y_offset=band_h),
+                     width, band_h, False, rcfg=rcfg, y_offset=band_h)
+    compare_and_time("sun_band", f"sun band {S}x{S // 2} at y_offset {S // 2}, depth-only", 2,
+                     sun_setup, raster.bin_triangles(sun_setup, S, S // 2, rcfg,
+                                                     y_offset=S // 2),
+                     S, S // 2, True, rcfg=rcfg, y_offset=S // 2)
+    del ref, cam_setup, sun_setup
+
+    # (b) n = 4 at 1920x1024: bloom (five levels in the frame and in a band),
+    # SSAO, soft RT sun and spot shadows, RT reflections and DDGI, 3 frames.
+    H = 1024
+    rcfg = RasterConfig(tile_h=8, tile_w=128, max_tris_per_tile=256)
+    cfg = PipelineConfig(width=width, height=H, raster=rcfg, shadow_map_size=S)
+    kw = dict(ssao=True, rt_shadows=True, rt_reflections=True, ddgi=True, taa=False)
+    job = BandJob(functools.partial(sb.bench_scene, "rt_soft", cfg), cfg, 3, kw)
+    scene, cam = job.scene()
+    ref = Renderer(scene, cam, cfg, device=dev, **kw)
+    ref_ldr = ref.render_frames(job.frames).cpu().numpy()
+    name = f"sharded rt_soft+ddgi+ssao+bloom n=4 {width}x{H} (gloo)"
+    res = run_bands(sb.rank_run, 4, "gloo", ["cuda"] * 4, job, iters)
+    ranks = band_records(res, name, card)
+    band_h = band_config(cfg, 4).height
+    for r in ranks:
+        if r["raster_launches_by_shape"] != {f"{band_h}x{width}": job.frames}:
+            raise AssertionError(f"{name}: rank {r['rank']} rastered "
+                                 f"{r['raster_launches_by_shape']}")
+        if not r["cuts"] or "DDGI.irradiance" not in r["replicated"]:
+            raise AssertionError(f"{name}: no replicated stage was hashed")
+    frame_agreement(name, res["ldr"], ref_ldr, card)
+    out["raster_launches"]["camera_band4"] = sum(r["raster_launches"] for r in ranks)
+    for t in ranks[-1]["traces_measured"]:
+        t["name"] = f"band n=4 rank 3 {t['trace']}"
+        print(tb.describe(t, card), flush=True)
+        out["traces"].append((sum(r["trace_launches_by_label"].get(t["trace"], 0)
+                                  for r in ranks), t))
+    cases = rb.forward_raster_inputs(ref.scene_arrays, cam.state(0, dev), ref.cfg.scene, width,
+                                     H, S, rcfg)
+    cam_setup = cases["camera"][0]
+    del cases
+    compare_and_time("camera_band4", f"camera band {width}x{band_h} at y_offset {band_h}, tile "
+                     "8x128 (n=4)", 5, cam_setup,
+                     raster.bin_triangles(cam_setup, width, band_h, rcfg, y_offset=band_h),
+                     width, band_h, False, rcfg=rcfg, y_offset=band_h)
+    del ref, cam_setup
+    print(f"phase 20: the ranks share one card over gloo (host-staged collectives): a "
+          f"correctness run, not a scaling measurement; phase 20 took "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -1623,15 +1797,16 @@ def main() -> None:
     timed = {}
 
     def compare_and_time(name, label, p_iters, setup, bins, w, h, depth_only,
-                         rcfg=full_raster, depth_limit=None):
-        kw = dict(depth_only=depth_only, depth_limit=depth_limit)
+                         rcfg=full_raster, depth_limit=None, y_offset=0):
+        kw = dict(depth_only=depth_only, depth_limit=depth_limit, y_offset=y_offset)
         err = compare(label, setup, bins, w, h, rcfg, **kw)[0]
-        device_ms = rb.kernel_ms(lib, setup, bins, w, h, rcfg, depth_only, depth_limit)
+        device_ms = rb.kernel_ms(lib, setup, bins, w, h, rcfg, depth_only, depth_limit,
+                                 y_offset=y_offset)
         k_ms = rb.events_ms(lambda: rasterize_tiles_cuda(setup, bins, w, h, rcfg, **kw),
                             rb.WRAPPER_CALLS[name])
         p_ms = rb.events_ms(lambda: raster.rasterize_tiles_plain(setup, bins, w, h, rcfg, **kw),
                             p_iters)
-        before, after = rb.pixel_tests(setup, bins, w, h, rcfg)
+        before, after = rb.pixel_tests(setup, bins, w, h, rcfg, y_offset=y_offset)
         bound, kind = rb.bound_ms(setup, bins, w, h, depth_only, after,
                                   depth_limit=depth_limit is not None)
         timed[name] = dict(max_abs_err=err, ms=k_ms, device_ms=device_ms, plain_ms=p_ms,
@@ -2046,6 +2221,9 @@ def main() -> None:
     # -- 19. the live viewer, its systems, physics, hot reload, profiling ----------------
     slice14 = run_slice14(dev, card, compare_and_time)
 
+    # -- 20. pixel-band sharding: banded rasters, halos, gathers ------------------------
+    slice15 = run_slice15(dev, card, compare_and_time)
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
         "camera": (PHASE8 + ("rt", "showcase", "rt_soft"), (H, W, False)),
@@ -2089,6 +2267,10 @@ def main() -> None:
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches_19, **timed[name], "library_ms": None,
     } for name, launches_19 in slice14["raster_launches"].items()]
+    rows += [{
+        "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": launches_20, **timed[name], "library_ms": None,
+    } for name, launches_20 in slice15["raster_launches"].items()]
 
     def trace_row(t, launches):
         return {
@@ -2101,6 +2283,7 @@ def main() -> None:
 
     rows += [trace_row(t, trace_launches.get(t["name"], 0)) for t in traces]
     rows += [trace_row(t, by_label.get(t["trace"], 0)) for by_label, t in kind_traces]
+    rows += [trace_row(t, launches) for launches, t in slice15["traces"]]
     if not all(row["launches"] for row in rows):
         raise AssertionError("a kernel of the frames' path was never launched")
     print(json.dumps({"kernels": rows}))

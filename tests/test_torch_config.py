@@ -3,7 +3,8 @@
 Every field of the reference's PipelineConfig constructs at its default;
 the texture qualities and shadow filters the reference takes construct;
 each value the port does not implement raises NotImplementedError naming
-the field; "auto" resolves as the reference's make_forward_pipeline
+the field, and the pixel-band sharding fields construct as the
+reference's; "auto" resolves as the reference's make_forward_pipeline
 resolves it. OutputPass's ``mode`` matches JAX's at 96^2 for every
 tonemap operator, and VisibilityShading with ``texture_quality="bilinear"``
 matches JAX's pass at 96^2 under the forward tests' tolerances
@@ -43,8 +44,10 @@ REFERENCE_FIELDS = ["texture_quality", "shading_mode", "shadow_filter", "sky_fet
                     "ddgi_sample_scale", "shard_axis", "full_height", "shard_count"]
 # (field, value) the port does not implement; each raises naming the field.
 UNPORTED = [("texture_quality", "sorted"), ("sky_fetch_scale", 2),
-            ("ddgi_sample_scale", 2), ("shard_axis", "x"), ("shard_count", 2),
-            ("full_height", 2 * RES)]
+            ("ddgi_sample_scale", 2)]
+# The pixel-band sharding fields (parallel/sharded.py), each taken as the
+# reference takes it.
+SHARDING = [("shard_axis", "x"), ("shard_count", 2), ("full_height", 2 * RES)]
 # The rest of the config an unported value needs: "sorted" is unported only
 # under the reference shading mode (the packed mode takes it as trilinear).
 UNPORTED_WITH = {"texture_quality": {"shading_mode": "reference"}}
@@ -65,6 +68,14 @@ def test_unported_values_raise_by_name(field, value):
         TPipelineConfig(width=RES, height=RES, **base, **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         dataclasses.replace(TPipelineConfig(width=RES, height=RES, **base), **{field: value})
+
+
+@pytest.mark.parametrize("field,value", SHARDING, ids=[f"{f}={v}" for f, v in SHARDING])
+def test_sharding_values_construct_as_the_reference(field, value):
+    ours = TPipelineConfig(width=RES, height=RES, **{field: value})
+    ref = JPipelineConfig(width=RES, height=RES, **{field: value})
+    assert getattr(ours, field) == getattr(ref, field) == value
+    assert ours.frame_height == ref.frame_height and ours.height == RES
 
 
 @pytest.mark.parametrize("field,value", [("texture_quality", "trilinear"),

@@ -60,16 +60,25 @@ FLIPS = {
 
 
 FRAME_TIMES = (0.0, 0.25)  # an animated scene's clip time at frames 0 and 1
+# The passes both DDGI walks start with, whose JAX updates the second walk
+# takes from the first (``walk``'s ``jax_shared``).
+SHARED_PREFIX = ("Scene", "Geometry", "DDGI")
 
 
-def walk(jscene, jcam, tscene, flags: dict, frames: int = 2, animate: bool = False):
+def walk(jscene, jcam, tscene, flags: dict, frames: int = 2, animate: bool = False,
+         jax_shared: dict | None = None):
     """Both packages' pipelines of ``flags`` (make_forward_pipeline's, with
     ``ddgi`` a JAX ProbeGridConfig) pass by pass over ``frames`` frames:
     {(frame, pass): (torch, jax) updates}, and "names": the passes. Each
     torch pass takes the JAX input state of that pass; the camera moves 0.4
     in x between frames and frame 0's persistent state feeds frame 1. With
     ``animate`` the JAX scene's clips are evaluated at FRAME_TIMES[frame]
-    and the palette and morph weights uploaded, as Renderer does."""
+    and the palette and morph weights uploaded, as Renderer does.
+
+    ``jax_shared``: JAX updates of the passes in SHARED_PREFIX kept across
+    walks of one scene, camera and grid, keyed by frame and the pass list up
+    to the pass: a walk whose pipeline starts with the same passes reuses
+    them (those passes read nothing the later passes or the flags set)."""
     sizes = dict(width=RES, height=RES, shadow_map_size=128)
     jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), scene=jscene.static_info(), **sizes)
     tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), scene=tscene.static_info(), **sizes)
@@ -111,30 +120,45 @@ def walk(jscene, jcam, tscene, flags: dict, frames: int = 2, animate: bool = Fal
         jctx = JFrameContext(scene=jsa, camera=jcs, frame_index=jnp.asarray(frame, jnp.int32),
                              delta_time=jnp.asarray(1 / 60, jnp.float32),
                              row_offset=jnp.zeros((), jnp.int32))
-        for (name, _), jexec, (_, texec) in zip(jpipe._executes, jitted, tpipe._executes):
+        for i, ((name, _), jexec, (_, texec)) in enumerate(
+                zip(jpipe._executes, jitted, tpipe._executes)):
             tupd = texec(_torch_state(state), tctx)
-            jupd = jexec(state, jctx)
+            key = (frame, tuple(names[:i + 1]))
+            if jax_shared is not None and key in jax_shared:
+                jupd = jax_shared[key]
+            else:
+                jupd = jexec(state, jctx)
+                if jax_shared is not None and names[:i + 1] == list(SHARED_PREFIX[:i + 1]):
+                    jax_shared[key] = jupd
             out[frame, name] = (tupd, jupd)
             state = {**state, **jupd}
     return out
 
 
-def walk_ddgi(kind):
+def walk_ddgi(kind, jax_shared=None):
     """Both pipelines of ``kind`` pass by pass over two frames:
-    {(frame, pass): (torch, jax) updates}."""
+    {(frame, pass): (torch, jax) updates}. Both kinds walk the same scene,
+    camera and grid, so they may share ``jax_shared``."""
     import arkoserenderer_torch.assets.procedural as tproc
     import arkoserenderer_tpu.assets.procedural as jproc
 
     jscene, jcam = jproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
     tscene, _ = tproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
-    out = walk(jscene, jcam, tscene, dict(ddgi=jdd.ProbeGridConfig(), **WALK_KW[kind]))
+    out = walk(jscene, jcam, tscene, dict(ddgi=jdd.ProbeGridConfig(), **WALK_KW[kind]),
+               jax_shared=jax_shared)
     assert out["names"] == WALK_PASSES[kind]
     return out
 
 
+@pytest.fixture(scope="module")
+def jax_shared():
+    """The JAX updates of SHARED_PREFIX, computed by the first DDGI walk."""
+    return {}
+
+
 @pytest.fixture(scope="module", params=sorted(WALK_PASSES))
-def ddgi_walk(request):
-    return request.param, walk_ddgi(request.param)
+def ddgi_walk(request, jax_shared):
+    return request.param, walk_ddgi(request.param, jax_shared)
 
 
 @pytest.mark.parametrize("frame", [0, 1])

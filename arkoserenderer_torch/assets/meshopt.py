@@ -1,10 +1,13 @@
-"""Meshlet building and the BC4 block decoder (port of
+"""Meshlet building and BC4/BC5 block compression (port of
 arkoserenderer_tpu/assets/meshopt.py: ``build_meshlets`` with its NumPy
-greedy scan, and the NumPy ``decompress_bc4``).
+greedy scan, and the NumPy ``compress_bc4``, ``decompress_bc4`` and
+``compress_bc5``).
 
-The reference also builds both as a native g++ library; the port needs no
-native code for them: meshlets are built once per segment at scene build,
-and BC4 blocks are decoded once per DDS image at load.
+The reference also builds these as a native g++ library, which it runs
+where g++ is found; the port gives the native library's blocks in numpy
+and needs no native code:
+meshlets are built once per segment at scene build, and BC4/BC5 blocks are
+coded once per image at asset preparation or load.
 """
 
 from __future__ import annotations
@@ -106,3 +109,42 @@ def decompress_bc4(blocks: np.ndarray, height: int, width: int) -> np.ndarray:
         texels[:, i] = pal[np.arange(len(blk)), code]
     bh, bw = height // 4, width // 4
     return texels.reshape(bh, bw, 4, 4).transpose(0, 2, 1, 3).reshape(height, width)
+
+
+def compress_bc4(channel: np.ndarray) -> np.ndarray:
+    """(H, W) uint8 (H and W multiples of 4) -> (H/4 * W/4, 8) uint8 BC4
+    blocks in row-major block order: e0 = the block's max, e1 = its min
+    (the six-interpolant palette), each texel's index its position between
+    them, (v - min) / (max - min) * 7 in float64 rounded half away from
+    zero, as the reference's native encoder rounds (its NumPy fallback
+    rounds half to even, and differs at exact ties); 0 for a flat block."""
+    h, w = channel.shape
+    if h % 4 or w % 4:
+        raise ValueError(f"BC4 needs sides that are multiples of 4, not {h}x{w}")
+    channel = np.ascontiguousarray(channel, np.uint8)
+    blocks = channel.reshape(h // 4, 4, w // 4, 4).transpose(0, 2, 1, 3).reshape(-1, 16)
+    mn = blocks.min(1).astype(np.int32)
+    mx = blocks.max(1).astype(np.int32)
+    out = np.zeros((len(blocks), 8), np.uint8)
+    out[:, 0] = mx
+    out[:, 1] = mn
+    span = np.maximum(mx - mn, 1)[:, None].astype(np.float64)
+    pos = (blocks.astype(np.int32) - mn[:, None]) / span * 7.0
+    whole = np.floor(pos)
+    tq = (whole + (pos - whole >= 0.5)).astype(np.int32)
+    # Position 0 (the min) is palette entry 1, 7 (the max) entry 0, and
+    # position i in between entry 8 - i.
+    remap = np.array([1, 7, 6, 5, 4, 3, 2, 0], np.int64)
+    codes = np.where((mx == mn)[:, None], 0, remap[np.clip(tq, 0, 7)])
+    bits = np.zeros(len(blocks), np.uint64)
+    for i in range(16):
+        bits |= codes[:, i].astype(np.uint64) << np.uint64(3 * i)
+    for i in range(6):
+        out[:, 2 + i] = (bits >> np.uint64(8 * i)).astype(np.uint8)
+    return out
+
+
+def compress_bc5(r: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """Two-channel BC5 (normal maps): (H, W) + (H, W) uint8 -> (blocks, 16),
+    each block the BC4 block of ``r`` then that of ``g``."""
+    return np.concatenate([compress_bc4(r), compress_bc4(g)], axis=1)

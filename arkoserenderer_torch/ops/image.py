@@ -1,9 +1,11 @@
-"""Image-space helpers: bilinear and Catmull-Rom resampling, the 2x pyramid
-steps, 3x3 stencils and the rational-ratio resizes (port of
-arkoserenderer_tpu/ops/image.py, the functions the post chain and the
-upscalers use: TAA reprojection, the bloom pyramid, depth of field, motion
-blur, spatial and temporal upscaling). All take (H, W, C) images and run as
-plain tensor ops.
+"""Image-space helpers: bilinear and Catmull-Rom resampling, the sub-pixel
+shift resample, the 2x pyramid steps, 3x3 stencils, the rational-ratio
+resizes and the reduced-rate upsamplers (port of
+arkoserenderer_tpu/ops/image.py, the functions the post chain, the
+upscalers and the reduced-rate passes use: TAA reprojection, the bloom
+pyramid, depth of field, motion blur, spatial and temporal upscaling, the
+half-rate RT and DDGI reconstruction and the low-rate sky fetch). All take
+(H, W, C) images and run as plain tensor ops.
 """
 
 from __future__ import annotations
@@ -114,6 +116,34 @@ def upsample2x(img: torch.Tensor, halo_rows=None) -> torch.Tensor:
     if halo_rows is not None:
         halo_rows = tuple(r.repeat_interleave(2, dim=1) for r in halo_rows)
     return blur3(img.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1), halo_rows)
+
+
+def upsample_bilinear_k(img: torch.Tensor, k: int, halo_rows=None) -> torch.Tensor:
+    """(h, w, c) -> (h * k, w * k, c) separable bilinear upsample with edge
+    clamp: each axis edge-padded by one (the rows from ``halo_rows``, the
+    neighbouring bands' rows of ``band_halo_rows``, in place of the row
+    clamp), then for each of the k output phases the lerp of two
+    neighbouring slices at f = (phase + 0.5) / k - 0.5, interleaved."""
+    if k == 1:
+        return img
+
+    def axis_up(x, axis):
+        n = x.shape[axis]
+        if axis == 0 and halo_rows is not None:
+            p = torch.cat([halo_rows[0], x, halo_rows[1]], dim=0)
+        else:
+            p = _edge_pad(x, axis, 1)
+        prev, cur, nxt = p.narrow(axis, 0, n), p.narrow(axis, 1, n), p.narrow(axis, 2, n)
+        phases = []
+        for ph in range(k):
+            f = (ph + 0.5) / k - 0.5
+            if f < 0:
+                phases.append(cur * (1.0 + f) + prev * (-f))
+            else:
+                phases.append(cur * (1.0 - f) + nxt * f)
+        return _interleave(phases, x, n * k, axis)
+
+    return axis_up(axis_up(img, 0), 1)
 
 
 def band_halo_rows(img: torch.Tensor, band) -> tuple[torch.Tensor, torch.Tensor]:
@@ -259,3 +289,45 @@ def resize_bilinear_rational_jittered(img: torch.Tensor, out_h: int, out_w: int,
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
     """Rec. 709 luma of (..., 3) colours, keeping a last axis of 1."""
     return rgb[..., 0:1] * 0.2126 + rgb[..., 1:2] * 0.7152 + rgb[..., 2:3] * 0.0722
+
+
+def bilinear_sample_small_offset(img: torch.Tensor, ox: torch.Tensor,
+                                 oy: torch.Tensor) -> torch.Tensor:
+    """Bilinear resample of (H, W, C) at (x + ox, y + oy) for per-pixel
+    offsets ``ox``, ``oy`` (H, W) of at most a pixel, edge-clamped like
+    ``bilinear_sample``, without a gather: nine edge-clamped static shifts,
+    each weighted by the separable triangle kernel at the offset, summed
+    row shift by row shift (-1, 0, 1), column shift by column shift within
+    each, from zeros."""
+    out = torch.zeros_like(img)
+    axo = ox[..., None]
+    ayo = oy[..., None]
+    for sy in (-1, 0, 1):
+        wy = torch.clamp(1.0 - torch.abs(sy - ayo), min=0.0)
+        for sx in (-1, 0, 1):
+            wx = torch.clamp(1.0 - torch.abs(sx - axo), min=0.0)
+            out = out + shift_img(img, sy, sx) * (wx * wy)
+    return out
+
+
+def upsample_nearest_depth(half_img: torch.Tensor, half_depth: torch.Tensor,
+                           full_depth: torch.Tensor) -> torch.Tensor:
+    """(H/2, W/2, C) values -> (H, W, C) by nearest depth: each full pixel
+    takes, of the four half-res cells (0, 0), (0, 1), (1, 0) and (1, 1)
+    from its own (edge-clamped), the first whose depth is strictly closest
+    to its own (no value leaks across a silhouette)."""
+
+    def up(a):
+        return a.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+
+    best = best_err = None
+    for dy in (0, 1):
+        for dx in (0, 1):
+            cand = up(shift_img(half_img, dy, dx))
+            err = torch.abs(up(shift_img(half_depth[..., None], dy, dx))[..., 0] - full_depth)
+            if best is None:
+                best, best_err = cand, err
+            else:
+                best = torch.where((err < best_err)[..., None], cand, best)
+                best_err = torch.minimum(best_err, err)
+    return best

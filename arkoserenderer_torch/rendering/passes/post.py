@@ -7,11 +7,12 @@ TAA converges. ``temporal=None`` turns it on under the stochastic texture
 qualities, as in the reference.
 
 LightingCompose adds to the direct light (already in SceneColor) the
-diffuse ambient: the DDGI probes' irradiance at each pixel when the DDGI
-pass ran (``ddgi_sample_scale=1``: every pixel samples), else SH-2
-environment irradiance and the flat ambient; modulated by diffuse albedo,
-material occlusion and, when the SSAO pass ran, its ambient visibility;
-plus SceneReflections where RTReflections ran.
+diffuse ambient: the DDGI probes' irradiance when the DDGI pass ran (at
+every pixel, or at ``ddgi_sample_scale=2`` at one pixel of each 2x2 block,
+upsampled by nearest depth), else SH-2 environment irradiance and the flat
+ambient; modulated by diffuse albedo, material occlusion and, when the SSAO
+pass ran, its ambient visibility; plus SceneReflections where RTReflections
+ran.
 
 Under pixel-band sharding SSAO's occlusion fetches read the gathered
 whole-frame depth and its blur takes a halo row from each neighbouring
@@ -31,7 +32,11 @@ from arkoserenderer_torch.ops import ddgi as ddgi_ops
 from arkoserenderer_torch.ops import postprocess as pp
 from arkoserenderer_torch.ops import ssao as ssao_ops
 from arkoserenderer_torch.ops.envmap import ambient_of_normal, average_radiance
-from arkoserenderer_torch.ops.image import band_halo_rows, blur3
+from arkoserenderer_torch.ops.image import (
+    band_halo_rows,
+    blur3,
+    upsample_nearest_depth,
+)
 from arkoserenderer_torch.rendering.pipeline import (
     FrameContext,
     PipelineConfig,
@@ -110,7 +115,11 @@ class LightingComposePass(RenderPass):
         if use_ddgi:
             for name in DDGI_KEYS + ("SceneDepth",):
                 reg.get(name)
-            px, py = pixel_centers(cfg, device)
+            # Probe sampling at 1/k rate (ddgi_sample_scale, where k divides
+            # the sides), nearest-depth upsampled.
+            k = cfg.ddgi_sample_scale
+            k = k if h % k == 0 and w % k == 0 else 1
+            px, py = pixel_centers(cfg, device, step=k)
             up = torch.tensor([0.0, 1.0, 0.0], device=device)
         use_refl = reg.has("SceneReflections")
         if use_refl:
@@ -129,14 +138,22 @@ class LightingComposePass(RenderPass):
             valid = state["SceneCoverage"][..., None]
             nrm = state["SceneNormal"].reshape(-1, 3)
             if use_ddgi:
+                depth = state["SceneDepth"]
+                depth_s = depth[::k, ::k]
+                nrm_s = state["SceneNormal"][::k, ::k].reshape(-1, 3)
                 inv_vp = ssao_ops.inverse4(ctx.camera.unjittered_view_proj)
-                world = ssao_ops.reconstruct_world_pos(state["SceneDepth"].reshape(-1), px,
+                world = ssao_ops.reconstruct_world_pos(depth_s.reshape(-1), px,
                                                        frame_rows(py, ctx), inv_vp, w, full_h)
                 # Sky pixels carry zero normals, whose octahedral encode is
-                # NaN: give them a unit one (their result is not used).
-                nrm = torch.where(mx.vdot(nrm, nrm) > 0.25, nrm, up)
-                ambient = ddgi_ops.sample_irradiance(ddgi_state(state), grid, world,
-                                                     nrm).reshape(h, w, 3)
+                # NaN: give them a unit one (their result is not used, but
+                # at 1/k rate a covered pixel may take a sky cell's).
+                nrm_s = torch.where(mx.vdot(nrm_s, nrm_s) > 0.25, nrm_s, up)
+                ambient = ddgi_ops.sample_irradiance(ddgi_state(state), grid, world, nrm_s)
+                if k > 1:
+                    ambient = upsample_nearest_depth(ambient.reshape(h // k, w // k, 3),
+                                                     depth_s, depth)
+                else:
+                    ambient = ambient.reshape(h, w, 3)
             else:
                 ambient = ambient_of_normal(ctx.scene.env_map, nrm,
                                             ctx.scene.env_brightness).reshape(h, w, 3)

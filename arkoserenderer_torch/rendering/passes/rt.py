@@ -13,7 +13,7 @@ reflections with their denoiser, traced through the scene's two-level BVH
     in shading. A sun with an angular radius (a soft sun) cone-samples its
     disk by blue noise (salts 13 and 14) and runs the noisy mask through
     the shadow denoiser (``ops/shadow_denoise``) over RTShadow.history /
-    .moments / .depth.
+    .moments / .depth, at full rate.
   * RTLocalShadowPass: one any-hit ray per pixel to each shadow-casting spot
     and point light, stopping just short of it; publishes
     ShadowMask.locals and ShadowMask.points (1 where a light casts none).
@@ -32,8 +32,17 @@ Rays of pixels that trace nothing (sky, surfaces past the cutoff) start
 far below the scene, so they leave the BVH in one step. The denoisers'
 guides are derived in the pass (it runs before the shading pass that
 publishes SceneNormal and SceneVelocity): normals from the depth buffer's
-world positions and the camera's motion. Half-rate tracing
-(``PipelineConfig.rt_scale``) is not ported.
+world positions and the camera's motion.
+
+Half-rate tracing (``PipelineConfig.rt_scale=2``, for RTShadow and
+RTReflections where the sides are even and the frame is not banded):
+one ray per 2x2 block, from its first pixel (centre i * 2 + 0.5, its
+depth, coverage and G-buffer read with a stride of 2), a quarter of the
+rays; the mask or the reflections are reconstructed to full rate by
+nearest depth (``ops/image.upsample_nearest_depth``), and the denoisers
+run at full rate on the full-rate depth, normals and roughness. A soft
+sun draws its blue noise at the block's pixel. RTLocalShadow always
+traces every pixel, as in the reference.
 
 Under pixel-band sharding each rank traces its band's rays (frame rows,
 so the blue noise of the soft shadows is the whole frame's), and the
@@ -55,6 +64,7 @@ from arkoserenderer_torch.ops import ddgi as ddgi_ops
 from arkoserenderer_torch.ops import reflection_denoise as dn
 from arkoserenderer_torch.ops import shadow_denoise as sdn
 from arkoserenderer_torch.ops.bvh import Hit, refit_bvh, trace_rays
+from arkoserenderer_torch.ops.image import upsample_nearest_depth
 from arkoserenderer_torch.ops.noise import sample_blue_noise
 from arkoserenderer_torch.ops.rt import PARK, shade_hits, trace_shadow_mask
 from arkoserenderer_torch.ops.ssao import inverse4, reconstruct_world_pos
@@ -115,13 +125,19 @@ def frame_pixel_centers(cfg: PipelineConfig, device):
     return pixel_centers(dataclasses.replace(cfg, height=cfg.frame_height), device)
 
 
-def _receivers(state: dict, ctx: FrameContext, px, py_g, w: int, full_h: int, covered):
-    """World positions of the depth buffer's pixels (``py_g`` in frame
+def _receivers(depth, ctx: FrameContext, px, py_g, w: int, full_h: int, covered):
+    """World positions of the ``depth`` samples at ``px``, ``py_g`` (frame
     rows), and the same with the uncovered ones parked."""
     inv_vp = inverse4(ctx.camera.unjittered_view_proj)
-    world = reconstruct_world_pos(state["SceneDepth"].reshape(-1), px, py_g, inv_vp, w,
-                                  full_h)
+    world = reconstruct_world_pos(depth.reshape(-1), px, py_g, inv_vp, w, full_h)
     return world, torch.where(covered[:, None], world, PARK)
+
+
+def rt_rate(cfg: PipelineConfig) -> int:
+    """The ray-tracing rate of RTShadow and RTReflections: ``rt_scale``
+    where the band's sides are even and the frame is not banded, else 1."""
+    even = cfg.height % 2 == 0 and cfg.width % 2 == 0
+    return cfg.rt_scale if cfg.shard_axis is None and even else 1
 
 
 def _denoised(noisy, world, state: dict, ctx: FrameContext, px, py, w: int, h: int,
@@ -174,14 +190,18 @@ class RTShadowPass(RenderPass):
         if soft:
             _soft_state(reg, "RTShadow", h, w, 1)
         reg.create("ShadowMask.sun", (h, w), torch.float32, clear=1.0)
-        px, py = pixel_centers(cfg, device)
+        scale = rt_rate(cfg)
+        px_full, py_full = pixel_centers(cfg, device)
+        px, py = pixel_centers(cfg, device, step=scale) if scale > 1 else (px_full, py_full)
         full_h = cfg.frame_height
         frame_px = frame_pixel_centers(cfg, device) if soft else None
 
         def execute(state: dict, ctx: FrameContext) -> dict:
-            covered = state["Visibility"].reshape(-1) >= 0
+            depth = state["SceneDepth"]
+            depth_s = depth[::scale, ::scale]
+            covered = state["Visibility"][::scale, ::scale].reshape(-1) >= 0
             py_g = frame_rows(py, ctx)
-            world, parked = _receivers(state, ctx, px, py_g, w, full_h, covered)
+            world, parked = _receivers(depth_s, ctx, px, py_g, w, full_h, covered)
             lights = ctx.scene.lights
             light_dir = -lights.sun_direction
             if soft:
@@ -189,11 +209,20 @@ class RTShadowPass(RenderPass):
                 u2 = sample_blue_noise(px, py_g, ctx.frame_index, salt=14)
                 light_dir = mx.sample_cone(light_dir[None, :], lights.sun_cos_radius, u1, u2)
             mask = trace_shadow_mask(scene_with_live_bvh(state, ctx), parked, light_dir,
-                                     covered, label="sun mask").reshape(h, w)
+                                     covered, label="sun mask")
+            if scale > 1:
+                mask = upsample_nearest_depth(mask.reshape(h // scale, w // scale, 1), depth_s,
+                                              depth)[..., 0]
+                if soft:  # the denoiser's guides come from the full-rate depth
+                    world = reconstruct_world_pos(
+                        depth.reshape(-1), px_full, frame_rows(py_full, ctx),
+                        inverse4(ctx.camera.unjittered_view_proj), w, full_h)
+            else:
+                mask = mask.reshape(h, w)
             if not soft:
                 return {"ShadowMask.sun": mask}
-            out = _denoised(mask[..., None], world, state, ctx, px, py, w, h, "RTShadow",
-                            frame_px)
+            out = _denoised(mask[..., None], world, state, ctx, px_full, py_full, w, h,
+                            "RTShadow", frame_px)
             return {"ShadowMask.sun": out["RTShadow.history"][..., 0], **out}
 
         return execute
@@ -238,7 +267,7 @@ class RTLocalShadowPass(RenderPass):
         def execute(state: dict, ctx: FrameContext) -> dict:
             covered = state["Visibility"].reshape(-1) >= 0
             py_g = frame_rows(py, ctx)
-            world, parked = _receivers(state, ctx, px, py_g, w, full_h, covered)
+            world, parked = _receivers(state["SceneDepth"], ctx, px, py_g, w, full_h, covered)
             bvh = scene_with_live_bvh(state, ctx).bvh
 
             def mask_to(light_pos, label, radius=0.0, salt=0):
@@ -281,12 +310,14 @@ class RTLocalShadowPass(RenderPass):
 
 
 class RTReflectionsPass(RenderPass):
-    """RT reflections: a mirror ray per pixel under MAX_ROUGHNESS, shaded at
-    its hit, Fresnel-weighted (faded out over the last quarter before the
-    cutoff) and denoised: prefilter, reprojection and temporal resolve (the
-    reference's defaults; its roughness and temporal knobs have no caller).
-    With ``ddgi_grid`` and the DDGI pass earlier in the frame, the hits
-    sample the probes for their diffuse ambient."""
+    """RT reflections: a mirror ray per pixel (per 2x2 block at
+    ``rt_scale=2``) under MAX_ROUGHNESS, shaded at its hit, Fresnel-weighted
+    (faded out over the last quarter before the cutoff), reconstructed to
+    full rate by nearest depth at half rate, and denoised at full rate:
+    prefilter, reprojection and temporal resolve (the reference's defaults;
+    its roughness and temporal knobs have no caller). With ``ddgi_grid`` and
+    the DDGI pass earlier in the frame, the hits sample the probes for their
+    diffuse ambient."""
 
     name = "RTReflections"
 
@@ -309,25 +340,29 @@ class RTReflectionsPass(RenderPass):
         reg.create("RTRefl.history", (h, w, 3), torch.float32, persistent=True)
         reg.create("RTRefl.moments", (h, w, 3), torch.float32, persistent=True)
         reg.create("RTRefl.depth", (h, w), torch.float32, persistent=True)
-        px, py = pixel_centers(cfg, device)
+        scale = rt_rate(cfg)
+        px_full, py_full = pixel_centers(cfg, device)
+        px, py = pixel_centers(cfg, device, step=scale) if scale > 1 else (px_full, py_full)
         full_h = cfg.frame_height
         frame_px = frame_pixel_centers(cfg, device)
-        cone_spread = 1.0 / max(full_h, 1)  # ray cone ~ one pixel of the vertical FOV
-        n_rays = h * w
+        # Ray cone ~ one traced pixel of the vertical FOV.
+        cone_spread = scale / max(full_h, 1)
+        n_rays = (h // scale) * (w // scale)
         compact = n_rays >= (1 << 17)  # the reference compacts where it traces in chunks
         st = cfg.scene
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             live = scene_with_live_bvh(state, ctx)
             depth = state["SceneDepth"]
-            valid0 = state["SceneCoverage"].reshape(-1)
+            depth_s = depth[::scale, ::scale]
+            valid0 = state["SceneCoverage"][::scale, ::scale].reshape(-1)
             inv_vp = inverse4(ctx.camera.unjittered_view_proj)
-            world = reconstruct_world_pos(depth.reshape(-1), px, frame_rows(py, ctx), inv_vp,
+            world = reconstruct_world_pos(depth_s.reshape(-1), px, frame_rows(py, ctx), inv_vp,
                                           w, full_h)
             world = torch.where(valid0[:, None], world, PARK)
-            nrm = state["SceneNormal"].reshape(-1, 3)
-            mat = state["SceneMaterial"].reshape(-1, 4)
-            base = state["SceneBaseColor"].reshape(-1, 3)
+            nrm = state["SceneNormal"][::scale, ::scale].reshape(-1, 3)
+            mat = state["SceneMaterial"][::scale, ::scale].reshape(-1, 4)
+            base = state["SceneBaseColor"][::scale, ::scale].reshape(-1, 3)
             rough = mat[:, 0:1]
             metal = mat[:, 1:2]
 
@@ -367,10 +402,18 @@ class RTReflectionsPass(RenderPass):
             fresnel = brdf_ops.env_fresnel_roughness(n_dot_v, f0, rough)
             fade = torch.clamp((MAX_ROUGHNESS - rough) / (0.25 * MAX_ROUGHNESS), 0.0, 1.0)
             refl = torch.where(active[:, None], radiance * fresnel * fade, 0.0)
-            planes = (refl.reshape(h, w, 3), rough.reshape(h, w, 1), nrm.reshape(h, w, 3),
-                      depth, state["RTRefl.history"], state["RTRefl.moments"],
-                      state["RTRefl.depth"], state["SceneVelocity"])
-            dpx, dpy, band = px, py, ctx.band
+            if scale > 1:
+                # Reconstructed to full rate; the denoiser's guides are the
+                # full-rate G-buffer's.
+                refl_img = upsample_nearest_depth(refl.reshape(h // scale, w // scale, 3),
+                                                  depth_s, depth)
+                rough_img, nrm_img = state["SceneMaterial"][..., 0:1], state["SceneNormal"]
+            else:
+                refl_img = refl.reshape(h, w, 3)
+                rough_img, nrm_img = rough.reshape(h, w, 1), nrm.reshape(h, w, 3)
+            planes = (refl_img, rough_img, nrm_img, depth, state["RTRefl.history"],
+                      state["RTRefl.moments"], state["RTRefl.depth"], state["SceneVelocity"])
+            dpx, dpy, band = px_full, py_full, ctx.band
             if band is not None:
                 # The denoiser runs replicated on the gathered frame.
                 planes = band.gather_rows_many(*planes)

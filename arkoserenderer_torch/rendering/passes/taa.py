@@ -8,8 +8,14 @@ first frame, the current frame is taken wholesale; the first frame is a
 branch on the host's frame index.
 
 The history is resampled with Catmull-Rom (``taa_filter="catmull"``, the
-default) or bilinearly; the reference's sub-pixel shortcut for the bilinear
-filter, which branches on the largest velocity of the frame, is not ported.
+default; ``use_catmull_rom`` overrides the config) or bilinearly. Under the
+bilinear filter a frame whose largest velocity component is at most a pixel
+resamples with nine weighted static shifts
+(``ops/image.bilinear_sample_small_offset``) and any other frame with the
+gathering ``bilinear_sample``, as the reference branches. The two round in
+different orders (up to ~2e-5 apart), so the branch is the reference's:
+both are formed and ``torch.where`` takes one by the predicate, computed on
+the device, so no frame waits on a readback.
 
 Publishes SceneColor and the persistent TAAHistory (H, W, 3).
 """
@@ -20,6 +26,7 @@ import torch
 
 from arkoserenderer_torch.ops.image import (
     bilinear_sample,
+    bilinear_sample_small_offset,
     neighborhood_min_max,
     sample_catmull_rom,
 )
@@ -35,8 +42,9 @@ from arkoserenderer_torch.rendering.registry import Registry
 class TAAPass(RenderPass):
     name = "TAA"
 
-    def __init__(self, hysteresis: float = 0.9):
+    def __init__(self, hysteresis: float = 0.9, use_catmull_rom: bool | None = None):
         self.hysteresis = hysteresis
+        self.use_catmull_rom = use_catmull_rom  # None: follow cfg.taa_filter
 
     def construct(self, cfg: PipelineConfig, reg: Registry, device: torch.device):
         h, w = cfg.height, cfg.width
@@ -47,14 +55,23 @@ class TAAPass(RenderPass):
             raise ValueError(f"unknown taa_filter {cfg.taa_filter!r}")
         px, py = pixel_centers(cfg, device)
         hysteresis = self.hysteresis
-        resample = sample_catmull_rom if cfg.taa_filter == "catmull" else bilinear_sample
+        catmull = (self.use_catmull_rom if self.use_catmull_rom is not None
+                   else cfg.taa_filter == "catmull")
 
         def execute(state: dict, ctx: FrameContext) -> dict:
             color = state["SceneColor"]
-            velocity = state["SceneVelocity"].reshape(-1, 2)
+            history = state["TAAHistory"]
+            vel_img = state["SceneVelocity"]
+            velocity = vel_img.reshape(-1, 2)
             prev_x = px - velocity[:, 0]
             prev_y = py - velocity[:, 1]
-            hist = resample(state["TAAHistory"], prev_x, prev_y).reshape(h, w, 3)
+            if catmull:
+                hist = sample_catmull_rom(history, prev_x, prev_y).reshape(h, w, 3)
+            else:
+                gathered = bilinear_sample(history, prev_x, prev_y).reshape(h, w, 3)
+                shifted = bilinear_sample_small_offset(history, -vel_img[..., 0],
+                                                       -vel_img[..., 1])
+                hist = torch.where(vel_img.abs().max() <= 1.0, shifted, gathered)
             lo, hi = neighborhood_min_max(color)
             hist = torch.clamp(hist, lo, hi)
             if ctx.frame_index == 0:

@@ -61,7 +61,8 @@ SHADOW_FILTERS = ("auto", "bilinear", "stochastic")
 class PipelineConfig:
     """Static configuration shared by all passes. Every field of the
     reference's config, with its default; a value the port does not
-    implement yet raises ``NotImplementedError`` naming the field."""
+    implement yet raises ``NotImplementedError`` naming the field, and a
+    reduced rate the reference's passes cannot run raises ``ValueError``."""
 
     width: int = 1920
     height: int = 1080
@@ -93,12 +94,15 @@ class PipelineConfig:
     # Texture LOD bias; negative when rendering below display resolution
     # (make_forward_pipeline sets log2(render / display) for upscaling).
     mip_bias: float = 0.0
-    # Sky env-map fetch at 1/k resolution: only 1 (full resolution) is ported.
+    # Sky env-map fetch at 1/k resolution, bilinearly upsampled (SkyView;
+    # any k > 1 whose multiples the frame's sides are, else full rate).
     sky_fetch_scale: int = 1
-    # Ray-tracing rate: 1 traces a ray per pixel; the reference's 2
-    # (half-rate tracing, nearest-depth upsampled) is not ported.
+    # Ray-tracing rate of RTShadow and RTReflections: 1 traces a ray per
+    # pixel, 2 one per 2x2 block, reconstructed by nearest depth (where the
+    # sides are even and the frame is not banded; else 1).
     rt_scale: int = 1
-    # DDGI probe sampling at 1/k resolution: only 1 is ported.
+    # DDGI probe sampling in LightingCompose at 1/k resolution, 1 or 2,
+    # nearest-depth upsampled (where k divides the sides; else 1).
     ddgi_sample_scale: int = 1
     # Pixel-band sharding (parallel/sharded.py): with ``shard_axis`` set the
     # pipeline renders a horizontal band of a taller frame, ``height`` rows
@@ -125,12 +129,13 @@ class PipelineConfig:
                      "mode")
         if self.shadow_filter not in SHADOW_FILTERS:
             raise ValueError(f"unknown shadow_filter {self.shadow_filter!r}")
-        if self.sky_fetch_scale != 1:
-            unported("sky_fetch_scale", "reduced-rate sky fetch")
-        if self.rt_scale != 1:
-            unported("rt_scale", "half-rate ray tracing for rt_shadows and rt_reflections")
-        if self.ddgi_sample_scale != 1:
-            unported("ddgi_sample_scale", "reduced-rate DDGI sampling")
+        # The nearest-depth upsample doubles each side, so the reference's
+        # passes break at any other reduced rate (a shape mismatch in the
+        # frame); the port refuses it here.
+        for field in ("rt_scale", "ddgi_sample_scale"):
+            if getattr(self, field) not in (1, 2):
+                raise ValueError(f"{field}={getattr(self, field)!r}: 1 or 2 (the "
+                                 "nearest-depth upsample is 2x)")
 
     @property
     def frame_height(self) -> int:
@@ -216,6 +221,11 @@ class RenderPipeline:
                 state.update(updates)
         return state
 
+    def describe(self) -> str:
+        """The pass order and the registry's resource table."""
+        head = " -> ".join(p.name for p in self.passes)
+        return f"pipeline [{head}]\n{self.registry.describe()}"
+
     @property
     def row_offset(self) -> int:
         """The first frame row of this rank's band (0 unsharded)."""
@@ -271,12 +281,14 @@ def validate_frame(pipeline: RenderPipeline, state: dict, scene: SceneArrays,
     return findings
 
 
-def pixel_centers(cfg: PipelineConfig, device):
+def pixel_centers(cfg: PipelineConfig, device, step: int = 1):
     """(N,) px / (N,) py flattened pixel-centre coordinates of the band (of
     the frame, unsharded) on ``device``; add ``FrameContext.row_offset`` to
-    py for frame rows."""
-    xs = np.arange(cfg.width, dtype=np.float32) + 0.5
-    ys = np.arange(cfg.height, dtype=np.float32) + 0.5
+    py for frame rows. ``step`` > 1: the centres of the first pixel of each
+    step x step block (i * step + 0.5), h // step by w // step of them,
+    the samples of a reduced-rate pass."""
+    xs = np.arange(cfg.width // step, dtype=np.float32) * step + 0.5
+    ys = np.arange(cfg.height // step, dtype=np.float32) * step + 0.5
     px, py = np.meshgrid(xs, ys)
     return (torch.from_numpy(px.ravel()).to(device),
             torch.from_numpy(py.ravel()).to(device))

@@ -2,9 +2,10 @@
 arkoserenderer_tpu/rendering/registry.py).
 
 Passes construct against it: they declare the tensors they create and
-publish or consume resources by name; reading a name no earlier pass
-published fails at construct time. At run time the resources are entries
-of the frame-state dict.
+publish or consume resources by name, each read recording a (producer,
+consumer) edge; reading a name no earlier pass published fails at
+construct time. At run time the resources are entries of the frame-state
+dict.
 
   * transient  — recomputed by their producer every frame;
   * persistent — survive across frames; ``initial_state()`` allocates them
@@ -17,6 +18,7 @@ of the frame-state dict.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -34,6 +36,7 @@ class ResourceDesc:
 class Registry:
     def __init__(self):
         self._resources: dict[str, ResourceDesc] = {}
+        self._edges: set[tuple[str, str]] = set()  # (producer, consumer)
         self._current_node: str | None = None
         self._published_by: dict[str, str] = {}
 
@@ -72,6 +75,7 @@ class Registry:
                 f"node '{self._current_node}' reads '{name}' which no earlier "
                 f"node published (published: {sorted(self._published_by)})"
             )
+        self._edges.add((self._published_by[name], self._current_node or "<external>"))
         return name
 
     def has(self, name: str) -> bool:
@@ -86,14 +90,36 @@ class Registry:
     def initial_state(self, device) -> dict:
         """Persistent resources at their clear values (host values as
         Python numbers, tensors on ``device``)."""
-        out = {}
-        for r in self._resources.values():
-            if r.dtype is None:
-                out[r.name] = r.clear
-            elif r.persistent:
-                out[r.name] = torch.full(r.shape, r.clear, dtype=r.dtype, device=device)
-        return out
+        return {r.name: self.clear_value(r.name, device)
+                for r in self._resources.values() if r.persistent}
+
+    def clear_value(self, name: str, device="cuda"):
+        """Resource ``name`` at its clear value (a host value as itself)."""
+        r = self._resources[name]
+        if r.dtype is None:
+            return r.clear
+        return torch.full(r.shape, r.clear, dtype=r.dtype, device=device)
 
     @property
     def persistent_names(self) -> list[str]:
         return [r.name for r in self._resources.values() if r.persistent]
+
+    def dependency_edges(self) -> set[tuple[str, str]]:
+        """The (producer, consumer) pass pairs of every read."""
+        return set(self._edges)
+
+    def describe(self) -> str:
+        """One line per created resource: its class, name, shape, dtype,
+        size and producer, as the reference prints them; a host value
+        reads "host" for its dtype and 0 MB."""
+        lines = []
+        for r in self._resources.values():
+            kind = "persistent" if r.persistent else "transient "
+            if r.dtype is None:
+                dtype, size = "host", 0
+            else:
+                dtype = str(r.dtype).removeprefix("torch.")
+                size = math.prod(r.shape) * r.dtype.itemsize
+            lines.append(f"{kind} {r.name:32s} {str(r.shape):24s} {dtype:10s}"
+                         f" {size / 1e6:8.2f} MB  by {r.producer}")
+        return "\n".join(lines)

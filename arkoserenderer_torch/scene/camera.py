@@ -108,6 +108,7 @@ class Camera:
         self._jitter_seq = camera_jitter_sequence(self.jitter_period)
         self._prev_view: np.ndarray | None = None
         self._prev_proj: np.ndarray | None = None
+        self._auto_exposure: float | None = None  # EV100 of update_auto_exposure
         self._state_cache: dict = {}
 
     def look_at(self, position, target, up=(0.0, 1.0, 0.0)):
@@ -121,6 +122,10 @@ class Camera:
 
     def field_of_view_x(self) -> float:
         return 2.0 * np.arctan(self.sensor_size_mm[0] / (2.0 * self.focal_length_mm))
+
+    def set_field_of_view_x(self, fov_x: float):
+        """Set the focal length that gives horizontal FOV ``fov_x`` (radians)."""
+        self.focal_length_mm = self.sensor_size_mm[0] / (2.0 * np.tan(fov_x / 2.0))
 
     def field_of_view_y(self) -> float:
         half_x = np.tan(self.field_of_view_x() / 2.0)
@@ -146,6 +151,20 @@ class Camera:
 
     def exposure(self) -> float:
         return exposure_from_ev100(self.ev100() - self.exposure_compensation)
+
+    def update_auto_exposure(self, avg_luminance: float, delta_time: float) -> float:
+        """Eye adaption: move the auto-exposure EV100 toward the metered
+        luminance's (``adaption_rate`` a 60th of a second) and return the
+        exposure it gives."""
+        target_ev = float(np.log2(max(avg_luminance, 1e-4) * 100.0 / 12.5))
+        cur = self._auto_exposure if self._auto_exposure is not None else target_ev
+        rate = 1.0 - np.exp(-delta_time * self.adaption_rate * 60.0)
+        self._auto_exposure = cur + (target_ev - cur) * rate
+        return exposure_from_ev100(self._auto_exposure - self.exposure_compensation)
+
+    def film_grain_gain(self) -> float:
+        """The film grain's amount at this ISO (more grain at higher ISO)."""
+        return 0.012 * float(np.sqrt(self.iso / 100.0))
 
     def coc_mm_to_px(self) -> float:
         return self.viewport[0] / self.sensor_size_mm[0]
@@ -207,3 +226,12 @@ class Camera:
         """Record previous-frame matrices."""
         self._prev_view = self.view_matrix()
         self._prev_proj = self.projection_matrix()
+
+    def frustum_planes(self) -> np.ndarray:
+        """(6, 4) inward planes (left, right, bottom, top, near, far) of the
+        unjittered view-projection, host numpy (Gribb-Hartmann)."""
+        r = self.projection_matrix() @ self.view_matrix()
+        planes = np.stack([r[3] + r[0], r[3] - r[0], r[3] + r[1], r[3] - r[1], r[3] - r[2],
+                           r[2]], axis=0)
+        n = np.linalg.norm(planes[:, :3], axis=-1, keepdims=True)
+        return planes / np.maximum(n, 1e-20)

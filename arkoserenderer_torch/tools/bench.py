@@ -71,6 +71,13 @@ motion is the grid's.
 
     python -m arkoserenderer_torch.tools.bench [--config forward,full_post,pathtraced] [--small]
                                                [--warmup 4] [--iters 16] [--profile]
+                                               [--rt-scale 2] [--ddgi-sample-scale 2]
+                                               [--sky-fetch-scale k]
+
+The reduced-rate knobs (``PipelineConfig.rt_scale``, ``ddgi_sample_scale``
+and ``sky_fetch_scale``) stay at 1, the full rate, unless given: half-rate
+RTShadow and RTReflections, DDGI sampled at a quarter of the pixels, the
+sky's env map fetched at 1/k rate. They apply to every Renderer kind named.
 
 prints the card's name and power limit, then for each frame kind a line
 with the host's time to build its scene and its renderer (``build_line``:
@@ -167,12 +174,19 @@ SOFT_SUN_DEG, SOFT_SPOT_RADIUS = 10.0, 0.35
 STATS_FRAMES = 4  # frames after the timed ones whose culling and bin counts are read
 
 
-def pipeline_config(small: bool = False) -> PipelineConfig:
+# The reduced-rate fields of PipelineConfig the bench takes, all 1 by default.
+RATES = ("rt_scale", "ddgi_sample_scale", "sky_fetch_scale")
+
+
+def pipeline_config(small: bool = False, **rates) -> PipelineConfig:
+    """The bench's frame config; ``rates``: any of RATES."""
     if small:
         return PipelineConfig(width=256, height=256, shadow_map_size=256,
-                              raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256))
+                              raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256),
+                              **rates)
     return PipelineConfig(width=1920, height=1080, shadow_map_size=8192,
-                          raster=RasterConfig(tile_h=8, tile_w=128, max_tris_per_tile=256))
+                          raster=RasterConfig(tile_h=8, tile_w=128, max_tris_per_tile=256),
+                          **rates)
 
 
 def build_scene(name: str, small: bool = False, cfg: PipelineConfig | None = None):
@@ -382,17 +396,19 @@ def animation_paths(device, n_instances: int = 64, res: int = 128, frames: int =
     return img_d, img_h
 
 
-def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16):
+def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16,
+               rates: dict | None = None):
     """Bench one frame kind on the card: ``warmup`` + ``iters`` timed frames,
-    then STATS_FRAMES frames whose counts are read (``frame_counts``).
-    Returns (result dict, Renderer)."""
+    then STATS_FRAMES frames whose counts are read (``frame_counts``), at
+    the reduced rates ``rates`` (``pipeline_config``'s). Returns (result
+    dict, Renderer)."""
     dev = torch.device("cuda")
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     rasterize_tiles_cuda.launches = 0
     trace_rays_cuda.launches_by_label.clear()
     t0 = time.perf_counter()
-    scene, camera, cfg, kw = build_scene(name, small)
+    scene, camera, cfg, kw = build_scene(name, small, pipeline_config(small, **(rates or {})))
     t1 = time.perf_counter()
     renderer = Renderer(scene, camera, cfg, device=dev, **kw)
     torch.cuda.synchronize(dev)
@@ -421,6 +437,7 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16)
     result = {
         "config": name, "frame": CONFIGS[name][2],
         "width": cfg.width, "height": cfg.height, "shadow_map_size": cfg.shadow_map_size,
+        "rates": {r: getattr(cfg, r) for r in RATES},
         "display": list(ldr.shape[:2]),
         "passes": [p.name for p in renderer.pipeline.passes],
         "ms_per_frame": bench["ms_per_frame"],
@@ -633,7 +650,14 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=16)
     ap.add_argument("--profile", action="store_true",
                     help="also profile 4 frames (samples) of each kind with torch.profiler")
+    ap.add_argument("--rt-scale", type=int, default=1, help="RT rate: 1 or 2 (half rate)")
+    ap.add_argument("--ddgi-sample-scale", type=int, default=1,
+                    help="DDGI sampling rate: 1 or 2 (a quarter of the pixels)")
+    ap.add_argument("--sky-fetch-scale", type=int, default=1,
+                    help="sky env-map fetch at 1/k rate, bilinearly upsampled")
     args = ap.parse_args(argv)
+    rates = dict(rt_scale=args.rt_scale, ddgi_sample_scale=args.ddgi_sample_scale,
+                 sky_fetch_scale=args.sky_fetch_scale)
     if not torch.cuda.is_available():
         raise SystemExit("bench: torch.cuda.is_available() is False; this needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -649,7 +673,7 @@ def main(argv=None) -> None:
             del tracer
             continue
         textures = texture_times(args.small) if name == "helmet" else None
-        result, renderer = run_config(name, args.small, args.warmup, args.iters)
+        result, renderer = run_config(name, args.small, args.warmup, args.iters, rates)
         print(build_line(name, result, textures), flush=True)
         print(json.dumps(result), flush=True)
         if args.profile:

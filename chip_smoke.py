@@ -252,6 +252,20 @@ result line):
      rasters of (a) and (b) timed as in phase 3, and the last rank's
      traces of (b) as in phase 10. One card shared by gloo
      ranks makes (c) a correctness run, not a scaling measurement.
+ 21. the reduced-rate paths at 1920x1080, each run through the bench
+     (``run_config(..., rates=)``: 4 warm-up + 8 timed + 4 counted frames,
+     the camera moving) with the launch counts zeroed just before it and read
+     just after: (a) rt and rt_soft at rt_scale 1 and 2: ms/frame and the
+     per-pass table of each, the traces by label as the bench implies them
+     (five a frame at either rate), the half-rate frame's LDR against the
+     full-rate one after the same frames within tests/test_rt_passes.py's
+     bound (mean abs < 0.02, < 6 % of pixels off by > 0.1), then one more
+     half-rate frame's traces (the sun mask and the reflections at 518,400
+     rays) held bit for bit against the plain walk and timed; (b) ddgi and
+     showcase at ddgi_sample_scale 1 and 2: LightingCompose's ms, ms/frame,
+     finite LDR and coverage in every counted frame, the traces by label;
+     (c) forward at sky_fetch_scale 1 and 2: SkyView's ms. In every run, one
+     more frame's rasters are held bit for bit against the plain raster.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
@@ -263,8 +277,9 @@ the live viewer's camera and per-frame 512^2 sun, phase 20's 1920x540 and
 each with its launches in the runs of the frame kinds or apps that launch
 it, and one entry per trace the traversal kernel serves in the rt,
 showcase, flagship, ddgi, helmet and rt_soft frames, the pathtraced sample,
-the AO bake, the app's RT frame, the streamed rt frame and the last
-rank's band of phase 20 (b), each with its launches by its label in that run;
+the AO bake, the app's RT frame, the streamed rt frame, the last
+rank's band of phase 20 (b) and phase 21's half-rate rt and rt_soft
+frames, each with its launches by its label in that run;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1683,6 +1698,114 @@ def run_slice15(dev, card: str, compare_and_time, width: int = 1920, iters: int 
     return out
 
 
+# Phase 21: the bench's frames a run (warm-up, timed) and the reduced rates.
+SLICE16_FRAMES = (4, 8)
+HALF_RATE_KINDS = ("rt", "rt_soft")
+DDGI_RATE_KINDS = ("ddgi", "showcase")
+
+
+def run_slice16(dev, card: str, compare, warmup: int = SLICE16_FRAMES[0],
+                iters: int = SLICE16_FRAMES[1]) -> dict:
+    """Phase 21 (see the module docstring). Returns {"traces": [(the
+    half-rate run's launches by label, measured trace)]}."""
+    from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
+    from arkoserenderer_torch.ops.raster_cuda import rasterize_tiles_cuda
+    from arkoserenderer_torch.tools import bench
+    from arkoserenderer_torch.tools import raster_bench as rb
+    from arkoserenderer_torch.tools import trace_bench as tb
+
+    t_phase = time.perf_counter()
+    out = {"traces": []}
+
+    def run(name, rates, per_frame):
+        """One kind at ``rates`` through the bench, its launches and counted
+        frames checked; then one more frame's rasters (and traces) captured,
+        each raster bit for bit against the plain raster."""
+        rasterize_tiles_cuda.launches_by_shape.clear()
+        res, renderer = bench.run_config(name, warmup=warmup, iters=iters, rates=rates)
+        by_shape = dict(rasterize_tiles_cuda.launches_by_shape)
+        n = res["frames"]
+        tag = f"{name} {', '.join(f'{k}={v}' for k, v in rates.items())}"
+        if by_shape != bench.expected_launches_by_shape(renderer, n):
+            raise AssertionError(f"{tag}: raster launches {by_shape} in {n} frames")
+        if (res["trace_launches"] != res["trace_launches_expected"]
+                or sum(res["trace_launches"].values()) != per_frame * n):
+            raise AssertionError(f"{tag}: traversal launches {res['trace_launches']} in {n} "
+                                 f"frames, expected {res['trace_launches_expected']}")
+        if any(res["rates"][k] != v for k, v in rates.items()):
+            raise AssertionError(f"{tag}: ran at {res['rates']}")
+        checks = res["frame_checks"] + [{"ldr_finite": res["ldr_finite"],
+                                         "coverage": res["coverage"]}]
+        if not all(c["ldr_finite"] and c["coverage"] > 0.0 for c in checks):
+            raise AssertionError(f"{tag}: a counted frame is not finite or covers nothing: "
+                                 f"{checks}")
+        print(f"{tag} {res['width']}x{res['height']}: {n} frames, median "
+              f"{res['ms_per_frame']:.4f} ms/frame over {iters} (CUDA events; min "
+              f"{res['ms_min']:.4f}, max {res['ms_max']:.4f}; host wall clock "
+              f"{res['wall_ms_per_frame']:.4f}), coverage {res['coverage']:.4f}, rasters "
+              f"{by_shape}, traces {res['trace_launches']}, peak memory "
+              f"{res['peak_memory_gib']:.3f} GiB [{card}]", flush=True)
+        print_frame_table(res, card)
+        ldr = renderer.state["LDR"].clone()
+        rasters, cases = rb.capture_rasters(lambda: tb.kind_traces(renderer, f"{tag}:"))
+        one, two = (bench.expected_launches_by_shape(renderer, k) for k in (1, 2))
+        if sorted(rasters) != sorted(k for k in two if two[k] > one[k]):
+            raise AssertionError(f"{tag}: one more frame rastered {sorted(rasters)}")
+        for (h, w, depth_only), (setup, bins, *_) in sorted(rasters.items()):
+            compare(f"{tag} {w}x{h}{' depth-only' if depth_only else ''}", setup, bins, w, h,
+                    renderer.cfg.raster, depth_only)
+        del renderer
+        return res, ldr, cases
+
+    # (a) half-rate ray tracing: quarter the rays of RTShadow and RTReflections.
+    for name in HALF_RATE_KINDS:
+        full, full_ldr, _ = run(name, {"rt_scale": 1}, 5)
+        half, half_ldr, cases = run(name, {"rt_scale": 2}, 5)
+        diff = (half_ldr - full_ldr).abs()
+        mean, off = diff.mean().item(), (diff.amax(dim=-1) > 0.1).float().mean().item()
+        print(f"{name} rt_scale=2 against rt_scale=1 after the same {full['frames']} frames: "
+              f"LDR mean abs diff {mean:.6f} (< 0.02), {off:.4%} of pixels off by > 0.1 "
+              f"(< 6 %); ms/frame {half['ms_per_frame']:.4f} against {full['ms_per_frame']:.4f}; "
+              f"RTShadow {half['pass_ms']['RTShadow']:.4f} against "
+              f"{full['pass_ms']['RTShadow']:.4f}, RTReflections "
+              f"{half['pass_ms']['RTReflections']:.4f} against "
+              f"{full['pass_ms']['RTReflections']:.4f} ms [{card}]", flush=True)
+        if not (mean < 0.02 and off < 0.06):
+            raise AssertionError(f"{name}: the half-rate frame is off the full-rate one "
+                                 f"(mean {mean}, {off:.4%} of pixels off by > 0.1)")
+        got = sorted((c["trace"], c["origins"].shape[0]) for c in cases)
+        quarter = (1080 // 2) * (1920 // 2)
+        if [t for t, _ in got] != sorted(half["trace_launches_expected"]) or any(
+                r != quarter for t, r in got if t in ("sun mask", "reflection")):
+            raise AssertionError(f"a half-rate {name} frame traced {got}, expected the sun "
+                                 f"mask and reflections at {quarter} rays")
+        for c in cases:
+            c["label"] = f"{name} rt_scale=2 {c['trace']}"
+            t = tb.measure(c["bvh"], c)
+            print(tb.describe(t, card), flush=True)
+            out["traces"].append((half["trace_launches"], t))
+
+    # (b) DDGI sampled at a quarter of the pixels in LightingCompose.
+    for name in DDGI_RATE_KINDS:
+        per_frame = 2 if name == "ddgi" else 5
+        full, _, _ = run(name, {"ddgi_sample_scale": 1}, per_frame)
+        half, _, _ = run(name, {"ddgi_sample_scale": 2}, per_frame)
+        print(f"{name} ddgi_sample_scale=2: LightingCompose "
+              f"{half['pass_ms']['LightingCompose']:.4f} ms against "
+              f"{full['pass_ms']['LightingCompose']:.4f} at 1; ms/frame "
+              f"{half['ms_per_frame']:.4f} against {full['ms_per_frame']:.4f} [{card}]",
+              flush=True)
+
+    # (c) the sky's env map fetched at half rate.
+    full, _, _ = run("forward", {"sky_fetch_scale": 1}, 0)
+    half, _, _ = run("forward", {"sky_fetch_scale": 2}, 0)
+    print(f"forward sky_fetch_scale=2: SkyView {half['pass_ms']['SkyView']:.4f} ms against "
+          f"{full['pass_ms']['SkyView']:.4f} at 1; ms/frame {half['ms_per_frame']:.4f} against "
+          f"{full['ms_per_frame']:.4f}; phase 21 took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -2224,6 +2347,9 @@ def main() -> None:
     # -- 20. pixel-band sharding: banded rasters, halos, gathers ------------------------
     slice15 = run_slice15(dev, card, compare_and_time)
 
+    # -- 21. the reduced-rate paths: half-rate RT, DDGI sampling, the sky fetch ---------
+    slice16 = run_slice16(dev, card, compare)
+
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
         "camera": (PHASE8 + ("rt", "showcase", "rt_soft"), (H, W, False)),
@@ -2284,6 +2410,7 @@ def main() -> None:
     rows += [trace_row(t, trace_launches.get(t["name"], 0)) for t in traces]
     rows += [trace_row(t, by_label.get(t["trace"], 0)) for by_label, t in kind_traces]
     rows += [trace_row(t, launches) for launches, t in slice15["traces"]]
+    rows += [trace_row(t, by_label.get(t["trace"], 0)) for by_label, t in slice16["traces"]]
     if not all(row["launches"] for row in rows):
         raise AssertionError("a kernel of the frames' path was never launched")
     print(json.dumps({"kernels": rows}))

@@ -12,6 +12,13 @@ package's copies of the same modules.
 * BC7: ``compress_bc7_mode6``, ``compress_bc7`` at each quality and
   ``rdo_bc7`` give the reference's blocks on seeded 16x16 and 32x32 images;
   ``decompress_bc7`` equals it on a fuzz of all eight modes.
+* BC4/BC5: ``compress_bc4`` and ``compress_bc5`` give the reference's
+  blocks on tests/test_meshopt.py's images (random, flat, a smooth
+  gradient) and tests/test_aux.py's BC5 pair, whose blocks the port's
+  ``DDSImage`` reads as the reference's does. The reference encodes with
+  its native library (built with g++, as here); its NumPy fallback rounds
+  an exact .5 to even where the library rounds it away from zero, and
+  gives other blocks on the random images.
 * ``DDSImage`` (uncompressed with mips, BC1, BC3, BC5, BC7 through the DX10
   header), ``IESProfile`` (``parse``, ``load``, ``to_lut``) and
   ``HairFile`` against the reference's.
@@ -28,9 +35,11 @@ from arkoserenderer_torch import bridge
 from arkoserenderer_torch.assets import baked as tbaked
 from arkoserenderer_torch.assets import bc7 as tbc7
 from arkoserenderer_torch.assets import external as text
+from arkoserenderer_torch.assets import meshopt as tmeshopt
 from arkoserenderer_tpu.assets import baked as jbaked
 from arkoserenderer_tpu.assets import bc7 as jbc7
 from arkoserenderer_tpu.assets import external as jext
+from arkoserenderer_tpu.assets import meshopt as jmeshopt
 from test_torch_scene import assert_field_equal
 
 # build_host keys that load_baked does not restore (see the docstring).
@@ -256,6 +265,44 @@ def test_dds_matches_reference(case, tmp_path):
     np.testing.assert_array_equal(text.DDSImage.load(str(path)).mips[0], ref.mips[0])
     with pytest.raises(ValueError):
         text.DDSImage.parse(b"XXXX" + data[4:])
+
+
+def bc_channel(case: str, seed: int = 0) -> np.ndarray:
+    """tests/test_meshopt.py's BC4 inputs: random 32x32 and 16x16, a flat
+    8x8 block pair (137) and a 16x16 horizontal gradient 40..80."""
+    rng = np.random.default_rng(seed)
+    if case == "flat 8x8":
+        return np.full((8, 8), 137, np.uint8)
+    if case == "gradient 16x16":
+        return np.tile(np.linspace(40, 80, 16).astype(np.uint8)[None, :], (16, 1))
+    n = 32 if case == "random 32x32" else 16
+    return rng.integers(0, 256, (n, n), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("case", ["random 32x32", "random 16x16", "flat 8x8", "gradient 16x16"])
+def test_bc4_encoder_matches_reference(case):
+    img = bc_channel(case)
+    ours = tmeshopt.compress_bc4(img)
+    np.testing.assert_array_equal(ours, jmeshopt.compress_bc4(img))
+    assert ours.shape == (img.size // 16, 8) and ours.dtype == np.uint8
+    back = tmeshopt.decompress_bc4(ours, *img.shape)
+    np.testing.assert_array_equal(back, jmeshopt.decompress_bc4(ours, *img.shape))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        tmeshopt.compress_bc4(img[:, :-2])
+
+
+@pytest.mark.parametrize("size", [16, 8])
+def test_bc5_encoder_matches_reference(size):
+    """tests/test_meshopt.py's 16x16 layout case and tests/test_aux.py's
+    8x8 pair in an ATI2 DDS, read by both packages' DDSImage."""
+    rng = np.random.default_rng(4)
+    r, g = (rng.integers(0, 256, (size, size), np.uint8) for _ in range(2))
+    ours = tmeshopt.compress_bc5(r, g)
+    np.testing.assert_array_equal(ours, jmeshopt.compress_bc5(r, g))
+    assert ours.shape == ((size // 4) ** 2, 16)
+    data = _dds_header(size, size, 1, fourcc=b"ATI2") + ours.tobytes()
+    np.testing.assert_array_equal(text.DDSImage.parse(data).mips[0],
+                                  jext.DDSImage.parse(data).mips[0])
 
 
 IES_TEXT = """IESNA:LM-63-2002

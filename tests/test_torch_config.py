@@ -3,9 +3,12 @@
 Every field of the reference's PipelineConfig constructs at its default;
 the texture qualities and shadow filters the reference takes construct;
 each value the port does not implement raises NotImplementedError naming
-the field, and the pixel-band sharding fields construct as the
-reference's; "auto" resolves as the reference's make_forward_pipeline
-resolves it. OutputPass's ``mode`` matches JAX's at 96^2 for every
+the field (the reduced rates listed here before are ported: they build
+the reference's pipeline and render); a ray-tracing or DDGI sampling rate
+other than 1 and 2, which breaks the reference's frame, raises ValueError
+naming the field at construction; the pixel-band sharding fields
+construct as the reference's; "auto" resolves as the reference's
+make_forward_pipeline resolves it. OutputPass's ``mode`` matches JAX's at 96^2 for every
 tonemap operator, and VisibilityShading with ``texture_quality="bilinear"``
 matches JAX's pass at 96^2 under the forward tests' tolerances
 (``tests/test_torch_passes.py``).
@@ -45,6 +48,9 @@ REFERENCE_FIELDS = ["texture_quality", "shading_mode", "shadow_filter", "sky_fet
 # (field, value) the port does not implement; each raises naming the field.
 UNPORTED = [("texture_quality", "sorted"), ("sky_fetch_scale", 2),
             ("ddgi_sample_scale", 2)]
+# Of those, ported since they were listed: each builds the reference's
+# pipeline (the DDGI rate with a probe grid).
+PORTED_SINCE = ("sky_fetch_scale", "ddgi_sample_scale")
 # The pixel-band sharding fields (parallel/sharded.py), each taken as the
 # reference takes it.
 SHARDING = [("shard_axis", "x"), ("shard_count", 2), ("full_height", 2 * RES)]
@@ -64,6 +70,19 @@ def test_reference_fields_construct_at_their_defaults(field):
 def test_unported_values_raise_by_name(field, value):
     base = UNPORTED_WITH.get(field, {})
     JPipelineConfig(width=RES, height=RES, **base, **{field: value})  # the reference takes it
+    if field in PORTED_SINCE:
+        from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
+        from arkoserenderer_tpu.ops.ddgi import ProbeGridConfig as JGrid
+
+        sizes = dict(width=32, height=16, shadow_map_size=32)
+        tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), **sizes, **{field: value})
+        jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), **sizes, **{field: value})
+        kw, jkw = ((dict(ddgi=ProbeGridConfig()), dict(ddgi=JGrid()))
+                   if field == "ddgi_sample_scale" else ({}, {}))
+        names = [p.name for p in t_make_pipeline(tcfg, device="cpu", **kw).passes]
+        assert names == [p.name for p in j_make_pipeline(jcfg, **jkw).passes]
+        assert getattr(dataclasses.replace(TPipelineConfig(), **{field: value}), field) == value
+        return
     with pytest.raises(NotImplementedError, match=field):
         TPipelineConfig(width=RES, height=RES, **base, **{field: value})
     with pytest.raises(NotImplementedError, match=field):
@@ -88,7 +107,9 @@ def test_sharding_values_construct_as_the_reference(field, value):
                                          ("shadow_filter", "bilinear"),
                                          ("shadow_filter", "stochastic"),
                                          ("shading_mode", "reference"), ("full_height", RES),
-                                         ("shard_count", 1), ("sky_fetch_scale", 1)])
+                                         ("shard_count", 1), ("sky_fetch_scale", 1),
+                                         ("sky_fetch_scale", 2), ("sky_fetch_scale", 3),
+                                         ("rt_scale", 2), ("ddgi_sample_scale", 2)])
 def test_ported_values_construct(field, value):
     cfg = TPipelineConfig(width=RES, height=RES, **{field: value})
     assert getattr(cfg, field) == value and cfg.frame_height == RES
@@ -116,7 +137,82 @@ def test_auto_resolves_as_the_reference():
                            device="cpu").cfg.texture_quality == "trilinear"
 
 
+REGISTRY_PIPELINES = {"forward": {}, "full_post": dict(ssao=True, fog=True, motion_blur=True,
+                                                    depth_of_field=True),
+                      "rt": dict(rt_shadows=True, rt_reflections=True)}
+
+
+@pytest.mark.parametrize("kind", sorted(REGISTRY_PIPELINES))
+def test_registry_and_describe_match_jax(kind):
+    """Registry.dependency_edges, clear_value and describe, and
+    RenderPipeline.describe, of one pipeline built by both packages at
+    32x32: the same edges and clear values, the same description line for
+    line, but that the port's host-held version counters read "host" where
+    the reference's int32 scalars read "int32"."""
+    from arkoserenderer_torch.rendering.passes.rt import RTShadowPass
+
+    scene, _ = t_build_test_scene(viewport=(32, 32), n_spheres=1)
+    jscene, _ = j_build_test_scene(viewport=(32, 32), n_spheres=1)
+    sizes = dict(width=32, height=32, shadow_map_size=32)
+    tp = t_make_pipeline(TPipelineConfig(raster=TRasterConfig(**RASTER), scene=scene.static_info(),
+                                         **sizes), device="cpu", **REGISTRY_PIPELINES[kind])
+    jp = j_make_pipeline(JPipelineConfig(raster=JRasterConfig(**RASTER),
+                                         scene=jscene.static_info(), **sizes),
+                         **REGISTRY_PIPELINES[kind])
+    treg, jreg = tp.registry, jp.registry
+    assert treg.dependency_edges() == jreg.dependency_edges() and treg.dependency_edges()
+    ours, ref = tp.describe().splitlines(), jp.describe().splitlines()
+    assert ours[0] == ref[0] == "pipeline [" + " -> ".join(p.name for p in tp.passes) + "]"
+    assert len(ours) == len(ref) == 1 + len(treg._resources)
+    for a, b in zip(ours[1:], ref[1:]):
+        name = a.split()[1]
+        if treg.desc(name).dtype is None:
+            assert a.replace(" host      ", " int32     ") == b, (a, b)
+            assert treg.clear_value(name) == int(jreg.clear_value(name))
+        else:
+            assert a == b
+            np.testing.assert_array_equal(treg.clear_value(name, "cpu").numpy(),
+                                          np.asarray(jreg.clear_value(name)), err_msg=name)
+    if kind == "rt":
+        assert ("Geometry", "RTShadow") in treg.dependency_edges()
+        assert isinstance(tp.passes[2], RTShadowPass)
+
+
 DDGI_UNPORTED = ["ddgi_probe_debug", "ddgi_sample_scale", "hair"]
+# Rates the reference's nearest-depth upsample (2x) cannot take: at 48x48
+# its passes take them and fail on a shape when traced.
+BAD_RATES = [("rt_scale", 3), ("rt_scale", 4), ("ddgi_sample_scale", 3)]
+
+
+@pytest.mark.parametrize("field,value", BAD_RATES, ids=[f"{f}={v}" for f, v in BAD_RATES])
+def test_rates_the_reference_cannot_run_raise(field, value):
+    """The reference's pass at this rate (RTShadow, or LightingCompose with
+    DDGI) fails on a shape when traced (jax.eval_shape on the registry's
+    shapes, nothing compiled); the port refuses the value at construction
+    with a ValueError naming the field, and 0 and 4 too."""
+    from arkoserenderer_tpu.assets.procedural import build_test_scene
+    from arkoserenderer_tpu.ops.ddgi import ProbeGridConfig as JGrid
+
+    scene, cam = build_test_scene(viewport=(48, 48), n_spheres=1)
+    cfg = JPipelineConfig(width=48, height=48, shadow_map_size=32, raster=JRasterConfig(**RASTER),
+                          scene=scene.static_info(), **{field: value})
+    rt = field == "rt_scale"
+    pipe = j_make_pipeline(cfg, taa=False, bloom=False,
+                           **(dict(rt_shadows=True) if rt else dict(ddgi=JGrid())))
+    state = {r.name: jax.ShapeDtypeStruct(r.shape, r.dtype)
+             for r in pipe.registry._resources.values()}
+    ctx = JFrameContext(scene=scene.build(with_bvh=True) if rt else None, camera=cam.state(0),
+                        frame_index=jnp.asarray(0, jnp.int32),
+                        delta_time=jnp.asarray(1 / 60, jnp.float32),
+                        row_offset=jnp.zeros((), jnp.int32))
+    execute = dict(pipe._executes)["RTShadow" if rt else "LightingCompose"]
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        jax.eval_shape(execute, state, ctx)
+    for v in (value, 0, 4):
+        with pytest.raises(ValueError, match=field):
+            TPipelineConfig(width=48, height=48, **{field: v})
+        with pytest.raises(ValueError, match=field):
+            dataclasses.replace(TPipelineConfig(width=48, height=48), **{field: v})
 
 
 @pytest.mark.parametrize("option", DDGI_UNPORTED)
@@ -124,8 +220,8 @@ def test_unported_ddgi_options_raise_by_name(option):
     """DDGI is ported, and so are its probe overlay and a hair scene under
     it: the overlay builds DDGIProbeDebug last, and the hair scene's DDGI
     Renderer constructs as the reference's does (tracing the BVH as
-    built). Its reduced-rate sampling is not ported and raises naming the
-    flag. Without them the same DDGI frame builds."""
+    built). Its reduced-rate sampling, ported since, renders a frame with
+    the reference's passes. Without them the same DDGI frame builds."""
     from arkoserenderer_torch.models.standard import Renderer
     from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
 
@@ -141,9 +237,12 @@ def test_unported_ddgi_options_raise_by_name(option):
         assert "DDGIProbeDebug" not in [p.name for p in t_make_pipeline(
             cfg, device="cpu", ddgi_probe_debug=True).passes]  # without DDGI: no overlay
     elif option == "ddgi_sample_scale":
-        with pytest.raises(NotImplementedError, match=option):
-            t_make_pipeline(dataclasses.replace(cfg, ddgi_sample_scale=2), device="cpu",
-                            ddgi=grid)
+        half = Renderer(scene, cam, dataclasses.replace(cfg, ddgi_sample_scale=2), device="cpu",
+                        ddgi=True, taa=False, bloom=False)
+        assert half.pipeline.cfg.ddgi_sample_scale == 2
+        img = half.render_frame()
+        assert img.shape == (16, 32, 3) and bool(torch.isfinite(img).all())
+        assert [p.name for p in half.pipeline.passes][:3] == ["Scene", "Geometry", "DDGI"]
     else:
         hair = dataclasses.replace(scene.static_info(), has_hair=True)
         scene.static_info = lambda: hair

@@ -234,6 +234,35 @@ def material_gltf(tmp_path) -> Path:
     return g.write(tmp_path / "materials.gltf")
 
 
+def png_kinds_gltf(tmp_path) -> Path:
+    """A quad whose material's textures are the PNG kinds PIL reads for the
+    reference: a palette with tRNS alphas, 16-bit greyscale and an Adam7
+    16-bit RGB image (written by test_torch_png.write_png)."""
+    from test_torch_png import write_png
+
+    rng = np.random.default_rng(12)
+    pngs = [write_png(rng.integers(0, 16, (8, 8, 1)).astype(np.uint8),
+                      palette=rng.integers(0, 256, (16, 3)), trns=bytes([0, 90, 255, 30])),
+            write_png(rng.integers(0, 600, (8, 8, 1)).astype(np.uint16), 16),
+            write_png(rng.integers(0, 1 << 16, (8, 8, 3)).astype(np.uint16), 16,
+                      interlace=True)]
+    g = GltfWriter()
+    attrs = {"POSITION": g.accessor(QUAD_POS), "TEXCOORD_0": g.accessor(QUAD_UV)}
+    g.doc.update({
+        "scene": 0, "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": attrs, "indices": g.accessor(QUAD_IDX),
+                                    "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                                "metallicRoughnessTexture": {"index": 1}},
+                       "emissiveTexture": {"index": 2}, "emissiveFactor": [1, 1, 1],
+                       "alphaMode": "BLEND"}],
+        "textures": [{"source": i} for i in range(3)],
+        "images": [{"uri": "data:image/png;base64," + base64.b64encode(d).decode()}
+                   for d in pngs],
+    })
+    return g.write(tmp_path / "png_kinds.gltf")
+
+
 def sparse_gltf(tmp_path) -> Path:
     """A triangle list without normals or indices: positions with a sparse
     substitution, normalised u8 UVs in a strided buffer view."""
@@ -328,8 +357,8 @@ def skin_gltf(tmp_path) -> Path:
     return g.write(tmp_path / "skin.gltf")
 
 
-@pytest.mark.parametrize("make", [material_gltf, sparse_gltf, skin_gltf],
-                         ids=["materials", "sparse", "skin"])
+@pytest.mark.parametrize("make", [material_gltf, sparse_gltf, skin_gltf, png_kinds_gltf],
+                         ids=["materials", "sparse", "skin", "png kinds"])
 def test_synthetic_imports_match_reference(tmp_path, make):
     ts, tres, js, jres = load_both(make(tmp_path), max_texture_size=8)
     assert_scenes_equal(ts, js)

@@ -4,10 +4,15 @@ coordinates, a fifth of them off the image.
 
 Tolerance: rtol 1e-5, atol 1e-6 (both sides are f32; XLA:CPU may fuse a
 multiply-add that eager torch rounds twice, and sums a window in another
-order). The 3x3 min/max and the static shift move values without
-arithmetic and are equal.
+order). The 3x3 min/max, the static shift and the nearest-depth upsample
+move values without arithmetic and are equal. The reduced-rate helpers:
+``bilinear_sample_small_offset`` at 96^2 on values in [0, 4) and offsets
+up to a pixel within 2e-6 (a few ulps); ``upsample_bilinear_k`` at k = 1
+to 4, with and without halo rows, within 1e-6 (the JAX side of these
+jitted: one compile, not one per operation).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,3 +91,49 @@ def test_shift_img_equals_jax(shift):
     for arr in (img, img[..., 0]):  # (H, W, C) and (H, W)
         ours = timg.shift_img(torch.from_numpy(arr), *shift)
         np.testing.assert_array_equal(ours.numpy(), np.asarray(j_shift_img(jnp.asarray(arr), *shift)))
+
+
+@pytest.mark.parametrize("limit", [0.3, 1.0])
+def test_bilinear_sample_small_offset_matches_jax(limit):
+    """Nine weighted shifts, summed in the reference's order; and, a
+    different rounding of the same filter, within 1e-4 of the gather."""
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0.0, 4.0, (96, 96, 3)).astype(np.float32)
+    ox, oy = (rng.uniform(-limit, limit, (96, 96)).astype(np.float32) for _ in range(2))
+    ours = timg.bilinear_sample_small_offset(*map(torch.from_numpy, (img, ox, oy)))
+    ref = jax.jit(jimg.bilinear_sample_small_offset)(*map(jnp.asarray, (img, ox, oy)))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=2e-6)
+    px, py = (g + 0.5 for g in np.meshgrid(np.arange(96), np.arange(96)))
+    gathered = timg.bilinear_sample(torch.from_numpy(img),
+                                    torch.from_numpy((px + ox).ravel().astype(np.float32)),
+                                    torch.from_numpy((py + oy).ravel().astype(np.float32)))
+    np.testing.assert_allclose(ours.numpy().reshape(-1, 3), gathered.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(24, 20, 3), (5, 7, 1)])
+def test_upsample_nearest_depth_equals_jax(shape):
+    """Half-rate values to full rate by nearest depth; ties (equal depths,
+    from a coarse grid of depth values) keep the first candidate."""
+    rng = np.random.default_rng(8)
+    h, w, c = shape
+    half = rng.standard_normal(shape).astype(np.float32)
+    half_depth = (rng.integers(0, 4, (h, w)) / 4).astype(np.float32)
+    full_depth = (rng.integers(0, 8, (2 * h, 2 * w)) / 8).astype(np.float32)
+    ours = timg.upsample_nearest_depth(*map(torch.from_numpy, (half, half_depth, full_depth)))
+    ref = jax.jit(jimg.upsample_nearest_depth)(*map(jnp.asarray,
+                                                    (half, half_depth, full_depth)))
+    assert ours.shape == (2 * h, 2 * w, c)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("k,halo", [(1, False), (2, False), (2, True), (3, True), (4, False)])
+def test_upsample_bilinear_k_matches_jax(k, halo):
+    rng = np.random.default_rng(9 + k)
+    img = rng.uniform(0.0, 4.0, (6, 9, 3)).astype(np.float32)
+    rows = tuple(rng.uniform(0.0, 4.0, (1, 9, 3)).astype(np.float32) for _ in range(2))
+    ours = timg.upsample_bilinear_k(torch.from_numpy(img), k,
+                                    tuple(map(torch.from_numpy, rows)) if halo else None)
+    ref = jax.jit(jimg.upsample_bilinear_k, static_argnums=1)(
+        jnp.asarray(img), k, tuple(map(jnp.asarray, rows)) if halo else None)
+    assert ours.shape == (6 * k, 9 * k, 3)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-6)

@@ -9,8 +9,10 @@ PIL's bit for bit.
   chroma samples across (libjpeg's plain upsampling).
 * LANCZOS: 2048 -> 128 and 2048 -> 256 on the albedo, an odd shape, a
   one-axis resize, and RGBA with varied alpha (Pillow's premultiplied path).
-* PNG through ``decode_image`` (grey, grey + alpha, RGB, RGBA), and the
-  unsupported kinds, each raising its named error.
+* PNG through ``decode_image`` (grey, grey + alpha, RGB, RGBA; the
+  palette, 16-bit and interlaced kinds, once unsupported, as PIL reads
+  them: test_torch_png.py holds every kind), and the unsupported kinds,
+  each raising its named error.
 * The decoder's build: concurrent builds in separate processes, and no
   compiler found, which raises instead of falling back.
 """
@@ -152,9 +154,11 @@ def _png(mode: str, **kw) -> bytes:
     return buf.getvalue()
 
 
-def _interlaced(data: bytes) -> bytes:
-    i = data.index(b"IHDR") + 4 + 12  # the interlace byte of IHDR
-    return data[:i] + b"\x01" + data[i + 1:]
+def _interlaced() -> bytes:
+    """An Adam7-interlaced 8-bit greyscale PNG (test_torch_png.write_png)."""
+    from test_torch_png import write_png
+
+    return write_png(np.arange(64, dtype=np.uint8).reshape(8, 8, 1), interlace=True)
 
 
 UNSUPPORTED = {
@@ -166,14 +170,22 @@ UNSUPPORTED = {
     "RGB, Adobe transform 0": (lambda: _adobe_rgb(_jpeg()), "Adobe transform 0"),
     "palette PNG": (lambda: _png("P"), "palette"),
     "16-bit PNG": (lambda: _png("I;16"), "16-bit"),
-    "interlaced PNG": (lambda: _interlaced(_png("L")), "interlaced"),
+    "interlaced PNG": (_interlaced, "interlaced"),
     "GIF": (lambda: b"GIF89a" + bytes(16), "JPEG and PNG only"),
 }
+
+
+# The PNG kinds listed above as unsupported, read since: PIL's pixels.
+DECODED_SINCE = ("palette PNG", "16-bit PNG", "interlaced PNG")
 
 
 @pytest.mark.parametrize("kind", sorted(UNSUPPORTED))
 def test_unsupported_kinds_raise_by_name(kind):
     make, name = UNSUPPORTED[kind]
+    if kind in DECODED_SINCE:
+        data = make()
+        np.testing.assert_array_equal(decode_image(data), pil_rgba(data))
+        return
     with pytest.raises(NotImplementedError, match=name):
         decode_image(make())
 

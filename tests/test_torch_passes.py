@@ -1,8 +1,10 @@
 """Per-pass parity of the port's frames with the JAX package's, at 96^2: the
-bare forward slice (one frame), and the `forward` (TAA + Bloom), `full_post`
-(SSAO, Fog, MotionBlur, DepthOfField, Bloom, TAA, FXAA, CAS) and `spot` (a
-shadow-casting spot light: LocalShadow) frames over two frames with the
-camera moved between them, frame 0's persistent state fed to frame 1.
+bare forward slice (one frame; SkyView also at ``sky_fetch_scale`` 2 and 3
+on the same input state, its colour within 1e-5), and the `forward` (TAA
++ Bloom), `full_post` (SSAO, Fog, MotionBlur, DepthOfField, Bloom, TAA,
+FXAA, CAS) and `spot` (a shadow-casting spot light: LocalShadow) frames
+over two frames with the camera moved between them, frame 0's persistent
+state fed to frame 1.
 
 The harness walks the JAX pipeline's passes in order (the walk of
 ``validate_frame``, each pass jitted on its own), feeds every torch pass the
@@ -28,6 +30,8 @@ eager torch rounds every operation and calls libm):
     ``compare_flips``.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +56,7 @@ torch.set_num_threads(2)
 
 RES = 96
 RASTER = dict(tile_h=8, tile_w=16, max_tris_per_tile=256)
+SKY_RATES = (2, 3)  # SkyView's reduced env-map fetch rates walked beside the full one
 PASSES = ["Scene", "Geometry", "SunShadow", "VisibilityShading", "LightingCompose",
           "SkyView", "Output"]
 
@@ -128,6 +133,12 @@ def walk():
     jctx = JFrameContext(scene=jsa, camera=jcs, frame_index=jnp.asarray(0, jnp.int32),
                          delta_time=jnp.asarray(1 / 60, jnp.float32),
                          row_offset=jnp.zeros((), jnp.int32))
+    # SkyView at the low fetch rates, on the same input state.
+    low_rate = {k: (dict(t_make_pipeline(dataclasses.replace(tcfg, sky_fetch_scale=k),
+                                         taa=False, bloom=False, device="cpu")._executes),
+                    dict(j_make_pipeline(dataclasses.replace(jcfg, sky_fetch_scale=k),
+                                         taa=False, bloom=False)._executes))
+                for k in SKY_RATES}
     state = jpipe.initial_state()
     state["scene.version"] = jnp.asarray(0, jnp.int32)  # the first build, as Renderer
     out = {}
@@ -135,8 +146,26 @@ def walk():
         tupd = texec(_torch_state(state), tctx)
         jupd = jax.jit(jexec)(state, jctx)
         out[name] = (tupd, jupd)
+        if name == "SkyView":
+            for k, (tlow, jlow) in low_rate.items():
+                out[f"SkyView@{k}"] = (tlow[name](_torch_state(state), tctx),
+                                       jax.jit(jlow[name])(state, jctx))
         state = {**state, **jupd}
     return out
+
+
+@pytest.mark.parametrize("k", SKY_RATES)
+def test_sky_fetch_scale_matches_jax(walk, k):
+    """SkyView fetching the env map at 1/k rate and upsampling it: the
+    colour within 1e-5 and the (full-rate) sky velocity as the walk holds
+    it; the low-rate sky is not the full-rate one."""
+    tupd, jupd = walk[f"SkyView@{k}"]
+    assert set(tupd) == set(jupd) == {"SceneColor", "SceneVelocity"}
+    np.testing.assert_allclose(_np(tupd["SceneColor"]), _np(jupd["SceneColor"]), atol=1e-5,
+                               rtol=0)
+    compare("SceneVelocity", tupd["SceneVelocity"], jupd["SceneVelocity"], None)
+    full = _np(walk["SkyView"][0]["SceneColor"])
+    assert np.abs(_np(tupd["SceneColor"]) - full).max() > 1e-4
 
 
 @pytest.mark.parametrize("name", PASSES)

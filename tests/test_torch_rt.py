@@ -1,9 +1,13 @@
 """The port's ray-traced frame against the JAX package's: the `rt` pipeline
 (the test scene with one sphere and a shadow-casting spot, rt_shadows and
 rt_reflections, TAA and Bloom) pass by pass at 96^2 over two frames of a
-moving camera, frame 0's persistent state fed to frame 1; the `rt` golden
-at 256^2; the RT options that are not ported raise by name, and the soft
-shadows' options (ported since) construct and render.
+moving camera, frame 0's persistent state fed to frame 1, with RTShadow
+and RTReflections of the half-rate pipeline (``rt_scale=2``) run on the
+same input states; a soft sun's half-rate RTShadow at 32x16 over two
+frames; the port's half-rate frame against its full-rate one (the
+reference's bound); the `rt` golden at 256^2; the RT options that are not
+ported raise by name, and the soft shadows' options (ported since)
+construct and render.
 
 The walk is test_torch_passes.py's: each torch pass gets the JAX input
 state of that pass, so differences cannot compound. Both scenes are built
@@ -16,7 +20,10 @@ over by the bridge. Tolerances are test_torch_passes.py's, plus:
   * SceneReflections, RTRefl.history and RTRefl.moments (pre-exposed HDR
     and luma moments, values up to ~2): 1e-4, a few hundred ulps, where
     Visibility agrees (1.5e-5 at most in this walk);
-  * RTRefl.depth is the depth buffer.
+  * RTRefl.depth is the depth buffer;
+  * the soft sun's denoised mask and its moments mix a flipped ray into
+    their neighbourhood: as in test_torch_soft_shadows.py, at most 2 % of
+    their values may differ by more than 1e-4.
 """
 
 import dataclasses
@@ -67,9 +74,13 @@ def compare_rt(key, ours, ref, vis_agree):
     return True
 
 
+HALF_RATE = ("RTShadow", "RTReflections")
+
+
 def walk_rt():
     """Both rt pipelines pass by pass over two frames:
-    {(frame, pass): (torch, jax) updates}."""
+    {(frame, pass): (torch, jax) updates}, and (frame, "<pass>@2") for the
+    half-rate pipelines' RTShadow and RTReflections on the same states."""
     import arkoserenderer_torch.assets.procedural as tproc
     import arkoserenderer_torch.scene.lights as tlights
     import arkoserenderer_tpu.assets.procedural as jproc
@@ -84,6 +95,11 @@ def walk_rt():
     jpipe = j_make_pipeline(jcfg, **kw)
     tpipe = t_make_pipeline(tcfg, device="cpu", **kw)
     assert [n for n, _ in jpipe._executes] == RT_PASSES == [n for n, _ in tpipe._executes]
+    jhalf = dict(j_make_pipeline(dataclasses.replace(jcfg, rt_scale=2), **kw)._executes)
+    thalf = dict(t_make_pipeline(dataclasses.replace(tcfg, rt_scale=2), device="cpu",
+                                 **kw)._executes)
+    assert list(jhalf) == RT_PASSES == list(thalf)
+    jhalf = {name: jax.jit(jhalf[name]) for name in HALF_RATE}
     persistent = sorted(jpipe.registry.persistent_names)
     assert persistent == sorted(tpipe.registry.persistent_names)
     assert {"RTRefl.history", "RTRefl.moments", "RTRefl.depth"} <= set(persistent)
@@ -109,6 +125,9 @@ def walk_rt():
             tupd = texec(_torch_state(state), tctx)
             jupd = jexec(state, jctx)
             out[frame, name] = (tupd, jupd)
+            if name in HALF_RATE:
+                out[frame, f"{name}@2"] = (thalf[name](_torch_state(state), tctx),
+                                           jhalf[name](state, jctx))
             state = {**state, **jupd}
     return out
 
@@ -133,6 +152,139 @@ def test_rt_frame_matches_jax(rt_walk, frame):
                 compare(key, tupd[key], jupd[key], None if name == "Geometry" else vis_agree)
     assert RT_KEYS <= seen
     assert np.isfinite(_np(rt_walk[frame, "Output"][0]["LDR"])).all()
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_rt_half_rate_matches_jax(rt_walk, frame):
+    """RTShadow and RTReflections at rt_scale=2, on the full-rate walk's
+    input states: every key they publish, under the walk's tolerances."""
+    geo_t, geo_j = rt_walk[frame, "Geometry"]
+    vis_agree = _np(geo_t["Visibility"]) == _np(geo_j["Visibility"])
+    for name in HALF_RATE:
+        tupd, jupd = rt_walk[frame, f"{name}@2"]
+        assert set(tupd) == set(jupd), name
+        for key in sorted(jupd):
+            assert compare_rt(key, tupd[key], jupd[key], vis_agree), key
+    # A quarter of the rays: the half-rate mask is not the full-rate one.
+    half = _np(rt_walk[frame, "RTShadow@2"][0]["ShadowMask.sun"])
+    full = _np(rt_walk[frame, "RTShadow"][0]["ShadowMask.sun"])
+    assert 0.01 < (half == 0).mean() < 0.9 and (half != full).any()
+
+
+@pytest.fixture(scope="module")
+def soft_half_walk():
+    """A soft sun's (10 degrees) half-rate RTShadow at 32x16 over two frames
+    of a moving camera, both packages' passes fed the same depth and
+    visibility (the port's Scene and Geometry passes'; test_torch_passes.py
+    holds those to JAX's) and JAX's RTShadow state of the frame before:
+    {frame: (torch, jax) updates}."""
+    import arkoserenderer_torch.assets.procedural as tproc
+    import arkoserenderer_tpu.assets.procedural as jproc
+
+    scenes = []
+    for proc in (jproc, tproc):
+        scene, cam = proc.build_test_scene(viewport=(32, 16), n_spheres=1)
+        scene.sun.angular_radius_deg = 10.0
+        scenes.append((scene, cam))
+    (jscene, jcam), (tscene, _) = scenes
+    sizes = dict(width=32, height=16, shadow_map_size=32, rt_scale=2)
+    jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), scene=jscene.static_info(), **sizes)
+    tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), scene=tscene.static_info(), **sizes)
+    kw = dict(rt_shadows=True, taa=False, bloom=False)
+    jpipe = j_make_pipeline(jcfg, **kw)
+    tpipe = t_make_pipeline(tcfg, device="cpu", **kw)
+    names = ["Scene", "Geometry", "RTShadow"]
+    assert [n for n, _ in jpipe._executes][:3] == names == [n for n, _ in tpipe._executes][:3]
+    jexec = jax.jit(jpipe._executes[2][1])
+    jsa = jscene.build(with_bvh=True)
+    tsa = bridge.scene_arrays_from_numpy(jsa._asdict(), "cpu")
+    state = {k: v for k, v in jpipe.initial_state().items() if k.startswith("RTShadow.")}
+    out = {}
+    for frame in (0, 1):
+        if frame:
+            jcam.post_render()
+            jcam.position = jcam.position + np.array([0.25, 0.05, 0.0], np.float32)
+        jcs = jcam.state(frame)
+        tctx = TFrameContext(scene=tsa, camera=bridge.camera_state_from_numpy(jcs._asdict(), "cpu"),
+                             frame_index=frame, delta_time=1 / 60)
+        jctx = JFrameContext(scene=jsa, camera=jcs, frame_index=jnp.asarray(frame, jnp.int32),
+                             delta_time=jnp.asarray(1 / 60, jnp.float32),
+                             row_offset=jnp.zeros((), jnp.int32))
+        tstate = {"scene.version": 0, **_torch_state(state)}
+        for _, texec in tpipe._executes[:2]:
+            tstate.update(texec(tstate, tctx))
+        inputs = {k: jnp.asarray(tstate[k].numpy()) for k in ("SceneDepth", "Visibility")}
+        out[frame] = (tpipe._executes[2][1](tstate, tctx), jexec({**state, **inputs}, jctx))
+        state = {k: v for k, v in out[frame][1].items() if k.startswith("RTShadow.")}
+    return out
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_soft_sun_half_rate_matches_jax(soft_half_walk, frame):
+    tupd, jupd = soft_half_walk[frame]
+    assert set(tupd) == set(jupd) == {"ShadowMask.sun", "RTShadow.history", "RTShadow.moments",
+                                      "RTShadow.depth"}
+    for key in sorted(jupd):
+        o, r = _np(tupd[key]), _np(jupd[key])
+        assert o.shape == r.shape, key
+        if key.endswith(".depth"):
+            np.testing.assert_allclose(o, r, atol=1e-6, rtol=0, err_msg=key)
+        else:
+            assert (np.abs(o - r) > 1e-4).mean() <= 0.02, (key, np.abs(o - r).max())
+    assert _np(tupd["RTShadow.moments"])[..., 2].max() == frame + 1
+
+
+def test_half_rate_rt_matches_full_rate_roughly():
+    """Port twin of test_rt_passes.py::test_half_res_rt_matches_full_res_roughly
+    at 96^2: the rt_scale=2 frame (shadows and reflections at a quarter of
+    the rays, nearest-depth reconstructed) against the full-rate one, mean
+    abs < 0.02 and under 6 % of pixels off by more than 0.1."""
+    import arkoserenderer_torch.assets.procedural as tproc
+    from arkoserenderer_torch.models.standard import Renderer
+
+    cfg = TPipelineConfig(width=96, height=96, shadow_map_size=128,
+                          raster=TRasterConfig(**RASTER))
+    frames = []
+    for rt_scale in (1, 2):
+        scene, cam = tproc.build_test_scene(viewport=(96, 96), n_spheres=1)
+        r = Renderer(scene, cam, dataclasses.replace(cfg, rt_scale=rt_scale), device="cpu",
+                     rt_shadows=True, rt_reflections=True, taa=False, bloom=False)
+        frames.append(r.render_frame().numpy())
+    a, b = frames
+    assert np.isfinite(b).all()
+    assert np.abs(a - b).mean() < 0.02
+    assert (np.abs(a - b).max(axis=-1) > 0.1).mean() < 0.06
+
+
+@pytest.mark.parametrize("name", ["rt", "rt_soft"])
+def test_bench_rt_kinds_at_half_rate_small(name, monkeypatch):
+    """The bench's rt and rt_soft kinds at 256^2 and rt_scale=2 on the CPU:
+    one finite frame, the traces by label as at full rate, the sun mask
+    and the reflections at a quarter of the rays (128^2), the spot's mask
+    at every pixel."""
+    import collections
+
+    from arkoserenderer_torch.ops import bvh as bvh_ops
+    from arkoserenderer_torch.ops import rt
+    from arkoserenderer_torch.rendering.passes import rt as rt_passes
+    from arkoserenderer_torch.tools import bench
+
+    r = bench.build_renderer(name, small=True, device="cpu",
+                             cfg=bench.pipeline_config(True, rt_scale=2))
+    assert r.cfg.rt_scale == 2
+    rays = collections.defaultdict(list)
+
+    def by_label(bvh, origins, *args, label=None, **kw):
+        rays[label].append(origins.shape[0])
+        return bvh_ops.trace_rays(bvh, origins, *args, label=label, **kw)
+
+    for mod in (rt, rt_passes):
+        monkeypatch.setattr(mod, "trace_rays", by_label)
+    img = r.render_frame()
+    assert torch.isfinite(img).all() and r.state["SceneCoverage"].any()
+    assert {k: len(v) for k, v in rays.items()} == bench.expected_trace_launches_by_label(r, 1)
+    assert rays["sun mask"] == rays["reflection"] == [128 * 128]
+    assert rays["spot mask 0"] == [256 * 256]
 
 
 def test_rt_frame_traces_real_work(rt_walk):
@@ -238,16 +390,23 @@ def test_unported_rt_options_raise_by_name(case):
 
 
 def test_rt_scale_and_deformable_scenes_raise_by_name():
-    """Half-rate tracing is not ported. A hair scene (ported since) under RT
-    builds as the reference's does: the BVH traced as built, no refit of
-    the ribbons. A skinned or morphed scene under RT refits its BVH every
-    frame (BVHRefit after Geometry, unless the caller turns rt_refit off);
-    a rigid one does not."""
+    """Half-rate tracing is ported: rt_scale=2 builds the reference's RT
+    passes and renders (test_rt_half_rate_matches_jax holds them to JAX's),
+    and a rate the reference cannot run raises ValueError naming the field.
+    A hair scene (ported since) under RT builds as the reference's does:
+    the BVH traced as built, no refit of the ribbons. A skinned or morphed
+    scene under RT refits its BVH every frame (BVHRefit after Geometry,
+    unless the caller turns rt_refit off); a rigid one does not."""
     import arkoserenderer_torch.assets.procedural as tproc
     from arkoserenderer_torch.models.standard import Renderer
 
-    with pytest.raises(NotImplementedError, match="rt_scale"):
-        dataclasses.replace(_cfg(), rt_scale=2)
+    scene, cam = tproc.build_test_scene(viewport=(32, 16), n_spheres=1)
+    r = Renderer(scene, cam, dataclasses.replace(_cfg(), rt_scale=2), device="cpu",
+                 rt_shadows=True, rt_reflections=True, taa=False, bloom=False)
+    img = r.render_frame()
+    assert r.cfg.rt_scale == 2 and img.shape == (16, 32, 3) and bool(torch.isfinite(img).all())
+    with pytest.raises(ValueError, match="rt_scale"):
+        dataclasses.replace(_cfg(), rt_scale=3)
     scene, cam = tproc.build_test_scene(viewport=(32, 16))
     rigid = scene.static_info()
     scene.static_info = lambda: dataclasses.replace(rigid, has_hair=True)

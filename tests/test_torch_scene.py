@@ -76,6 +76,35 @@ def test_camera_state_matches_jax(both_scenes, frames):
             jc.look_at((4.5, 2.5, 5.0), (0.0, 0.6, -0.5))
 
 
+@pytest.mark.parametrize("method", ["set_field_of_view_x", "update_auto_exposure",
+                                    "film_grain_gain", "frustum_planes"])
+def test_camera_methods_match_jax(both_scenes, method):
+    """The host camera's methods give the reference's values on the same
+    camera (a fresh one each, so the auto exposure starts unset)."""
+    import copy
+
+    _, jc, _, tc = both_scenes
+    jc, tc = copy.deepcopy(jc), copy.deepcopy(tc)
+    if method == "set_field_of_view_x":
+        for cam in (jc, tc):
+            cam.set_field_of_view_x(1.1)
+        assert tc.focal_length_mm == jc.focal_length_mm
+        assert tc.field_of_view_x() == jc.field_of_view_x()
+        np.testing.assert_array_equal(tc.projection_matrix(), jc.projection_matrix())
+    elif method == "update_auto_exposure":
+        # Adapting over frames: a bright, a dim and a black metering.
+        for lum, dt in ((5.0, 1 / 60), (0.05, 1 / 30), (0.0, 1 / 60), (2.0, 0.5)):
+            assert tc.update_auto_exposure(lum, dt) == jc.update_auto_exposure(lum, dt)
+    elif method == "film_grain_gain":
+        for iso in (100.0, 400.0, 3200.0):
+            tc.iso = jc.iso = iso
+            assert tc.film_grain_gain() == jc.film_grain_gain()
+    else:
+        ours, ref = tc.frustum_planes(), jc.frustum_planes()
+        assert ours.shape == (6, 4) and ours.dtype == ref.dtype == np.float32
+        np.testing.assert_array_equal(ours, ref)
+
+
 def test_bridge_round_trip(both_scenes):
     js, jc, ts, tc = both_scenes
     carried = bridge.scene_arrays_from_numpy(js.build()._asdict(), "cpu")
@@ -180,10 +209,11 @@ PORTED_FLAGS = [("oit_layers", 2)]
 # in the reference's pipeline order (DDGIProbeDebug only with DDGI).
 PORTED_OVERLAYS = {"ddgi_probe_debug": "DDGIProbeDebug", "light_icons": "IconBillboards",
                    "debug_draw": "DebugDraw"}
-# Flags that are ported in part, with the config change whose branch is not
-# and still raises naming the flag: half-rate ray tracing (of RT shadows and
-# of RT reflections) and reduced-rate DDGI sampling. (Soft ray-traced
-# shadows, the branch rt_shadows named here before, are ported.)
+# Flags that were ported in part, with the config change whose branch this
+# test held as unported: half-rate ray tracing (of RT shadows and of RT
+# reflections) and reduced-rate DDGI sampling, all ported since (as soft
+# ray-traced shadows, the branch rt_shadows named here before): each builds
+# the reference's pipeline under the change.
 PARTLY_PORTED = {"rt_shadows": {"rt_scale": 2},
                  "rt_reflections": {"rt_scale": 2},
                  "ddgi": {"ddgi_sample_scale": 2}}
@@ -191,9 +221,10 @@ PARTLY_PORTED = {"rt_shadows": {"rt_scale": 2},
 
 @pytest.mark.parametrize("flag,value", UNPORTED, ids=[f for f, _ in UNPORTED])
 def test_unported_flags_raise_by_name(flag, value):
-    """The partly ported flags raise naming the flag under the config
-    change whose branch is not ported; the debug overlays build their pass
-    last, as the reference's make_forward_pipeline orders them."""
+    """The flags once ported in part build the reference's pipeline under
+    the config change whose branch was not ported (half-rate ray tracing,
+    reduced-rate DDGI sampling); the debug overlays build their pass last,
+    as the reference's make_forward_pipeline orders them."""
     import dataclasses
 
     from arkoserenderer_torch.models.standard import make_forward_pipeline
@@ -221,9 +252,20 @@ def test_unported_flags_raise_by_name(flag, value):
             width=32, height=16, shadow_map_size=32, raster=JRasterConfig(**tile)), **jkw).passes]
         assert names == ref and names[-1] == PORTED_OVERLAYS[flag]
     else:
-        with pytest.raises(NotImplementedError, match=flag):
-            make_forward_pipeline(dataclasses.replace(cfg, **PARTLY_PORTED[flag]),
-                                  device="cpu", **{flag: value})
+        from arkoserenderer_torch.core.types import RasterConfig
+        from arkoserenderer_tpu.core.types import RasterConfig as JRasterConfig
+
+        tile = dict(tile_h=8, tile_w=16, max_tris_per_tile=64)
+        kw = {flag: ProbeGridConfig() if flag == "ddgi" else value}
+        jkw = {flag: JGrid() if flag == "ddgi" else value}
+        pipe = make_forward_pipeline(dataclasses.replace(cfg, raster=RasterConfig(**tile),
+                                                         **PARTLY_PORTED[flag]),
+                                     device="cpu", **kw)
+        ref = j_make(JPipelineConfig(width=32, height=16, shadow_map_size=32,
+                                     raster=JRasterConfig(**tile), **PARTLY_PORTED[flag]), **jkw)
+        assert [p.name for p in pipe.passes] == [p.name for p in ref.passes]
+        field, rate = next(iter(PARTLY_PORTED[flag].items()))
+        assert getattr(pipe.cfg, field) == rate
     with pytest.raises(TypeError):
         make_forward_pipeline(cfg, device="cpu", no_such_flag=True)
     assert set(PORTED_OVERLAYS) | set(PARTLY_PORTED) == {f for f, _ in UNPORTED}

@@ -3,7 +3,8 @@ on the CPU: gloo worlds of 1, 2, 4 and 8 ranks spawned by ``run_bands``,
 each rank a process rendering its band.
 
 The cases mirror tests/test_sharding.py at its size (128^2, tile 8x16, a
-256^2 sun). Every case of one world size renders in one spawn, shared by
+256^2 sun), plus the half-rate sky fetch over two bands (its upsample's
+halo rows). Every case of one world size renders in one spawn, shared by
 the tests through a module-scoped fixture, and each gathered frame is held
 against the port's unsharded CPU ``Renderer`` (which the other
 tests/test_torch_*.py files hold against JAX) within the reference's own
@@ -74,7 +75,9 @@ NO_POST = dict(taa=False, bloom=False)
 WORLDS = {
     1: {"forward_bloom": BandJob(SCENE, CFG)},
     2: {"forward_bloom": BandJob(SCENE, CFG),
-        "forward_bloom_ssao": BandJob(SCENE, CFG, pipeline_kw=dict(ssao=True))},
+        "forward_bloom_ssao": BandJob(SCENE, CFG, pipeline_kw=dict(ssao=True)),
+        "sky_fetch_scale": BandJob(SCENE, dataclasses.replace(CFG, sky_fetch_scale=2),
+                                   pipeline_kw=NO_POST)},
     4: {"spot_atlas_icons": BandJob(ONE_SPHERE, dataclasses.replace(CFG, local_shadow_map_size=64),
                                     pipeline_kw=dict(bloom=False, light_icons=True),
                                     spots=(ICON_SPOT,)),
@@ -142,6 +145,77 @@ def test_bands_match_the_unsharded_renderer(sharded, unsharded, n, case):
     share, unequal, largest = off_share(ours, ref)
     assert share < 1e-3, (f"n={n} {case}: {share:.4%} of values off by > 1e-5 ({unequal} "
                           f"unequal, largest {largest:.3e})")
+
+
+def test_low_rate_sky_bands_match_the_unsharded_frame(sharded, unsharded):
+    """SkyView at sky_fetch_scale=2 over two bands: each band upsamples its
+    half-rate sky with the other band's boundary row as its halo, so the
+    gathered frame is the unsharded one within 1e-5, seam rows included."""
+    ours, ref = sharded(2, "sky_fetch_scale"), unsharded(2, "sky_fetch_scale")
+    assert ours.shape == (H, W, 3) and np.isfinite(ours).all()
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
+
+
+class ThreadBands:
+    """The band group of ``rank`` among ranks run as threads of this
+    process: all_gather hands every rank the others' tensors."""
+
+    def __init__(self, rank: int, size: int, slots: list, barrier):
+        self.rank, self.size, self.slots, self.barrier = rank, size, slots, barrier
+
+    def all_gather(self, x):
+        self.slots[self.rank] = x
+        self.barrier.wait()
+        parts = list(self.slots)
+        self.barrier.wait()
+        return parts
+
+
+def test_low_rate_sky_pass_bands_are_seam_exact():
+    """SkyView at sky_fetch_scale=2 on a frame no geometry covers, for two
+    bands run as threads and for the whole frame: the stacked bands equal
+    the frame bit for bit (the rows at the seam upsample across it, through
+    the halo; edge-clamped at the band's edge they would not)."""
+    import threading
+
+    from arkoserenderer_torch.rendering.passes.sky import SkyPass
+    from arkoserenderer_torch.rendering.pipeline import FrameContext
+    from arkoserenderer_torch.rendering.registry import Registry
+
+    scene, cam = SCENE()
+    arrays, cs = scene.build("cpu"), cam.state(0, "cpu")
+    cfg = dataclasses.replace(CFG, sky_fetch_scale=2)
+
+    def run(band_cfg, band=None):
+        reg = Registry()
+        for name, shape, dtype in (("SceneColor", (3,), torch.float32),
+                                   ("SceneCoverage", (), torch.bool),
+                                   ("SceneVelocity", (2,), torch.float32)):
+            reg.create(name, (band_cfg.height, W) + shape, dtype)
+        execute = SkyPass().construct(band_cfg, reg, torch.device("cpu"))
+        state = {"SceneColor": torch.zeros(band_cfg.height, W, 3),
+                 "SceneCoverage": torch.zeros(band_cfg.height, W, dtype=torch.bool),
+                 "SceneVelocity": torch.zeros(band_cfg.height, W, 2)}
+        rank = 0 if band is None else band.rank
+        return execute(state, FrameContext(arrays, cs, 0, 1 / 60, rank * band_cfg.height, band))
+
+    whole = run(cfg)
+    slots, barrier, bands = [None, None], threading.Barrier(2, timeout=60), [None, None]
+
+    def rank_run(rank):
+        bands[rank] = run(band_config(cfg, 2), ThreadBands(rank, 2, slots, barrier))
+
+    threads = [threading.Thread(target=rank_run, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and all(b is not None for b in bands)
+    for key in ("SceneColor", "SceneVelocity"):
+        stacked = torch.cat([bands[0][key], bands[1][key]])
+        np.testing.assert_array_equal(stacked.numpy(), whole[key].numpy(), err_msg=key)
+    seam = whole["SceneColor"][H // 2 - 1:H // 2 + 1]
+    assert float(seam.std()) > 0.0 and not torch.equal(seam[0], seam[1])
 
 
 def test_multi_frame_bands_differ_only_at_seams(sharded, unsharded):

@@ -2,7 +2,8 @@
 pipeline (one sphere, the default 8x4x8 probe grid, TAA and Bloom) and the
 `showcase` pipeline (the same scene and grid with rt_shadows,
 rt_reflections, SSAO, Fog and MotionBlur) pass by pass at 96^2 over two
-frames of a moving camera, frame 0's persistent state fed to frame 1; the
+frames of a moving camera, frame 0's persistent state fed to frame 1, and
+LightingCompose at ``ddgi_sample_scale=2`` on the same input states; the
 `ddgi` and `showcase` goldens at 256^2; the flagship scene's pools against
 JAX's at the bench's small size (256 spheres, 64 materials, 16 texture
 chains); and the bench's showcase and flagship kinds at 256^2 on the CPU.
@@ -17,6 +18,8 @@ plus:
     walk (test_torch_passes.py's bound: under 1 % of the pixels over 1e-4,
     none over 1).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +69,7 @@ SHARED_PREFIX = ("Scene", "Geometry", "DDGI")
 
 
 def walk(jscene, jcam, tscene, flags: dict, frames: int = 2, animate: bool = False,
-         jax_shared: dict | None = None):
+         jax_shared: dict | None = None, reduced: dict | None = None):
     """Both packages' pipelines of ``flags`` (make_forward_pipeline's, with
     ``ddgi`` a JAX ProbeGridConfig) pass by pass over ``frames`` frames:
     {(frame, pass): (torch, jax) updates}, and "names": the passes. Each
@@ -78,7 +81,11 @@ def walk(jscene, jcam, tscene, flags: dict, frames: int = 2, animate: bool = Fal
     ``jax_shared``: JAX updates of the passes in SHARED_PREFIX kept across
     walks of one scene, camera and grid, keyed by frame and the pass list up
     to the pass: a walk whose pipeline starts with the same passes reuses
-    them (those passes read nothing the later passes or the flags set)."""
+    them (those passes read nothing the later passes or the flags set).
+
+    ``reduced``: {pass: PipelineConfig changes}; each such pass of the
+    pipelines built with the changes also runs on the pass's input state,
+    as (frame, pass, "reduced")."""
     sizes = dict(width=RES, height=RES, shadow_map_size=128)
     jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), scene=jscene.static_info(), **sizes)
     tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), scene=tscene.static_info(), **sizes)
@@ -89,6 +96,12 @@ def walk(jscene, jcam, tscene, flags: dict, frames: int = 2, animate: bool = Fal
     tpipe = t_make_pipeline(tcfg, device="cpu", **tflags)
     names = [n for n, _ in jpipe._executes]
     assert names == [n for n, _ in tpipe._executes]
+    variants = {}
+    for name, changes in (reduced or {}).items():
+        jvar = dict(j_make_pipeline(dataclasses.replace(jcfg, **changes), **flags)._executes)
+        tvar = dict(t_make_pipeline(dataclasses.replace(tcfg, **changes), device="cpu",
+                                    **tflags)._executes)
+        variants[name] = (tvar[name], jax.jit(jvar[name]))
     persistent = sorted(jpipe.registry.persistent_names)
     assert persistent == sorted(tpipe.registry.persistent_names)
     if "ddgi" in flags:
@@ -131,21 +144,26 @@ def walk(jscene, jcam, tscene, flags: dict, frames: int = 2, animate: bool = Fal
                 if jax_shared is not None and names[:i + 1] == list(SHARED_PREFIX[:i + 1]):
                     jax_shared[key] = jupd
             out[frame, name] = (tupd, jupd)
+            if name in variants:
+                tvar, jvar = variants[name]
+                out[frame, name, "reduced"] = (tvar(_torch_state(state), tctx),
+                                               jvar(state, jctx))
             state = {**state, **jupd}
     return out
 
 
 def walk_ddgi(kind, jax_shared=None):
     """Both pipelines of ``kind`` pass by pass over two frames:
-    {(frame, pass): (torch, jax) updates}. Both kinds walk the same scene,
-    camera and grid, so they may share ``jax_shared``."""
+    {(frame, pass): (torch, jax) updates}, with LightingCompose also at
+    ``ddgi_sample_scale=2``. Both kinds walk the same scene, camera and
+    grid, so they may share ``jax_shared``."""
     import arkoserenderer_torch.assets.procedural as tproc
     import arkoserenderer_tpu.assets.procedural as jproc
 
     jscene, jcam = jproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
     tscene, _ = tproc.build_test_scene(viewport=(RES, RES), n_spheres=1)
     out = walk(jscene, jcam, tscene, dict(ddgi=jdd.ProbeGridConfig(), **WALK_KW[kind]),
-               jax_shared=jax_shared)
+               jax_shared=jax_shared, reduced={"LightingCompose": dict(ddgi_sample_scale=2)})
     assert out["names"] == WALK_PASSES[kind]
     return out
 
@@ -184,6 +202,22 @@ def test_ddgi_frames_match_jax(ddgi_walk, frame):
                 compare(key, tupd[key], jupd[key], None if name == "Geometry" else vis_agree)
     assert set(DDGI_KEYS) <= seen
     assert np.isfinite(_np(out[frame, "Output"][0]["LDR"])).all()
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_half_rate_ddgi_compose_matches_jax(ddgi_walk, frame):
+    """LightingCompose sampling the probes at one pixel of each 2x2 block
+    and upsampling by nearest depth: SceneColor within 1e-5 where
+    Visibility agrees; the half-rate ambient is not the full-rate one."""
+    kind, out = ddgi_walk
+    geo_t, geo_j = out[frame, "Geometry"]
+    vis_agree = _np(geo_t["Visibility"]) == _np(geo_j["Visibility"])
+    tupd, jupd = out[frame, "LightingCompose", "reduced"]
+    assert set(tupd) == set(jupd) == {"SceneColor"}
+    o, r = _np(tupd["SceneColor"]), _np(jupd["SceneColor"])
+    np.testing.assert_allclose(o[vis_agree], r[vis_agree], atol=1e-5, rtol=0, err_msg=kind)
+    full = _np(out[frame, "LightingCompose"][0]["SceneColor"])
+    assert np.isfinite(o).all() and np.abs(o - full).max() > 1e-4
 
 
 def test_ddgi_frames_do_real_work(ddgi_walk):

@@ -327,9 +327,11 @@ def make_stress_animator(scene: Scene):
     ``animate(arrays, frame_index, delta_time) -> arrays`` that writes the
     animated instances' rows of ``world``, ``prev_world`` (the pose one
     ``delta_time`` earlier), ``normal_mat`` and ``inst_sphere`` for the time
-    ``t = frame_index * delta_time``, formed in float32 as the reference
-    forms it (a double ``t`` rounds ``t + phase`` otherwise and gives
-    another ``sin``).
+    ``t = frame_index * delta_time``, formed in float32 on the device as
+    the reference forms it (a double ``t`` rounds ``t + phase`` otherwise
+    and gives another ``sin``); the frame index and delta time are the
+    frame's 0-d tensors or host values. Its row constants are uploaded at
+    the first call on a device.
 
     It writes into copies of those four pools and leaves ``arrays`` as the
     caller built it: the frame stays a function of (scene, frame index), so
@@ -361,15 +363,17 @@ def make_stress_animator(scene: Scene):
         ], dim=1)  # (n, 4, 4)
         return w, bob, c, s
 
-    def animate(arrays, frame_index: int, delta_time: float):
+    def animate(arrays, frame_index, delta_time):
         dev = arrays.world.device
         if dev not in on_device:
             on_device[dev] = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
         k = on_device[dev]
-        dt = np.float32(delta_time)
-        t = np.float32(frame_index) * dt
-        w, bob, c, s = rows_at(k, float(t))
-        pw = rows_at(k, float(t - dt))[0]
+        # t on the device, from the frame's scalars (host values are
+        # uploaded): float32 as the host formed it, so the same bits.
+        dt = torch.as_tensor(delta_time, dtype=torch.float32, device=dev)
+        t = torch.as_tensor(frame_index, device=dev).to(torch.float32) * dt
+        w, bob, c, s = rows_at(k, t)
+        pw = rows_at(k, t - dt)[0]
         zero = torch.zeros_like(c)
         one = torch.ones_like(c)
         nm = torch.stack([  # a pure rotation is its own inverse-transpose

@@ -23,6 +23,7 @@ the pipeline rebuild that keeps the persistent state, and auto-exposure.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import math
@@ -65,7 +66,11 @@ from arkoserenderer_torch.rendering.passes.rt import (
     RTShadowPass,
 )
 from arkoserenderer_torch.rendering.passes.ssss import SSSSPass
-from arkoserenderer_torch.rendering.pipeline import PipelineConfig, RenderPipeline
+from arkoserenderer_torch.rendering.pipeline import (
+    PipelineConfig,
+    RenderPipeline,
+    eager_frames,
+)
 from arkoserenderer_torch.scene.camera import Camera
 from arkoserenderer_torch.scene.scene import Scene
 
@@ -256,7 +261,11 @@ class Renderer:
     def render_frame(self, delta_time: float = 1 / 60,
                      pass_events: list | None = None) -> torch.Tensor:
         """Render one frame; returns the LDR image on the device: (H, W, 3),
-        or LDRDisplay at the display size when the pipeline upscales."""
+        or LDRDisplay at the display size when the pipeline upscales. On
+        the card the frame is the pipeline's captured one
+        (``RenderPipeline.render_frame``): the image is the graph's buffer,
+        which the next frame overwrites, so copy a frame to keep it.
+        ``pass_events`` (a per-pass time table) runs the frame eagerly."""
         if self.dynamic_transforms:
             self.scene_arrays = self.scene.update_instance_transforms(self.scene_arrays)
         if self.animated:
@@ -265,8 +274,6 @@ class Renderer:
         inputs = {k: self.state[k] for k in persistent if k in self.state}
         if "scene.version" in persistent:
             inputs["scene.version"] = self._scene_version
-        if self.debug is not None:
-            inputs["debug.lines"] = self.debug.arrays(self.device)
         cam_state = self.camera.state(self.frame_index, self.device)
         self.state = self.pipeline.render_frame(
             inputs, self.scene_arrays, cam_state, self.frame_index, delta_time,
@@ -276,7 +283,8 @@ class Renderer:
         if self.auto_exposure and "Metering.avgLum" in self.state:
             # Eye adaption: the metered pre-exposed luminance nudges the
             # relative EV toward mid-grey (the reference's loop, R2: it
-            # reads the scalar back every frame).
+            # reads the scalar back every frame, after the frame, outside
+            # the captured graph).
             avg = float(self.state["Metering.avgLum"])
             cam = self.camera
             cam.exposure_compensation += float(
@@ -378,26 +386,31 @@ class Renderer:
         return {"instance": inst, "triangle": tri, "depth": depth, "distance": distance}
 
     def upload_animation(self) -> None:
-        """Evaluate the scene's animations at ``time`` on the host and
-        upload the palette and the morph weights."""
+        """Evaluate the scene's animations at ``time`` on the host and copy
+        the palette and the morph weights into the scene's tensors, which
+        keep their storage."""
         palette = self.scene.update_animations(self.time)
-        self.scene_arrays = self.scene_arrays._replace(
-            palette=torch.from_numpy(palette.copy()).to(self.device),
-            morph_weights=tuple(torch.from_numpy(w.copy()).to(self.device)
-                                for w in self.scene.morph_weights()))
+        sa = self.scene_arrays
+        sa.palette.copy_(torch.from_numpy(palette.copy()))
+        for dst, w in zip(sa.morph_weights, self.scene.morph_weights(), strict=True):
+            dst.copy_(torch.from_numpy(w.copy()))
 
     def render_frames(self, n: int) -> torch.Tensor:
         for _ in range(n):
             out = self.render_frame()
         return out
 
-    def benchmark(self, warmup: int = 3, iters: int = 10, before_frame=None) -> dict:
+    def benchmark(self, warmup: int = 3, iters: int = 10, before_frame=None,
+                  eager: bool = False, pass_frames: int = 3) -> dict:
         """Time ``iters`` frames after ``warmup`` on the card: each frame's ms
         and their median (CUDA events around the frame, so the host's gaps
-        between launches count), the host's wall-clock ms per frame, and
-        the median ms of every pass. ``before_frame(frame_index)`` runs
-        before each frame, untimed by the events: a bench moves the camera
-        there."""
+        between launches count), and the host's wall-clock ms per frame. The
+        frames are the captured ones where the pipeline captures, unless
+        ``eager``. Then ``pass_frames`` more frames run eagerly with an event
+        pair around every pass (a graph has no per-pass events): their
+        median ms of every pass is ``eager_pass_ms``. ``before_frame(
+        frame_index)`` runs before each frame, untimed by the events: a
+        bench moves the camera there."""
         if self.device.type != "cuda":
             raise RuntimeError("benchmark times the card; the renderer is on " + str(self.device))
 
@@ -406,30 +419,33 @@ class Renderer:
                 before_frame(self.frame_index)
             self.render_frame(**kw)
 
-        for _ in range(warmup):
-            step()
-        frames, passes = [], []
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            events: list = []
-            start.record()
-            step(pass_events=events)
-            end.record()
-            frames.append((start, end))
-            passes.append(events)
-        torch.cuda.synchronize(self.device)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / max(iters, 1)
+        with eager_frames() if eager else contextlib.nullcontext():
+            for _ in range(warmup):
+                step()
+            frames = []
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step()
+                end.record()
+                frames.append((start, end))
+            torch.cuda.synchronize(self.device)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / max(iters, 1)
         frame_ms = [s.elapsed_time(e) for s, e in frames]
         pass_ms = {}
-        for events in passes:
+        for _ in range(pass_frames):
+            events: list = []
+            step(pass_events=events)
+            torch.cuda.synchronize(self.device)
             for name, s, e in events:
                 pass_ms.setdefault(name, []).append(s.elapsed_time(e))
         return {
             "ms_per_frame": statistics.median(frame_ms),
             "wall_ms_per_frame": wall_ms,
             "frame_ms": frame_ms,
-            "pass_ms": {k: statistics.median(v) for k, v in pass_ms.items()},
+            "captured": self.pipeline.captured and not eager,
+            "eager_pass_ms": {k: statistics.median(v) for k, v in pass_ms.items()},
         }

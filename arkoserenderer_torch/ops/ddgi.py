@@ -24,6 +24,7 @@ Nothing in the update reads the device back.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -151,8 +152,10 @@ class _GridConstants(NamedTuple):
     top: torch.Tensor         # (3,) dims - 1 - 1e-4: the sampling clamp
 
 
+@functools.lru_cache(maxsize=32)
 def _constants(cfg: ProbeGridConfig, device: torch.device) -> _GridConstants:
-    """The grid's constant tensors on ``device``."""
+    """The grid's constant tensors on ``device``, made once for a grid and a
+    device (a frame uploads none of them)."""
     return _GridConstants(*(torch.from_numpy(np.asarray(a, np.float32)).to(device) for a in (
         probe_positions(cfg), fibonacci_sphere(cfg.rays_per_probe),
         _texel_dirs(IRRADIANCE_RES), _texel_dirs(VISIBILITY_RES), cfg.origin, cfg.spacing,
@@ -163,16 +166,21 @@ def update_probes(
     scene,                       # SceneArrays with a BVH
     state: DDGIState,
     cfg: ProbeGridConfig,
-    frame_index: int,            # drives the round-robin and the ray rotation
+    frame_index,                 # drives the round-robin and the ray rotation
     exposure: torch.Tensor,
     prev_state: DDGIState | None = None,
     n_spots: int = 0,            # the local lights the raster frame sees
     n_points: int = 0,
     spot_casters: tuple = (),
     point_casters: tuple = (),
+    rotation: torch.Tensor | None = None,
 ) -> DDGIState:
     """One frame's probe update; returns the new state. The bounce term
-    samples ``prev_state`` (default ``state``)."""
+    samples ``prev_state`` (default ``state``). ``frame_index`` is a host
+    int or a 0-d integer tensor (the round-robin is then formed on the
+    device); ``rotation`` is the frame's four normals
+    (``ddgi_rotation_normals(frame_index)``) on the device, or None to draw
+    them on the host from an int ``frame_index`` and upload them."""
     dev = state.irradiance.device
     p = cfg.num_probes
     n_up = min(cfg.probes_per_frame, p)
@@ -181,12 +189,17 @@ def update_probes(
 
     positions, fib_dirs, tex_dirs_i, tex_dirs_v, _, spacing, _ = _constants(cfg, dev)
 
-    base = (int(frame_index) * n_up) % p
+    if isinstance(frame_index, torch.Tensor):
+        base = (frame_index.to(torch.int64) * n_up) % p
+    else:
+        base = (int(frame_index) * n_up) % p
     probe_ids = (torch.arange(n_up, device=dev) + base) % p
     pos = positions[probe_ids] + state.offsets[probe_ids]
 
     # The per-frame random rotation of the Fibonacci ray set.
-    q = torch.from_numpy(ddgi_rotation_normals(int(frame_index))).to(dev)
+    q = rotation
+    if q is None:
+        q = torch.from_numpy(ddgi_rotation_normals(int(frame_index))).to(dev)
     q = q / torch.linalg.vector_norm(q)
     dirs = mx.quat_rotate(q[None, :], fib_dirs)                 # (R, 3)
 

@@ -5,7 +5,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from arkoserenderer_torch.core.constants import device_constant
 
 
 def direction_to_equirect_uv(d: torch.Tensor) -> torch.Tensor:
@@ -70,7 +73,8 @@ def sh2_project(env: torch.Tensor) -> torch.Tensor:
         _C2 * x * z, _C4 * (x * x - y * y),
     ])
     coeffs = torch.einsum("bhw,hwc->bc", basis * d_omega[None], env)
-    a = torch.tensor([math.pi] + [2.0 * math.pi / 3.0] * 3 + [math.pi / 4.0] * 5, **f32)
+    a = device_constant("sh2 band factors", lambda: np.array(
+        [math.pi] + [2.0 * math.pi / 3.0] * 3 + [math.pi / 4.0] * 5, np.float32), env.device)
     return coeffs * a[:, None]
 
 

@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from arkoserenderer_torch.core.constants import device_constant
+
 MAX_MIPS = 13  # up to 4096^2 per packed material texture
 
 # Packed-material metadata lanes (stored in the material record).
@@ -214,8 +216,8 @@ def _unpack12(rows: torch.Tensor) -> torch.Tensor:
         for s in (0, 8, 16, 24)
     ]
     b = torch.stack(lanes, dim=-1)
-    mask = torch.zeros(12, dtype=torch.bool, device=rows.device)
-    mask[list(_SRGB_LANES)] = True
+    mask = device_constant("srgb lanes", lambda: np.isin(np.arange(12), _SRGB_LANES),
+                           rows.device)
     return torch.where(mask[None, :], _srgb_to_linear(b), b)
 
 

@@ -22,7 +22,7 @@ import torch
 
 from arkoserenderer_torch.core.halton import fibonacci_disc
 from arkoserenderer_torch.ops.image import bilinear_sample_many, luminance, shift_img
-from arkoserenderer_torch.ops.noise import MASK32, mul_u32, sample_blue_noise
+from arkoserenderer_torch.ops.noise import MASK32, frame_word, mul_u32, sample_blue_noise
 
 
 def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -63,7 +63,7 @@ def _white_pixel_noise(px, py, frame_index: int, salt: int) -> torch.Tensor:
     """The reference's integer-hash white noise in [0, 1): its uint32
     arithmetic in int64 words, masked to 32 bits after every multiply and
     add."""
-    fi = int(frame_index or 0) & MASK32
+    fi = frame_word(frame_index)
     seed = ((px.to(torch.int64) & MASK32) + mul_u32(py.to(torch.int64) & MASK32, 19349663)
             + ((fi * 83492791) & MASK32) + ((salt * 374761393) & MASK32)) & MASK32
     seed = seed ^ (seed >> 16)

@@ -73,7 +73,7 @@ def prefilter(refl: torch.Tensor, rough: torch.Tensor, normal: torch.Tensor,
 
 
 def resolve_temporal(filtered: torch.Tensor, hist: torch.Tensor, mom_hist: torch.Tensor,
-                     confidence: torch.Tensor, first_frame: bool, max_samples: float = 16.0,
+                     confidence: torch.Tensor, first_frame, max_samples: float = 16.0,
                      gamma: float = 1.2):
     """Variance-clamped accumulation; returns (resolved, new_moments)."""
     s1 = filtered
@@ -95,7 +95,10 @@ def resolve_temporal(filtered: torch.Tensor, hist: torch.Tensor, mom_hist: torch
     hist_clamped = torch.minimum(torch.maximum(hist, s_min - eps), s_max + eps)
 
     conf = confidence[..., None]
-    reset = torch.clamp(1.0 - conf, min=1.0 if first_frame else 0.0)
+    if isinstance(first_frame, torch.Tensor):  # a device scalar: no host branch
+        reset = torch.maximum(1.0 - conf, (first_frame != 0).to(torch.float32))
+    else:
+        reset = torch.clamp(1.0 - conf, min=1.0 if first_frame else 0.0)
     n_prev = mom_hist[..., 2:3] * (1.0 - reset)
     n = torch.clamp(n_prev + 1.0, max=max_samples)
     alpha = 1.0 / n

@@ -18,9 +18,10 @@ import numpy as np
 import torch
 
 from arkoserenderer_torch.core import mathx as mx
+from arkoserenderer_torch.core.constants import device_constant
 from arkoserenderer_torch.core.halton import halton_sequence_2d
 from arkoserenderer_torch.ops.image import clamped_index
-from arkoserenderer_torch.ops.noise import MASK32, mul_u32
+from arkoserenderer_torch.ops.noise import MASK32, frame_word, mul_u32
 
 
 def make_ssao_kernel(n_samples: int = 16, seed_bias: float = 0.35) -> np.ndarray:
@@ -103,7 +104,8 @@ def ssao(
     depth_img = depth if sample_depth is None else sample_depth
     sample_h = depth_img.shape[0]
     fetch = depth_img.reshape(-1)
-    kern = torch.from_numpy(np.asarray(kernel, np.float32)).to(depth.device)
+    kern = device_constant(("ssao kernel", np.asarray(kernel, np.float32).tobytes()),
+                           lambda: np.asarray(kernel, np.float32), depth.device)
     n_samples = kern.shape[0]
 
     def occlusion(k0, k1, k2):
@@ -129,7 +131,7 @@ def ssao(
         # The reference's hash: an int32 sum that wraps, cast to uint32,
         # then uint32 multiplies; here int64 words masked to 32 bits.
         seed = (px.to(torch.int64) * 7 + py.to(torch.int64) * 73856093
-                + int(frame_index) * 19349663) & MASK32
+                + frame_word(frame_index) * 19349663) & MASK32
         for j in range(samples_per_frame):
             h_ = mul_u32((seed + ((j * 374761393) & MASK32)) & MASK32, 0x9E3779B1)
             h_ = mul_u32(h_ ^ (h_ >> 16), 0x85EBCA6B)

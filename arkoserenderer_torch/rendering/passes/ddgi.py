@@ -4,6 +4,14 @@ through the scene's BVH (the frame's refitted one after a BVHRefitPass)
 and blending the octahedral atlases with
 hysteresis (``ops/ddgi.update_probes``).
 
+The frame's four rotation normals (``core/prng.ddgi_rotation_normals``,
+numpy threefry on the host) are a per-frame input, DDGI.rotation: the
+pass's ``frame_inputs`` draws them for the frame index and the frame
+reads them from the device, so a captured frame copies 16 bytes in before
+each replay and keeps the host draw's bits (the reference draws them in
+its program with ``jax.random``). A state without them (a caller of the
+execute alone) draws them from the frame index on the host.
+
 The atlases are persistent frame state: DDGI.irradiance (cleared to 0),
 DDGI.visibility (cleared to ``max_distance`` in both channels, as the
 reference's registry clears it, not to ``init_state``'s (d, d^2)) and
@@ -16,11 +24,13 @@ from __future__ import annotations
 
 import torch
 
+from arkoserenderer_torch.core.prng import ddgi_rotation_normals
 from arkoserenderer_torch.ops import ddgi as ddgi_ops
 from arkoserenderer_torch.rendering.pipeline import FrameContext, PipelineConfig, RenderPass
 from arkoserenderer_torch.rendering.registry import Registry
 
 STATE_KEYS = ("DDGI.irradiance", "DDGI.visibility", "DDGI.offsets")
+ROTATION = "DDGI.rotation"
 
 
 def ddgi_state(state: dict) -> ddgi_ops.DDGIState:
@@ -46,6 +56,7 @@ class DDGIPass(RenderPass):
         from arkoserenderer_torch.rendering.passes.rt import scene_with_live_bvh, uses_live_bvh
 
         uses_live_bvh(reg)
+        reg.publish(ROTATION)  # the host's input of each frame (frame_inputs)
         st = cfg.scene
 
         def execute(state: dict, ctx: FrameContext) -> dict:
@@ -54,7 +65,11 @@ class DDGIPass(RenderPass):
                 ctx.camera.exposure,
                 n_spots=st.n_spots, n_points=st.n_points,
                 spot_casters=st.spot_shadow_casters, point_casters=st.point_shadow_casters,
+                rotation=state.get(ROTATION),
             )
             return dict(zip(STATE_KEYS, new))
 
         return execute
+
+    def frame_inputs(self, frame_index: int) -> dict:
+        return {ROTATION: ddgi_rotation_normals(frame_index)}

@@ -2,8 +2,9 @@
 (port of arkoserenderer_tpu/rendering/passes/debugdraw.py).
 
 The host fills a ``DebugLineBuffer`` each frame (lines, boxes, a ground
-grid, axes); the Renderer uploads its four arrays as the ``debug.lines``
-input of the frame. ``DebugDrawPass`` samples 64 points along each line,
+grid, axes); its four arrays are the ``debug.lines`` input of the frame
+(the pass's ``frame_inputs``: the pipeline uploads them, or a captured
+frame copies them into its buffers). ``DebugDrawPass`` samples 64 points along each line,
 projects them, depth-tests each against SceneDepth (with a 0.1 % bias, so
 lines on a surface win) and writes the line's colour into LDR; where
 samples share a pixel the later one wins (``overlay.scatter_last``).
@@ -68,12 +69,16 @@ class DebugLineBuffer:
         self.line(o, o + [0, size, 0], (0.2, 1, 0.2))
         self.line(o, o + [0, 0, size], (0.2, 0.4, 1))
 
-    def arrays(self, device) -> tuple:
-        """(a, b, color, valid) on ``device``: the frame's ``debug.lines``."""
+    def host_arrays(self) -> tuple:
+        """(a, b, color, valid) as numpy copies: the frame's ``debug.lines``
+        on the host."""
         valid = np.zeros((self.capacity,), np.float32)
         valid[:self.count] = 1.0
-        return tuple(torch.from_numpy(x.copy()).to(device)
-                     for x in (self._a, self._b, self._color, valid))
+        return tuple(x.copy() for x in (self._a, self._b, self._color, valid))
+
+    def arrays(self, device) -> tuple:
+        """(a, b, color, valid) on ``device``: the frame's ``debug.lines``."""
+        return tuple(torch.from_numpy(x).to(device) for x in self.host_arrays())
 
 
 class DebugDrawPass(RenderPass):
@@ -107,3 +112,6 @@ class DebugDrawPass(RenderPass):
             return {"LDR": scatter_last(state["LDR"], yi * w + xi, on, cols)}
 
         return execute
+
+    def frame_inputs(self, frame_index: int) -> dict:
+        return {"debug.lines": self.buffer.host_arrays()}

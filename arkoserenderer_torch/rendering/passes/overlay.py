@@ -12,9 +12,11 @@ then one gather of the colours.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from arkoserenderer_torch.core import mathx as mx
+from arkoserenderer_torch.core.constants import device_constant
 
 _I32_MIN, _I32_MAX = -2147483648.0, 2147483520.0  # the float32 range of int32
 
@@ -56,10 +58,11 @@ def scatter_last(ldr: torch.Tensor, pixel: torch.Tensor, on: torch.Tensor,
     win = torch.full((n + 1,), -1, dtype=torch.int64, device=ldr.device)
     win.scatter_reduce_(0, idx, order, reduce="amax")
     win = win[:n]
-    hit = win >= 0
-    out = ldr.reshape(n, 3).clone()
-    out[hit] = colors[win[hit]].to(out.dtype)
-    return out.reshape(h, w, 3)
+    if colors.shape[0] == 0:
+        return ldr.clone()
+    # Every pixel gathers its winner (a mask's rows would be a readback).
+    picked = colors[torch.clamp(win, min=0)].to(ldr.dtype)
+    return torch.where((win >= 0)[:, None], picked, ldr.reshape(n, 3)).reshape(h, w, 3)
 
 
 def disc_offsets(r: int) -> list[tuple[int, int]]:
@@ -75,7 +78,8 @@ def splat(ldr: torch.Tensor, depth: torch.Tensor, xi: torch.Tensor, yi: torch.Te
     wins a shared pixel); a sprite pixel behind the scene's depth is
     skipped under ``depth_test``."""
     h, w, _ = ldr.shape
-    off = torch.tensor(offsets, dtype=torch.int64, device=ldr.device)  # (K, 2)
+    off = device_constant(("sprite offsets", tuple(offsets)),
+                          lambda: np.array(offsets, np.int64), ldr.device)  # (K, 2)
     py = yi[None, :] + off[:, 0:1]                                     # (K, P)
     px = xi[None, :] + off[:, 1:2]
     on = ok[None, :] & (px >= 0) & (px < w) & (py >= 0) & (py < h)

@@ -13,8 +13,10 @@ moments. Translucent triangles cast no shadow (in both passes).
 Static-shadow cache: when nothing that casts shadows can move, the map is
 rendered once and reused until the host bumps the scene version. The
 reference decides that on the device (a ``lax.cond``); here the host already
-holds both versions as Python ints, so it is a plain branch and the frame
-reads nothing back. A dynamic scene (moving instances, skinning, morph
+holds both versions as Python ints and knows whether this is frame 0, so it
+is a plain branch (``host_step``) and the frame reads nothing back; a
+captured frame has a graph for each branch, and a steady frame's holds no
+sun raster. A dynamic scene (moving instances, skinning, morph
 targets, hair) rasters the sun every frame, and both maps are transient.
 
 Under pixel-band sharding each rank rasters its band of the map's rows,
@@ -109,17 +111,30 @@ class SunShadowPass(RenderPass):
                 return {"ShadowMap.sun": depth, "ShadowMoments.sun": shadow_moments(depth)}
             return {"ShadowMap.sun": depth}
 
+        self._cacheable = cacheable
+
         def execute(state: dict, ctx: FrameContext) -> dict:
             if not cacheable:
                 return render(state, ctx)
-            version = state["scene.version"]
-            if ctx.frame_index == 0 or version != state["SunShadow.version"]:
+            dirty, versions = self.host_step(state, ctx.first_frame)
+            if dirty:
                 out = render(state, ctx)
             else:
                 out = {k: state[k] for k in ("ShadowMap.sun", "ShadowMoments.sun") if k in state}
-            return {**out, "SunShadow.version": version, "scene.version": version}
+            return {**out, **versions}
 
         return execute
+
+    def host_step(self, state: dict, first_frame: bool) -> tuple:
+        """The cached map's branch, on the host's versions: render on the
+        first frame and whenever the host bumped the scene version, else
+        keep the map (the reference's ``lax.cond``; a captured frame has a
+        graph for each)."""
+        if not self._cacheable:
+            return None, {}
+        version = state["scene.version"]
+        dirty = bool(first_frame or version != state["SunShadow.version"])
+        return dirty, {"SunShadow.version": version, "scene.version": version}
 
 
 class LocalShadowPass(RenderPass):

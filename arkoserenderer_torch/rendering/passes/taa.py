@@ -4,8 +4,8 @@ The camera jitters its projection with a Halton sequence; this pass
 reprojects the persistent history image along the per-pixel motion vectors,
 clamps it to the 3x3 neighbourhood of the current frame (an AABB in RGB) and
 blends exponentially. Where the reprojection leaves the screen, and on the
-first frame, the current frame is taken wholesale; the first frame is a
-branch on the host's frame index.
+first frame, the current frame is taken wholesale: a ``torch.where`` on
+the frame index, a device scalar, at the reference's place.
 
 The history is resampled with Catmull-Rom (``taa_filter="catmull"``, the
 default; ``use_catmull_rom`` overrides the config) or bilinearly. Under the
@@ -74,12 +74,12 @@ class TAAPass(RenderPass):
                 hist = torch.where(vel_img.abs().max() <= 1.0, shifted, gathered)
             lo, hi = neighborhood_min_max(color)
             hist = torch.clamp(hist, lo, hi)
-            if ctx.frame_index == 0:
-                out = hist + (color - hist)
-            else:
-                on_screen = ((prev_x >= 0.0) & (prev_x < w) & (prev_y >= 0.0)
-                             & (prev_y < h)).reshape(h, w, 1)
-                out = hist + (color - hist) * torch.where(on_screen, 1.0 - hysteresis, 1.0)
+            # History is invalid where reprojection left the screen, and on
+            # the first frame (the frame index is a device scalar).
+            on_screen = ((prev_x >= 0.0) & (prev_x < w) & (prev_y >= 0.0)
+                         & (prev_y < h)).reshape(h, w, 1)
+            alpha = torch.where((ctx.frame_index == 0) | ~on_screen, 1.0, 1.0 - hysteresis)
+            out = hist + (color - hist) * alpha
             return {"SceneColor": out, "TAAHistory": out}
 
         return execute

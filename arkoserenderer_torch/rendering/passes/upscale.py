@@ -91,12 +91,10 @@ class TemporalUpscalePass(RenderPass):
             gamma = 1.0 + 3.0 * torch.exp(-8.0 * speed)  # ~4 at rest, ~1 in motion
             hist = torch.minimum(torch.maximum(hist, m1 - gamma * sigma), m1 + gamma * sigma)
 
-            if ctx.frame_index == 0:
-                out = hist + (cur - hist)
-            else:
-                on_screen = ((prev_x >= 0.0) & (prev_x < dw) & (prev_y >= 0.0)
-                             & (prev_y < dh)).reshape(dh, dw, 1)
-                out = hist + (cur - hist) * torch.where(on_screen, 1.0 - hysteresis, 1.0)
+            on_screen = ((prev_x >= 0.0) & (prev_x < dw) & (prev_y >= 0.0)
+                         & (prev_y < dh)).reshape(dh, dw, 1)
+            alpha = torch.where((ctx.frame_index == 0) | ~on_screen, 1.0, 1.0 - hysteresis)
+            out = hist + (cur - hist) * alpha
             disp = cas(torch.clamp(out, 0.0, 1.0), sharp) if sharp > 0.0 else out
             return {"LDRDisplay": torch.clamp(disp, 0.0, 1.0), "UpscaleHistory": out}
 

@@ -6,18 +6,28 @@ Two phases, as in the reference:
   * ``construct_all()`` — every pass declares its resources against a fresh
     Registry and returns its execute callback;
   * ``frame_fn()``      — runs the callbacks eagerly, in declared order, on
-    the frame-state dict (the reference jits this whole function; capturing
-    it in a CUDA graph is later work).
+    the frame-state dict.
+
+``compile()`` is the reference's jitted frame: on the card it captures the
+whole ``frame_fn`` in CUDA graphs (``rendering/capture.py``) and returns a
+callable with the reference's signature, ``fn(state, scene, camera_state,
+frame_index, delta_time) -> state``, cached by ``donate_state``; on the CPU
+it returns ``frame_fn`` itself. ``render_frame``, the entry point a frame
+loop calls, goes through it on the card, unless a pass declares it cannot
+be captured (``RenderPass.capture_blocker``), the pipeline renders a band
+of a sharded frame (its collectives run on the host), or the caller is
+inside ``eager_frames()``: then it runs ``frame_fn`` eagerly.
+``validate_frame`` and per-pass timing (``pass_events``) run the eager
+frame, as the reference times passes with its un-fused execute.
 
 ``FrameContext`` bundles what every execute callback receives: the scene
-tensors, the camera state, the frame index (a host int) and, under
+tensors, the camera state, the frame index (a 0-d int32 tensor on the
+pipeline's device) and the frame's delta time (a 0-d float32 tensor), as
+the reference's traced scalars, so nothing in a frame branches on them on
+the host; whether this is frame 0 as the host knows it (``first_frame``,
+for the one branch the host takes: the cached sun map's); and, under
 pixel-band sharding (``parallel/sharded.py``), the band's first row in the
 frame and its band group.
-
-``RenderPipeline.render_frame`` is the entry point a frame loop calls (the
-eager counterpart of the reference's ``compile`` + ``render_frame``);
-``validate_frame`` runs a frame one pass at a time and reports every
-non-finite value a pass writes.
 
 ``RenderPipeline.scene_animator``, when set, is the frame's prologue:
 ``fn(scene, frame_index, delta_time) -> scene`` runs before the first pass
@@ -27,6 +37,7 @@ and the passes see the scene it returns (the stress grid's animation).
 from __future__ import annotations
 
 import abc
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
@@ -39,16 +50,40 @@ from arkoserenderer_torch.scene.camera import CameraState
 from arkoserenderer_torch.scene.scene import SceneArrays, SceneStatic
 
 
-class FrameContext(NamedTuple):
+class _FrameFields(NamedTuple):
     scene: SceneArrays
     camera: CameraState
-    frame_index: int
-    delta_time: float
+    frame_index: torch.Tensor  # () int32
+    delta_time: torch.Tensor   # () float32
     # Pixel-band sharding: the first frame row of this rank's band (a host
     # int, rank * band height) and the band group whose collectives join
     # the bands (``parallel.sharded.BandGroup``); 0 and None unsharded.
     row_offset: int = 0
     band: object = None
+    first_frame: bool = False  # host: this is frame 0
+
+
+class FrameContext(_FrameFields):
+    """The frame's context. A host int ``frame_index`` becomes a 0-d int32
+    tensor on the CPU, and a float ``delta_time`` a 0-d float32 one (torch
+    takes 0-d CPU tensors beside tensors of any device); ``frame_fn`` makes
+    them on the pipeline's device. ``first_frame`` defaults to
+    ``frame_index == 0``, read on the host from a tensor index."""
+
+    __slots__ = ()
+
+    def __new__(cls, scene, camera, frame_index, delta_time=1 / 60, row_offset=0, band=None,
+                first_frame=None):
+        if not isinstance(frame_index, torch.Tensor):
+            if first_frame is None:
+                first_frame = int(frame_index) == 0
+            frame_index = torch.tensor(int(frame_index), dtype=torch.int32)
+        elif first_frame is None:
+            first_frame = bool(frame_index == 0)
+        if not isinstance(delta_time, torch.Tensor):
+            delta_time = torch.tensor(float(delta_time), dtype=torch.float32)
+        return super().__new__(cls, scene, camera, frame_index, delta_time, row_offset, band,
+                               bool(first_frame))
 
 
 # The texture filters and sun-shadow taps the port takes; anisoN (N taps,
@@ -153,12 +188,32 @@ class RenderPass(abc.ABC):
     """Base pass (RenderPipelineNode analogue)."""
 
     name: str = "UnnamedPass"
+    # Why this pass's execute cannot run inside a captured frame
+    # (``RenderPipeline.compile``), or None when it can. A pipeline with
+    # such a pass runs its frames eagerly.
+    capture_blocker: str | None = None
 
     @abc.abstractmethod
     def construct(self, cfg: PipelineConfig, reg: Registry,
                   device: torch.device) -> ExecuteFn:
         """Declare resources against ``reg``; return the execute callback.
         Constants the pass keeps live on ``device``."""
+
+    def host_step(self, state: dict, first_frame: bool) -> tuple:
+        """The host's share of this pass's frame, from the state's host
+        values (the registry's dtype-None resources) and whether this is
+        frame 0: (the branch the pass takes, None for a pass with one path;
+        the host values it writes into the state). Its execute takes the
+        same branch; a captured frame is one graph for each tuple of
+        branches, and the host values come from here."""
+        return None, {}
+
+    def frame_inputs(self, frame_index: int) -> dict:
+        """Host values this pass reads each frame as device inputs, for
+        frame ``frame_index``: {resource: numpy array, or a tuple of them}.
+        The frame reads them from the state; ``frame_fn`` uploads those the
+        state lacks, and a captured frame copies them into its buffers."""
+        return {}
 
 
 class RenderPipeline:
@@ -169,6 +224,7 @@ class RenderPipeline:
         self.registry = Registry()
         self._executes: list[tuple[str, ExecuteFn]] | None = None
         self.scene_animator: Callable | None = None
+        self._compiled: dict = {}  # compile()'s frames by donate_state
         # The band group under pixel-band sharding (ShardedRenderer sets it).
         self.band = None
 
@@ -184,6 +240,8 @@ class RenderPipeline:
             self.registry.set_current_node(p.name)
             self._executes.append((p.name, p.construct(self.cfg, self.registry, self.device)))
         self.registry.set_current_node(None)
+        self._compiled = {}  # the captured frames ran the old callbacks
+        self._frame_input_names = list(self.frame_inputs(0))
         return self
 
     def _require_constructed(self):
@@ -194,20 +252,53 @@ class RenderPipeline:
         self._require_constructed()
         return self.registry.initial_state(self.device)
 
+    def frame_inputs(self, frame_index: int) -> dict:
+        """Every pass's ``frame_inputs`` for frame ``frame_index`` (host
+        values, by resource)."""
+        out = {}
+        for p in self.passes:
+            out.update(p.frame_inputs(int(frame_index)))
+        return out
+
+    def _prologue(self, state: dict, scene: SceneArrays, camera: CameraState, frame_index,
+                  delta_time, first_frame: bool | None) -> tuple[dict, FrameContext]:
+        """The frame's state (a copy, with the per-frame inputs it lacks
+        uploaded) and context: the frame index and delta time as 0-d tensors
+        on the pipeline's device (a host value is uploaded), the scene
+        animated."""
+        self._require_constructed()
+        dev = self.device
+        if not isinstance(frame_index, torch.Tensor):
+            if first_frame is None:
+                first_frame = int(frame_index) == 0
+            frame_index = torch.tensor(int(frame_index), dtype=torch.int32, device=dev)
+        if not isinstance(delta_time, torch.Tensor):
+            delta_time = torch.tensor(float(delta_time), dtype=torch.float32, device=dev)
+        state = dict(state)
+        wanted = [k for k in self._frame_input_names if k not in state]
+        if wanted:  # a tensor frame index is read here: pass the inputs to avoid it
+            host = self.frame_inputs(int(frame_index))
+            state.update({k: tree_map_host(host[k], dev) for k in wanted})
+        if self.scene_animator is not None:
+            scene = self.scene_animator(scene, frame_index, delta_time)
+        ctx = FrameContext(scene=scene, camera=camera, frame_index=frame_index,
+                           delta_time=delta_time, row_offset=self.row_offset, band=self.band,
+                           first_frame=first_frame)
+        return state, ctx
+
     def frame_fn(self, state: dict, scene: SceneArrays, camera: CameraState,
-                 frame_index: int, delta_time: float = 1 / 60,
-                 pass_events: list | None = None) -> dict:
-        """Run all passes in declared order; returns the new state dict.
+                 frame_index, delta_time=1 / 60, pass_events: list | None = None,
+                 first_frame: bool | None = None) -> dict:
+        """Run all passes in declared order, eagerly; returns the new state
+        dict. ``frame_index`` and ``delta_time`` are host values or 0-d
+        tensors on the pipeline's device; ``first_frame`` (whether this is
+        frame 0) defaults to ``frame_index == 0``, read on the host from a
+        tensor index. The per-frame inputs (``frame_inputs``) the state
+        lacks are formed for the frame index and uploaded.
 
         ``pass_events``: when a list, each pass appends (name, start, end)
         CUDA events recorded around it, for a per-pass time table."""
-        self._require_constructed()
-        if self.scene_animator is not None:
-            scene = self.scene_animator(scene, int(frame_index), float(delta_time))
-        ctx = FrameContext(scene=scene, camera=camera,
-                           frame_index=int(frame_index), delta_time=float(delta_time),
-                           row_offset=self.row_offset, band=self.band)
-        state = dict(state)
+        state, ctx = self._prologue(state, scene, camera, frame_index, delta_time, first_frame)
         for name, execute in self._executes:
             if pass_events is not None:
                 start = torch.cuda.Event(enable_timing=True)
@@ -220,6 +311,48 @@ class RenderPipeline:
             if updates:
                 state.update(updates)
         return state
+
+    @property
+    def capture_blockers(self) -> list[tuple[str, str]]:
+        """(what, why) of each thing that keeps this pipeline's frame from
+        a capture: the passes that declare a ``capture_blocker``, and a
+        band of a sharded frame (its collectives run on the host)."""
+        out = [(p.name, p.capture_blocker) for p in self.passes if p.capture_blocker]
+        if self.band is not None:
+            out.append(("pixel bands", "the band group's collectives run on the host"))
+        return out
+
+    def compile(self, donate_state: bool = True):
+        """The frame as the reference's jitted ``frame_fn``: a callable
+        ``fn(state, scene, camera_state, frame_index, delta_time) -> state``
+        (``rendering/capture.CompiledFrame``: the whole frame captured in
+        CUDA graphs, one for each branch the host takes, after a warm-up
+        frame), cached by ``donate_state`` like the reference's: with
+        donation the caller's persistent tensors are the graph's buffers,
+        updated in place; without, the inputs are copied in and the outputs
+        cloned out. A replay reuses its output buffers: a caller that keeps
+        a frame's image copies it. On the CPU, where CUDA graphs do not
+        exist, it returns ``frame_fn``, which takes the same inputs. Raises
+        ``NotImplementedError`` naming what blocks a capture."""
+        self._require_constructed()
+        if self.device.type != "cuda":
+            return self.frame_fn
+        if self.capture_blockers:
+            what, why = self.capture_blockers[0]
+            raise NotImplementedError(f"{what} cannot be captured yet: {why}")
+        from arkoserenderer_torch.rendering.capture import CompiledFrame
+
+        key = bool(donate_state)
+        if key not in self._compiled:
+            self._compiled[key] = CompiledFrame(self, donate_state=key)
+        return self._compiled[key]
+
+    @property
+    def captured(self) -> bool:
+        """Whether ``render_frame`` goes through ``compile()``: on the card,
+        with nothing blocking a capture, outside ``eager_frames()``."""
+        return (self.device.type == "cuda" and not self.capture_blockers
+                and not _EAGER_FRAMES[0])
 
     def describe(self) -> str:
         """The pass order and the registry's resource table."""
@@ -234,10 +367,37 @@ class RenderPipeline:
     def render_frame(self, state: dict, scene: SceneArrays, camera_state: CameraState,
                      frame_index: int, delta_time: float = 1 / 60,
                      pass_events: list | None = None) -> dict:
-        """One frame from the persistent ``state``: ``frame_fn``, run
-        eagerly. A frame loop calls this (``Renderer.render_frame`` does)."""
+        """One frame from the persistent ``state``, the entry point a frame
+        loop calls (``Renderer.render_frame`` does): through ``compile()``
+        when ``captured``, else ``frame_fn`` eagerly. ``pass_events`` (a
+        per-pass time table) runs the eager frame."""
+        if self.captured and pass_events is None:
+            return self.compile()(state, scene, camera_state, frame_index, delta_time)
         return self.frame_fn(state, scene, camera_state, frame_index, delta_time,
                              pass_events=pass_events)
+
+
+_EAGER_FRAMES = [0]
+
+
+@contextlib.contextmanager
+def eager_frames():
+    """Within it every pipeline's ``render_frame`` runs ``frame_fn``
+    eagerly: for tools that replace a kernel's wrapper to see or change each
+    call (a replay calls no wrapper), and for eager-to-captured comparisons."""
+    _EAGER_FRAMES[0] += 1
+    try:
+        yield
+    finally:
+        _EAGER_FRAMES[0] -= 1
+
+
+def tree_map_host(value, device):
+    """A host value (a numpy array, or a tuple of them) as tensors on
+    ``device``."""
+    if isinstance(value, tuple):
+        return tuple(tree_map_host(v, device) for v in value)
+    return torch.from_numpy(np.ascontiguousarray(value)).to(device)
 
 
 def _float_leaves(value, path: str = ""):
@@ -263,12 +423,8 @@ def validate_frame(pipeline: RenderPipeline, state: dict, scene: SceneArrays,
     floating tensor of each pass's updates that holds one, the resource
     named with its leaf's path ("vis.setup.screen_xy"). A debugging
     harness; an empty list is a clean frame."""
-    pipeline._require_constructed()
-    ctx = FrameContext(scene=scene, camera=camera_state, frame_index=int(frame_index),
-                       delta_time=float(delta_time), row_offset=pipeline.row_offset,
-                       band=pipeline.band)
+    state, ctx = pipeline._prologue(state, scene, camera_state, frame_index, delta_time, None)
     findings = []
-    state = dict(state)
     for name, execute in pipeline._executes:
         updates = execute(state, ctx) or {}
         for key, value in updates.items():

@@ -104,6 +104,11 @@ class Registry:
     def persistent_names(self) -> list[str]:
         return [r.name for r in self._resources.values() if r.persistent]
 
+    @property
+    def transient_names(self) -> list[str]:
+        """The created resources every frame recomputes."""
+        return [r.name for r in self._resources.values() if not r.persistent]
+
     def dependency_edges(self) -> set[tuple[str, str]]:
         """The (producer, consumer) pass pairs of every read."""
         return set(self._edges)

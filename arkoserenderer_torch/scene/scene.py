@@ -874,8 +874,10 @@ class Scene:
         """``arrays`` with the instance rows (world, prev_world, normal_mat,
         inst_sphere, inst_lod_band) recomputed from ``instances``, as the
         host moved them: one vectorised update of the build's host mirror,
-        then an upload of copies to the arrays' device. The vertex, index and
-        texture pools are untouched and nothing is read back."""
+        then a copy into the arrays' own tensors on their device, which keep
+        their storage (a captured frame reads them where it was captured).
+        Returns ``arrays`` itself. The vertex, index and texture pools are
+        untouched and nothing is read back."""
         if self._mirror is None:
             raise RuntimeError("call build() before update_instance_transforms()")
         mir = self._mirror
@@ -894,8 +896,9 @@ class Scene:
         mir["inst_sphere"][:n, :3] = np.einsum("nij,nj->ni", w[:, :3, :3], centers) + w[:, :3, 3]
         mir["inst_sphere"][:n, 3] = radii * scale
         mir["inst_lod_band"][:n] = np.array([it[3] for it in insts], np.float32)
-        dev = arrays.world.device
-        return arrays._replace(**{k: host_to_device(mir[k], dev) for k in INSTANCE_ROWS})
+        for k in INSTANCE_ROWS:
+            getattr(arrays, k).copy_(torch.from_numpy(np.array(mir[k], copy=True)))
+        return arrays
 
     # -- streaming ----------------------------------------------------------------
 

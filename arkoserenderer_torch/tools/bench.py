@@ -82,26 +82,36 @@ sky's env map fetched at 1/k rate. They apply to every Renderer kind named.
 prints the card's name and power limit, then for each frame kind a line
 with the host's time to build its scene and its renderer (``build_line``:
 the scene's authoring, for the helmet with its textures' decode and resize
-timed apart; the pools, material packing and the BVH), and one JSON line:
-ms/frame (median, min, max of CUDA-event times around each frame, and the
-host's wall clock per frame), the median ms of every pass, peak device
-memory, the raster kernel's launches (and the count the configuration
+timed apart; the pools, material packing and the BVH), a line with the
+captured and the eager frame timed in turns in this process (``run_turns``:
+blocks of ``--iters`` frames, eager, captured, captured, eager: each
+block's median ms/frame by CUDA events and host wall ms/frame, the spread
+between a mode's two blocks, and peak memory, the graphs' pools included;
+"eager (...)" names what keeps a kind from a capture), and one JSON line:
+whether the frames are captured, ms/frame (median, min, max of CUDA-event
+times around each captured frame, and the host's wall clock per frame),
+the median ms of every pass over 3 eager frames (``eager_pass_ms``: a
+graph has no per-pass events), peak device memory (allocated and
+reserved), the raster kernel's launches (and the count the configuration
 implies), the traversal kernel's launches by trace (and the count implied),
 coverage, how far the history (TAA's, or the upscaler's) moved in
 one frame, and for the last STATS_FRAMES frames the triangles left after
 culling, the meshlets kept and the triangles the camera's and the sun's
 bins dropped, with each of those frames' checks (finite LDR, coverage and,
-with DDGI, how far each atlas moved in the frame). With ``--profile`` it then runs 4 more frames of each
-kind under ``torch.profiler`` and prints a second JSON line: the device's
-kernel ms per frame, its busy share of the frame, launches per frame, the
-operators and kernels that take the most device time, and each pass's span
-on the device (for the path tracer: 4 samples, no passes). Needs a
+with DDGI, how far each atlas moved in the frame). With ``--profile`` it
+then runs 4 more captured and 4 more eager frames of each kind under
+``torch.profiler`` and prints a JSON line for each: the device's kernel ms
+per frame, its busy share of the frame, launches per frame, the operators
+and kernels that take the most device time, and each pass's span on the
+device (eager frames only; for the path tracer, which runs eagerly: 4
+samples, no passes). Needs a
 GPU; run from the root of a checkout.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -131,7 +141,7 @@ from arkoserenderer_torch.ops.upscale import ideal_render_resolution
 from arkoserenderer_torch.rendering.passes.ddgi import STATE_KEYS as DDGI_KEYS
 from arkoserenderer_torch.rendering.passes.geometry import camera_visible_triangles
 from arkoserenderer_torch.rendering.passes.shadow import sun_shadow_cacheable
-from arkoserenderer_torch.rendering.pipeline import FrameContext, PipelineConfig
+from arkoserenderer_torch.rendering.pipeline import FrameContext, PipelineConfig, eager_frames
 from arkoserenderer_torch.scene.lights import SpotLight
 from arkoserenderer_torch.tools.raster_bench import card_line, forward_raster_inputs
 
@@ -171,7 +181,7 @@ KINDS = (*CONFIGS, PATHTRACED)
 ANIMATED = ("stress", "meshlet")  # scene kinds whose grid moves; their camera stands still
 # The soft kind's light sizes (tests/test_soft_shadows.py:119 and :185).
 SOFT_SUN_DEG, SOFT_SPOT_RADIUS = 10.0, 0.35
-STATS_FRAMES = 4  # frames after the timed ones whose culling and bin counts are read
+STATS_FRAMES = 2  # frames after the timed ones whose culling and bin counts are read
 
 
 # The reduced-rate fields of PipelineConfig the bench takes, all 1 by default.
@@ -396,12 +406,33 @@ def animation_paths(device, n_instances: int = 64, res: int = 128, frames: int =
     return img_d, img_h
 
 
+def run_turns(renderer, iters: int, before_frame=None) -> dict:
+    """The captured and the eager frame of one renderer in turns: blocks of
+    ``iters`` frames, eager, captured, captured, eager (the first eager one
+    after one untimed frame). Each block's median ms/frame (CUDA events
+    around each frame) and host wall ms/frame, by mode; the spread of a
+    mode is its two blocks' difference over their mean."""
+    out = {"captured_ms": [], "eager_ms": [], "captured_wall_ms": [], "eager_wall_ms": []}
+    for i, eager in enumerate((True, False, False, True)):
+        b = renderer.benchmark(warmup=1 if i == 0 else 0, iters=iters,
+                               before_frame=before_frame, eager=eager, pass_frames=0)
+        mode = "eager" if eager else "captured"
+        out[f"{mode}_ms"].append(b["ms_per_frame"])
+        out[f"{mode}_wall_ms"].append(b["wall_ms_per_frame"])
+    for mode in ("captured", "eager"):
+        a, b = out[f"{mode}_ms"]
+        out[f"{mode}_spread"] = abs(a - b) / ((a + b) / 2)
+    return out
+
+
 def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16,
-               rates: dict | None = None):
-    """Bench one frame kind on the card: ``warmup`` + ``iters`` timed frames,
-    then STATS_FRAMES frames whose counts are read (``frame_counts``), at
-    the reduced rates ``rates`` (``pipeline_config``'s). Returns (result
-    dict, Renderer)."""
+               rates: dict | None = None, turns: bool = False):
+    """Bench one frame kind on the card: ``warmup`` + ``iters`` timed frames
+    (the captured frame where the pipeline captures), the per-pass table of
+    a few eager frames (``Renderer.benchmark``), with ``turns`` the captured
+    and the eager frame in turns (``run_turns``), then STATS_FRAMES frames
+    whose counts are read (``frame_counts``), at the reduced rates ``rates``
+    (``pipeline_config``'s). Returns (result dict, Renderer)."""
     dev = torch.device("cuda")
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -416,6 +447,7 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16,
                   **scene.build_times}
     move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
     bench = renderer.benchmark(warmup=warmup, iters=iters, before_frame=move)
+    in_turns = run_turns(renderer, iters, move) if turns else None
     history = "UpscaleHistory" if "UpscaleHistory" in renderer.state else "TAAHistory"
     counts, checks = [], []
     for _ in range(STATS_FRAMES):
@@ -440,10 +472,13 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16,
         "rates": {r: getattr(cfg, r) for r in RATES},
         "display": list(ldr.shape[:2]),
         "passes": [p.name for p in renderer.pipeline.passes],
+        "captured": bench["captured"],
+        "blocked_by": renderer.pipeline.capture_blockers,
         "ms_per_frame": bench["ms_per_frame"],
         "ms_min": min(bench["frame_ms"]), "ms_max": max(bench["frame_ms"]),
         "wall_ms_per_frame": bench["wall_ms_per_frame"],
-        "frame_ms": bench["frame_ms"], "pass_ms": bench["pass_ms"],
+        "frame_ms": bench["frame_ms"], "eager_pass_ms": bench["eager_pass_ms"],
+        "turns": in_turns,
         "frames": renderer.frame_index, "host_build": host_build,
         "raster_launches": rasterize_tiles_cuda.launches,
         "raster_launches_expected": expected_launches(renderer, renderer.frame_index),
@@ -457,6 +492,7 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16,
         "history_delta": (state[history] - before).abs().max().item(),
         "frame_counts": counts, "frame_checks": checks,
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30,
         "device": torch.cuda.get_device_name(0), "card": card_line(),
     }
     return result, renderer
@@ -560,13 +596,31 @@ def build_line(name: str, result: dict, textures: dict | None = None) -> str:
             f"packing {b['packing_s']:.3f} s, BVH {b['bvh_s']:.3f} s)")
 
 
-def profile_config(name: str, renderer, frames: int = 4, top: int = 12) -> dict:
+def turns_line(name: str, result: dict) -> str:
+    """The captured and the eager frame of ``run_config(turns=True)``'s
+    result on one line, with the card."""
+    t = result["turns"]
+    mode = "captured" if result["captured"] else f"eager ({result['blocked_by']})"
+    return (f"{name}: {mode}; in turns: captured {t['captured_ms'][0]:.4f} / "
+            f"{t['captured_ms'][1]:.4f} ms/frame (spread {t['captured_spread']:.2%}, host wall "
+            f"{t['captured_wall_ms'][0]:.4f} / {t['captured_wall_ms'][1]:.4f}), eager "
+            f"{t['eager_ms'][0]:.4f} / {t['eager_ms'][1]:.4f} ms/frame (spread "
+            f"{t['eager_spread']:.2%}, host wall {t['eager_wall_ms'][0]:.4f} / "
+            f"{t['eager_wall_ms'][1]:.4f}); peak memory {result['peak_memory_gib']:.3f} GiB "
+            f"allocated, {result['peak_reserved_gib']:.3f} GiB reserved, graph pools included "
+            f"[{result['card']}]")
+
+
+def profile_config(name: str, renderer, frames: int = 4, top: int = 12,
+                   eager: bool = False) -> dict:
     """``frames`` more frames of ``renderer`` under torch.profiler: kernel
     time and launches per frame, the device's busy share of the frame's
     wall clock, the ``top`` operators and kernels by device time, and each
-    pass's span on the device (every pass runs inside a ``record_function``
-    range of its name). For a ``PathTracer`` a frame is one sample, and
-    there are no passes."""
+    pass's span on the device (every pass of an eager frame runs inside a
+    ``record_function`` range of its name; a replayed graph has none). The
+    frames are the captured ones where the pipeline captures, unless
+    ``eager``. For a ``PathTracer`` a frame is one sample, and there are no
+    passes."""
     import time
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -592,9 +646,11 @@ def profile_config(name: str, renderer, frames: int = 4, top: int = 12) -> dict:
             return run
 
         pipeline._executes = [(n, ranged(n, e)) for n, e in plain]
+    mode = eager_frames() if eager else contextlib.nullcontext()
     try:
+        step()  # a frame outside the profile: a capture the mode needs happens here
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(frames):
                 step()
@@ -628,6 +684,8 @@ def profile_config(name: str, renderer, frames: int = 4, top: int = 12) -> dict:
         ms_count[1] += e.count / frames
     return {
         "config": name, "profiled_frames": frames,
+        "captured": (not eager and not isinstance(renderer, PathTracer)
+                     and renderer.pipeline.captured),
         "wall_ms_per_frame_profiled": wall_ms,
         "kernel_ms_per_frame": kernel_ms,
         "busy_share": kernel_ms / wall_ms,
@@ -673,11 +731,14 @@ def main(argv=None) -> None:
             del tracer
             continue
         textures = texture_times(args.small) if name == "helmet" else None
-        result, renderer = run_config(name, args.small, args.warmup, args.iters, rates)
+        result, renderer = run_config(name, args.small, args.warmup, args.iters, rates,
+                                      turns=True)
         print(build_line(name, result, textures), flush=True)
+        print(turns_line(name, result), flush=True)
         print(json.dumps(result), flush=True)
         if args.profile:
-            print(json.dumps(profile_config(name, renderer)), flush=True)
+            for eager in (False, True):
+                print(json.dumps(profile_config(name, renderer, eager=eager)), flush=True)
         del renderer
 
 

@@ -47,6 +47,7 @@ from arkoserenderer_torch.rendering.passes.geometry import (
     visible_triangles,
     world_to_clip,
 )
+from arkoserenderer_torch.rendering.pipeline import eager_frames
 
 # One H100 SXM (NVIDIA's data sheet): HBM rate and float32 rate outside the
 # tensor cores. That float32 rate counts a fused multiply-add as two
@@ -169,7 +170,8 @@ def capture_raster_calls(frame) -> tuple[list, object]:
     """Call ``frame()`` and return (every raster it launches, in launch
     order, as a dict of setup, bins, width, height, depth_only, y_offset
     and depth_limit; what ``frame()`` returned). The launches count as
-    usual."""
+    usual. Frames run eagerly within it (``eager_frames``: a replay calls no
+    wrapper)."""
     calls = []
     kernel = raster_cuda.rasterize_tiles_cuda
 
@@ -185,7 +187,8 @@ def capture_raster_calls(frame) -> tuple[list, object]:
     record.launches_by_shape = kernel.launches_by_shape
     raster_cuda.rasterize_tiles_cuda = record
     try:
-        out = frame()
+        with eager_frames():
+            out = frame()
     finally:
         raster_cuda.rasterize_tiles_cuda = kernel
         kernel.launches = record.launches

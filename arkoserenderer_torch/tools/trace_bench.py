@@ -53,6 +53,7 @@ from arkoserenderer_torch.core.halton import fibonacci_sphere
 from arkoserenderer_torch.ops import bvh as bvh_ops
 from arkoserenderer_torch.ops import bvh_cuda
 from arkoserenderer_torch.ops.raster_cuda import build_kernels, ptxas_report
+from arkoserenderer_torch.rendering.pipeline import eager_frames
 from arkoserenderer_torch.tools.raster_bench import (
     FP32_OPS_PER_S,
     HBM_BYTES_PER_S,
@@ -103,7 +104,8 @@ def capture_traces(renderer) -> list[dict]:
 def plain_traces():
     """Within it, ``ops/bvh.trace_rays`` on CUDA tensors walks with
     ``trace_wide_plain`` instead of the kernel (nothing is counted): the
-    plain side of a comparison made through a caller of the traversal."""
+    plain side of a comparison made through a caller of the traversal.
+    Frames run eagerly within it (``eager_frames``)."""
     kernel = bvh_cuda.trace_rays_cuda
 
     def plain(bvh, origins, directions, label=None, **kw):
@@ -111,7 +113,8 @@ def plain_traces():
 
     bvh_cuda.trace_rays_cuda = plain
     try:
-        yield
+        with eager_frames():
+            yield
     finally:
         bvh_cuda.trace_rays_cuda = kernel
 
@@ -119,7 +122,8 @@ def plain_traces():
 def capture_calls(fn) -> list[dict]:
     """Call ``fn()`` and return the inputs of each trace it makes, as
     ``capture_traces`` does for a frame (a path tracer's sample: ``lambda:
-    tracer.render_sample(1)``)."""
+    tracer.render_sample(1)``). Frames run eagerly within it
+    (``eager_frames``: a replay calls no wrapper)."""
     captured = []
     kernel = bvh_cuda.trace_rays_cuda
 
@@ -133,7 +137,8 @@ def capture_calls(fn) -> list[dict]:
     record.launches_by_label = kernel.launches_by_label
     bvh_cuda.trace_rays_cuda = record
     try:
-        fn()
+        with eager_frames():
+            fn()
     finally:
         bvh_cuda.trace_rays_cuda = kernel
     torch.cuda.synchronize()

@@ -3,10 +3,13 @@ with CUDA events.
 
 ``time_passes`` times the whole frame first, so the headline row always
 lands: frames fed forward serially through their persistent outputs, as a
-frame loop runs them. Then it times each pass on its own, in pipeline
-order, on the state the passes before it published, until ``deadline_s``
-runs out; ``emit`` receives each row as it lands, so a process cut short
-still leaves a partial table.
+frame loop runs them, through a compiled frame of its own (the captured
+frame, as the reference times its jitted frame; its own graphs and
+buffers, so the caller's frames and persistent state are left as they
+were). Then it times each pass on its own, eagerly, in pipeline order, on
+the state the passes before it published, until ``deadline_s`` runs out;
+``emit`` receives each row as it lands, so a process cut short still
+leaves a partial table.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Callable
 
 import torch
 
-from arkoserenderer_torch.rendering.pipeline import FrameContext, RenderPipeline
+from arkoserenderer_torch.rendering.capture import CompiledFrame
+from arkoserenderer_torch.rendering.pipeline import FrameContext, RenderPipeline, tree_map_host
 from arkoserenderer_torch.scene.camera import CameraState
 from arkoserenderer_torch.scene.scene import SceneArrays
 
@@ -61,17 +65,22 @@ def time_passes(
 
     persistent = set(pipe.registry.persistent_names)
     cur = {"state": pipe.initial_state()}
+    frame_fn = CompiledFrame(pipe) if pipe.captured else pipe.frame_fn
 
     def frame():
         fed = {k: v for k, v in cur["state"].items() if k in persistent}
-        cur["state"] = pipe.render_frame(fed, scene, camera, frame_index)
+        cur["state"] = frame_fn(fed, scene, camera, frame_index)
         return cur["state"]
 
+    frame()  # the first frame's graph (the cached sun renders); _events_ms adds the steady one
     note("<frame>", _events_ms(frame, iters)[0])
+    del frame_fn, cur
 
     ctx = FrameContext(scene=scene, camera=camera, frame_index=int(frame_index),
                        delta_time=1 / 60)
     st = dict(state)
+    st.update({k: tree_map_host(v, pipe.device)
+               for k, v in pipe.frame_inputs(frame_index).items() if k not in st})
     for name, execute in pipe._executes:
         if deadline_s is not None and time.perf_counter() - t_start > deadline_s:
             if emit is not None:

@@ -28,7 +28,8 @@ result line):
   4. the 256^2 forward golden (tests/goldens/forward.png) rendered on the
      card, under the golden test's thresholds;
   5. the forward slice (no TAA, no Bloom) at 1920x1080 with an 8192^2
-     shadow map: 20 frames, finite LDR, non-empty coverage, raster kernel
+     shadow map: 12 captured frames (4 warm-up, 8 timed) and 3 eager ones
+     for the per-pass table, finite LDR, non-empty coverage, raster kernel
      launched frames + 1 times (camera every frame, sun once under the
      static shadow cache); prints ms/frame, a per-pass table and peak
      device memory;
@@ -41,7 +42,8 @@ result line):
   8. through arkoserenderer_torch.tools.bench, at 1920x1080 with the 8192^2
      sun map and a camera that moves every frame: the forward (TAA +
      Bloom), full_post, bindless (256 materials, 64 textures) and test_spot
-     (LocalShadow) frames, 4 warm-up + 16 timed + 4 counted frames each:
+     (LocalShadow) frames, 4 warm-up + 8 timed (captured) + 3 eager (the
+     per-pass table) + 2 counted frames each:
      finite LDR, non-empty coverage, real motion vectors, a TAAHistory that
      changes between frames, and the raster kernel's launches by shape as
      the configuration implies them (bench.expected_launches_by_shape:
@@ -83,7 +85,7 @@ result line):
      showcase.png) rendered on the card; then the showcase (8x4x8 grid:
      8,192 probe rays a frame) and flagship (4,096 spheres, 786,434
      triangles, a 16x8x16 grid: 262,144 probe rays a frame) frames through
-     the bench as in phase 8, each of the 4 counted frames finite, covered
+     the bench as in phase 8, each of the 2 counted frames finite, covered
      and moving every DDGI atlas, with the raster launches by shape (the
      camera only: RT shadows) and the traversal launches by trace as
      implied (five and eleven a frame); after each run's counts are read,
@@ -121,7 +123,7 @@ result line):
  14. ground truth: the 256^2 pathtraced golden (tests/goldens/pathtraced.png:
      PathTracer, two bounces, 4 samples) rendered on the card; the
      pathtraced kind through the bench (the test scene at 1920x1080, three
-     bounces, AgX, AA: 4 warm-up + 16 timed samples; finite radiance and
+     bounces, AgX, AA: 4 warm-up + 8 timed samples; finite radiance and
      LDR; the traversal launches by trace as implied, seven a sample: "pt
      ray 0-3", "pt sun 0-2"), then every trace of one more sample, captured
      as the sample makes it, bit for bit against the plain walk and timed
@@ -253,7 +255,7 @@ result line):
      traces of (b) as in phase 10. One card shared by gloo
      ranks makes (c) a correctness run, not a scaling measurement.
  21. the reduced-rate paths at 1920x1080, each run through the bench
-     (``run_config(..., rates=)``: 4 warm-up + 8 timed + 4 counted frames,
+     (``run_config(..., rates=)``: 2 warm-up + 4 timed + 2 counted frames,
      the camera moving) with the launch counts zeroed just before it and read
      just after: (a) rt and rt_soft at rt_scale 1 and 2: ms/frame and the
      per-pass table of each, the traces by label as the bench implies them
@@ -265,7 +267,26 @@ result line):
      showcase at ddgi_sample_scale 1 and 2: LightingCompose's ms, ms/frame,
      finite LDR and coverage in every counted frame, the traces by label;
      (c) forward at sky_fetch_scale 1 and 2: SkyView's ms. In every run, one
-     more frame's rasters are held bit for bit against the plain raster.
+     more frame's rasters are held bit for bit against the plain raster;
+ 22. the captured frame (``RenderPipeline.compile``: the whole frame in CUDA
+     graphs, which every Renderer frame of the phases above already ran
+     through) against the eager one, for every single-card kind at
+     1920x1080: phase 5's forward slice and the bench's Renderer kinds. Each
+     renders the same 16 frames from frame 0 (the same camera path) twice
+     eagerly and once captured; the captured display image and every
+     persistent tensor equal the first eager run's bit for bit (or, for a
+     resource on which the two eager runs already differ, lie within their
+     spread of one of them, named); each run's raster and traversal
+     launches, replays included, equal bench.expected_*; and it prints
+     "captured" or "eager: <what blocks it>", captured against eager
+     ms/frame (median of frames 4-15 by CUDA events) and host wall ms/frame,
+     the kernel ms of one more captured frame (torch.profiler's CUDA
+     activity; the eager frame launches the same kernels), the busy share of
+     each mode (that over its unprofiled median) and peak
+     memory (the graph's pool included). Frames that must see each kernel
+     call (the rasters and traces held bit for bit above) run eagerly
+     (``rendering/pipeline.eager_frames``); a per-pass table is always from
+     eager frames (a graph has no per-pass events).
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
@@ -299,7 +320,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-FRAMES, WARMUP = 20, 4
+FRAMES, WARMUP = 12, 4
 PHASE8 = ("forward", "full_post", "bindless", "test_spot")
 PHASE9 = ("stress", "meshlet", "forward_upscaled")
 TPU_KERNEL = "arkoserenderer_tpu/ops/raster_pallas.py:63"
@@ -402,10 +423,11 @@ def truth_metrics(raster: np.ndarray, pt: np.ndarray):
 
 def print_frame_table(result: dict, card: str) -> None:
     print(f"frame ms: {[round(x, 4) for x in result['frame_ms']]}")
-    print(f"per-pass median ms [{card}]:")
-    for name, ms in result["pass_ms"].items():
+    print(f"per-pass median ms of the eager frames after the timed ones (a graph has no "
+          f"per-pass events) [{card}]:")
+    for name, ms in result["eager_pass_ms"].items():
         print(f"  {name:20s} {ms:10.4f}")
-    print(f"  {'sum of passes':20s} {sum(result['pass_ms'].values()):10.4f}", flush=True)
+    print(f"  {'sum of passes':20s} {sum(result['eager_pass_ms'].values()):10.4f}", flush=True)
 
 
 def check_png(path: Path, size: tuple[int, int] = (1080, 1920)) -> None:
@@ -490,7 +512,7 @@ def run_app(dev, card: str, compare_and_time, check_kind_traces) -> dict:
     for i, (name, renderer) in enumerate((("stochastic1", r), ("trilinear", r_tri),
                                           ("trilinear", r_tri), ("stochastic1", r))):
         res = renderer.benchmark(warmup=2, iters=6)
-        print(f"app VisibilityShading {name}: {res['pass_ms']['VisibilityShading']:.4f} ms "
+        print(f"app VisibilityShading {name}: {res['eager_pass_ms']['VisibilityShading']:.4f} ms "
               f"(median of 6), frame {res['ms_per_frame']:.4f} ms [{card}]", flush=True)
         if i >= 2:
             print(f"app (a) flags under {name}, in the frame:")
@@ -603,9 +625,9 @@ def run_translucency(dev, card: str, compare_and_time, run_kind) -> dict:
     res, r, by_shape = run_kind("translucent")
     n = res["frames"]
     if by_shape[(H, W, False)] != (1 + TRANSLUCENT_LAYERS) * n or "ForwardTranslucent" not in \
-            res["pass_ms"]:
+            res["eager_pass_ms"]:
         raise AssertionError(f"translucent: rasters {by_shape} in {n} frames, passes "
-                             f"{list(res['pass_ms'])}")
+                             f"{list(res['eager_pass_ms'])}")
     launches["peel"] = by_shape[(H, W, False)] - n
     calls, _ = rb.capture_raster_calls(lambda: r.render_frame())
     layers = [compare_and_time("peel", f"translucent peel layer {i} {W}x{H}, tile 8x128"
@@ -621,9 +643,11 @@ def run_translucency(dev, card: str, compare_and_time, run_kind) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     r1 = Renderer(scene, cam, cfg, device=dev, **dict(kw, oit_layers=1))
     one = r1.benchmark(warmup=2, iters=8, before_frame=bench.camera_mover(r1))
-    print(f"translucent {W}x{H}: ForwardTranslucent {res['pass_ms']['ForwardTranslucent']:.4f} "
+    peel_ms = res["eager_pass_ms"]["ForwardTranslucent"]
+    print(f"translucent {W}x{H}: ForwardTranslucent {peel_ms:.4f} "
           f"ms at {TRANSLUCENT_LAYERS} layers (frame {res['ms_per_frame']:.4f}, peak memory "
-          f"{res['peak_memory_gib']:.3f} GiB), {one['pass_ms']['ForwardTranslucent']:.4f} ms at "
+          f"{res['peak_memory_gib']:.3f} GiB), {one['eager_pass_ms']['ForwardTranslucent']:.4f} "
+          f"ms at "
           f"1 layer (frame {one['ms_per_frame']:.4f}, median of 8, peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB) [{card}]", flush=True)
     del r1
@@ -689,7 +713,7 @@ def run_translucency(dev, card: str, compare_and_time, run_kind) -> dict:
                                  f"state {sorted(rr.state)}")
         print(f"forward {W}x{H} shading_mode={mode}: {out['ms_per_frame']:.4f} ms/frame (median "
               f"of 8; min {min(out['frame_ms']):.4f}, max {max(out['frame_ms']):.4f}), "
-              f"VisibilityShading {out['pass_ms']['VisibilityShading']:.4f} ms, peak memory "
+              f"VisibilityShading {out['eager_pass_ms']['VisibilityShading']:.4f} ms, peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB [{card}]", flush=True)
         if i == 2:
             print_frame_table(out, card)
@@ -979,9 +1003,9 @@ def run_slice13(dev, card: str, compare_and_time, check_kind_traces, width: int 
     res = r.benchmark(warmup=1, iters=4)
     print(f"app {W}x{H} --debug-draw --light-icons --ddgi --ddgi-probe-debug: 5 frames, "
           f"rasters {by_shape}, traces {by_label}; DebugDraw "
-          f"{res['pass_ms']['DebugDraw']:.4f} ms, DDGIProbeDebug "
-          f"{res['pass_ms']['DDGIProbeDebug']:.4f} ms, IconBillboards "
-          f"{res['pass_ms']['IconBillboards']:.4f} ms (no local light in the app's scene), "
+          f"{res['eager_pass_ms']['DebugDraw']:.4f} ms, DDGIProbeDebug "
+          f"{res['eager_pass_ms']['DDGIProbeDebug']:.4f} ms, IconBillboards "
+          f"{res['eager_pass_ms']['IconBillboards']:.4f} ms (no local light in the app's scene), "
           f"frame {res['ms_per_frame']:.4f} ms (median of 4) [{card}]", flush=True)
     print_frame_table(res, card)
     del r
@@ -1023,8 +1047,9 @@ def run_slice13(dev, card: str, compare_and_time, check_kind_traces, width: int 
         tris = [s.num_triangles for s in r.scene.segments]
         print(f"geodata --grid {grid} {W}x{H}: {tris} triangles (fine, coarse), main() "
               f"{host_s:.2f} s with the build; {res['ms_per_frame']:.4f} ms/frame (median of "
-              f"8), Geometry {res['pass_ms']['Geometry']:.4f} ms, SunShadow "
-              f"{res['pass_ms']['SunShadow']:.4f} ms; after culling {counts['visible_tris']} "
+              f"8), Geometry {res['eager_pass_ms']['Geometry']:.4f} ms, SunShadow "
+              f"{res['eager_pass_ms']['SunShadow']:.4f} ms; after culling "
+              f"{counts['visible_tris']} "
               f"triangles, dropped bin entries camera {counts['overflow_camera']} sun "
               f"{counts['overflow_sun']}; peak memory {peak:.3f} GiB [{card}]", flush=True)
         print_frame_table(res, card)
@@ -1298,8 +1323,8 @@ def run_slice14(dev, card: str, compare_and_time, width: int = 1920, height: int
                zip(events, sysb.presented_at, sysb.readback_ms, sysb.encode_ms)]
     img = decode_png(last_png)
     want = bench.expected_launches_by_shape(r, frames)
-    if timings:  # time_passes: two whole frames, then Geometry and SunShadow twice each
-        want = {k: v + 4 for k, v in want.items()}
+    if timings:  # time_passes: three whole frames, then Geometry and SunShadow twice each
+        want = {k: v + 5 for k, v in want.items()}
     S = r.cfg.shadow_map_size
     world_dev = r.scene_arrays.world[0].cpu().numpy()
     checks = {
@@ -1312,8 +1337,8 @@ def run_slice14(dev, card: str, compare_and_time, width: int = 1920, height: int
         "hierarchy": len(hier) == len(scene.instances) and hier[0]["instance"] == 0,
         "moved on the device as on the host": np.array_equal(world_dev, scene.instances[0][1])
         and not np.array_equal(world_dev, np.eye(4, dtype=np.float32)),
-        "rasters": by_shape == want and want == {(H, W, False): frames + 4 * timings,
-                                                 (S, S, True): frames + 4 * timings},
+        "rasters": by_shape == want and want == {(H, W, False): frames + 5 * timings,
+                                                 (S, S, True): frames + 5 * timings},
         "timings": not timings or {"<frame>", "Geometry", "SunShadow"} <= set(stats["timings"]),
     }
     if not all(checks.values()):
@@ -1699,7 +1724,12 @@ def run_slice15(dev, card: str, compare_and_time, width: int = 1920, iters: int 
 
 
 # Phase 21: the bench's frames a run (warm-up, timed) and the reduced rates.
-SLICE16_FRAMES = (4, 8)
+SLICE16_FRAMES = (2, 4)
+# Phase 22: the single-card frame kinds (phase 5's forward slice and the
+# bench's Renderer kinds), each captured against eager.
+CAPTURE_KINDS = ("forward_slice", "forward", "full_post", "bindless", "test_spot",
+                 "forward_upscaled", "rt", "rt_soft", "stress", "meshlet", "ddgi", "showcase",
+                 "flagship", "helmet", "translucent")
 HALF_RATE_KINDS = ("rt", "rt_soft")
 DDGI_RATE_KINDS = ("ddgi", "showcase")
 
@@ -1766,10 +1796,10 @@ def run_slice16(dev, card: str, compare, warmup: int = SLICE16_FRAMES[0],
         print(f"{name} rt_scale=2 against rt_scale=1 after the same {full['frames']} frames: "
               f"LDR mean abs diff {mean:.6f} (< 0.02), {off:.4%} of pixels off by > 0.1 "
               f"(< 6 %); ms/frame {half['ms_per_frame']:.4f} against {full['ms_per_frame']:.4f}; "
-              f"RTShadow {half['pass_ms']['RTShadow']:.4f} against "
-              f"{full['pass_ms']['RTShadow']:.4f}, RTReflections "
-              f"{half['pass_ms']['RTReflections']:.4f} against "
-              f"{full['pass_ms']['RTReflections']:.4f} ms [{card}]", flush=True)
+              f"RTShadow {half['eager_pass_ms']['RTShadow']:.4f} against "
+              f"{full['eager_pass_ms']['RTShadow']:.4f}, RTReflections "
+              f"{half['eager_pass_ms']['RTReflections']:.4f} against "
+              f"{full['eager_pass_ms']['RTReflections']:.4f} ms [{card}]", flush=True)
         if not (mean < 0.02 and off < 0.06):
             raise AssertionError(f"{name}: the half-rate frame is off the full-rate one "
                                  f"(mean {mean}, {off:.4%} of pixels off by > 0.1)")
@@ -1791,18 +1821,208 @@ def run_slice16(dev, card: str, compare, warmup: int = SLICE16_FRAMES[0],
         full, _, _ = run(name, {"ddgi_sample_scale": 1}, per_frame)
         half, _, _ = run(name, {"ddgi_sample_scale": 2}, per_frame)
         print(f"{name} ddgi_sample_scale=2: LightingCompose "
-              f"{half['pass_ms']['LightingCompose']:.4f} ms against "
-              f"{full['pass_ms']['LightingCompose']:.4f} at 1; ms/frame "
+              f"{half['eager_pass_ms']['LightingCompose']:.4f} ms against "
+              f"{full['eager_pass_ms']['LightingCompose']:.4f} at 1; ms/frame "
               f"{half['ms_per_frame']:.4f} against {full['ms_per_frame']:.4f} [{card}]",
               flush=True)
 
     # (c) the sky's env map fetched at half rate.
     full, _, _ = run("forward", {"sky_fetch_scale": 1}, 0)
     half, _, _ = run("forward", {"sky_fetch_scale": 2}, 0)
-    print(f"forward sky_fetch_scale=2: SkyView {half['pass_ms']['SkyView']:.4f} ms against "
-          f"{full['pass_ms']['SkyView']:.4f} at 1; ms/frame {half['ms_per_frame']:.4f} against "
+    print(f"forward sky_fetch_scale=2: SkyView {half['eager_pass_ms']['SkyView']:.4f} ms against "
+          f"{full['eager_pass_ms']['SkyView']:.4f} at 1; ms/frame {half['ms_per_frame']:.4f} "
+          f"against "
           f"{full['ms_per_frame']:.4f}; phase 21 took {time.perf_counter() - t_phase:.1f} s "
           f"[{card}]", flush=True)
+    return out
+
+
+CAPTURE_FRAMES, CAPTURE_TIMED_FROM, CAPTURE_PROFILED = 16, 4, 1
+
+
+def restart(renderer, camera_position) -> None:
+    """``renderer`` back at its first frame: a fresh persistent state, frame
+    index 0, time 0, the camera at ``camera_position`` with no previous
+    frame (its captured graphs are kept)."""
+    renderer.state = renderer.pipeline.initial_state()
+    renderer.frame_index = 0
+    renderer.time = 0.0
+    renderer.camera.position = camera_position.copy()
+    renderer.camera._prev_view = renderer.camera._prev_proj = None
+
+
+def capture_run(renderer, camera_position, move, eager: bool) -> dict:
+    """CAPTURE_FRAMES frames of ``renderer`` from its first (``restart``),
+    captured or ``eager``, the camera moved by ``move``: each frame's ms (CUDA
+    events), the host wall ms a frame over the frames from CAPTURE_TIMED_FROM
+    (the synchronised clock), the kernels' launches by shape and label, peak
+    memory, and copies of the display image and of every persistent tensor."""
+    import contextlib
+
+    from arkoserenderer_torch.rendering.capture import launch_counts, set_launch_counts
+    from arkoserenderer_torch.rendering.pipeline import eager_frames
+
+    restart(renderer, camera_position)
+    set_launch_counts((0, {}, 0, {}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    with eager_frames() if eager else contextlib.nullcontext():
+        for f in range(CAPTURE_FRAMES):
+            if f == CAPTURE_TIMED_FROM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if move is not None:
+                move(f)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = renderer.render_frame()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / (CAPTURE_FRAMES - CAPTURE_TIMED_FROM)
+    counts = launch_counts()
+    frame_ms = [s.elapsed_time(e) for s, e in events]
+    keep = {"display": out.clone()}
+    for k in renderer.pipeline.registry.persistent_names:
+        v = renderer.state.get(k)
+        keep[k] = v.clone() if isinstance(v, torch.Tensor) else v
+    return {"ms": float(np.median(frame_ms[CAPTURE_TIMED_FROM:])), "frame_ms": frame_ms,
+            "wall_ms": wall, "rasters": dict(counts[1]), "traces": dict(counts[3]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "keep": keep}
+
+
+def frame_kernel_ms(renderer, move) -> float:
+    """The card's kernel time a frame over CAPTURE_PROFILED more captured
+    frames of ``renderer``: torch.profiler's CUDA activity alone (no op
+    tracing on the host). Over an unprofiled frame's ms it is the busy
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        if move is not None:
+            move(renderer.frame_index)
+        renderer.render_frame()
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(CAPTURE_PROFILED):
+            step()
+        torch.cuda.synchronize()
+    kernel_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernel_us / 1e3 / CAPTURE_PROFILED
+
+
+def span(run: dict) -> str:
+    """The min-max of a ``capture_run``'s timed frames, ms."""
+    timed = run["frame_ms"][CAPTURE_TIMED_FROM:]
+    return f"{min(timed):.4f}-{max(timed):.4f}"
+
+
+def capture_agreement(name: str, captured: dict, e1: dict, e2: dict) -> list:
+    """Hold the captured run's display image and persistent state to the
+    first eager run's: bit for bit, or, for a resource on which the two eager
+    runs already differ, within their spread (max |e1 - e2|) of one of them.
+    Returns the resources held by the spread, with their numbers."""
+    spread_held = []
+    for k, ref in e1["keep"].items():
+        c, other = captured["keep"][k], e2["keep"][k]
+        if not isinstance(ref, torch.Tensor):
+            if c != ref:
+                raise AssertionError(f"{name}: host value {k} {c} against eager {ref}")
+            continue
+        if torch.equal(c, ref):
+            continue
+        eager_spread = (other.double() - ref.double()).abs().max().item()
+        d1 = (c.double() - ref.double()).abs().max().item()
+        d2 = (c.double() - other.double()).abs().max().item()
+        if not (eager_spread > 0.0 and min(d1, d2) <= eager_spread):
+            raise AssertionError(f"{name}: captured {k} differs from eager by {d1} (and {d2} "
+                                 f"from the second eager run; the eager runs differ by "
+                                 f"{eager_spread})")
+        spread_held.append(f"{k} (captured-eager {min(d1, d2):.3e}, eager-eager "
+                           f"{eager_spread:.3e})")
+    return spread_held
+
+
+def run_slice17(dev, card: str, kinds=None) -> dict:
+    """Phase 22 (see the module docstring). Returns {kind: its numbers}."""
+    import gc
+
+    from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.tools import bench
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name in kinds or CAPTURE_KINDS:
+        t_kind = time.perf_counter()
+        if name == "forward_slice":  # phase 5's frame: no TAA, no Bloom
+            scene, camera, cfg, kw = bench.build_scene("forward")
+            kw = dict(kw, taa=False, bloom=False)
+        else:
+            scene, camera, cfg, kw = bench.build_scene(name)
+        renderer = Renderer(scene, camera, cfg, device=dev, **kw)
+        base = np.array(renderer.camera.position, np.float32)
+        animated = name in bench.CONFIGS and bench.CONFIGS[name][0] in bench.ANIMATED
+        move = None if animated else bench.camera_mover(renderer)
+        blockers = renderer.pipeline.capture_blockers
+        mode = "captured" if not blockers else "eager: " + ", ".join(
+            f"{what} ({why})" for what, why in blockers)
+        e1 = capture_run(renderer, base, move, eager=True)
+        e2 = capture_run(renderer, base, move, eager=True)
+        c = capture_run(renderer, base, move, eager=False)
+        want_r = {k: v for k, v in bench.expected_launches_by_shape(
+            renderer, CAPTURE_FRAMES).items()}
+        want_t = bench.expected_trace_launches_by_label(renderer, CAPTURE_FRAMES)
+        for tag, run in (("eager", e1), ("eager again", e2), ("captured", c)):
+            if run["rasters"] != want_r or run["traces"] != want_t:
+                raise AssertionError(f"{name} {tag}: rasters {run['rasters']} (expected "
+                                     f"{want_r}), traces {run['traces']} (expected {want_t}) "
+                                     f"in {CAPTURE_FRAMES} frames")
+        held = capture_agreement(name, c, e1, e2)
+        if not bool(torch.isfinite(c["keep"]["display"]).all()):
+            raise AssertionError(f"{name}: the captured display image is not finite")
+        # The eager frame launches the same kernels on the same inputs (its
+        # outputs are the captured ones bit for bit), so one profiled captured
+        # frame gives the kernel time of both.
+        t_prof = time.perf_counter()
+        kernels = frame_kernel_ms(renderer, move)
+        busy = {"captured": kernels / c["ms"], "eager": kernels / e1["ms"]}
+        t_busy = time.perf_counter() - t_prof
+        n_state = sum(isinstance(v, torch.Tensor) for v in c["keep"].values()) - 1
+        agree = ("bit for bit" if not held else
+                 f"bit for bit but {len(held)} held within the eager runs' spread: "
+                 f"{'; '.join(held)}")
+        out[name] = {"mode": mode, "captured_ms": c["ms"], "eager_ms": [e1["ms"], e2["ms"]],
+                     "captured_wall_ms": c["wall_ms"], "eager_wall_ms": [e1["wall_ms"],
+                                                                          e2["wall_ms"]],
+                     "kernel_ms": kernels, "busy_share": busy,
+                     "captured_peak_gib": c["peak_gib"],
+                     "eager_peak_gib": e1["peak_gib"], "spread_held": held,
+                     "rasters_per_frame": {str(k): v / CAPTURE_FRAMES for k, v in want_r.items()},
+                     "traces_per_frame": {k: v / CAPTURE_FRAMES for k, v in want_t.items()}}
+        print(f"phase 22 {name} {renderer.cfg.width}x{renderer.cfg.height}: {mode}; "
+              f"{CAPTURE_FRAMES} frames from frame 0, twice eager then captured: display image "
+              f"and {n_state} persistent tensors {agree}; launches as expected in each run "
+              f"(rasters {want_r}, traces {want_t}); ms/frame (median of frames "
+              f"{CAPTURE_TIMED_FROM}-{CAPTURE_FRAMES - 1}, CUDA events; min-max) captured "
+              f"{c['ms']:.4f} ({span(c)}), eager {e1['ms']:.4f} ({span(e1)}) / {e2['ms']:.4f} "
+              f"({span(e2)}); host wall ms/frame "
+              f"captured {c['wall_ms']:.4f}, eager {e1['wall_ms']:.4f} / {e2['wall_ms']:.4f}; "
+              f"kernel ms/frame ({CAPTURE_PROFILED} profiled captured frame; the eager "
+              f"frame's kernels are the same) {kernels:.4f}, busy share (kernels over the "
+              f"unprofiled median) captured {busy['captured']:.3f}, eager "
+              f"{busy['eager']:.3f}; peak memory captured "
+              f"{c['peak_gib']:.3f} GiB (graph pool included), eager {e1['peak_gib']:.3f} GiB; "
+              f"{time.perf_counter() - t_kind:.1f} s, of which profiling {t_busy:.1f} s "
+              f"[{card}]", flush=True)
+        del renderer, e1, e2, c
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -1826,11 +2046,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_main = time.perf_counter()
     card = rb.card_line()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # -- 2. build ----------------------------------------------------------------
+    print(f"[phase 2 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     t0 = time.perf_counter()
     lib = build_kernels()
     sources = ", ".join(p.name for p in sorted((ROOT / "arkoserenderer_torch" / "csrc").glob("*.cu")))
@@ -1843,6 +2065,7 @@ def main() -> None:
         raise AssertionError(f"ptxas spills registers: {spills}")
 
     # -- 3. kernel against the plain version --------------------------------------
+    print(f"[phase 3 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     def compare(label, setup, bins, width, height, cfg, depth_only=False, y_offset=0,
                 depth_limit=None):
         kw = dict(depth_only=depth_only, y_offset=y_offset, depth_limit=depth_limit)
@@ -1953,6 +2176,7 @@ def main() -> None:
     del cases, setup, bins
 
     # -- 4. golden on the card ----------------------------------------------------
+    print(f"[phase 4 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     g_cfg = PipelineConfig(width=256, height=256,
                            raster=RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256),
                            shadow_map_size=256)
@@ -1961,6 +2185,7 @@ def main() -> None:
                                      bloom=False).render_frame())
 
     # -- 5. the slice at full size --------------------------------------------------
+    print(f"[phase 5 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     rasterize_tiles_cuda.launches = 0
@@ -1974,11 +2199,12 @@ def main() -> None:
     coverage = r.state["SceneCoverage"].float().mean().item()
     if coverage <= 0.0:
         raise AssertionError("full-size frame covers no pixel")
-    if launches != FRAMES + 1:
-        raise AssertionError(f"raster kernel launched {launches} times in {FRAMES} frames, "
-                             f"expected {FRAMES + 1}")
+    if launches != r.frame_index + 1:
+        raise AssertionError(f"raster kernel launched {launches} times in {r.frame_index} "
+                             f"frames, expected {r.frame_index + 1}")
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"forward slice {W}x{H} shadow {S}: {FRAMES} frames, median "
+    print(f"forward slice {W}x{H} shadow {S}: {r.frame_index} frames ({FRAMES} captured, then "
+          f"3 eager for the per-pass table), median "
           f"{slice1['ms_per_frame']:.4f} "
           f"ms/frame over the last {FRAMES - WARMUP} (CUDA events), coverage {coverage:.4f}, "
           f"raster launches {launches}, peak memory {peak / 2**30:.3f} GiB [{card}]", flush=True)
@@ -1986,11 +2212,13 @@ def main() -> None:
     del r
 
     # -- 6. the full_post golden on the card ----------------------------------------
+    print(f"[phase 6 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     g_scene, g_cam = build_test_scene(viewport=(256, 256))
     check_golden("full_post", Renderer(g_scene, g_cam, g_cfg, device=dev, ssao=True,
                                        motion_blur=True).render_frames(3))
 
     # -- 7. the local-shadow raster --------------------------------------------------
+    print(f"[phase 7 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     spot = bench.build_renderer("test_spot", device=dev)
     A = spot.cfg.local_shadow_map_size
     compare_and_time("local", f"local shadow {A}x{A} depth-only", 5,
@@ -1999,6 +2227,7 @@ def main() -> None:
     del spot
 
     # -- 8. and 9. the frame kinds, through the bench ---------------------------------
+    print(f"[phase 8 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     def run_kind(name):
         """One frame kind through the bench: the launch counts are zeroed
         just before it and read just after; every check of its frames."""
@@ -2045,6 +2274,7 @@ def main() -> None:
         by_kind[name] = run_kind(name)[2]
 
     # -- 9. the stress, meshlet and forward_upscaled frames ---------------------------
+    print(f"[phase 9 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     for name in PHASE9:
         res, renderer, by_kind[name] = run_kind(name)
         if name == "stress":
@@ -2078,6 +2308,7 @@ def main() -> None:
           flush=True)
 
     # -- 10. the rt frame and the traversal kernel ------------------------------------
+    print(f"[phase 10 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     from arkoserenderer_torch.scene.lights import SpotLight
     from arkoserenderer_torch.tools import trace_bench as tb
 
@@ -2110,6 +2341,7 @@ def main() -> None:
     del renderer
 
     # -- 11. DDGI: goldens, the flagship's DDGI traces and camera, the frames --------
+    print(f"[phase 11 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     from arkoserenderer_torch.ops.ddgi import ProbeGridConfig
 
     for name, kw in (("ddgi", dict(taa=False, bloom=False)),
@@ -2168,10 +2400,11 @@ def main() -> None:
         del renderer, cases
 
     # -- 12. the ddgi frame: skinning, morphs, the per-frame refit, SSSS ---------------
+    print(f"[phase 12 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     res, renderer = run_traced_kind("ddgi", 2)
     if res["passes"][:4] != ["Scene", "Geometry", "BVHRefit", "DDGI"] or not (
-            "SSSS" in res["pass_ms"] and "BVHRefit" in res["pass_ms"]):
-        raise AssertionError(f"ddgi: passes {res['passes']}, timed {list(res['pass_ms'])}")
+            "SSSS" in res["eager_pass_ms"] and "BVHRefit" in res["eager_pass_ms"]):
+        raise AssertionError(f"ddgi: passes {res['passes']}, timed {list(res['eager_pass_ms'])}")
     # The counts are read: one more frame's rasters and traces, as it makes them.
     rasters, cases = rb.capture_rasters(lambda: tb.kind_traces(renderer, "ddgi"))
     if sorted(rasters) != sorted(bench.expected_launches_by_shape(renderer, 1)):
@@ -2186,6 +2419,7 @@ def main() -> None:
     del renderer, cases, rasters
 
     # -- 13. the helmet: the decoder, the golden, the frame and its kernels -----------
+    print(f"[phase 13 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     from arkoserenderer_torch.assets import imagecodec
     from arkoserenderer_torch.assets.sample_scenes import build_helmet_golden_scene
 
@@ -2220,6 +2454,7 @@ def main() -> None:
     del renderer, cases, rasters
 
     # -- 14. ground truth: the path tracer, the truth check, AO baking ----------------
+    print(f"[phase 14 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     from arkoserenderer_torch.assets.procedural import build_flat_test_scene
     from arkoserenderer_torch.models.pathtracer import PathTracer, world_space_vertices
     from arkoserenderer_torch.ops.bake_ao import bake_ao, bake_vertex_ao, world_normals
@@ -2312,6 +2547,7 @@ def main() -> None:
     del helmet_arrays, wp, nrm, ao_case
 
     # -- 15. soft RT shadows: the rt_soft frame -----------------------------------------
+    print(f"[phase 15 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     res, renderer, by_kind["rt_soft"] = run_kind("rt_soft")
     n = res["frames"]
     if (res["trace_launches"] != res["trace_launches_expected"]
@@ -2331,24 +2567,34 @@ def main() -> None:
     del renderer
 
     # -- 16. the showcase app at 1920x1080 ----------------------------------------------
+    print(f"[phase 16 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     app = run_app(dev, card, compare_and_time, check_kind_traces)
     kind_traces += app["traces"]
 
     # -- 17. translucency, the reference shading mode, the app on an .arklvl ----------
+    print(f"[phase 17 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     translucency = run_translucency(dev, card, compare_and_time, run_kind)
 
     # -- 18. hair, streaming, the overlays, geodata and meshviewer ---------------------
+    print(f"[phase 18 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     slice13 = run_slice13(dev, card, compare_and_time, check_kind_traces)
     kind_traces += slice13["traces"]
 
     # -- 19. the live viewer, its systems, physics, hot reload, profiling ----------------
+    print(f"[phase 19 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     slice14 = run_slice14(dev, card, compare_and_time)
 
     # -- 20. pixel-band sharding: banded rasters, halos, gathers ------------------------
+    print(f"[phase 20 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     slice15 = run_slice15(dev, card, compare_and_time)
 
     # -- 21. the reduced-rate paths: half-rate RT, DDGI sampling, the sky fetch ---------
+    print(f"[phase 21 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     slice16 = run_slice16(dev, card, compare)
+
+    # -- 22. the captured frame against the eager one, every kind -----------------------
+    print(f"[phase 22 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
+    run_slice17(dev, card)
 
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
@@ -2368,6 +2614,7 @@ def main() -> None:
     if not all(launches.values()):
         raise AssertionError(f"a raster of the frames' path was never launched: {launches}")
 
+    print(f"phases 1-22 took {time.perf_counter() - t_main:.1f} s", flush=True)
     print(card)
     rows = [{
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,

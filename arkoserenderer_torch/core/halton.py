@@ -53,3 +53,12 @@ def fibonacci_disc(count: int) -> np.ndarray:
     golden = np.pi * (3.0 - np.sqrt(5.0))
     theta = golden * i
     return np.stack([r * np.cos(theta), r * np.sin(theta)], axis=-1).astype(np.float32)
+
+
+def r2_sequence(count: int) -> np.ndarray:
+    """(count, 2) R2 low-discrepancy points in [0, 1) (the plastic
+    constant's additive recurrence, from index 1)."""
+    g = 1.32471795724474602596  # plastic constant
+    a = np.array([1.0 / g, 1.0 / (g * g)])
+    i = np.arange(1, count + 1, dtype=np.float64)[:, None]
+    return ((0.5 + a * i) % 1.0).astype(np.float32)

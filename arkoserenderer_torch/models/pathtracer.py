@@ -9,6 +9,18 @@ device and the progressive sampling loop: each ``render_sample`` adds one
 accumulation resets when the host moves the camera, and survives a process
 restart through ``save_checkpoint`` / ``load_checkpoint``. Runs on the card
 unless ``device`` asks for the CPU.
+
+On the card one sample is a CUDA graph, the counterpart of the reference's
+jitted ``step``: captured at the first sample after a warm-up trace on a
+side stream, then replayed once a sample. Everything a sample reads is a
+buffer the host fills between replays: the sample index (a 0-d int64), the
+seed's key (rewritten by ``load_checkpoint``) and the camera state (copied
+in at each ``render_sample``); the accumulation is one buffer, added to,
+zeroed and loaded in place. A replay calls no kernel wrapper, so the
+traversal's launches recorded by the capture are added to its counters at
+every replay (``rendering/capture.add_launch_counts``). Within
+``rendering.pipeline.eager_frames()``, and on the CPU, each sample runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ from arkoserenderer_torch.core import prng
 from arkoserenderer_torch.ops import tonemap as tm
 from arkoserenderer_torch.ops.pathtrace import trace_path
 from arkoserenderer_torch.ops.texture import linear_to_srgb
+from arkoserenderer_torch.rendering import capture
+from arkoserenderer_torch.rendering.pipeline import frames_run_eagerly
 from arkoserenderer_torch.scene.camera import Camera
 from arkoserenderer_torch.scene.scene import Scene
 
@@ -61,6 +75,13 @@ class PathTracer:
         self.accum = torch.zeros((height * width, 3), dtype=torch.float32, device=self.device)
         self.sample_count = 0
         self._cam_sig = None
+        # A sample's inputs: the seed's key, the sample index, the camera.
+        self._key = prng.device_key(seed, self.device)
+        self._index = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._cam = None
+        self._graph = None      # the captured sample
+        self._graph_of = None   # the scene arrays it was captured on
+        self._graph_launches = None
         # The lights' static shape: NEE per light, which cast shadows, and
         # the soft sources (the sun's disk, the lights' radii).
         self._lights = dict(
@@ -74,11 +95,51 @@ class PathTracer:
                                       for p in scene.points),
         )
 
-    def _step(self, cam_state, sample_idx: int) -> None:
-        key = prng.fold_in(prng.device_key(self._seed, self.device), sample_idx)
-        self.accum = self.accum + trace_path(
-            self.arrays, self.bvh, cam_state, self._px, self._py, self.width, self.height, key,
-            self.max_bounces, aa=self.aa, **self._lights)
+    @property
+    def captured(self) -> bool:
+        """Whether a sample replays the captured graph: on the card, outside
+        ``eager_frames()``."""
+        return self.device.type == "cuda" and not frames_run_eagerly()
+
+    def _trace(self) -> torch.Tensor:
+        """One sample a pixel from the buffers alone (no host value)."""
+        key = prng.fold_in(self._key, self._index)
+        return trace_path(self.arrays, self.bvh, self._cam, self._px, self._py, self.width,
+                          self.height, key, self.max_bounces, aa=self.aa, **self._lights)
+
+    def _sample(self) -> None:
+        self.accum.add_(self._trace())
+
+    def _capture(self) -> None:
+        """Capture ``_sample`` after a warm-up trace on a side stream, whose
+        result is dropped (it builds the kernels and their attributes); the
+        warm-up's and the capture's launches are taken back out of the
+        counters."""
+        dev = self.device
+        before = capture.launch_counts()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._trace()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        at_capture = capture.launch_counts()
+        with torch.cuda.graph(graph):
+            self._sample()
+        self._graph_launches = capture.count_delta(capture.launch_counts(), at_capture)
+        capture.set_launch_counts(before)
+        self._graph, self._graph_of = graph, self.arrays
+
+    def _step(self) -> None:
+        """One sample, index ``sample_count``, added into ``accum``."""
+        self._index.fill_(self.sample_count)
+        if not self.captured:
+            self._sample()
+            return
+        if self._graph is None or self._graph_of is not self.arrays:
+            self._capture()
+        self._graph.replay()
+        capture.add_launch_counts(self._graph_launches)
 
     def _camera_signature(self):
         return (tuple(np.asarray(self.camera.position).ravel().tolist()),
@@ -86,8 +147,7 @@ class PathTracer:
                 self.camera.focal_length_mm)
 
     def reset(self):
-        self.accum = torch.zeros((self.height * self.width, 3), dtype=torch.float32,
-                                 device=self.device)
+        self.accum.zero_()
         self.sample_count = 0
 
     def render_sample(self, n_samples: int = 1) -> torch.Tensor:
@@ -98,8 +158,12 @@ class PathTracer:
             self._cam_sig = sig
             self.reset()
         cam_state = self.camera.state(0, self.device)
+        if self._cam is None:
+            self._cam = capture.tree_map(torch.clone, cam_state)
+        else:
+            capture.copy_leaves(self._cam, cam_state)
         for _ in range(n_samples):
-            self._step(cam_state, self.sample_count)
+            self._step()
             self.sample_count += 1
         return self.radiance()
 
@@ -110,9 +174,10 @@ class PathTracer:
 
     def load_checkpoint(self, path: str):
         z = np.load(path)
-        self.accum = torch.from_numpy(z["accum"]).to(self.device)
+        self.accum.copy_(torch.from_numpy(z["accum"]))
         self.sample_count = int(z["count"][0])
         self._seed = int(z["count"][1])
+        self._key.copy_(prng.device_key(self._seed, self.device))
         self._cam_sig = self._camera_signature()  # the next sample does not reset
 
     def radiance(self) -> torch.Tensor:

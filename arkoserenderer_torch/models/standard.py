@@ -265,7 +265,9 @@ class Renderer:
         the card the frame is the pipeline's captured one
         (``RenderPipeline.render_frame``): the image is the graph's buffer,
         which the next frame overwrites, so copy a frame to keep it.
-        ``pass_events`` (a per-pass time table) runs the frame eagerly."""
+        ``pass_events`` (a list) takes each pass's (name, start, end) CUDA
+        events: the captured frame's chain of per-pass graphs, or the eager
+        frame's (within ``eager_frames()``)."""
         if self.dynamic_transforms:
             self.scene_arrays = self.scene.update_instance_transforms(self.scene_arrays)
         if self.animated:
@@ -407,10 +409,13 @@ class Renderer:
         between launches count), and the host's wall-clock ms per frame. The
         frames are the captured ones where the pipeline captures, unless
         ``eager``. Then ``pass_frames`` more frames run eagerly with an event
-        pair around every pass (a graph has no per-pass events): their
-        median ms of every pass is ``eager_pass_ms``. ``before_frame(
-        frame_index)`` runs before each frame, untimed by the events: a
-        bench moves the camera there."""
+        pair around every pass: their median ms of every pass is
+        ``eager_pass_ms``; and, where the pipeline captures, ``pass_frames``
+        frames replay as the chain of per-pass graphs with an event between
+        each two passes: their median ms of every pass is ``pass_ms`` (the
+        eager table where it does not capture; ``pass_ms_from`` says
+        which). ``before_frame(frame_index)`` runs before each frame,
+        untimed by the events: a bench moves the camera there."""
         if self.device.type != "cuda":
             raise RuntimeError("benchmark times the card; the renderer is on " + str(self.device))
 
@@ -435,17 +440,26 @@ class Renderer:
             torch.cuda.synchronize(self.device)
             wall_ms = (time.perf_counter() - t0) * 1e3 / max(iters, 1)
         frame_ms = [s.elapsed_time(e) for s, e in frames]
-        pass_ms = {}
-        for _ in range(pass_frames):
-            events: list = []
-            step(pass_events=events)
-            torch.cuda.synchronize(self.device)
-            for name, s, e in events:
-                pass_ms.setdefault(name, []).append(s.elapsed_time(e))
+
+        def pass_table() -> dict:
+            per: dict = {}
+            for _ in range(pass_frames):
+                events: list = []
+                step(pass_events=events)
+                torch.cuda.synchronize(self.device)
+                for name, s, e in events:
+                    per.setdefault(name, []).append(s.elapsed_time(e))
+            return {k: statistics.median(v) for k, v in per.items()}
+
+        with eager_frames():
+            eager_pass = pass_table()
+        chain = self.pipeline.captured
         return {
             "ms_per_frame": statistics.median(frame_ms),
             "wall_ms_per_frame": wall_ms,
             "frame_ms": frame_ms,
             "captured": self.pipeline.captured and not eager,
-            "eager_pass_ms": {k: statistics.median(v) for k, v in pass_ms.items()},
+            "eager_pass_ms": eager_pass,
+            "pass_ms": pass_table() if chain else eager_pass,
+            "pass_ms_from": "captured per-pass graphs" if chain else "eager frames",
         }

@@ -8,8 +8,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from arkoserenderer_torch.core.constants import device_constant
 from arkoserenderer_torch.core.mathx import normalize, vdot
 
 DIELECTRIC_F0 = 0.04
@@ -90,7 +92,8 @@ def sample_ggx_vndf(v_ts: torch.Tensor, alpha: torch.Tensor, u1: torch.Tensor,
     inv = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-20))
     t1 = torch.where((lensq > 1e-12)[:, None],
                      torch.stack([-vh[:, 1] * inv, vh[:, 0] * inv, torch.zeros_like(inv)], dim=-1),
-                     torch.tensor([1.0, 0.0, 0.0], device=vh.device).expand_as(vh))
+                     device_constant("brdf.x_axis", lambda: np.array([1.0, 0.0, 0.0], np.float32),
+                                     vh.device).expand_as(vh))
     t2 = torch.cross(vh, t1, dim=-1)
     r = torch.sqrt(u1)
     phi = 2.0 * math.pi * u2

@@ -28,6 +28,7 @@ the binary two-level walk of the reference (the path tracer's and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -714,6 +715,7 @@ def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.
                   for k in ("steps", "quad_steps", "node_steps", "triangle_tests",
                             "inst_steps")}
 
+    quad_lanes = torch.arange(4, dtype=torch.int32, device=dev)
     for _ in range(max_steps):
         rows = torch.nonzero(sp > 0).squeeze(1)
         if rows.numel() == 0:
@@ -751,48 +753,54 @@ def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.
         d = _apply34(mm, dr[:, 0], dr[:, 1], dr[:, 2], False)
         inv_d = [_inv_dir(c) for c in d]
 
-        # Quad leaf: 4 triangles and their ids.
+        # Quad leaf: its 4 triangles at once; the first of the nearest
+        # accepted ones wins, as testing them in order with a strict ``<``.
         qrow = torch.clamp(payload >> 3, 0, q_cap).long()
         qcount = payload & 7
-        quad = q_f[qrow, :36]
-        for k in range(4):
-            lanes = [quad[:, 9 * k + j] for j in range(9)]
-            ok, t, u, v = _tri_hit(lanes[0:3], lanes[3:6], lanes[6:9], o, d, t_eps)
-            take = is_quad & (k < qcount) & ok & (t < bt)
-            bt = torch.where(take, t, bt)
-            btri = torch.where(take, g_base + q_rec[qrow, 36 + k], btri)
-            bu = torch.where(take, u, bu)
-            bv = torch.where(take, v, bv)
+        quad = q_f[qrow, :36].view(n, 4, 9)
+        o4 = [c[:, None] for c in o]
+        d4 = [c[:, None] for c in d]
+        ok, t, u, v = _tri_hit([quad[..., j] for j in range(0, 3)],
+                               [quad[..., j] for j in range(3, 6)],
+                               [quad[..., j] for j in range(6, 9)], o4, d4, t_eps)
+        cand = is_quad[:, None] & (quad_lanes < qcount[:, None]) & ok
+        t_cand = torch.where(cand, t, math.inf)
+        t_min = t_cand.amin(1)
+        k1 = torch.where(t_cand == t_min[:, None], quad_lanes, 4).amin(1, keepdim=True).long()
+        take = t_min < bt
+        bt = torch.where(take, t_min, bt)
+        btri = torch.where(take, g_base + q_rec[qrow, 36:40].gather(1, k1)[:, 0], btri)
+        bu = torch.where(take, u.gather(1, k1)[:, 0], bu)
+        bv = torch.where(take, v.gather(1, k1)[:, 0], bv)
 
-        # Internal node: 8 slab tests, sort, push.
+        # Internal node: its 8 slab tests at once, the sort, the push.
         nrow = node.long()
-        cb = f_rec[nrow, :48]
+        cb = f_rec[nrow, :48].view(n, WIDE_WIDTH, 6)
         meta = bvh.wide_rec[nrow, 48:56]
-        keys, descs = [], []
-        for i in range(WIDE_WIDTH):
-            t0s, t1s = [], []
-            for a in range(3):
-                t0 = (cb[:, 6 * i + a] - o[a]) * inv_d[a]
-                t1 = (cb[:, 6 * i + 3 + a] - o[a]) * inv_d[a]
-                t0s.append(torch.minimum(t0, t1))
-                t1s.append(torch.maximum(t0, t1))
-            near = torch.maximum(_max3(*t0s), torch.zeros_like(bt))
-            far = torch.minimum(_min3(*t1s), bt)
-            hit_i = (near <= far) & is_node & (meta[:, i] != 0)
-            keys.append(torch.where(hit_i, near, NO_KEY))
-            descs.append(meta[:, i])
+        o8 = torch.stack(o, dim=-1)[:, None, :]
+        inv8 = torch.stack(inv_d, dim=-1)[:, None, :]
+        t0 = (cb[..., 0:3] - o8) * inv8
+        t1 = (cb[..., 3:6] - o8) * inv8
+        tlo, thi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = _max3(tlo[..., 0], tlo[..., 1], tlo[..., 2])
+        near = torch.maximum(near, torch.zeros_like(near))
+        far = torch.minimum(_min3(thi[..., 0], thi[..., 1], thi[..., 2]), bt[:, None])
+        hit_c = (near <= far) & is_node[:, None] & (meta != 0)
+        keys = list(torch.where(hit_c, near, NO_KEY).unbind(1))
+        descs = list(meta.unbind(1))
         if not any_hit:
             for a, b in SORT_NET:
                 swap = keys[a] > keys[b]
                 keys[a], keys[b] = torch.where(swap, keys[b], keys[a]), torch.where(swap, keys[a], keys[b])
                 descs[a], descs[b] = torch.where(swap, descs[b], descs[a]), torch.where(swap, descs[a], descs[b])
-        cnt = torch.zeros_like(s)
-        for i in reversed(range(WIDE_WIDTH)):
-            valid = keys[i] < NO_KEY
-            pos = sp_pop + cnt
-            put = valid & (pos < depth)
-            st[lane[put], pos[put].long()] = descs[i][put]
-            cnt = cnt + valid.to(torch.int32)
+        # Children pushed farthest first: the nearest ends on top.
+        valid = torch.stack(keys, dim=1) < NO_KEY
+        above = valid.flip(1).cumsum(1, dtype=torch.int32).flip(1) - valid.to(torch.int32)
+        pos = sp_pop[:, None] + above
+        put = valid & (pos < depth)
+        st[lane[:, None].expand(n, WIDE_WIDTH)[put], pos[put].long()] = \
+            torch.stack(descs, dim=1)[put]
+        cnt = valid.sum(1, dtype=torch.int32)
         new_sp = torch.clamp(sp_pop + cnt, max=depth - 1)
         if any_hit:
             new_sp = torch.where(btri >= 0, 0, new_sp)

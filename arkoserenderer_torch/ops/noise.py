@@ -29,10 +29,16 @@ _ALPHAS = (0.6180339887498949, 0.7548776662466927, 0.5698402909980532)
 
 
 @functools.lru_cache(maxsize=1)
+def blue_noise_ranks() -> np.ndarray:
+    """(128, 128) the void-and-cluster mask's ranks, 0 .. N^2 - 1."""
+    return np.load(Path(__file__).resolve().parents[1] / "assets" / "data"
+                   / "bluenoise_128.npy")
+
+
+@functools.lru_cache(maxsize=1)
 def blue_noise_mask() -> np.ndarray:
     """(128, 128) float32 in (0, 1): (rank + 0.5) / N^2."""
-    ranks = np.load(Path(__file__).resolve().parents[1] / "assets" / "data"
-                    / "bluenoise_128.npy").astype(np.float32)
+    ranks = blue_noise_ranks().astype(np.float32)
     return (ranks + 0.5) / ranks.size
 
 

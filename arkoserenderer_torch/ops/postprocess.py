@@ -219,9 +219,15 @@ def depth_of_field(color: torch.Tensor, coc: torch.Tensor, num_taps: int = 24,
     return (acc / wsum).reshape(h, w, 3)
 
 
-def fxaa(ldr: torch.Tensor, edge_threshold: float = 0.125,
-         min_threshold: float = 0.0312) -> torch.Tensor:
-    """Luma-driven edge anti-aliasing on the final (H, W, 3) LDR image."""
+def fxaa_active_mask(ldr: torch.Tensor, edge_threshold: float = 0.125,
+                     min_threshold: float = 0.0312) -> torch.Tensor:
+    """(H, W) bool: the pixels FXAA blends, where the luma contrast of the
+    4-neighbour cross is at least max(min_threshold, its max * edge_threshold)."""
+    return _fxaa_lumas(ldr, edge_threshold, min_threshold)[-1]
+
+
+def _fxaa_lumas(ldr, edge_threshold, min_threshold):
+    """(centre, N, S, E, W luma, the active mask) of (H, W, 3)."""
     l_c = luminance(ldr)[..., 0]
     l_n = shift_img(l_c, -1, 0)
     l_s = shift_img(l_c, 1, 0)
@@ -230,7 +236,14 @@ def fxaa(ldr: torch.Tensor, edge_threshold: float = 0.125,
     l_min = torch.minimum(l_c, torch.minimum(torch.minimum(l_n, l_s), torch.minimum(l_e, l_w)))
     l_max = torch.maximum(l_c, torch.maximum(torch.maximum(l_n, l_s), torch.maximum(l_e, l_w)))
     contrast = l_max - l_min
-    active = contrast >= torch.clamp(l_max * edge_threshold, min=min_threshold)
+    return l_c, l_n, l_s, l_e, l_w, contrast >= torch.clamp(l_max * edge_threshold,
+                                                            min=min_threshold)
+
+
+def fxaa(ldr: torch.Tensor, edge_threshold: float = 0.125,
+         min_threshold: float = 0.0312) -> torch.Tensor:
+    """Luma-driven edge anti-aliasing on the final (H, W, 3) LDR image."""
+    l_c, l_n, l_s, l_e, l_w, active = _fxaa_lumas(ldr, edge_threshold, min_threshold)
 
     # Blur direction perpendicular to the luma gradient.
     horiz = (torch.abs(l_n + l_s - 2 * l_c) >= torch.abs(l_e + l_w - 2 * l_c))[..., None]

@@ -364,13 +364,15 @@ def rasterize_tiles_plain(
 ):
     """Stage 4 in plain torch: the kernel's reference version.
 
-    Walks every tile's list position by position (all tiles at once), then
-    the global list, keeping the closest coverage per pixel: a fragment
-    wins where ``d > depth`` (strict, so the earlier triangle wins ties)
-    and ``d < depth_limit`` (the depth-peeling hook). The arithmetic is the
+    Walks every tile's list position by position (at each position, the
+    tiles whose list is that long, at once: the tiles deepest list first,
+    so they are a prefix of that order), then the global list over every
+    tile, keeping the closest coverage per pixel: a fragment wins where
+    ``d > depth`` (strict, so the earlier triangle wins ties) and
+    ``d < depth_limit`` (the depth-peeling hook). The arithmetic is the
     kernel's, operation for operation, so on the card the two agree bit for
-    bit. The loop bounds are read back to the host: this version serves the
-    CPU and the comparisons, never the frame on the card.
+    bit. The list lengths are read back to the host: this version serves
+    the CPU and the comparisons, never the frame on the card.
 
     Returns (vis (H,W) i32 setup-row ids, depth (H,W) f32 reverse-Z); vis
     is all VIS_NONE when ``depth_only``.
@@ -386,7 +388,7 @@ def rasterize_tiles_plain(
     vis = torch.full(px.shape, VIS_NONE, dtype=torch.int32, device=dev)
     sxy, zn = setup.screen_xy, setup.z_ndc
 
-    def shade_tri(t, active, depth, vis):
+    def shade_tri(t, depth, vis, px, py, limit):
         s = sxy[t]  # (ntiles, 3, 2)
         x0, y0 = s[:, 0, 0, None], s[:, 0, 1, None]
         x1, y1 = s[:, 1, 0, None], s[:, 1, 1, None]
@@ -401,19 +403,27 @@ def rasterize_tiles_plain(
         l0, l1, l2 = e0 * inv_area, e1 * inv_area, e2 * inv_area
         z = zn[t]
         d = l0 * z[:, 0, None] + l1 * z[:, 1, None] + l2 * z[:, 2, None]
-        covered = ((l0 >= 0.0) & (l1 >= 0.0) & (l2 >= 0.0) & (d > depth)
-                   & (d < limit_t) & active[:, None])
+        covered = ((l0 >= 0.0) & (l1 >= 0.0) & (l2 >= 0.0) & (d > depth) & (d < limit))
         return torch.where(covered, d, depth), torch.where(covered, t[:, None].to(torch.int32), vis)
 
     counts = bins.counts
     last = bins.sorted_tris.shape[0] - 1
-    for i in range(int(counts.max()) if counts.numel() else 0):
-        t = bins.sorted_tris[torch.clamp(bins.starts.long() + i, max=last)].long()
-        depth, vis = shade_tri(t, i < counts, depth, vis)
-    all_tiles = torch.ones(px.shape[0], dtype=torch.bool, device=dev)
+    order = torch.argsort(counts, descending=True, stable=True)
+    lengths = counts[order].tolist()  # deepest first
+    o_depth, o_vis, o_px, o_py, o_limit = (a[order] for a in (depth, vis, px, py, limit_t))
+    o_starts = bins.starts.long()[order]
+    k = len(lengths)
+    for i in range(lengths[0] if lengths else 0):
+        while lengths[k - 1] <= i:
+            k -= 1
+        t = bins.sorted_tris[torch.clamp(o_starts[:k] + i, max=last)].long()
+        o_depth[:k], o_vis[:k] = shade_tri(t, o_depth[:k], o_vis[:k], o_px[:k], o_py[:k],
+                                           o_limit[:k])
+    depth, vis = torch.empty_like(depth), torch.empty_like(vis)
+    depth[order], vis[order] = o_depth, o_vis
     for j in range(int(bins.global_count)):
         t = bins.global_tris[j].long().expand(px.shape[0])
-        depth, vis = shade_tri(t, all_tiles, depth, vis)
+        depth, vis = shade_tri(t, depth, vis, px, py, limit_t)
 
     depth = tiled_to_image(depth, width, height, cfg)
     if depth_only:

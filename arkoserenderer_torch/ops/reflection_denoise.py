@@ -12,17 +12,18 @@ persistent history (port of arkoserenderer_tpu/ops/reflection_denoise.py).
 State carried across frames: history colour (H, W, 3), moments (H, W, 3) =
 (mean luma, mean luma^2, sample count), previous depth (H, W).
 
-The reference fetches the history with nine weighted static shifts when the
-largest motion is under a pixel (a branch on a device value) and with a
-bilinear gather otherwise; the port always gathers, which is the same
-bilinear filter (rounded in another order).
+The history is fetched as the reference fetches it, by the same device-side
+branch as ``ops/shadow_denoise.history_fetch``: nine weighted static shifts
+when the largest motion component is at most a pixel, a bilinear gather
+otherwise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from arkoserenderer_torch.ops.image import bilinear_sample_many, luminance, shift_img
+from arkoserenderer_torch.ops.image import luminance, shift_img
+from arkoserenderer_torch.ops.shadow_denoise import history_fetch
 
 RING1 = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1), (1, 1))
 RING2 = ((-2, 0), (2, 0), (0, -2), (0, 2), (-2, -2), (-2, 2), (2, -2), (2, 2))
@@ -37,9 +38,9 @@ def reproject(history: torch.Tensor, moments_hist: torch.Tensor, prev_depth: tor
     vel = velocity.reshape(-1, 2)
     prev_x = px - vel[:, 0]
     prev_y = py - vel[:, 1]
-    hist, mom, d_prev = bilinear_sample_many((history, moments_hist, prev_depth[..., None]),
-                                             prev_x, prev_y)
-    hist, mom, d_prev = hist.reshape(h, w, 3), mom.reshape(h, w, 3), d_prev.reshape(h, w)
+    hist, mom, d_prev = history_fetch((history, moments_hist, prev_depth[..., None]),
+                                      velocity, prev_x, prev_y)
+    d_prev = d_prev[..., 0]
     on_screen = ((prev_x >= 0.0) & (prev_x < w) & (prev_y >= 0.0) & (prev_y < h)).reshape(h, w)
     d = depth[..., None]
     gx = torch.abs(shift_img(d, 0, 1) - shift_img(d, 0, -1))[..., 0]

@@ -21,17 +21,23 @@ share one reprojection:
 State of a stack: masks (H, W, C), moments (H, W, 2C + 1) laid out
 [m1 x C, m2 x C, count], previous depth (H, W).
 
-The reference fetches the history with nine weighted static shifts when the
-largest motion is under a pixel (a branch on a device value) and with a
-bilinear gather otherwise; the port always gathers, which is the same
-bilinear filter rounded in another order (as ``ops/reflection_denoise``).
+The history is fetched as the reference fetches it: with nine weighted
+static shifts (``ops/image.bilinear_sample_small_offset``) when the largest
+motion component is at most a pixel, with a bilinear gather otherwise. The
+two round in different orders (~2e-5 apart); both are formed and
+``torch.where`` takes one by the predicate, computed on the device, so no
+frame waits on a readback (as TAA's bilinear branch).
 """
 
 from __future__ import annotations
 
 import torch
 
-from arkoserenderer_torch.ops.image import bilinear_sample_many, shift_img
+from arkoserenderer_torch.ops.image import (
+    bilinear_sample_many,
+    bilinear_sample_small_offset,
+    shift_img,
+)
 
 RING1 = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1), (1, 1))
 RING2 = ((-2, 0), (2, 0), (0, -2), (0, 2), (-2, -2), (-2, 2), (2, -2), (2, 2))
@@ -69,6 +75,22 @@ def camera_velocity(world: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     return torch.stack([px - px_prev, py - py_prev], -1).reshape(h, w, 2)
 
 
+def history_fetch(planes, velocity: torch.Tensor, prev_x: torch.Tensor,
+                  prev_y: torch.Tensor) -> list[torch.Tensor]:
+    """The (H, W, C_i) history planes at the reprojected pixels (``prev_x``,
+    ``prev_y`` (N,)), each (H, W, C_i): the nine-shift resample when every
+    component of ``velocity`` (H, W, 2) is at most a pixel, else the
+    bilinear gather, chosen on the device. Both are channel by channel, so
+    the planes round as the reference's one packed fetch of them."""
+    h, w = velocity.shape[:2]
+    gathered = bilinear_sample_many(planes, prev_x, prev_y)
+    small = velocity.abs().max() <= 1.0
+    return [torch.where(small, bilinear_sample_small_offset(p, -velocity[..., 0],
+                                                            -velocity[..., 1]),
+                        g.reshape(h, w, p.shape[-1]))
+            for p, g in zip(planes, gathered)]
+
+
 def reproject(hist: torch.Tensor, mom_hist: torch.Tensor, prev_depth: torch.Tensor,
               depth: torch.Tensor, velocity: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
               depth_tolerance: float = 2e-3):
@@ -78,11 +100,9 @@ def reproject(hist: torch.Tensor, mom_hist: torch.Tensor, prev_depth: torch.Tens
     vel = velocity.reshape(-1, 2)
     prev_x = px - vel[:, 0]
     prev_y = py - vel[:, 1]
-    hist_r, mom_r, d_prev = bilinear_sample_many((hist, mom_hist, prev_depth[..., None]),
-                                                 prev_x, prev_y)
-    hist_r = hist_r.reshape(h, w, hist.shape[-1])
-    mom_r = mom_r.reshape(h, w, mom_hist.shape[-1])
-    d_prev = d_prev.reshape(h, w)
+    planes = (hist, mom_hist, prev_depth[..., None])
+    hist_r, mom_r, d_prev = history_fetch(planes, velocity, prev_x, prev_y)
+    d_prev = d_prev[..., 0]
     on_screen = ((prev_x >= 0.0) & (prev_x < w) & (prev_y >= 0.0) & (prev_y < h)).reshape(h, w)
     # Slope-scaled disocclusion test: grazing surfaces survive sub-pixel
     # motion, a step to another surface trips it.

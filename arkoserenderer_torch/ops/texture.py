@@ -269,20 +269,130 @@ def sample_grad(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor,
                 duv_dx: torch.Tensor, duv_dy: torch.Tensor, decode_srgb: bool = True,
                 quality: str = "trilinear", pow2: bool = False) -> torch.Tensor:
     """Gradient-correct sample, the reference shading mode's material path:
-    "trilinear" or "bilinear" (the nearest mip) at ``compute_lod``'s LOD;
-    "auto" and "stochastic" are trilinear, as in the reference, whose
-    per-field path has no stochastic filter. "sorted" (the reference's
-    tile-median one-hot gather) raises NotImplementedError; other values
-    raise ValueError."""
+    "trilinear", "bilinear" (the nearest mip) or "sorted" (the nearest mip
+    through ``sample_bilinear_sorted``) at ``compute_lod``'s LOD; "auto"
+    and "stochastic" are trilinear, as in the reference, whose per-field
+    path has no stochastic filter. Other values raise ValueError."""
     if quality in ("auto", "stochastic"):
         quality = "trilinear"
-    if quality == "sorted":
-        raise NotImplementedError(
-            "texture_quality='sorted' (the one-hot tile gather of the reference shading "
-            "mode) is not ported")
-    if quality not in ("trilinear", "bilinear"):
+    if quality not in ("trilinear", "bilinear", "sorted"):
         raise ValueError(f"unknown texture quality {quality!r} (trilinear|bilinear|sorted)")
     lod = compute_lod(pool, tex_id, duv_dx, duv_dy)
     if quality == "bilinear":
         return sample_bilinear_nearest_mip(pool, tex_id, uv, lod, decode_srgb, pow2=pow2)
+    if quality == "sorted":
+        return sample_bilinear_sorted(pool, tex_id, uv, lod, decode_srgb=decode_srgb)
     return sample_trilinear(pool, tex_id, uv, lod, decode_srgb=decode_srgb, pow2=pow2)
+
+
+def _median_rows(x: torch.Tensor) -> torch.Tensor:
+    """jnp.median along the last axis: the mean of the two middle values of
+    an even count (torch.median returns the lower one), NaN where a row
+    holds one."""
+    s = torch.sort(x, dim=-1).values
+    n = x.shape[-1]
+    mid = s[..., (n - 1) // 2] if n % 2 else s[..., n // 2 - 1] * 0.5 + s[..., n // 2] * 0.5
+    return torch.where(torch.isnan(x).any(-1), torch.nan, mid)
+
+
+def sample_bilinear_tile_onehot(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor,
+                                lod: torch.Tensor, tile: int = 1024, texel_budget: int = 4096,
+                                decode_srgb: bool = True) -> torch.Tensor:
+    """Nearest-mip bilinear of tiles of ``tile`` pixels, each through one
+    contiguous window of ``texel_budget`` texels (the reference's one-hot
+    matmul gather, as a gather with the same result). Each tile takes its
+    first pixel's texture and one mip: the rounded median of its LODs,
+    made coarser until the whole mip fits the budget (the first that fits;
+    mip 0 where none does). The window starts at the mip's offset, clamped
+    to the pool's end as ``lax.dynamic_slice`` clamps it; a tap past the
+    window contributes 0. The reference's product ``onehot @ rgba`` has one
+    non-zero a row, so each tap is the texel after the sRGB decode rounded
+    to bfloat16. (N,) ids and LODs, (N, 2) uv, N a multiple of ``tile``
+    -> (N, 4)."""
+    n = uv.shape[0]
+    if n % tile:
+        raise ValueError(f"{n} pixels is not a multiple of the tile ({tile})")
+    n_tiles = n // tile
+    tid = tex_id.reshape(n_tiles, tile)[:, 0].long()
+    max_lod = (pool.n_mips[tid] - 1).to(torch.float32)
+    l_med = torch.minimum(torch.clamp(torch.round(_median_rows(lod.reshape(n_tiles, tile))),
+                                      min=0.0), max_lod)
+    n_texels = pool.mip_size[tid, :, 0] * pool.mip_size[tid, :, 1]
+    first_fit = torch.argmax((n_texels <= texel_budget).to(torch.int32), dim=1)
+    level = torch.maximum(l_med, first_fit.to(torch.float32))
+    level = torch.nan_to_num(level, nan=0.0).to(torch.int32).long()
+    off = pool.mip_offset[tid, level].long()
+    size = pool.mip_size[tid, level].long()
+    start = torch.clamp(off, max=pool.texels.shape[0] - texel_budget).clamp(min=0)
+    def per_pixel(t):  # a tile's value for each of its pixels
+        return t.repeat_interleave(tile, dim=0)
+
+    w, h, start = per_pixel(size[:, 0]), per_pixel(size[:, 1]), per_pixel(start)
+    repeat = per_pixel(pool.wrap[tid] == WRAP_REPEAT)
+    x = uv[:, 0] * w.to(torch.float32) - 0.5
+    y = uv[:, 1] * h.to(torch.float32) - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+    srgb = per_pixel(pool.srgb[tid])[:, None] if decode_srgb else None
+    out = torch.zeros((n, 4), dtype=torch.float32, device=uv.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi = x0.to(torch.int32).long() + dx
+            yi = y0.to(torch.int32).long() + dy
+            xi = torch.where(repeat, torch.remainder(xi, w), torch.clamp(torch.minimum(xi, w - 1),
+                                                                         min=0))
+            yi = torch.where(repeat, torch.remainder(yi, h), torch.clamp(torch.minimum(yi, h - 1),
+                                                                         min=0))
+            li = yi * w + xi
+            inside = li < texel_budget
+            c = unpack_rgba8(pool.texels[start + torch.where(inside, li, 0)])
+            if srgb is not None:
+                c = torch.cat([torch.where(srgb, srgb_to_linear(c[:, :3]), c[:, :3]),
+                               c[:, 3:4]], dim=-1)
+            c = torch.where(inside[:, None], c.to(torch.bfloat16).to(torch.float32), 0.0)
+            wgt = (fx if dx else 1 - fx) * (fy if dy else 1 - fy)
+            out = out + c * wgt
+    return out
+
+
+def sample_bilinear_sorted(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor,
+                           lod: torch.Tensor, tile: int = 1024, texel_budget: int = 4096,
+                           decode_srgb: bool = True) -> torch.Tensor:
+    """Nearest-mip bilinear of arbitrary per-pixel textures through
+    ``sample_bilinear_tile_onehot``: the pixels sorted (stably) by
+    (texture, rounded mip), each texture's run padded to whole tiles (the
+    pad slots take the texture and its first mip that fits the budget), the
+    tiles sampled, the results put back in pixel order. A tile that
+    straddles two mips of one texture takes their median. A NaN LOD reads
+    mip 0. (N,) ids and LODs, (N, 2) uv -> (N, 4)."""
+    n = uv.shape[0]
+    dev = uv.device
+    n_tex = pool.mip_offset.shape[0]
+    n_pad = n + n_tex * tile
+    tex_id = tex_id.long()
+    max_lod = (pool.n_mips[tex_id] - 1).to(torch.float32)
+    level = torch.minimum(torch.clamp(torch.round(lod), min=0.0), max_lod)
+    level = torch.nan_to_num(level, nan=0.0).to(torch.int32).long()
+    order = torch.argsort(tex_id * MAX_MIPS + level, stable=True)
+    tex_s, uv_s, lvl_s = tex_id[order], uv[order], level[order]
+    counts = torch.zeros((n_tex,), dtype=torch.long, device=dev).index_add_(
+        0, tex_id, torch.ones_like(tex_id))
+    start = torch.cumsum(counts, 0) - counts
+    padded = (counts + tile - 1) // tile * tile
+    edges = torch.cumsum(padded, 0)
+    pad_base = edges - padded
+    dest = pad_base[tex_s] + (torch.arange(n, device=dev) - start[tex_s])
+    slot_tex = torch.searchsorted(edges, torch.arange(n_pad, device=dev), right=True)
+    slot_tex = torch.clamp(slot_tex, max=n_tex - 1)
+    n_texels = pool.mip_size[:, :, 0] * pool.mip_size[:, :, 1]
+    first_fit = torch.argmax((n_texels <= texel_budget).to(torch.int32), dim=1)
+    tex_p = slot_tex.index_copy(0, dest, tex_s)
+    uv_p = torch.zeros((n_pad, 2), dtype=uv.dtype, device=dev).index_copy(0, dest, uv_s)
+    lvl_p = first_fit[slot_tex].index_copy(0, dest, lvl_s)
+    out_p = sample_bilinear_tile_onehot(pool, tex_p, uv_p, lvl_p.to(torch.float32), tile=tile,
+                                        texel_budget=texel_budget, decode_srgb=decode_srgb)
+    out = torch.empty((n, 4), dtype=out_p.dtype, device=dev)
+    out[order] = out_p[dest]
+    return out

@@ -35,12 +35,21 @@ out: the counts are those of the frames rendered.
 
 The outputs are the graph's buffers, which the next replay overwrites: a
 caller that keeps a frame's image copies it.
+
+A call with ``pass_events`` (a list) replays the frame as a chain of
+graphs, one a pass (the prologue in the first pass's, the donation's copies
+in the last's), with a CUDA event recorded between each two replays: the
+per-pass table of the captured frame, the counterpart of the reference's
+per-pass jitted programs. The chain is captured like the whole-frame graph
+(for the same inputs and host branches, in the same memory pool) and fills
+the same kind of buffers; its outputs equal the whole-frame graph's.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -150,13 +159,24 @@ def add_launch_counts(delta: tuple) -> None:
     t.launches_by_label.update(delta[3])
 
 
+def count_delta(after: tuple, before: tuple) -> tuple:
+    """The launches between two ``launch_counts()`` readings."""
+    return tuple(a - b for a, b in zip(after, before))
+
+
+def copy_leaves(dst, src) -> None:
+    """Copy each tensor of ``src`` into the tensor of ``dst`` at its place
+    (two trees of one layout)."""
+    _fill(leaves(dst), leaves(src), always=True)
+
+
 def _has_tensor(value) -> bool:
     return bool(leaves(value))
 
 
 @dataclasses.dataclass
 class _Graph:
-    graph: torch.cuda.CUDAGraph
+    graph: object          # the frame's CUDAGraph, or [(pass name, CUDAGraph)] of a chain
     state: dict            # the state's input buffers
     state_leaves: dict     # their tensors, by key
     scene_leaves: list     # the captured scene's tensors
@@ -195,7 +215,11 @@ class CompiledFrame:
             running.update(updates)
         return tuple(branches), running
 
-    def __call__(self, state: dict, scene, camera_state, frame_index, delta_time=1 / 60) -> dict:
+    def __call__(self, state: dict, scene, camera_state, frame_index, delta_time=1 / 60,
+                 pass_events: list | None = None) -> dict:
+        """One frame. With ``pass_events`` (a list) the frame replays as the
+        chain of per-pass graphs and each pass appends (name, start, end)
+        CUDA events, as ``RenderPipeline.frame_fn`` appends its eager ones."""
         pipe = self.pipeline
         fi = int(frame_index)
         transient = set(pipe.registry.transient_names)
@@ -203,14 +227,26 @@ class CompiledFrame:
         dev_state = {k: v for k, v in state.items() if k not in transient and k not in host}
         branches, host_out = self.host_steps(host, fi == 0)
         inputs = {k: v for k, v in pipe.frame_inputs(fi).items() if k not in dev_state}
-        key = (layout(dev_state), layout(scene), layout(camera_state), layout(inputs), branches)
+        chain = pass_events is not None
+        key = (layout(dev_state), layout(scene), layout(camera_state), layout(inputs), chain,
+               branches)
         g = self.graphs.get(key)
         if g is None:
-            g = self._capture(key, dev_state, host, scene, camera_state, inputs, fi)
+            g = self._capture(key, dev_state, host, scene, camera_state, inputs, fi, chain)
         else:
             self.graphs.move_to_end(key)
         self._fill(g, dev_state, scene, camera_state, inputs, fi, delta_time)
-        g.graph.replay()
+        if chain:
+            mark = torch.cuda.Event(enable_timing=True)
+            mark.record()
+            for name, graph in g.graph:
+                graph.replay()
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                pass_events.append((name, mark, end))
+                mark = end
+        else:
+            g.graph.replay()
         add_launch_counts(g.launches)
         return self._outputs(g, host_out)
 
@@ -241,7 +277,43 @@ class CompiledFrame:
         out.update(host_out)
         return out
 
-    def _capture(self, key, dev_state, host, scene, camera_state, inputs, fi) -> _Graph:
+    def _donate(self, s_state: dict, out: dict) -> None:
+        """Inside a capture: the frame's new persistent values copied into
+        the donated state's buffers."""
+        if self.donate_state:
+            for k, v in s_state.items():
+                if k in out and out[k] is not v:
+                    _fill(leaves(v), leaves(out[k]))
+
+    def _record(self, s_state, frame_state, scene, s_camera, s_fi, s_dt, first, chain):
+        """Capture the frame: (its graph, or the chain [(pass, graph)]; the
+        frame's outputs)."""
+        pipe = self.pipeline
+        if not chain:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool):
+                out = pipe.frame_fn(frame_state, scene, s_camera, s_fi, s_dt, first_frame=first)
+                self._donate(s_state, out)
+            self._pool = self._pool or graph.pool()
+            return graph, out
+        steps, last = [], len(pipe._executes) - 1
+        for i, (name, execute) in enumerate(pipe._executes):
+            graph = torch.cuda.CUDAGraph()
+            with warnings.catch_warnings(), torch.cuda.graph(graph, pool=self._pool):
+                # A pass that launches nothing this branch (a cached map's
+                # steady frame) is an empty graph, replayed as a no-op.
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                if i == 0:
+                    out, ctx = pipe._prologue(frame_state, scene, s_camera, s_fi, s_dt, first)
+                out.update(execute(out, ctx) or {})
+                if i == last:
+                    self._donate(s_state, out)
+            self._pool = self._pool or graph.pool()
+            steps.append((name, graph))
+        return steps, out
+
+    def _capture(self, key, dev_state, host, scene, camera_state, inputs, fi,
+                 chain: bool = False) -> _Graph:
         pipe = self.pipeline
         dev = pipe.device
         s_state = dev_state if self.donate_state else tree_map(torch.clone, dev_state)
@@ -258,25 +330,17 @@ class CompiledFrame:
         with torch.cuda.stream(side):
             pipe.frame_fn(frame_state, scene, s_camera, s_fi, s_dt, first_frame=first)
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
         at_capture = launch_counts()
-        with torch.cuda.graph(graph, pool=self._pool):
-            out = pipe.frame_fn(frame_state, scene, s_camera, s_fi, s_dt, first_frame=first)
-            if self.donate_state:
-                for k, v in s_state.items():
-                    if k in out and out[k] is not v:
-                        _fill(leaves(v), leaves(out[k]))
+        graph, out = self._record(s_state, frame_state, scene, s_camera, s_fi, s_dt, first,
+                                  chain)
         after = launch_counts()
         set_launch_counts(before)
-        if self._pool is None:
-            self._pool = graph.pool()
         g = _Graph(
             graph=graph, state=s_state,
             state_leaves={k: leaves(v) for k, v in s_state.items()},
             scene_leaves=leaves(scene), camera_leaves=leaves(s_camera), inputs=s_inputs,
             frame_index=s_fi, delta_time=s_dt, out=out,
-            launches=(after[0] - at_capture[0], after[1] - at_capture[1],
-                      after[2] - at_capture[2], after[3] - at_capture[3]),
+            launches=count_delta(after, at_capture),
             scene_seen=scene, scene_seen_leaves=leaves(scene),
         )
         self.graphs[key] = g

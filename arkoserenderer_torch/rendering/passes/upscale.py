@@ -12,11 +12,12 @@ motion vectors and clamped to mean +/- gamma * sigma of the current 3x3
 neighbourhood (gamma grows from 1 to 4 as the pixel comes to rest). TAA is
 left out of such a pipeline: the jitter must reach the accumulator.
 
-The reference reprojects with nine sub-pixel shifts when the frame's
-largest motion is at most a pixel, a branch it takes on the device's value;
-the port always takes the general bilinear gather, so the host reads
-nothing. Where both run, they are the same interpolation in another order
-of operations (``tests/test_torch_upscale.py`` states the distance).
+The history is reprojected as the reference reprojects it: with nine
+sub-pixel shifts (``ops/image.bilinear_sample_small_offset``) when the
+frame's largest display-space speed, sqrt(vx^2 + vy^2), is at most a pixel,
+with the bilinear gather otherwise. Both are formed and ``torch.where``
+takes one by the predicate, computed on the device, so the host reads
+nothing.
 
 Publishes LDRDisplay (dh, dw, 3) and the persistent UpscaleHistory.
 
@@ -34,6 +35,7 @@ import torch
 
 from arkoserenderer_torch.ops.image import (
     bilinear_sample,
+    bilinear_sample_small_offset,
     resize_bilinear_rational,
     resize_bilinear_rational_jittered,
     shift_img,
@@ -77,7 +79,9 @@ class TemporalUpscalePass(RenderPass):
             speed = torch.sqrt(torch.sum(vel * vel, dim=-1, keepdim=True))
             prev_x = px - vel[..., 0].reshape(-1)
             prev_y = py - vel[..., 1].reshape(-1)
-            hist = bilinear_sample(history, prev_x, prev_y).reshape(dh, dw, 3)
+            gathered = bilinear_sample(history, prev_x, prev_y).reshape(dh, dw, 3)
+            shifted = bilinear_sample_small_offset(history, -vel[..., 0], -vel[..., 1])
+            hist = torch.where(speed.max() <= 1.0, shifted, gathered)
 
             m1 = torch.zeros_like(cur)
             m2 = torch.zeros_like(cur)

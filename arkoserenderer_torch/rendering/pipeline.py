@@ -95,9 +95,9 @@ SHADOW_FILTERS = ("auto", "bilinear", "stochastic")
 @dataclasses.dataclass
 class PipelineConfig:
     """Static configuration shared by all passes. Every field of the
-    reference's config, with its default; a value the port does not
-    implement yet raises ``NotImplementedError`` naming the field, and a
-    reduced rate the reference's passes cannot run raises ``ValueError``."""
+    reference's config, with its default, each value the reference takes
+    ported; a reduced rate the reference's passes cannot run raises
+    ``ValueError``."""
 
     width: int = 1920
     height: int = 1080
@@ -111,9 +111,11 @@ class PipelineConfig:
     # taps), "anisoN" (N bilinear taps along the major gradient axis, e.g.
     # "aniso4"), "stochastic" / "stochastic1" (jittered taps that TAA
     # converges; they also turn on the temporal SSAO, MotionBlur, DoF and
-    # SSSS branches) or "sorted" (trilinear on the packed path; not ported
+    # SSSS branches) or "sorted" (trilinear on the packed path; the nearest
+    # mip through the sorted tile gather, ops/texture.sample_bilinear_sorted,
     # under the reference shading mode). The reference shading mode takes
-    # trilinear and bilinear ("auto" and "stochastic" are trilinear there).
+    # trilinear, bilinear and sorted ("auto" and "stochastic" are trilinear
+    # there).
     texture_quality: str = "auto"
     # Deferred-shading path: "packed" (one record gather per pixel,
     # channel-packed material textures, VSM sun shadows) or "reference"
@@ -149,19 +151,12 @@ class PipelineConfig:
     scene: SceneStatic = dataclasses.field(default_factory=SceneStatic)
 
     def __post_init__(self):
-        def unported(field, what):
-            raise NotImplementedError(f"{field}={getattr(self, field)!r} ({what}) is not "
-                                      "ported yet")
-
         q = self.texture_quality
         aniso = q.startswith("aniso") and (q[5:] == "" or q[5:].isdigit())
         if not aniso and q not in TEXTURE_QUALITIES:
             raise ValueError(f"unknown texture_quality {q!r}")
         if self.shading_mode not in ("packed", "reference"):
             raise ValueError(f"unknown shading_mode {self.shading_mode!r}")
-        if self.shading_mode == "reference" and q == "sorted":
-            unported("texture_quality", "the one-hot tile gather of the reference shading "
-                     "mode")
         if self.shadow_filter not in SHADOW_FILTERS:
             raise ValueError(f"unknown shadow_filter {self.shadow_filter!r}")
         # The nearest-depth upsample doubles each side, so the reference's
@@ -352,7 +347,7 @@ class RenderPipeline:
         """Whether ``render_frame`` goes through ``compile()``: on the card,
         with nothing blocking a capture, outside ``eager_frames()``."""
         return (self.device.type == "cuda" and not self.capture_blockers
-                and not _EAGER_FRAMES[0])
+                and not frames_run_eagerly())
 
     def describe(self) -> str:
         """The pass order and the registry's resource table."""
@@ -370,9 +365,11 @@ class RenderPipeline:
         """One frame from the persistent ``state``, the entry point a frame
         loop calls (``Renderer.render_frame`` does): through ``compile()``
         when ``captured``, else ``frame_fn`` eagerly. ``pass_events`` (a
-        per-pass time table) runs the eager frame."""
-        if self.captured and pass_events is None:
-            return self.compile()(state, scene, camera_state, frame_index, delta_time)
+        list) takes each pass's (name, start, end) CUDA events: the chain of
+        per-pass graphs of the captured frame, or the eager frame's."""
+        if self.captured:
+            return self.compile()(state, scene, camera_state, frame_index, delta_time,
+                                  pass_events=pass_events)
         return self.frame_fn(state, scene, camera_state, frame_index, delta_time,
                              pass_events=pass_events)
 
@@ -390,6 +387,11 @@ def eager_frames():
         yield
     finally:
         _EAGER_FRAMES[0] -= 1
+
+
+def frames_run_eagerly() -> bool:
+    """Whether the caller is within ``eager_frames()``."""
+    return bool(_EAGER_FRAMES[0])
 
 
 def tree_map_host(value, device):

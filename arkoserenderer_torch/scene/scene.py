@@ -289,17 +289,26 @@ def pool_of(arrays: SceneArrays, field: str) -> torch.Tensor:
     return obj
 
 
-def write_rows(pool: torch.Tensor, offset: int, rows: np.ndarray) -> None:
-    """``pool[offset:offset + len(rows)] = rows`` in place (uint32 texel
-    rows as int32 with the same bits). The copy is blocking: it has read
-    ``rows`` when it returns, so the caller may reuse the host buffer."""
+def host_rows(pool: torch.Tensor, offset: int, rows: np.ndarray) -> torch.Tensor:
+    """``rows`` as a host tensor to write at ``pool[offset:]`` (uint32 texel
+    rows as int32 with the same bits); IndexError when they run past the
+    pool."""
     rows = np.ascontiguousarray(rows)
     if rows.dtype == np.uint32:
         rows = rows.view(np.int32)
     n = rows.shape[0]
     if offset < 0 or offset + n > pool.shape[0]:
         raise IndexError(f"rows [{offset}, {offset + n}) outside a pool of {pool.shape[0]}")
-    pool[offset:offset + n].copy_(torch.from_numpy(rows), non_blocking=False)
+    return torch.from_numpy(rows)
+
+
+def write_rows(pool: torch.Tensor, offset: int, rows: np.ndarray) -> None:
+    """``pool[offset:offset + len(rows)] = rows`` in place (uint32 texel
+    rows as int32 with the same bits). The copy is blocking: it has read
+    ``rows`` when it returns, so the caller may reuse the host buffer
+    (``rendering/streaming`` writes its ticks through staging chunks)."""
+    src = host_rows(pool, offset, rows)
+    pool[offset:offset + src.shape[0]].copy_(src, non_blocking=False)
 
 
 def write_lights(arrays: SceneArrays, lights: dict[str, np.ndarray]) -> None:

@@ -90,8 +90,9 @@ between a mode's two blocks, and peak memory, the graphs' pools included;
 "eager (...)" names what keeps a kind from a capture), and one JSON line:
 whether the frames are captured, ms/frame (median, min, max of CUDA-event
 times around each captured frame, and the host's wall clock per frame),
-the median ms of every pass over 3 eager frames (``eager_pass_ms``: a
-graph has no per-pass events), peak device memory (allocated and
+the median ms of every pass over 3 frames replayed as the captured
+frame's chain of per-pass graphs (``pass_ms``) and over 3 eager frames
+(``eager_pass_ms``), peak device memory (allocated and
 reserved), the raster kernel's launches (and the count the configuration
 implies), the traversal kernel's launches by trace (and the count implied),
 coverage, how far the history (TAA's, or the upscaler's) moved in
@@ -477,7 +478,8 @@ def run_config(name: str, small: bool = False, warmup: int = 4, iters: int = 16,
         "ms_per_frame": bench["ms_per_frame"],
         "ms_min": min(bench["frame_ms"]), "ms_max": max(bench["frame_ms"]),
         "wall_ms_per_frame": bench["wall_ms_per_frame"],
-        "frame_ms": bench["frame_ms"], "eager_pass_ms": bench["eager_pass_ms"],
+        "frame_ms": bench["frame_ms"], "pass_ms": bench["pass_ms"],
+        "pass_ms_from": bench["pass_ms_from"], "eager_pass_ms": bench["eager_pass_ms"],
         "turns": in_turns,
         "frames": renderer.frame_index, "host_build": host_build,
         "raster_launches": rasterize_tiles_cuda.launches,
@@ -508,12 +510,57 @@ def build_pathtracer(small: bool = False, device="cuda", scene=None) -> PathTrac
                       device=device)
 
 
-def run_pathtraced(small: bool = False, warmup: int = 4, iters: int = 16):
-    """Bench the path tracer on the card: ``warmup`` + ``iters`` samples,
-    each timed by CUDA events; ms a sample (median, min, max), rays a
-    second (every lane of every trace counted), the traversal launches by
-    trace against those implied, finite radiance and LDR, peak memory and
-    the host build. Returns (result dict, PathTracer)."""
+def time_samples(tracer, n: int, eager: bool = False) -> dict:
+    """``n`` samples of ``tracer``, each timed by CUDA events: captured
+    (a replay of the sample's graph) or, with ``eager``, eager. Their ms
+    (median, each), the host wall ms a sample (the synchronised clock) and
+    the peak memory allocated over them."""
+    dev = tracer.device
+    events = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with eager_frames() if eager else contextlib.nullcontext():
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tracer.render_sample(1)
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize(dev)
+    ms = [s.elapsed_time(e) for s, e in events]
+    return {"ms": statistics.median(ms), "sample_ms": ms,
+            "wall_ms": (time.perf_counter() - t0) * 1e3 / max(n, 1),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def sample_turns(tracer, iters: int) -> dict:
+    """The captured and the eager sample of one tracer in turns: blocks of
+    ``iters`` samples, eager, captured, captured, eager (``time_samples``),
+    each block's median ms a sample and host wall ms, by mode, and each
+    mode's spread (its two blocks' difference over their mean)."""
+    out = {"captured_ms": [], "eager_ms": [], "captured_wall_ms": [], "eager_wall_ms": []}
+    for eager in (True, False, False, True):
+        b = time_samples(tracer, iters, eager)
+        mode = "eager" if eager else "captured"
+        out[f"{mode}_ms"].append(b["ms"])
+        out[f"{mode}_wall_ms"].append(b["wall_ms"])
+    for mode in ("captured", "eager"):
+        a, b = out[f"{mode}_ms"]
+        out[f"{mode}_spread"] = abs(a - b) / ((a + b) / 2)
+    return out
+
+
+def run_pathtraced(small: bool = False, warmup: int = 4, iters: int = 16,
+                   turns: bool = False):
+    """Bench the path tracer on the card: ``warmup`` + ``iters`` samples
+    (captured: replays of the sample's graph), each timed by CUDA events;
+    ms a sample (median, min, max), rays a second (every lane of every
+    trace counted), the traversal launches by trace against those implied,
+    finite radiance and LDR, peak memory and the host build; with
+    ``turns`` the captured and the eager sample in turns (``sample_turns``,
+    ``iters`` samples a block). Returns (result dict, PathTracer)."""
     dev = torch.device("cuda")
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -545,8 +592,10 @@ def run_pathtraced(small: bool = False, warmup: int = 4, iters: int = 16):
     ms = statistics.median(sample_ms)
     radiance = tracer.radiance()
     ldr = tracer.ldr()
+    in_turns = sample_turns(tracer, iters) if turns else None
     result = {
         "config": PATHTRACED, "frame": "path tracer: test scene, 3 bounces, AgX, AA",
+        "captured": tracer.captured, "turns": in_turns,
         "width": tracer.width, "height": tracer.height, "max_bounces": tracer.max_bounces,
         "ms_per_sample": ms, "ms_min": min(sample_ms), "ms_max": max(sample_ms),
         "wall_ms_per_sample": wall_ms, "sample_ms": sample_ms, "samples": samples,
@@ -557,6 +606,7 @@ def run_pathtraced(small: bool = False, warmup: int = 4, iters: int = 16):
         "ldr_finite": bool(torch.isfinite(ldr).all()),
         "mean_radiance": radiance.mean().item(), "mean_ldr": ldr.mean().item(),
         "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30,
         "device": torch.cuda.get_device_name(0), "card": card_line(),
     }
     return result, tracer
@@ -596,15 +646,16 @@ def build_line(name: str, result: dict, textures: dict | None = None) -> str:
             f"packing {b['packing_s']:.3f} s, BVH {b['bvh_s']:.3f} s)")
 
 
-def turns_line(name: str, result: dict) -> str:
-    """The captured and the eager frame of ``run_config(turns=True)``'s
-    result on one line, with the card."""
+def turns_line(name: str, result: dict, unit: str = "frame") -> str:
+    """The captured and the eager frame (or ``unit``) of a run's turns
+    (``run_config(turns=True)``, ``run_pathtraced(turns=True)``) on one
+    line, with the card."""
     t = result["turns"]
-    mode = "captured" if result["captured"] else f"eager ({result['blocked_by']})"
+    mode = "captured" if result["captured"] else f"eager ({result.get('blocked_by')})"
     return (f"{name}: {mode}; in turns: captured {t['captured_ms'][0]:.4f} / "
-            f"{t['captured_ms'][1]:.4f} ms/frame (spread {t['captured_spread']:.2%}, host wall "
+            f"{t['captured_ms'][1]:.4f} ms/{unit} (spread {t['captured_spread']:.2%}, host wall "
             f"{t['captured_wall_ms'][0]:.4f} / {t['captured_wall_ms'][1]:.4f}), eager "
-            f"{t['eager_ms'][0]:.4f} / {t['eager_ms'][1]:.4f} ms/frame (spread "
+            f"{t['eager_ms'][0]:.4f} / {t['eager_ms'][1]:.4f} ms/{unit} (spread "
             f"{t['eager_spread']:.2%}, host wall {t['eager_wall_ms'][0]:.4f} / "
             f"{t['eager_wall_ms'][1]:.4f}); peak memory {result['peak_memory_gib']:.3f} GiB "
             f"allocated, {result['peak_reserved_gib']:.3f} GiB reserved, graph pools included "
@@ -723,8 +774,9 @@ def main(argv=None) -> None:
     print(card_line(), flush=True)
     for name in args.config.split(","):
         if name == PATHTRACED:
-            result, tracer = run_pathtraced(args.small, args.warmup, args.iters)
+            result, tracer = run_pathtraced(args.small, args.warmup, args.iters, turns=True)
             print(build_line(name, result), flush=True)
+            print(turns_line(name, result, "sample"), flush=True)
             print(json.dumps(result), flush=True)
             if args.profile:
                 print(json.dumps(profile_config(name, tracer)), flush=True)

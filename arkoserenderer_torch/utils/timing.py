@@ -6,8 +6,12 @@ lands: frames fed forward serially through their persistent outputs, as a
 frame loop runs them, through a compiled frame of its own (the captured
 frame, as the reference times its jitted frame; its own graphs and
 buffers, so the caller's frames and persistent state are left as they
-were). Then it times each pass on its own, eagerly, in pipeline order, on
-the state the passes before it published, until ``deadline_s`` runs out;
+were). Then it times each pass as the reference times each pass's own
+jitted program: frames of that compiled frame replayed as the chain of
+per-pass graphs (``rendering/capture.CompiledFrame`` with
+``pass_events``), a CUDA event between each two passes, each pass's mean
+over ``iters`` frames, until ``deadline_s`` runs out; a pipeline that
+cannot be captured runs those frames eagerly with events around each pass.
 ``emit`` receives each row as it lands, so a process cut short still
 leaves a partial table.
 """
@@ -20,7 +24,7 @@ from typing import Callable
 import torch
 
 from arkoserenderer_torch.rendering.capture import CompiledFrame
-from arkoserenderer_torch.rendering.pipeline import FrameContext, RenderPipeline, tree_map_host
+from arkoserenderer_torch.rendering.pipeline import RenderPipeline
 from arkoserenderer_torch.scene.camera import CameraState
 from arkoserenderer_torch.scene.scene import SceneArrays
 
@@ -51,8 +55,9 @@ def time_passes(
     emit: Callable[[str], None] | None = None,
 ) -> dict[str, float]:
     """{name: ms} with "<frame>" (the whole frame) first, then each pass.
-    The pipeline must be on the card; on another device it raises
-    RuntimeError."""
+    The frames start from the pipeline's initial state (``state``, the
+    reference's argument, is not read). The pipeline must be on the card;
+    on another device it raises RuntimeError."""
     if pipe.device.type != "cuda":
         raise RuntimeError("time_passes times the card; the pipeline is on " + str(pipe.device))
     t_start = time.perf_counter()
@@ -67,29 +72,29 @@ def time_passes(
     cur = {"state": pipe.initial_state()}
     frame_fn = CompiledFrame(pipe) if pipe.captured else pipe.frame_fn
 
-    def frame():
+    def frame(pass_events=None):
         fed = {k: v for k, v in cur["state"].items() if k in persistent}
-        cur["state"] = frame_fn(fed, scene, camera, frame_index)
+        cur["state"] = frame_fn(fed, scene, camera, frame_index, pass_events=pass_events)
         return cur["state"]
 
     frame()  # the first frame's graph (the cached sun renders); _events_ms adds the steady one
     note("<frame>", _events_ms(frame, iters)[0])
-    del frame_fn, cur
 
-    ctx = FrameContext(scene=scene, camera=camera, frame_index=int(frame_index),
-                       delta_time=1 / 60)
-    st = dict(state)
-    st.update({k: tree_map_host(v, pipe.device)
-               for k, v in pipe.frame_inputs(frame_index).items() if k not in st})
-    for name, execute in pipe._executes:
+    per: dict[str, list[float]] = {}
+    frame(pass_events=[])  # the chain's capture
+    for i in range(iters):
         if deadline_s is not None and time.perf_counter() - t_start > deadline_s:
             if emit is not None:
-                emit(f"# deadline {deadline_s:.0f}s reached; partial table "
-                     f"({len(results) - 1}/{len(pipe._executes)} passes)")
+                emit(f"# deadline {deadline_s:.0f}s reached; per-pass rows over {i} of "
+                     f"{iters} frames")
             break
-        ms, updates = _events_ms(lambda: execute(st, ctx), iters)
-        note(name, ms)
-        st.update(updates or {})
+        events: list = []
+        frame(pass_events=events)
+        torch.cuda.synchronize()
+        for name, start, end in events:
+            per.setdefault(name, []).append(start.elapsed_time(end))
+    for name, ms in per.items():
+        note(name, sum(ms) / len(ms))
     return results
 
 

@@ -28,7 +28,7 @@ result line):
   4. the 256^2 forward golden (tests/goldens/forward.png) rendered on the
      card, under the golden test's thresholds;
   5. the forward slice (no TAA, no Bloom) at 1920x1080 with an 8192^2
-     shadow map: 12 captured frames (4 warm-up, 8 timed) and 3 eager ones
+     shadow map: 10 captured frames (3 warm-up, 7 timed) and 3 eager ones
      for the per-pass table, finite LDR, non-empty coverage, raster kernel
      launched frames + 1 times (camera every frame, sun once under the
      static shadow cache); prints ms/frame, a per-pass table and peak
@@ -42,8 +42,8 @@ result line):
   8. through arkoserenderer_torch.tools.bench, at 1920x1080 with the 8192^2
      sun map and a camera that moves every frame: the forward (TAA +
      Bloom), full_post, bindless (256 materials, 64 textures) and test_spot
-     (LocalShadow) frames, 4 warm-up + 8 timed (captured) + 3 eager (the
-     per-pass table) + 2 counted frames each:
+     (LocalShadow) frames, 3 warm-up + 7 timed (captured) + 3 eager and 3 replayed as
+     per-pass graphs (the per-pass tables) + 2 counted frames each:
      finite LDR, non-empty coverage, real motion vectors, a TAAHistory that
      changes between frames, and the raster kernel's launches by shape as
      the configuration implies them (bench.expected_launches_by_shape:
@@ -123,7 +123,7 @@ result line):
  14. ground truth: the 256^2 pathtraced golden (tests/goldens/pathtraced.png:
      PathTracer, two bounces, 4 samples) rendered on the card; the
      pathtraced kind through the bench (the test scene at 1920x1080, three
-     bounces, AgX, AA: 4 warm-up + 8 timed samples; finite radiance and
+     bounces, AgX, AA: 3 warm-up + 7 timed samples; finite radiance and
      LDR; the traversal launches by trace as implied, seven a sample: "pt
      ray 0-3", "pt sun 0-2"), then every trace of one more sample, captured
      as the sample makes it, bit for bit against the plain walk and timed
@@ -272,21 +272,49 @@ result line):
      graphs, which every Renderer frame of the phases above already ran
      through) against the eager one, for every single-card kind at
      1920x1080: phase 5's forward slice and the bench's Renderer kinds. Each
-     renders the same 16 frames from frame 0 (the same camera path) twice
-     eagerly and once captured; the captured display image and every
-     persistent tensor equal the first eager run's bit for bit (or, for a
-     resource on which the two eager runs already differ, lie within their
-     spread of one of them, named); each run's raster and traversal
-     launches, replays included, equal bench.expected_*; and it prints
-     "captured" or "eager: <what blocks it>", captured against eager
-     ms/frame (median of frames 4-15 by CUDA events) and host wall ms/frame,
+     renders the same 10 frames from frame 0 (the same camera path)
+     eagerly and captured; the captured display image and every persistent
+     tensor equal the eager run's bit for bit; each run's raster and
+     traversal launches, replays included, equal bench.expected_*; and it
+     prints "captured" or "eager: <what blocks it>", captured against eager
+     ms/frame (median of frames 4-9 by CUDA events) and host wall ms/frame,
      the kernel ms of one more captured frame (torch.profiler's CUDA
      activity; the eager frame launches the same kernels), the busy share of
      each mode (that over its unprofiled median) and peak
-     memory (the graph's pool included). Frames that must see each kernel
-     call (the rasters and traces held bit for bit above) run eagerly
-     (``rendering/pipeline.eager_frames``); a per-pass table is always from
-     eager frames (a graph has no per-pass events).
+     memory (the graph's pool included). Then the same 10 frames replay as
+     the captured frame's chain of per-pass graphs (``pass_events``: one
+     graph a pass, a CUDA event between each two): its display image and
+     persistent state equal the whole-frame graph's bit for bit, its
+     launches the bench's, and its passes' medians (frames 4-9) sum to
+     within 5 % of the whole-frame graph's ms/frame; it prints that
+     per-pass table. Frames that must see each kernel call (the rasters and
+     traces held bit for bit above) run eagerly
+     (``rendering/pipeline.eager_frames``);
+ 23. the reference's last jitted steps and branches on the card: (a) the
+     pathtraced kind at 1920x1080 (3 bounces, AA): 16 samples eager, then 16
+     captured (``PathTracer`` replays a CUDA graph of one sample): the
+     accumulation and the LDR bit for bit, seven traces a sample by label in
+     each (replays counted), ms/sample and host wall ms/sample of each, the
+     kernel ms of one profiled captured sample and the busy share of each,
+     both modes in turns (8 samples a block, E C C E), peak memory; the
+     reset on a camera move (captured against eager) and a checkpoint round
+     trip, bit for bit, the accumulation keeping its storage; then the
+     256^2 pathtraced golden through the captured sample; (c) the phase-18
+     streaming of spheres into the rt scene at 1920x1080 three ways: a tick
+     (staging chunks, non_blocking copies) between replays of the captured
+     frame, eager streaming, and blocking writes (`scene.write_rows`, no staging) between
+     replays: all 16 frames bit for bit, every pool tensor keeping its
+     storage, the host ms of a tick (staged against blocking) and ms/frame
+     with ticks against without; (d) rt_soft and forward_upscaled with a
+     still camera (the denoisers' and TemporalUpscale's nine-shift history
+     fetch) and with a 0.3 m pan a frame (the gather): 8 frames eager and
+     captured, held as in phase 22, the per-pass chain's display
+     image and state bit for bit, and the chain's RTShadow, RTReflections and
+     TemporalUpscale ms; (e) the reference shading mode under
+     texture_quality="sorted": the card's 128^2 frame against the port's
+     on the CPU (tests/test_torch_reference_frames.py's bound: under 0.2 %
+     of values off by > 2e-4, means within 1e-5), and VisibilityShading's
+     ms at 1920x1080 (per-pass graphs and eager) against trilinear.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
@@ -320,7 +348,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-FRAMES, WARMUP = 12, 4
+FRAMES, WARMUP = 10, 3
 PHASE8 = ("forward", "full_post", "bindless", "test_spot")
 PHASE9 = ("stress", "meshlet", "forward_upscaled")
 TPU_KERNEL = "arkoserenderer_tpu/ops/raster_pallas.py:63"
@@ -423,11 +451,12 @@ def truth_metrics(raster: np.ndarray, pt: np.ndarray):
 
 def print_frame_table(result: dict, card: str) -> None:
     print(f"frame ms: {[round(x, 4) for x in result['frame_ms']]}")
-    print(f"per-pass median ms of the eager frames after the timed ones (a graph has no "
-          f"per-pass events) [{card}]:")
+    print(f"per-pass median ms after the timed frames: {result['pass_ms_from']} (pass_ms), "
+          f"eager frames (eager_pass_ms) [{card}]:")
     for name, ms in result["eager_pass_ms"].items():
-        print(f"  {name:20s} {ms:10.4f}")
-    print(f"  {'sum of passes':20s} {sum(result['eager_pass_ms'].values()):10.4f}", flush=True)
+        print(f"  {name:20s} {result['pass_ms'].get(name, float('nan')):10.4f} {ms:10.4f}")
+    print(f"  {'sum of passes':20s} {sum(result['pass_ms'].values()):10.4f} "
+          f"{sum(result['eager_pass_ms'].values()):10.4f}", flush=True)
 
 
 def check_png(path: Path, size: tuple[int, int] = (1080, 1920)) -> None:
@@ -807,6 +836,26 @@ def overlay_lights(scene) -> None:
                                  color=np.array([0.2, 0.4, 1.0], np.float32)))
 
 
+def stream_worlds(scene) -> tuple:
+    """(the rt scene's first sphere segment, a shared static BLAS; a world
+    matrix for each of as many more instances of it as the pools and the
+    parked TLAS slots hold, in rows in front of the camera)."""
+    seg = 1
+    lim, mirror, sphere = scene.limits, scene._mirror, scene.segments[seg]
+    n = min(lim.max_drawables - len(scene.instances), len(scene._bvh_stream["free"]),
+            (lim.max_vertices - mirror["v_cursor"]) // sphere.positions.shape[0],
+            (lim.max_triangles - mirror["t_cursor"]) // sphere.num_triangles)
+    if n < 16:
+        raise AssertionError(f"streaming: room for {n} instances only")
+    xs = np.linspace(-4.5, 4.5, 8)
+    worlds = []
+    for i in range(n):
+        w = np.eye(4, dtype=np.float32)
+        w[:3, 3] = (xs[i % 8], 0.3 + 0.9 * (i // 32), -5.0 + 1.25 * ((i // 8) % 4) + 0.6 * (i % 2))
+        worlds.append(w)
+    return seg, worlds
+
+
 def timed_frames(step, frames: int) -> dict:
     """``step()`` ``frames`` times, each under CUDA events and the host's
     clock (synchronised): per-frame ms of both, and their medians."""
@@ -888,19 +937,8 @@ def run_slice13(dev, card: str, compare_and_time, check_kind_traces, width: int 
     # (b) streaming into the rt scene under the default 4 MiB budget.
     scene, cam, cfg, kw = bench.build_scene("rt", small)
     r = Renderer(scene, cam, cfg, device=dev, **kw)
-    seg = 1  # the first sphere's segment: a shared static BLAS
-    lim, mirror, sphere = scene.limits, scene._mirror, scene.segments[seg]
-    n = min(lim.max_drawables - len(scene.instances), len(scene._bvh_stream["free"]),
-            (lim.max_vertices - mirror["v_cursor"]) // sphere.positions.shape[0],
-            (lim.max_triangles - mirror["t_cursor"]) // sphere.num_triangles)
-    if n < 16:
-        raise AssertionError(f"streaming: room for {n} instances only")
-    xs = np.linspace(-4.5, 4.5, 8)
-    worlds = []
-    for i in range(n):
-        w = np.eye(4, dtype=np.float32)
-        w[:3, 3] = (xs[i % 8], 0.3 + 0.9 * (i // 32), -5.0 + 1.25 * ((i // 8) % 4) + 0.6 * (i % 2))
-        worlds.append(w)
+    seg, worlds = stream_worlds(scene)
+    n = len(worlds)
     r.render_frame()
     ptrs = tensor_pointers(r.scene_arrays)
     mgr = StreamingManager(scene)
@@ -1837,7 +1875,8 @@ def run_slice16(dev, card: str, compare, warmup: int = SLICE16_FRAMES[0],
     return out
 
 
-CAPTURE_FRAMES, CAPTURE_TIMED_FROM, CAPTURE_PROFILED = 16, 4, 1
+CAPTURE_FRAMES, CAPTURE_TIMED_FROM, CAPTURE_PROFILED = 10, 4, 1
+CHAIN_BOUND = 0.05  # the per-pass chain's sum against the whole-frame graph's ms
 
 
 def restart(renderer, camera_position) -> None:
@@ -1851,24 +1890,29 @@ def restart(renderer, camera_position) -> None:
     renderer.camera._prev_view = renderer.camera._prev_proj = None
 
 
-def capture_run(renderer, camera_position, move, eager: bool) -> dict:
-    """CAPTURE_FRAMES frames of ``renderer`` from its first (``restart``),
-    captured or ``eager``, the camera moved by ``move``: each frame's ms (CUDA
-    events), the host wall ms a frame over the frames from CAPTURE_TIMED_FROM
-    (the synchronised clock), the kernels' launches by shape and label, peak
-    memory, and copies of the display image and of every persistent tensor."""
+def capture_run(renderer, camera_position, move, eager: bool, frames: int | None = None,
+                chain: bool = False) -> dict:
+    """``frames`` (CAPTURE_FRAMES) frames of ``renderer`` from its first
+    (``restart``), captured or ``eager``, the camera moved by ``move``: each
+    frame's ms (CUDA events), the host wall ms a frame over the frames from
+    CAPTURE_TIMED_FROM (the synchronised clock), the kernels' launches by
+    shape and label, peak memory, and copies of the display image and of
+    every persistent tensor. With ``chain`` each frame replays the captured
+    frame's chain of per-pass graphs: "pass_ms" holds each pass's median
+    over the timed frames."""
     import contextlib
 
     from arkoserenderer_torch.rendering.capture import launch_counts, set_launch_counts
     from arkoserenderer_torch.rendering.pipeline import eager_frames
 
+    frames = frames or CAPTURE_FRAMES
     restart(renderer, camera_position)
     set_launch_counts((0, {}, 0, {}))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    events = []
+    events, passes = [], []
     with eager_frames() if eager else contextlib.nullcontext():
-        for f in range(CAPTURE_FRAMES):
+        for f in range(frames):
             if f == CAPTURE_TIMED_FROM:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1876,44 +1920,57 @@ def capture_run(renderer, camera_position, move, eager: bool) -> dict:
                 move(f)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            pass_events = [] if chain else None
             start.record()
-            out = renderer.render_frame()
+            out = renderer.render_frame(pass_events=pass_events)
             end.record()
             events.append((start, end))
+            passes.append(pass_events)
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / (CAPTURE_FRAMES - CAPTURE_TIMED_FROM)
+    wall = (time.perf_counter() - t0) * 1e3 / (frames - CAPTURE_TIMED_FROM)
     counts = launch_counts()
     frame_ms = [s.elapsed_time(e) for s, e in events]
     keep = {"display": out.clone()}
     for k in renderer.pipeline.registry.persistent_names:
         v = renderer.state.get(k)
         keep[k] = v.clone() if isinstance(v, torch.Tensor) else v
+    per_pass = {}
+    for pass_events in passes[CAPTURE_TIMED_FROM:] if chain else ():
+        for name, s, e in pass_events:
+            per_pass.setdefault(name, []).append(s.elapsed_time(e))
     return {"ms": float(np.median(frame_ms[CAPTURE_TIMED_FROM:])), "frame_ms": frame_ms,
             "wall_ms": wall, "rasters": dict(counts[1]), "traces": dict(counts[3]),
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "keep": keep}
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "keep": keep,
+            "pass_ms": {k: float(np.median(v)) for k, v in per_pass.items()}}
+
+
+def kernel_ms(step, n: int = CAPTURE_PROFILED) -> float:
+    """The card's kernel time a ``step()`` over ``n`` steps after one more:
+    torch.profiler's CUDA activity alone (no op tracing on the host). Over
+    an unprofiled step's ms it is the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernel_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernel_us / 1e3 / n
 
 
 def frame_kernel_ms(renderer, move) -> float:
-    """The card's kernel time a frame over CAPTURE_PROFILED more captured
-    frames of ``renderer``: torch.profiler's CUDA activity alone (no op
-    tracing on the host). Over an unprofiled frame's ms it is the busy
-    share."""
-    from torch.profiler import ProfilerActivity, profile
+    """``kernel_ms`` of CAPTURE_PROFILED more captured frames of
+    ``renderer``."""
 
     def step():
         if move is not None:
             move(renderer.frame_index)
         renderer.render_frame()
 
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(CAPTURE_PROFILED):
-            step()
-        torch.cuda.synchronize()
-    kernel_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    return kernel_us / 1e3 / CAPTURE_PROFILED
+    return kernel_ms(step)
 
 
 def span(run: dict) -> str:
@@ -1922,30 +1979,16 @@ def span(run: dict) -> str:
     return f"{min(timed):.4f}-{max(timed):.4f}"
 
 
-def capture_agreement(name: str, captured: dict, e1: dict, e2: dict) -> list:
-    """Hold the captured run's display image and persistent state to the
-    first eager run's: bit for bit, or, for a resource on which the two eager
-    runs already differ, within their spread (max |e1 - e2|) of one of them.
-    Returns the resources held by the spread, with their numbers."""
-    spread_held = []
-    for k, ref in e1["keep"].items():
-        c, other = captured["keep"][k], e2["keep"][k]
-        if not isinstance(ref, torch.Tensor):
-            if c != ref:
-                raise AssertionError(f"{name}: host value {k} {c} against eager {ref}")
-            continue
-        if torch.equal(c, ref):
-            continue
-        eager_spread = (other.double() - ref.double()).abs().max().item()
-        d1 = (c.double() - ref.double()).abs().max().item()
-        d2 = (c.double() - other.double()).abs().max().item()
-        if not (eager_spread > 0.0 and min(d1, d2) <= eager_spread):
-            raise AssertionError(f"{name}: captured {k} differs from eager by {d1} (and {d2} "
-                                 f"from the second eager run; the eager runs differ by "
-                                 f"{eager_spread})")
-        spread_held.append(f"{k} (captured-eager {min(d1, d2):.3e}, eager-eager "
-                           f"{eager_spread:.3e})")
-    return spread_held
+def capture_agreement(name: str, other: dict, ref: dict, what: str = "captured") -> None:
+    """Hold a run's display image and persistent state (``other``, the
+    captured run or the per-pass chain) to ``ref``'s bit for bit."""
+    for k, want in ref["keep"].items():
+        got = other["keep"][k]
+        same = torch.equal(got, want) if isinstance(want, torch.Tensor) else got == want
+        if not same:
+            diff = ((got.double() - want.double()).abs().max().item()
+                    if isinstance(want, torch.Tensor) else f"{got} against {want}")
+            raise AssertionError(f"{name}: {what} {k} differs: {diff}")
 
 
 def run_slice17(dev, card: str, kinds=None) -> dict:
@@ -1972,19 +2015,26 @@ def run_slice17(dev, card: str, kinds=None) -> dict:
         mode = "captured" if not blockers else "eager: " + ", ".join(
             f"{what} ({why})" for what, why in blockers)
         e1 = capture_run(renderer, base, move, eager=True)
-        e2 = capture_run(renderer, base, move, eager=True)
         c = capture_run(renderer, base, move, eager=False)
+        ch = capture_run(renderer, base, move, eager=False, chain=True)
         want_r = {k: v for k, v in bench.expected_launches_by_shape(
             renderer, CAPTURE_FRAMES).items()}
         want_t = bench.expected_trace_launches_by_label(renderer, CAPTURE_FRAMES)
-        for tag, run in (("eager", e1), ("eager again", e2), ("captured", c)):
+        for tag, run in (("eager", e1), ("captured", c), ("per-pass chain", ch)):
             if run["rasters"] != want_r or run["traces"] != want_t:
                 raise AssertionError(f"{name} {tag}: rasters {run['rasters']} (expected "
                                      f"{want_r}), traces {run['traces']} (expected {want_t}) "
                                      f"in {CAPTURE_FRAMES} frames")
-        held = capture_agreement(name, c, e1, e2)
+        capture_agreement(name, c, e1)
         if not bool(torch.isfinite(c["keep"]["display"]).all()):
             raise AssertionError(f"{name}: the captured display image is not finite")
+        # The chain of per-pass graphs: the whole-frame graph's outputs bit
+        # for bit, its passes' sum within 5 % of the whole frame's ms.
+        capture_agreement(name, ch, c, "the per-pass chain's")
+        chain_sum = sum(ch["pass_ms"].values())
+        if not abs(chain_sum - c["ms"]) <= CHAIN_BOUND * c["ms"]:
+            raise AssertionError(f"{name}: the per-pass chain's passes sum to {chain_sum} ms "
+                                 f"against the whole-frame graph's {c['ms']} ms")
         # The eager frame launches the same kernels on the same inputs (its
         # outputs are the captured ones bit for bit), so one profiled captured
         # frame gives the kernel time of both.
@@ -1993,25 +2043,21 @@ def run_slice17(dev, card: str, kinds=None) -> dict:
         busy = {"captured": kernels / c["ms"], "eager": kernels / e1["ms"]}
         t_busy = time.perf_counter() - t_prof
         n_state = sum(isinstance(v, torch.Tensor) for v in c["keep"].values()) - 1
-        agree = ("bit for bit" if not held else
-                 f"bit for bit but {len(held)} held within the eager runs' spread: "
-                 f"{'; '.join(held)}")
-        out[name] = {"mode": mode, "captured_ms": c["ms"], "eager_ms": [e1["ms"], e2["ms"]],
-                     "captured_wall_ms": c["wall_ms"], "eager_wall_ms": [e1["wall_ms"],
-                                                                          e2["wall_ms"]],
+        out[name] = {"mode": mode, "captured_ms": c["ms"], "eager_ms": e1["ms"],
+                     "captured_wall_ms": c["wall_ms"], "eager_wall_ms": e1["wall_ms"],
                      "kernel_ms": kernels, "busy_share": busy,
-                     "captured_peak_gib": c["peak_gib"],
-                     "eager_peak_gib": e1["peak_gib"], "spread_held": held,
+                     "captured_peak_gib": c["peak_gib"], "pass_ms": ch["pass_ms"],
+                     "chain_ms": ch["ms"],
+                     "eager_peak_gib": e1["peak_gib"],
                      "rasters_per_frame": {str(k): v / CAPTURE_FRAMES for k, v in want_r.items()},
                      "traces_per_frame": {k: v / CAPTURE_FRAMES for k, v in want_t.items()}}
         print(f"phase 22 {name} {renderer.cfg.width}x{renderer.cfg.height}: {mode}; "
-              f"{CAPTURE_FRAMES} frames from frame 0, twice eager then captured: display image "
-              f"and {n_state} persistent tensors {agree}; launches as expected in each run "
+              f"{CAPTURE_FRAMES} frames from frame 0, eager then captured: display image "
+              f"and {n_state} persistent tensors bit for bit; launches as expected in each run "
               f"(rasters {want_r}, traces {want_t}); ms/frame (median of frames "
               f"{CAPTURE_TIMED_FROM}-{CAPTURE_FRAMES - 1}, CUDA events; min-max) captured "
-              f"{c['ms']:.4f} ({span(c)}), eager {e1['ms']:.4f} ({span(e1)}) / {e2['ms']:.4f} "
-              f"({span(e2)}); host wall ms/frame "
-              f"captured {c['wall_ms']:.4f}, eager {e1['wall_ms']:.4f} / {e2['wall_ms']:.4f}; "
+              f"{c['ms']:.4f} ({span(c)}), eager {e1['ms']:.4f} ({span(e1)}); host wall "
+              f"ms/frame captured {c['wall_ms']:.4f}, eager {e1['wall_ms']:.4f}; "
               f"kernel ms/frame ({CAPTURE_PROFILED} profiled captured frame; the eager "
               f"frame's kernels are the same) {kernels:.4f}, busy share (kernels over the "
               f"unprofiled median) captured {busy['captured']:.3f}, eager "
@@ -2019,10 +2065,261 @@ def run_slice17(dev, card: str, kinds=None) -> dict:
               f"{c['peak_gib']:.3f} GiB (graph pool included), eager {e1['peak_gib']:.3f} GiB; "
               f"{time.perf_counter() - t_kind:.1f} s, of which profiling {t_busy:.1f} s "
               f"[{card}]", flush=True)
-        del renderer, e1, e2, c
+        print(f"phase 22 {name}: the chain of per-pass graphs, its display image and persistent "
+              f"state bit for bit as the whole-frame graph's; its passes sum to "
+              f"{chain_sum:.4f} ms against the whole frame's {c['ms']:.4f} ms "
+              f"({chain_sum / c['ms'] - 1:+.2%}; the chain's frame {ch['ms']:.4f}); per-pass "
+              f"median ms of frames {CAPTURE_TIMED_FROM}-{CAPTURE_FRAMES - 1} [{card}]: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ch["pass_ms"].items()), flush=True)
+        del renderer, e1, c, ch
         gc.collect()
         torch.cuda.empty_cache()
     print(f"phase 22 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
+# Phase 23: samples a path-tracer run, frames a still or panning run, the
+# camera's pan a frame (m), and the reference-mode sorted frame's CPU size.
+SLICE18_SAMPLES, SLICE18_FRAMES, PAN_M, SORTED_CPU_SIZE = 16, 8, 0.3, 128
+STREAM_TICK_BYTES = 320 << 10  # the streamed spheres' 1.55 MB over five ticks
+HISTORY_PASSES = ("RTShadow", "RTReflections", "TemporalUpscale")
+
+
+def run_slice18(dev, card: str, small: bool = False) -> dict:
+    """Phase 23 (see the module docstring). Returns its numbers."""
+    import contextlib
+    import dataclasses
+    import gc
+
+    from arkoserenderer_torch.assets.procedural import build_test_scene
+    from arkoserenderer_torch.core.types import RasterConfig
+    from arkoserenderer_torch.models.pathtracer import PathTracer
+    from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.rendering.capture import launch_counts, set_launch_counts
+    from arkoserenderer_torch.rendering.pipeline import PipelineConfig, eager_frames
+    from arkoserenderer_torch.rendering.streaming import LOADED, StreamingManager
+    from arkoserenderer_torch.scene.scene import write_rows
+    from arkoserenderer_torch.tools import bench
+
+    t_phase = time.perf_counter()
+    out = {}
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    # (a) the path tracer's captured sample against the eager one.
+    tracer = bench.build_pathtracer(small, dev)
+    W, H = tracer.width, tracer.height
+    want = bench.expected_trace_launches_by_label(tracer, SLICE18_SAMPLES)
+
+    def samples(eager: bool) -> dict:
+        tracer.reset()
+        set_launch_counts((0, {}, 0, {}))
+        run = bench.time_samples(tracer, SLICE18_SAMPLES, eager)
+        run.update(accum=tracer.accum.clone(), ldr=tracer.ldr().clone(),
+                   traces=dict(launch_counts()[3]))
+        if run["traces"] != want or tracer.sample_count != SLICE18_SAMPLES:
+            raise AssertionError(f"pathtraced {'eager' if eager else 'captured'}: traces "
+                                 f"{run['traces']} against {want}")
+        return run
+
+    eager = samples(True)
+    captured = samples(False)
+    if tracer._graph is None or not (torch.equal(captured["accum"], eager["accum"])
+                                     and torch.equal(captured["ldr"], eager["ldr"])):
+        raise AssertionError("pathtraced: the captured samples differ from the eager ones")
+    if not (bool(torch.isfinite(captured["ldr"]).all()) and captured["ldr"].mean() > 0):
+        raise AssertionError("pathtraced: the captured LDR is not finite, or black")
+    k_ms = kernel_ms(lambda: tracer.render_sample(1))
+    turns = bench.sample_turns(tracer, SLICE18_SAMPLES // 2)
+    accum_ptr = tracer.accum.data_ptr()
+    base = tracer.camera.position.copy()
+    tracer.camera.position = base + np.array([0.2, 0.0, 0.0], np.float32)
+    moved = tracer.render_sample(2).clone()
+    count_moved = tracer.sample_count
+    tracer.reset()
+    with eager_frames():
+        moved_eager = tracer.render_sample(2).clone()
+    ckpt = out_dir / "pathtracer.npz"
+    tracer.save_checkpoint(str(ckpt))
+    on = tracer.render_sample(2).clone()
+    tracer.load_checkpoint(str(ckpt))
+    again = tracer.render_sample(2).clone()
+    if not (count_moved == 2 and torch.equal(moved, moved_eager) and torch.equal(on, again)
+            and tracer.accum.data_ptr() == accum_ptr):
+        raise AssertionError("pathtraced: the reset on a camera move or the checkpoint round "
+                             "trip differs under capture")
+    tracer.camera.position = base
+    busy = {"captured": k_ms / captured["ms"], "eager": k_ms / eager["ms"]}
+    out["pathtraced"] = {"captured_ms": captured["ms"], "eager_ms": eager["ms"],
+                         "captured_wall_ms": captured["wall_ms"], "eager_wall_ms": eager["wall_ms"],
+                         "kernel_ms": k_ms, "busy_share": busy, "turns": turns,
+                         "captured_peak_gib": captured["peak_gib"],
+                         "eager_peak_gib": eager["peak_gib"]}
+    print(f"phase 23 (a) pathtraced {W}x{H}, {tracer.max_bounces} bounces: {SLICE18_SAMPLES} "
+          f"samples eager then captured (a CUDA graph of one sample, replayed), the "
+          f"accumulation and LDR bit for bit, traces {want} in each; ms/sample (median, CUDA "
+          f"events) captured {captured['ms']:.4f}, eager {eager['ms']:.4f}; host wall "
+          f"ms/sample captured {captured['wall_ms']:.4f}, eager {eager['wall_ms']:.4f}; kernel "
+          f"ms/sample {k_ms:.4f} (one profiled captured sample), busy share captured "
+          f"{busy['captured']:.3f}, eager {busy['eager']:.3f}; in turns (8 a block, E C C E) "
+          f"captured {turns['captured_ms'][0]:.4f} / {turns['captured_ms'][1]:.4f}, eager "
+          f"{turns['eager_ms'][0]:.4f} / {turns['eager_ms'][1]:.4f}; peak memory captured "
+          f"{captured['peak_gib']:.3f} GiB (the graph's pool and its capture included), eager "
+          f"{eager['peak_gib']:.3f} GiB; the reset on a camera move and a checkpoint round "
+          f"trip bit for bit under capture, the accumulation's storage kept [{card}]",
+          flush=True)
+    del tracer, eager, captured
+    g_scene, g_cam = build_test_scene(viewport=(256, 256), n_spheres=1)
+    g_tracer = PathTracer(g_scene, g_cam, 256, 256, max_bounces=2, seed=7, device=dev)
+    g_tracer.render_sample(4)
+    if not (g_tracer.captured and g_tracer._graph is not None):
+        raise AssertionError("the pathtraced golden did not run through the captured sample")
+    check_golden("pathtraced", g_tracer.ldr())
+    del g_tracer
+
+    # (c) streaming into the rt scene with a tick between replays of the
+    # captured frame, against eager streaming and against blocking writes.
+    class BlockingManager(StreamingManager):
+        def _write(self, pool, offset, rows):  # blocking copies, no staging chunk
+            write_rows(pool, offset, rows)
+
+    def stream(mode: str) -> dict:
+        """A frame loop that ticks, then renders, never waiting on the card:
+        a tick runs while the frame before it is in flight."""
+        scene, cam, cfg, kw = bench.build_scene("rt", small)
+        r = Renderer(scene, cam, cfg, device=dev, **kw)
+        seg, worlds = stream_worlds(scene)
+        r.render_frame()
+        ptrs = tensor_pointers(r.scene_arrays)
+        mgr = (BlockingManager if mode == "blocking" else StreamingManager)(
+            scene, budget_bytes=STREAM_TICK_BYTES)
+        tickets = [mgr.enqueue_instance(seg, w) for w in worlds]
+        frames, tick_ms, events, loaded_at = [], [], [], None
+        torch.cuda.synchronize()
+        with eager_frames() if mode == "eager" else contextlib.nullcontext():
+            for f in range(2 * STREAM_FRAMES):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                if f < STREAM_FRAMES:
+                    t0 = time.perf_counter()
+                    r.scene_arrays = mgr.tick(r.scene_arrays)
+                    tick_ms.append(((time.perf_counter() - t0) * 1e3,
+                                    mgr.bytes_uploaded_last_tick))
+                    if loaded_at is None and all(t.state == LOADED for t in tickets):
+                        loaded_at = f + 1
+                frames.append(r.render_frame().clone())
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+        frame_ms = [a.elapsed_time(b) for a, b in events]
+        if loaded_at is None or tensor_pointers(r.scene_arrays) != ptrs:
+            raise AssertionError(f"streaming {mode}: loaded after {loaded_at}, pool storage "
+                                 f"kept {tensor_pointers(r.scene_arrays) == ptrs}")
+        busy_ticks = [ms for ms, b in tick_ms if b > 0]
+        return {"frames": frames, "tick_ms": float(np.median(busy_ticks)),
+                "first_tick_ms": busy_ticks[0], "ticks": tick_ms,
+                "with_ticks_ms": float(np.median(frame_ms[1:STREAM_FRAMES])),
+                "without_ms": float(np.median(frame_ms[STREAM_FRAMES + 1:])),
+                "loaded_at": loaded_at, "n": len(worlds), "captured": r.pipeline.captured}
+
+    runs = {mode: stream(mode) for mode in ("captured", "eager", "blocking")}
+    for mode in ("eager", "blocking"):
+        for f, (a, b) in enumerate(zip(runs["captured"]["frames"], runs[mode]["frames"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"streamed rt frame {f}: captured with staged ticks "
+                                     f"differs from {mode} streaming")
+    c_run, b_run = runs["captured"], runs["blocking"]
+    out["streaming"] = {m: {k: v for k, v in r_.items() if k != "frames"}
+                        for m, r_ in runs.items()}
+    print(f"phase 23 (c) streaming {c_run['n']} spheres into the rt scene {W}x{H} "
+          f"({STREAM_TICK_BYTES // 1024} KiB a tick, LOADED after {c_run['loaded_at']} ticks) "
+          f"with a tick between replays of the captured frame, the host never waiting on the "
+          f"card: all {2 * STREAM_FRAMES} frames bit for bit as eager streaming's and as "
+          f"blocking writes' (no staging), every pool tensor kept its storage; host ms "
+          f"of a tick (median of the ticks that wrote; the first) staged "
+          f"{c_run['tick_ms']:.4f} ({c_run['first_tick_ms']:.4f}), blocking "
+          f"{b_run['tick_ms']:.4f} ({b_run['first_tick_ms']:.4f}); ms/frame (CUDA events "
+          f"around tick + frame, median) captured with ticks {c_run['with_ticks_ms']:.4f}, "
+          f"without {c_run['without_ms']:.4f}; blocking ticks {b_run['with_ticks_ms']:.4f}; "
+          f"eager streaming {runs['eager']['with_ticks_ms']:.4f} [{card}]", flush=True)
+    del runs, c_run, b_run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the history branches: a still camera (every motion within a pixel:
+    # the nine-shift fetch) and a pan (the gather), captured against eager.
+    for name in ("rt_soft", "forward_upscaled"):
+        scene, camera, cfg, kw = bench.build_scene(name, small)
+        renderer = Renderer(scene, camera, cfg, device=dev, **kw)
+        start = np.array(renderer.camera.position, np.float32)
+
+        def pan(f, renderer=renderer, start=start):
+            renderer.camera.position = start + np.array([PAN_M * f, 0.0, 0.0], np.float32)
+
+        for label, move in (("still", None), ("pan", pan)):
+            e1, c = (capture_run(renderer, start, move, eager, SLICE18_FRAMES)
+                     for eager in (True, False))
+            capture_agreement(f"{name} {label}", c, e1)
+            speed = renderer.state["SceneVelocity"].abs().max().item()
+            ch = capture_run(renderer, start, move, False, SLICE18_FRAMES, chain=True)
+            capture_agreement(f"{name} {label}", ch, c, "the per-pass chain's")
+            if (speed <= 1.0) != (label == "still"):
+                raise AssertionError(f"{name} {label}: largest motion {speed} px")
+            out[f"{name} {label}"] = {"captured_ms": c["ms"], "eager_ms": e1["ms"],
+                                      "pass_ms": ch["pass_ms"], "speed_px": speed}
+            print(f"phase 23 (d) {name} {renderer.cfg.width}x{renderer.cfg.height} {label} "
+                  f"(largest motion component {speed:.4f} "
+                  f"render px: the {'shift' if label == 'still' else 'gather'} branch): "
+                  f"{SLICE18_FRAMES} frames captured bit for bit as eager; "
+                  f"ms/frame captured {c['ms']:.4f}, eager {e1['ms']:.4f}; per-pass graphs "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ch["pass_ms"].items()
+                              if k in HISTORY_PASSES) + f" ms [{card}]", flush=True)
+        del renderer, e1, c, ch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) the reference shading mode with texture_quality="sorted": the card
+    # against the port on the CPU, then its VisibilityShading at 1920x1080.
+    size = SORTED_CPU_SIZE
+    tile16 = RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256)
+    imgs = []
+    for device in (dev, "cpu"):
+        sc, cm = build_test_scene(viewport=(size, size), n_spheres=3)
+        c_ = PipelineConfig(width=size, height=size, raster=tile16, shadow_map_size=128,
+                            shading_mode="reference", texture_quality="sorted")
+        imgs.append(Renderer(sc, cm, c_, device=device, taa=False, bloom=False)
+                    .render_frame().cpu().numpy())
+    diff = np.abs(imgs[0] - imgs[1])
+    off, mean = (diff > 2e-4).mean(), abs(imgs[0].mean() - imgs[1].mean())
+    if not (np.isfinite(imgs[0]).all() and off < 0.002 and mean < 1e-5):
+        raise AssertionError(f"sorted {size}x{size}: card vs CPU {off:.4%} off by > 2e-4, "
+                             f"means {mean}")
+    vs = {}
+    for quality in ("sorted", "trilinear"):
+        sc, cm, c_, kw_ = bench.build_scene("forward", small)
+        rr = Renderer(sc, cm, dataclasses.replace(c_, shading_mode="reference",
+                                                  texture_quality=quality), device=dev, **kw_)
+        res = rr.benchmark(warmup=2, iters=6, before_frame=bench.camera_mover(rr))
+        if not bool(torch.isfinite(rr.state["LDR"]).all()):
+            raise AssertionError(f"forward reference {quality}: the LDR is not finite")
+        vs[quality] = res
+        del rr
+    out["sorted"] = {q: {"ms": r_["ms_per_frame"],
+                         "VisibilityShading": r_["pass_ms"]["VisibilityShading"],
+                         "VisibilityShading_eager": r_["eager_pass_ms"]["VisibilityShading"]}
+                     for q, r_ in vs.items()}
+    print(f"phase 23 (e) shading_mode=reference, texture_quality=sorted: {size}x{size} card "
+          f"against the port on the CPU {off:.4%} of values off by > 2e-4 (< 0.2 %), means "
+          f"{mean:.2e} apart (< 1e-5); forward {W}x{H} VisibilityShading (captured per-pass "
+          f"graphs, eager) sorted {out['sorted']['sorted']['VisibilityShading']:.4f}, "
+          f"{out['sorted']['sorted']['VisibilityShading_eager']:.4f} ms against trilinear "
+          f"{out['sorted']['trilinear']['VisibilityShading']:.4f}, "
+          f"{out['sorted']['trilinear']['VisibilityShading_eager']:.4f} ms; ms/frame "
+          f"{vs['sorted']['ms_per_frame']:.4f} against {vs['trilinear']['ms_per_frame']:.4f} "
+          f"[{card}]", flush=True)
+    print(f"phase 23 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    print(json.dumps({"slice18": out}), flush=True)
     return out
 
 
@@ -2595,6 +2892,8 @@ def main() -> None:
     # -- 22. the captured frame against the eager one, every kind -----------------------
     print(f"[phase 22 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     run_slice17(dev, card)
+    print(f"[phase 23 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
+    run_slice18(dev, card)
 
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
@@ -2614,7 +2913,7 @@ def main() -> None:
     if not all(launches.values()):
         raise AssertionError(f"a raster of the frames' path was never launched: {launches}")
 
-    print(f"phases 1-22 took {time.perf_counter() - t_main:.1f} s", flush=True)
+    print(f"phases 1-23 took {time.perf_counter() - t_main:.1f} s", flush=True)
     print(card)
     rows = [{
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,

@@ -26,8 +26,9 @@ every captured kind to its eager frames bit for bit. Here:
     bound on the TAA frame.
 (c) ``rendering/capture.CompiledFrame``'s bookkeeping, through a stand-in
     for torch's graph API whose capture runs the frame (on the CPU) and
-    whose replay does nothing: donation, the cache by ``donate_state`` and
-    the graphs by the host's branch.
+    whose replay does nothing: donation, the cache by ``donate_state``, the
+    graphs by the host's branch, and the chain of per-pass graphs that
+    ``pass_events`` replays.
 (d) ``sample_blue_noise`` with a tensor frame index equals the host int's,
     bit for bit, for frames 0-1000.
 """
@@ -382,6 +383,41 @@ def test_a_graph_for_each_host_branch(stand_in_graphs):
     names = [p.name for p in r.pipeline.passes]
     want = [tuple(dirty if n == "SunShadow" else None for n in names) for dirty in (False, True)]
     assert sorted(key[-1] for key in fn.graphs) == want
+
+
+class _StandInEvent:
+    def __init__(self, **kwargs):
+        pass
+
+    def record(self):
+        pass
+
+
+def test_per_pass_chain(stand_in_graphs, monkeypatch):
+    """With ``pass_events`` the frame is captured as a chain of graphs, one
+    a pass in pipeline order, each appending (name, start, end) with one
+    event between each two passes; its outputs (and, donated, the state it
+    writes) equal the whole-frame graph's on the same inputs."""
+    monkeypatch.setattr(torch.cuda, "Event", _StandInEvent)
+    r = forward_renderer()
+    cs = r.camera.state(0, "cpu")
+    whole = capture.CompiledFrame(r.pipeline, donate_state=False)(
+        frame_inputs(r, 0), r.scene_arrays, cs, 0)
+    fn = capture.CompiledFrame(r.pipeline, donate_state=True)
+    state = frame_inputs(r, 0)
+    events = []
+    chained = fn(state, r.scene_arrays, cs, 0, pass_events=events)
+    names = [p.name for p in r.pipeline.passes]
+    assert [name for name, _, _ in events] == names
+    assert all(a[2] is b[1] for a, b in zip(events, events[1:]))
+    (g,) = fn.graphs.values()
+    assert [name for name, _ in g.graph] == names and fn.captures == 1
+    for k, v in whole.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(chained[k], v), k
+    assert torch.equal(state["TAAHistory"], whole["TAAHistory"])  # donated in the last graph
+    fn(state, r.scene_arrays, cs, 1)  # the whole-frame graph is another entry
+    assert fn.captures == 2
 
 
 # ---------------------------------------------------------------------------

@@ -50,11 +50,11 @@ UNPORTED = [("texture_quality", "sorted"), ("sky_fetch_scale", 2),
             ("ddgi_sample_scale", 2)]
 # Of those, ported since they were listed: each builds the reference's
 # pipeline (the DDGI rate with a probe grid).
-PORTED_SINCE = ("sky_fetch_scale", "ddgi_sample_scale")
+PORTED_SINCE = ("sky_fetch_scale", "ddgi_sample_scale", "texture_quality")
 # The pixel-band sharding fields (parallel/sharded.py), each taken as the
 # reference takes it.
 SHARDING = [("shard_axis", "x"), ("shard_count", 2), ("full_height", 2 * RES)]
-# The rest of the config an unported value needs: "sorted" is unported only
+# The rest of the config a listed value needs: "sorted" was unported only
 # under the reference shading mode (the packed mode takes it as trilinear).
 UNPORTED_WITH = {"texture_quality": {"shading_mode": "reference"}}
 
@@ -75,8 +75,10 @@ def test_unported_values_raise_by_name(field, value):
         from arkoserenderer_tpu.ops.ddgi import ProbeGridConfig as JGrid
 
         sizes = dict(width=32, height=16, shadow_map_size=32)
-        tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), **sizes, **{field: value})
-        jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), **sizes, **{field: value})
+        tcfg = TPipelineConfig(raster=TRasterConfig(**RASTER), **sizes, **base,
+                               **{field: value})
+        jcfg = JPipelineConfig(raster=JRasterConfig(**RASTER), **sizes, **base,
+                               **{field: value})
         kw, jkw = ((dict(ddgi=ProbeGridConfig()), dict(ddgi=JGrid()))
                    if field == "ddgi_sample_scale" else ({}, {}))
         names = [p.name for p in t_make_pipeline(tcfg, device="cpu", **kw).passes]

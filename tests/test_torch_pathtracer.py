@@ -3,8 +3,9 @@
 seed 7, two bounces: textures at ray-cone mips, the environment, the sun's
 NEE, diffuse and GGX bounces), the `pathtraced` golden (test_golden.py's
 case: 256^2, 4 samples) on the CPU, ``PathTracer``'s bookkeeping (the
-reset on a camera move, a checkpoint round trip), and the bench's
-pathtraced and rt_soft kinds at their small size.
+reset on a camera move, a checkpoint round trip; both also against JAX's
+tracer, with the accumulation kept in place), and the bench's pathtraced
+and rt_soft kinds at their small size.
 
 Both sides draw the same random numbers (``core/prng`` equals
 ``jax.random`` bit for bit) and trace the same BVH. Radiance is held to
@@ -34,16 +35,59 @@ def assert_radiance_close(ours, ref, share=SHARE):
     assert ok.mean() >= share, f"{ok.mean():.4%} of pixels within tolerance"
 
 
-def test_trace_path_matches_jax():
+@pytest.fixture(scope="module")
+def jax_tracer():
+    """JAX's tracer at 32^2, two bounces, seed 7 (one compile of its jitted
+    step for the module), and its camera's first position."""
     from arkoserenderer_tpu.assets import procedural as jproc
     from arkoserenderer_tpu.models.pathtracer import PathTracer as JPathTracer
 
     js, jc = jproc.build_test_scene(viewport=(32, 32), n_spheres=1)
+    return JPathTracer(js, jc, 32, 32, max_bounces=2, seed=7), jc.position.copy()
+
+
+def port_tracer(seed: int = 7):
     ts, tc = tproc.build_test_scene(viewport=(32, 32), n_spheres=1)
-    ref = np.asarray(JPathTracer(js, jc, 32, 32, max_bounces=2, seed=7).render_sample(1))
-    ours = TPathTracer(ts, tc, 32, 32, max_bounces=2, seed=7, device="cpu").render_sample(1)
+    return TPathTracer(ts, tc, 32, 32, max_bounces=2, seed=seed, device="cpu")
+
+
+def test_trace_path_matches_jax(jax_tracer):
+    j, _ = jax_tracer
+    ref = np.asarray(j.render_sample(1))
+    ours = port_tracer().render_sample(1)
     assert_radiance_close(ours.numpy(), ref)
     assert ref.max() > 0.1  # lit, not black
+
+
+def test_accumulation_reset_and_checkpoint_match_jax(jax_tracer, tmp_path):
+    """The accumulation in place, the reset on a camera move and a
+    checkpoint round trip against JAX's tracer: two samples from the start,
+    two after a move (both reset), then the port's checkpoint loaded by
+    JAX's tracer (moved on past it) and by a new port tracer of another
+    seed, each taking one more sample. The accumulation keeps its storage
+    throughout (a captured sample reads and writes that buffer)."""
+    j, start = jax_tracer
+    j.camera.position = start.copy()
+    j.render_sample(1)
+    j.reset()
+    t = port_tracer()
+    accum = t.accum.data_ptr()
+    assert_radiance_close(t.render_sample(2).numpy(), j.render_sample(2))
+    for cam in (j.camera, t.camera):
+        cam.position = cam.position + np.array([0.3, 0.0, 0.0], np.float32)
+    assert_radiance_close(t.render_sample(2).numpy(), j.render_sample(2))
+    assert t.sample_count == j.sample_count == 2  # both reset on the move
+    path = str(tmp_path / "pt.npz")
+    t.save_checkpoint(path)
+    resumed = port_tracer(seed=0)
+    resumed.camera.position = t.camera.position.copy()
+    kept = resumed.accum.data_ptr()
+    resumed.load_checkpoint(path)
+    j.render_sample(1)
+    j.load_checkpoint(path)
+    assert_radiance_close(resumed.render_sample(1).numpy(), j.render_sample(1))
+    assert resumed.sample_count == 3 and resumed.accum.data_ptr() == kept
+    assert t.accum.data_ptr() == accum
 
 
 def test_pathtraced_golden():

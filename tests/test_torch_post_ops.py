@@ -201,6 +201,30 @@ def test_fxaa_matches_jax():
     assert (np.abs(ours - img).max(-1) > 1e-3).mean() > 0.01  # edges were blended
 
 
+def test_fxaa_active_mask_matches_jax():
+    """The edge test flips on an ulp of luma: under 0.5 % of pixels may
+    differ; FXAA blends exactly the masked pixels."""
+    img = ldr_image(6)
+    ours = tpp.fxaa_active_mask(T(img)).numpy()
+    ref = np.asarray(jpp.fxaa_active_mask(J(img)))
+    assert ours.shape == ref.shape == (H, W) and ours.dtype == bool
+    assert (ours != ref).mean() < 0.005 and 0.01 < ours.mean() < 0.99
+    blended = np.abs(tpp.fxaa(T(img)).numpy() - img).max(-1) > 0.0
+    assert not (blended & ~ours).any()
+
+
+def test_r2_and_blue_noise_ranks_equal_jax():
+    from arkoserenderer_torch.ops import noise as tnoise
+    from arkoserenderer_tpu.ops import noise as jnoise
+
+    for n in (1, 16, 1000):
+        np.testing.assert_array_equal(thalton.r2_sequence(n), jhalton.r2_sequence(n))
+    ours, ref = tnoise.blue_noise_ranks(), jnoise.blue_noise_ranks()
+    assert ours.dtype == ref.dtype and ours.shape == ref.shape == (128, 128)
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(np.sort(ours.ravel()), np.arange(128 * 128))
+
+
 def test_cas_matches_jax():
     img = ldr_image(7)
     ours = tpp.cas(T(img), 0.5)

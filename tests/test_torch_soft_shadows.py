@@ -7,10 +7,10 @@ has a penumbra while a zero-radius light stays binary; the path tracer's
 soft sun moves real pixels at about the same energy).
 
 Tolerances: the denoiser's functions 1e-5, absolute on values in [0, 1]
-and relative above 1 (the sample counts, up to 24): XLA:CPU reassociates,
-and the reference fetches sub-pixel history with nine weighted shifts
-where the port gathers, the same bilinear filter rounded in another order
-(12 ulps of a count of 17 in one case here). In the pass walk, the raw
+and relative above 1 (the sample counts, up to 24): XLA:CPU reassociates
+(both packages fetch sub-pixel history with nine weighted shifts and
+faster motion with a gather: tests/test_torch_history_branches.py holds
+the branch itself). In the pass walk, the raw
 masks are hard thresholds whose ray can flip on an ulp of its origin, so
 as in test_torch_rt.py at most 0.1 % of values may differ; the denoised
 planes and their moments mix a flip into their 5x5 neighbourhood, so at

@@ -251,16 +251,23 @@ def test_compute_lod_and_sample_grad_match_jax(shading_inputs, quality):
 
 def test_sample_grad_qualities_by_name(shading_inputs):
     """"auto" and "stochastic" are trilinear (the reference's per-field path
-    has no stochastic filter); "sorted" raises NotImplementedError naming it;
-    an unknown name raises ValueError, as in the reference."""
-    _, _, _, tsa, _ = shading_inputs
+    has no stochastic filter); "sorted" (ported since it raised here) is the
+    reference's sorted tile gather, within 1e-6 of JAX's on the textured
+    scene's pool (tests/test_torch_sorted_texture.py holds it further); an
+    unknown name raises ValueError, as in the reference."""
+    sa, _, _, tsa, _ = shading_inputs
     uv, dx, dy = (_t(a[:64]) for a in _gradient_case())
     tex = torch.full((64,), 4, dtype=torch.int32)
     tri = ttx.sample_grad(tsa.textures, tex, uv, dx, dy)
     for q in ("auto", "stochastic"):
         assert torch.equal(ttx.sample_grad(tsa.textures, tex, uv, dx, dy, quality=q), tri)
-    with pytest.raises(NotImplementedError, match="sorted"):
-        ttx.sample_grad(tsa.textures, tex, uv, dx, dy, quality="sorted")
+    # The tile gather takes whole tiles of 1,024 pixels, as a frame has them.
+    uv, dx, dy = (_t(a[:1024]) for a in _gradient_case())
+    tex = torch.full((1024,), 4, dtype=torch.int32)
+    ours = ttx.sample_grad(tsa.textures, tex, uv, dx, dy, quality="sorted")
+    ref = jax.jit(lambda *a: jtx.sample_grad(*a, quality="sorted"))(
+        sa.textures, jnp.asarray(tex.numpy()), *(jnp.asarray(a.numpy()) for a in (uv, dx, dy)))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
     for q in ("aniso4", "stochastic1", "nearest"):
         with pytest.raises(ValueError):
             ttx.sample_grad(tsa.textures, tex, uv, dx, dy, quality=q)

@@ -22,9 +22,10 @@ Tolerances:
     which the clamp passes on times gamma (up to 4) and CAS sharpens. The
     port and the reference are each as far from a float64 evaluation of
     the pass as from each other (``test_upscale_difference_is_f32_rounding``).
-  * the reprojection: the reference takes nine sub-pixel shifts when the
+  * the reprojection: both packages take nine sub-pixel shifts when the
     frame's largest display-space motion is at most a pixel, a branch on a
-    device value; the port always takes the bilinear gather. The two are
+    device value, and the bilinear gather otherwise
+    (tests/test_torch_history_branches.py holds the branch). The two are
     the same interpolation summed in another order: equal at zero motion
     (frame 0, and a still camera whose jitter alone moves), and within
     FAST_BRANCH_ATOL at sub-pixel motion.
@@ -247,9 +248,10 @@ def test_history_accumulates(upscaled_walk):
 
 @pytest.mark.parametrize("max_offset", [0.0, 0.5, 1.0])
 def test_bilinear_gather_against_nine_shift_branch(upscaled_walk, max_offset):
-    """The port's reprojection (bilinear gather) against the reference's
-    nine-shift branch on frame 2's UpscaleHistory at offsets up to
-    ``max_offset`` pixels: equal at zero offset, FAST_BRANCH_ATOL above."""
+    """The port's bilinear gather (the reprojection past a pixel of motion)
+    against the reference's nine-shift branch on frame 2's UpscaleHistory at
+    offsets up to ``max_offset`` pixels: equal at zero offset,
+    FAST_BRANCH_ATOL above."""
     hist = np.array(upscaled_walk[2, "TemporalUpscale"][1]["UpscaleHistory"])
     rng = np.random.default_rng(3)
     ox, oy = (rng.uniform(-max_offset, max_offset, (DISPLAY, DISPLAY)).astype(np.float32)

@@ -10,9 +10,11 @@ a reference array may share its buffer, which a later frame can recycle.
 Nested tuples (``materials``, ``lights`` with its spot, point and IES lanes,
 ``mat_tex``) may be given as NamedTuples of arrays, as mappings, or
 flattened to "lights.sun_view_proj" style keys; the morph tuples (one array
-per morphed instance) flatten to "morph_pos.0" style keys; the BVH (a
-dataclass in both packages) flattens to "bvh.*" keys, and the reference's
-one-leaf placeholder of a scene without one carries across as None. The
+per morphed instance) flatten to "morph_pos.0" style keys; the BVH
+flattens to "bvh.*" keys: a two-level one (a dataclass in both packages;
+its wide fields may be None, which adds no key) carries across as the port's
+``TwoLevelBVH``, a flat one (a NamedTuple: ``build_bvh``'s, or the one-leaf
+placeholder of a scene without one) as the port's ``FlatBVH``. The
 skinning pools, the palette and the RGBA8 texture pool (``textures``, which
 the path tracer samples; its uint32 texels become int32 with the same bits)
 and the hair strands carry across too.
@@ -33,7 +35,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from arkoserenderer_torch.ops.bvh import bvh_from_host
+from arkoserenderer_torch.ops.bvh import FlatBVH, bvh_from_host
 from arkoserenderer_torch.ops.ddgi import DDGIState, ProbeGridConfig
 from arkoserenderer_torch.ops.raster import TriSetup
 from arkoserenderer_torch.scene.camera import CameraState, camera_state_from_arrays
@@ -77,13 +79,13 @@ HOST_STATE_KEYS = ("scene.version", "SunShadow.version")
 def frame_state_from_numpy(state: Mapping, device) -> dict:
     """The port's frame state on ``device`` from the reference's: arrays
     become tensors, the raster setup NamedTuple the port's ``TriSetup``, a
-    BVH (a dataclass) the port's ``TwoLevelBVH``, and the scene-version
-    counters host ints."""
+    BVH (a two-level dataclass, or a flat NamedTuple) the port's, and the
+    scene-version counters host ints."""
     out = {}
     for k, v in state.items():
         if k in HOST_STATE_KEYS:
             out[k] = int(np.asarray(v))
-        elif dataclasses.is_dataclass(v):
+        elif dataclasses.is_dataclass(v) or getattr(v, "_fields", None) == FlatBVH._fields:
             out[k] = bvh_from_host(numpy_fields(v), device)
         elif hasattr(v, "_fields"):
             out[k] = TriSetup(*(torch.from_numpy(np.array(x, copy=True)).to(device) for x in v))

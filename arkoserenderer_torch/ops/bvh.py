@@ -1,28 +1,36 @@
-"""Two-level BVH: the host build and the 8-wide traversal (port of
-arkoserenderer_tpu/ops/bvh.py, the two-level build and ``_trace_wide``).
+"""BVHs: the host builds and the traversals (port of
+arkoserenderer_tpu/ops/bvh.py).
 
-The build runs on the host in numpy, as the reference's does, and every
-array it makes equals the reference build's (ints equal, floats and the
-bit-cast record rows bit for bit); ``build_two_level`` then moves the
-arrays to the device once. One BLAS per unique geometry in object space,
+The builds run on the host in numpy, as the reference's do, and every array
+they make equals the reference build's (ints equal, floats and the bit-cast
+record rows bit for bit); ``build_two_level`` and ``build_bvh`` then move
+the arrays to the device once.
+
+``build_two_level``: one BLAS per unique geometry in object space,
 binned-SAH binary trees with 4-aligned quad leaves, a TLAS over the
 instances' world AABBs, and the whole pool collapsed to branching factor 8
-(``_collapse_wide``). Traversal reads three packed int32 record rows a
+(``_collapse_wide``). The 8-wide walk reads three packed int32 record rows a
 step (``wide_rec``, ``quad_rec``, ``inst_rec``; floats travel bit-cast).
+``build_bvh`` is the flat single-level tree over world-space triangles
+(``FlatBVH``), the kind the reference's AO bake and path tracer take by
+their signatures; a scene built without a BVH carries a one-leaf one.
 
 ``refit_bvh`` is the per-frame refit of an animated scene, on the device:
-the same topology with new bounds, the deformable BLASes' triangles re-read
-from the deformed vertex pool, the instance transforms and the TLAS from the
-scene's world matrices, and the three records re-derived. The record
-derivations (``_derive_packed``, ``_derive_wide_bounds``,
-``_derive_wide_recs``) are torch functions that the host build calls too, so
-the layout has one source.
+the same topology with new bounds. For a two-level BVH the deformable
+BLASes' triangles are re-read from the deformed vertex pool, the instance
+transforms and the TLAS follow the scene's world matrices, and the records
+are re-derived (``_derive_packed``, ``_derive_wide_bounds``,
+``_derive_wide_recs``: torch functions the host build calls too, so the
+layout has one source); a flat BVH re-reads every triangle.
 
-``trace_rays`` runs the 8-wide two-level walk: the hand-written CUDA
-kernel (``ops/bvh_cuda.trace_rays_cuda``) for CUDA tensors, its plain torch
-version ``trace_wide_plain`` for CPU tensors. The flat single-level walk and
-the binary two-level walk of the reference (the path tracer's and
-``bake_ao``'s) are not ported.
+``trace_rays`` dispatches as the reference's does: a ``FlatBVH`` goes to the
+flat lockstep walk (``trace_flat_plain``), a ``TwoLevelBVH`` without wide
+records (``wide_meta`` None) to the binary packed-record walk
+(``_trace_two_level_plain``); both are torch ops on any device, as the
+reference computes them in XLA outside any kernel. Every other BVH takes the
+8-wide walk: the hand-written CUDA kernel (``ops/bvh_cuda.trace_rays_cuda``)
+for CUDA tensors, its plain torch version ``trace_wide_plain`` for CPU
+tensors. ``trace_rays_brute`` is the reference's O(R x T) numpy oracle.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 LEAF_SIZE = 4
+STACK_DEPTH = 48        # the flat and binary walks' per-ray stack
 WIDE_WIDTH = 8
 WIDE_STACK_DEPTH = 64
 
@@ -57,6 +66,25 @@ class Hit(NamedTuple):
     hit: torch.Tensor  # (R,) bool
 
 
+class FlatBVH(NamedTuple):
+    """The reference's flat single-level BVH, field for field: a binary
+    tree over world-space triangles. ``count`` 0 = internal (children
+    ``left``, ``right``), > 0 = leaf of ``count`` triangles from slot
+    ``left``; every node's triangles are the slots [node_start, node_end)."""
+
+    node_min: torch.Tensor    # (M, 3) f32
+    node_max: torch.Tensor    # (M, 3) f32
+    left: torch.Tensor        # (M,) i32
+    right: torch.Tensor       # (M,) i32
+    count: torch.Tensor       # (M,) i32
+    node_start: torch.Tensor  # (M,) i32
+    node_end: torch.Tensor    # (M,) i32
+    tri_order: torch.Tensor   # (T,) i32 triangle id of each slot
+    tri_v0: torch.Tensor      # (T, 3) f32 world-space v0, in slot order
+    tri_e1: torch.Tensor      # (T, 3) f32 v1 - v0
+    tri_e2: torch.Tensor      # (T, 3) f32 v2 - v0
+
+
 @dataclasses.dataclass(frozen=True)
 class TwoLevelBVH:
     """The reference's two-level structure, field for field. Node pool rows
@@ -67,7 +95,9 @@ class TwoLevelBVH:
     only ``wide_rec`` (W, 56) [8 child bounds f32x48 | 8 descriptors],
     ``quad_rec`` (Q, 40) [4 x (v0, e1, e2) f32x36 | 4 local ids] and
     ``inst_rec`` (I + 1, 14) [w2o f32x12 | triangle base | wide BLAS root]
-    (row 0 the identity)."""
+    (row 0 the identity). The wide fields may be None, as the reference's
+    may: such a BVH takes the binary walk over ``node_int``,
+    ``node_cbounds`` and ``tri_quad``."""
 
     node_min: torch.Tensor
     node_max: torch.Tensor
@@ -90,25 +120,30 @@ class TwoLevelBVH:
     node_cbounds: torch.Tensor
     node_int: torch.Tensor
     tri_quad: torch.Tensor
-    wide_meta: torch.Tensor
-    wide_src: torch.Tensor
-    wide_cbounds: torch.Tensor
-    wide_root_blas: torch.Tensor
-    wide_rec: torch.Tensor
-    quad_rec: torch.Tensor
-    inst_rec: torch.Tensor
-    inst_active: torch.Tensor
+    wide_meta: torch.Tensor | None = None
+    wide_src: torch.Tensor | None = None
+    wide_cbounds: torch.Tensor | None = None
+    wide_root_blas: torch.Tensor | None = None
+    wide_rec: torch.Tensor | None = None
+    quad_rec: torch.Tensor | None = None
+    inst_rec: torch.Tensor | None = None
+    inst_active: torch.Tensor | None = None
     n_tlas: int = 1
 
 
 ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(TwoLevelBVH) if f.name != "n_tlas")
 
 
-def bvh_from_host(fields: dict, device) -> TwoLevelBVH:
-    """A TwoLevelBVH on ``device`` from host arrays keyed by field name
-    (copies; ``n_tlas`` as an int or a 0-d array)."""
-    arrays = {k: torch.from_numpy(np.array(fields[k], copy=True)).to(device)
-              for k in ARRAY_FIELDS}
+def bvh_from_host(fields: dict, device) -> TwoLevelBVH | FlatBVH:
+    """A BVH on ``device`` from host arrays keyed by field name (copies):
+    a TwoLevelBVH when they hold its ``node_int`` (a missing wide field is
+    None; ``n_tlas`` an int or a 0-d array), else a FlatBVH."""
+    def dev(k):
+        return torch.from_numpy(np.array(fields[k], copy=True)).to(device)
+
+    if "node_int" not in fields:
+        return FlatBVH(*(dev(k) for k in FlatBVH._fields))
+    arrays = {k: dev(k) for k in ARRAY_FIELDS if k in fields}
     return TwoLevelBVH(**arrays, n_tlas=int(np.asarray(fields["n_tlas"])))
 
 
@@ -498,6 +533,26 @@ def build_two_level(*args, device="cuda", **kw) -> TwoLevelBVH:
     return bvh_from_host(build_two_level_host(*args, **kw), device)
 
 
+def build_bvh(world_verts: np.ndarray, tris: np.ndarray, tri_valid: np.ndarray,
+              device="cuda") -> FlatBVH:
+    """The flat BVH over the valid triangles of ``tris`` (T, 3) into
+    ``world_verts`` (V, 3), built on the host and moved to ``device`` once;
+    no valid triangle leaves one leaf over triangle 0."""
+    ids = np.nonzero(tri_valid)[0].astype(np.int32)
+    if len(ids) == 0:
+        ids = np.zeros((1,), np.int32)
+    v = world_verts[tris[ids]]
+    (node_min, node_max, left, right, count, node_start, node_end,
+     order) = _median_build(v.min(axis=1), v.max(axis=1), LEAF_SIZE)
+    tri_order = ids[order]
+    tv = world_verts[tris[tri_order]]
+    return bvh_from_host(dict(
+        node_min=node_min, node_max=node_max, left=left, right=right, count=count,
+        node_start=node_start, node_end=node_end, tri_order=tri_order,
+        tri_v0=tv[:, 0].astype(np.float32), tri_e1=(tv[:, 1] - tv[:, 0]).astype(np.float32),
+        tri_e2=(tv[:, 2] - tv[:, 0]).astype(np.float32)), device)
+
+
 # ---------------------------------------------------------------------------
 # Refit (torch, on the BVH's device)
 
@@ -546,9 +601,13 @@ def _rotate(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return m[:, :, 0] * v[:, 0:1] + m[:, :, 1] * v[:, 1:2] + m[:, :, 2] * v[:, 2:3]
 
 
-def refit_bvh(bvh: TwoLevelBVH, world_verts: torch.Tensor, tris: torch.Tensor,
-              world: torch.Tensor | None = None) -> TwoLevelBVH:
-    """The BVH with the same topology and new bounds, on the device:
+def refit_bvh(bvh: TwoLevelBVH | FlatBVH, world_verts: torch.Tensor, tris: torch.Tensor,
+              world: torch.Tensor | None = None) -> TwoLevelBVH | FlatBVH:
+    """The BVH with the same topology and new bounds, on the device.
+
+    A FlatBVH re-reads every slot's triangle from ``world_verts`` (V, 3)
+    through ``tris`` (Tmax, 3) and takes each node's bounds as the range
+    min/max over its slots (``world`` unused). A TwoLevelBVH:
 
     1. the slots of deformable (per-instance) BLASes re-read their triangles
        from ``world_verts`` (V, 3) through ``tris`` (Tmax, 3), the pool's
@@ -558,7 +617,13 @@ def refit_bvh(bvh: TwoLevelBVH, world_verts: torch.Tensor, tris: torch.Tensor,
     3. with ``world`` ((>= I, 4, 4) the scene's instance transforms), the
        instance transforms and their inverses are refreshed;
     4. the instances' world boxes (parked slots stay parked) and the TLAS
-       bounds follow, then the three traversal records are re-derived."""
+       bounds follow, then the traversal records are re-derived (the wide
+       ones only where the BVH has them)."""
+    if isinstance(bvh, FlatBVH):
+        v = world_verts[tris[bvh.tri_order.long()].long()]  # (T, 3, 3) in slot order
+        node_min, node_max = _rmq_bounds(v.amin(1), v.amax(1), bvh.node_start, bvh.node_end)
+        return bvh._replace(node_min=node_min, node_max=node_max, tri_v0=v[:, 0],
+                            tri_e1=v[:, 1] - v[:, 0], tri_e2=v[:, 2] - v[:, 0])
     own_i = torch.clamp(bvh.slot_inst, min=0).long()
     gid = torch.clamp(bvh.inst_tri_base[own_i] + bvh.tri_order, 0, tris.shape[0] - 1).long()
     v = world_verts[tris[gid].long()]                       # (T, 3, 3)
@@ -587,9 +652,10 @@ def refit_bvh(bvh: TwoLevelBVH, world_verts: torch.Tensor, tris: torch.Tensor,
     rot = o2w[:, :3, :3]
     wc = _rotate(rot, c) + o2w[:, :3, 3]
     we = _rotate(torch.abs(rot), e)
-    act = bvh.inst_active[:, None]
-    wc = torch.where(act, wc, -1e9)
-    we = torch.where(act, we, 0.0)
+    if bvh.inst_active is not None:
+        act = bvh.inst_active[:, None]
+        wc = torch.where(act, wc, -1e9)
+        we = torch.where(act, we, 0.0)
     order = bvh.inst_order.long()
     t_min, t_max = _rmq_bounds((wc - we)[order], (wc + we)[order], bvh.node_start[:nt],
                                bvh.node_end[:nt])
@@ -598,10 +664,12 @@ def refit_bvh(bvh: TwoLevelBVH, world_verts: torch.Tensor, tris: torch.Tensor,
     node_max = torch.cat([t_max, b_max])
     cbounds, node_int, tri_quad = _derive_packed(node_min, node_max, bvh.left, bvh.right,
                                                  bvh.count, bvh.blas_root, v0, e1, e2)
-    wide_cb = _derive_wide_bounds(node_min, node_max, bvh.wide_src)
-    wide_rec, quad_rec, inst_rec = _derive_wide_recs(
-        wide_cb, bvh.wide_meta, tri_quad, bvh.tri_order, w2o, bvh.inst_tri_base,
-        bvh.wide_root_blas)
+    wide_cb = wide_rec = quad_rec = inst_rec = None
+    if bvh.wide_src is not None:
+        wide_cb = _derive_wide_bounds(node_min, node_max, bvh.wide_src)
+        wide_rec, quad_rec, inst_rec = _derive_wide_recs(
+            wide_cb, bvh.wide_meta, tri_quad, bvh.tri_order, w2o, bvh.inst_tri_base,
+            bvh.wide_root_blas)
     return dataclasses.replace(
         bvh, node_min=node_min, node_max=node_max, tri_v0=v0, tri_e1=e1, tri_e2=e2,
         inst_o2w=o2w, inst_w2o=w2o, node_cbounds=cbounds, node_int=node_int,
@@ -609,15 +677,15 @@ def refit_bvh(bvh: TwoLevelBVH, world_verts: torch.Tensor, tris: torch.Tensor,
         inst_rec=inst_rec)
 
 
-def refit_bvh_in_place(bvh: TwoLevelBVH, world_verts: torch.Tensor,
+def refit_bvh_in_place(bvh: TwoLevelBVH | FlatBVH, world_verts: torch.Tensor,
                        tris: torch.Tensor) -> None:
     """``refit_bvh`` (without new instance transforms) written back into
     ``bvh``'s own tensors, which keep their storage: how a streamed
     instance's rows join the live TLAS and traversal records."""
     new = refit_bvh(bvh, world_verts, tris)
-    for f in ARRAY_FIELDS:
+    for f in FlatBVH._fields if isinstance(bvh, FlatBVH) else ARRAY_FIELDS:
         old_t, new_t = getattr(bvh, f), getattr(new, f)
-        if new_t is not old_t:
+        if new_t is not None and new_t is not old_t:
             old_t.copy_(new_t)
 
 
@@ -672,6 +740,64 @@ def _tri_hit(v0, e1, e2, o, d, t_eps):
     return ok, t, u, v
 
 
+class _Rays:
+    """The per-ray state of a lockstep walk, kept compact: ``live`` holds
+    each per-ray tensor for the rays still walking only (``ids`` their
+    rows), so a step touches no stopped ray. A ray that stops writes its
+    ``out`` fields (the result tensors, full length) once, when it is
+    retired."""
+
+    def __init__(self, out: dict, state: dict):
+        self.out = out
+        self.live = {**{k: v.clone() for k, v in out.items()}, **state}
+        self.ids = torch.arange(next(iter(out.values())).shape[0], device=state["sp"].device)
+
+    def walking(self) -> bool:
+        """Retire the rays whose stack is empty; False once none walks."""
+        keep = self.live["sp"] > 0
+        if not bool(keep.all()):
+            self.retire(keep)
+        return self.ids.numel() > 0
+
+    def retire(self, keep: torch.Tensor | None = None) -> None:
+        """Write the results of the rays not in ``keep`` (all of them when
+        None) and drop them from the working set."""
+        if keep is None:
+            keep = torch.zeros_like(self.ids, dtype=torch.bool)
+        gone = ~keep
+        rows = self.ids[gone]
+        for k, v in self.out.items():
+            v[rows] = self.live[k][gone]
+        self.live = {k: v[keep] for k, v in self.live.items()}
+        self.ids = self.ids[keep]
+
+
+def _walk_start(origins, directions, t_max, extra_out=(), depth: int = STACK_DEPTH,
+                **state) -> _Rays:
+    """The walks' per-ray state: an empty stack of ``depth`` entries with
+    the root pushed (sp 1), the rays, any further ``state``, and the results
+    so far (t = t_max, no triangle, and each ``extra_out`` count 0)."""
+    dev, r = origins.device, origins.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+    out = dict(t=torch.broadcast_to(tm, (r,)).clone(), tri=torch.full((r,), -1, **i32),
+               u=torch.zeros((r,), dtype=torch.float32, device=dev),
+               v=torch.zeros((r,), dtype=torch.float32, device=dev),
+               **{k: torch.zeros((r,), **i32) for k in extra_out})
+    live = dict(stack=torch.zeros((r, depth), **i32), sp=torch.ones((r,), **i32),
+                o=origins, d=directions)
+    return _Rays(out, {**live, **state})
+
+
+def _hit_of(rays: _Rays) -> Hit:
+    rays.retire()
+    out = rays.out
+    return Hit(t=out["t"], tri=out["tri"], u=out["u"], v=out["v"], hit=out["tri"] >= 0)
+
+
+_STAT_KEYS = ("steps", "quad_steps", "node_steps", "triangle_tests", "inst_steps")
+
+
 def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.Tensor,
                      t_max=1e30, t_eps: float = 1e-4, any_hit: bool = False,
                      max_steps: int = 512, stats: dict | None = None) -> Hit:
@@ -684,12 +810,12 @@ def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.
     nearest on top (Batcher's 8-sort; any-hit skips the sort and stops on
     the first accepted hit). Pushes past the 64-entry stack are dropped.
 
-    Each step works only on the rays still walking, which changes no ray's
-    result. When ``stats`` is a dict it receives per-ray counts of steps,
-    quad steps, node steps, triangle tests and ray transforms (``steps``,
-    ``quad_steps``, ``node_steps``, ``triangle_tests``, ``inst_steps``: the
-    TLAS entry at the ray's first step, and one per instance entered), for a
-    bound on the work."""
+    Each step works only on the rays still walking (``_Rays``), which
+    changes no ray's result. When ``stats`` is a dict it receives per-ray
+    counts of steps, quad steps, node steps, triangle tests and ray
+    transforms (``steps``, ``quad_steps``, ``node_steps``,
+    ``triangle_tests``, ``inst_steps``: the TLAS entry at the ray's first
+    step, and one per instance entered), for a bound on the work."""
     dev = origins.device
     r = origins.shape[0]
     f_rec = bvh.wide_rec.view(torch.float32)
@@ -699,34 +825,19 @@ def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.
     i_f = i_rec.view(torch.float32)
     q_cap = q_rec.shape[0] - 1
     depth = WIDE_STACK_DEPTH
+    i32 = dict(dtype=torch.int32, device=dev)
+    rays = _walk_start(origins, directions, t_max, _STAT_KEYS if stats is not None else (),
+                       depth=depth, ci=torch.full((r,), -1, **i32), bsp=torch.zeros((r,), **i32))
 
-    stack = torch.zeros((r, depth), dtype=torch.int32, device=dev)
-    sp = torch.ones((r,), dtype=torch.int32, device=dev)
-    cur_inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    base_sp = torch.zeros((r,), dtype=torch.int32, device=dev)
-    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
-    best_t = torch.broadcast_to(tm, (r,)).clone()
-    best_tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((r,), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((r,), dtype=torch.float32, device=dev)
-    counts = None
-    if stats is not None:
-        counts = {k: torch.zeros((r,), dtype=torch.int32, device=dev)
-                  for k in ("steps", "quad_steps", "node_steps", "triangle_tests",
-                            "inst_steps")}
-
-    quad_lanes = torch.arange(4, dtype=torch.int32, device=dev)
+    quad_lanes = torch.arange(4, **i32)
     for _ in range(max_steps):
-        rows = torch.nonzero(sp > 0).squeeze(1)
-        if rows.numel() == 0:
+        if not rays.walking():
             break
-        n = rows.numel()
+        live = rays.live
+        n = rays.ids.numel()
         lane = torch.arange(n, device=dev)
-        st = stack[rows]
-        s = sp[rows]
-        ci = cur_inst[rows]
-        bsp = base_sp[rows]
-        bt, btri, bu, bv = best_t[rows], best_tri[rows], best_u[rows], best_v[rows]
+        st, s, ci, bsp = live["stack"], live["sp"], live["ci"], live["bsp"]
+        bt, btri, bu, bv = live["t"], live["tri"], live["u"], live["v"]
 
         top = s - 1
         desc = st[lane, top.long()]
@@ -748,96 +859,309 @@ def trace_wide_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.
         mm = i_f[irow, :12]
         g_base = i_rec[irow, 12]
         node = torch.where(is_inst, i_rec[irow, 13], torch.where(desc >= 0, desc, 0))
-        org, dr = origins[rows], directions[rows]
+        org, dr = live["o"], live["d"]
         o = _apply34(mm, org[:, 0], org[:, 1], org[:, 2], True)
         d = _apply34(mm, dr[:, 0], dr[:, 1], dr[:, 2], False)
         inv_d = [_inv_dir(c) for c in d]
 
         # Quad leaf: its 4 triangles at once; the first of the nearest
         # accepted ones wins, as testing them in order with a strict ``<``.
-        qrow = torch.clamp(payload >> 3, 0, q_cap).long()
+        # Each part runs on its own rays only (a quad ray pushes nothing, a
+        # node ray tests no triangle), which changes no ray's result.
         qcount = payload & 7
-        quad = q_f[qrow, :36].view(n, 4, 9)
-        o4 = [c[:, None] for c in o]
-        d4 = [c[:, None] for c in d]
-        ok, t, u, v = _tri_hit([quad[..., j] for j in range(0, 3)],
-                               [quad[..., j] for j in range(3, 6)],
-                               [quad[..., j] for j in range(6, 9)], o4, d4, t_eps)
-        cand = is_quad[:, None] & (quad_lanes < qcount[:, None]) & ok
-        t_cand = torch.where(cand, t, math.inf)
-        t_min = t_cand.amin(1)
-        k1 = torch.where(t_cand == t_min[:, None], quad_lanes, 4).amin(1, keepdim=True).long()
-        take = t_min < bt
-        bt = torch.where(take, t_min, bt)
-        btri = torch.where(take, g_base + q_rec[qrow, 36:40].gather(1, k1)[:, 0], btri)
-        bu = torch.where(take, u.gather(1, k1)[:, 0], bu)
-        bv = torch.where(take, v.gather(1, k1)[:, 0], bv)
+        qi = torch.nonzero(is_quad).squeeze(1)
+        if qi.numel():
+            qrow = torch.clamp(payload[qi] >> 3, 0, q_cap).long()
+            quad = q_f[qrow, :36].view(-1, 4, 9)
+            o4 = [c[qi, None] for c in o]
+            d4 = [c[qi, None] for c in d]
+            ok, t, u, v = _tri_hit([quad[..., j] for j in range(0, 3)],
+                                   [quad[..., j] for j in range(3, 6)],
+                                   [quad[..., j] for j in range(6, 9)], o4, d4, t_eps)
+            cand = (quad_lanes < qcount[qi, None]) & ok
+            t_cand = torch.where(cand, t, math.inf)
+            t_min = t_cand.amin(1)
+            k1 = torch.where(t_cand == t_min[:, None], quad_lanes, 4).amin(1, keepdim=True).long()
+            q_bt = bt[qi]
+            take = t_min < q_bt
+            bt = bt.index_put((qi,), torch.where(take, t_min, q_bt))
+            btri = btri.index_put((qi,), torch.where(
+                take, g_base[qi] + q_rec[qrow, 36:40].gather(1, k1)[:, 0], btri[qi]))
+            bu = bu.index_put((qi,), torch.where(take, u.gather(1, k1)[:, 0], bu[qi]))
+            bv = bv.index_put((qi,), torch.where(take, v.gather(1, k1)[:, 0], bv[qi]))
 
         # Internal node: its 8 slab tests at once, the sort, the push.
-        nrow = node.long()
-        cb = f_rec[nrow, :48].view(n, WIDE_WIDTH, 6)
-        meta = bvh.wide_rec[nrow, 48:56]
-        o8 = torch.stack(o, dim=-1)[:, None, :]
-        inv8 = torch.stack(inv_d, dim=-1)[:, None, :]
-        t0 = (cb[..., 0:3] - o8) * inv8
-        t1 = (cb[..., 3:6] - o8) * inv8
-        tlo, thi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-        near = _max3(tlo[..., 0], tlo[..., 1], tlo[..., 2])
-        near = torch.maximum(near, torch.zeros_like(near))
-        far = torch.minimum(_min3(thi[..., 0], thi[..., 1], thi[..., 2]), bt[:, None])
-        hit_c = (near <= far) & is_node[:, None] & (meta != 0)
-        keys = list(torch.where(hit_c, near, NO_KEY).unbind(1))
-        descs = list(meta.unbind(1))
-        if not any_hit:
-            for a, b in SORT_NET:
-                swap = keys[a] > keys[b]
-                keys[a], keys[b] = torch.where(swap, keys[b], keys[a]), torch.where(swap, keys[a], keys[b])
-                descs[a], descs[b] = torch.where(swap, descs[b], descs[a]), torch.where(swap, descs[a], descs[b])
-        # Children pushed farthest first: the nearest ends on top.
-        valid = torch.stack(keys, dim=1) < NO_KEY
-        above = valid.flip(1).cumsum(1, dtype=torch.int32).flip(1) - valid.to(torch.int32)
-        pos = sp_pop[:, None] + above
-        put = valid & (pos < depth)
-        st[lane[:, None].expand(n, WIDE_WIDTH)[put], pos[put].long()] = \
-            torch.stack(descs, dim=1)[put]
-        cnt = valid.sum(1, dtype=torch.int32)
-        new_sp = torch.clamp(sp_pop + cnt, max=depth - 1)
+        new_sp = sp_pop
+        ni = torch.nonzero(is_node).squeeze(1)
+        if ni.numel():
+            m = ni.numel()
+            nrow = node[ni].long()
+            cb = f_rec[nrow, :48].view(m, WIDE_WIDTH, 6)
+            meta = bvh.wide_rec[nrow, 48:56]
+            o8 = torch.stack([c[ni] for c in o], dim=-1)[:, None, :]
+            inv8 = torch.stack([c[ni] for c in inv_d], dim=-1)[:, None, :]
+            t0 = (cb[..., 0:3] - o8) * inv8
+            t1 = (cb[..., 3:6] - o8) * inv8
+            tlo, thi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            near = _max3(tlo[..., 0], tlo[..., 1], tlo[..., 2])
+            near = torch.maximum(near, torch.zeros_like(near))
+            far = torch.minimum(_min3(thi[..., 0], thi[..., 1], thi[..., 2]), bt[ni, None])
+            hit_c = (near <= far) & (meta != 0)
+            keys = list(torch.where(hit_c, near, NO_KEY).unbind(1))
+            descs = list(meta.unbind(1))
+            if not any_hit:
+                for a, b in SORT_NET:
+                    swap = keys[a] > keys[b]
+                    keys[a], keys[b] = torch.where(swap, keys[b], keys[a]), torch.where(swap, keys[a], keys[b])
+                    descs[a], descs[b] = torch.where(swap, descs[b], descs[a]), torch.where(swap, descs[a], descs[b])
+            # Children pushed farthest first: the nearest ends on top.
+            valid = torch.stack(keys, dim=1) < NO_KEY
+            above = valid.flip(1).cumsum(1, dtype=torch.int32).flip(1) - valid.to(torch.int32)
+            pos = sp_pop[ni, None] + above
+            put = valid & (pos < depth)
+            st[ni[:, None].expand(m, WIDE_WIDTH)[put], pos[put].long()] = \
+                torch.stack(descs, dim=1)[put]
+            cnt = valid.sum(1, dtype=torch.int32)
+            new_sp = new_sp.index_put((ni,), torch.clamp(sp_pop[ni] + cnt, max=depth - 1))
         if any_hit:
             new_sp = torch.where(btri >= 0, 0, new_sp)
 
-        stack[rows] = st
-        sp[rows] = new_sp
-        cur_inst[rows] = ci
-        base_sp[rows] = bsp
-        best_t[rows], best_tri[rows], best_u[rows], best_v[rows] = bt, btri, bu, bv
-        if counts is not None:
-            first = (counts["steps"][rows] == 0).to(torch.int32)
-            counts["inst_steps"][rows] += first + is_inst.to(torch.int32)
-            counts["steps"][rows] += 1
-            counts["quad_steps"][rows] += is_quad.to(torch.int32)
-            counts["node_steps"][rows] += is_node.to(torch.int32)
-            counts["triangle_tests"][rows] += torch.where(is_quad, qcount, 0)
-    if counts is not None:
-        stats.update(counts)
-    return Hit(t=best_t, tri=best_tri, u=best_u, v=best_v, hit=best_tri >= 0)
+        live.update(sp=new_sp, ci=ci, bsp=bsp, t=bt, tri=btri, u=bu, v=bv)
+        if stats is not None:
+            first = (live["steps"] == 0).to(torch.int32)
+            live.update(inst_steps=live["inst_steps"] + first + is_inst.to(torch.int32),
+                        steps=live["steps"] + 1,
+                        quad_steps=live["quad_steps"] + is_quad.to(torch.int32),
+                        node_steps=live["node_steps"] + is_node.to(torch.int32),
+                        triangle_tests=live["triangle_tests"] + torch.where(is_quad, qcount, 0))
+    hit = _hit_of(rays)
+    if stats is not None:
+        stats.update({k: rays.out[k] for k in _STAT_KEYS})
+    return hit
 
 
-def trace_rays(bvh: TwoLevelBVH | None, origins: torch.Tensor, directions: torch.Tensor,
+def _aabb_hit(lo, hi, o, inv_d, t_max):
+    """The reference's slab test of (n, 3) boxes against (n, 3) rays:
+    (hit, t_near), t_near clamped at 0 and the far end at ``t_max``."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    near = torch.minimum(t0, t1).amax(-1)
+    near = torch.maximum(near, torch.zeros_like(near))
+    far = torch.minimum(torch.maximum(t0, t1).amin(-1), t_max)
+    return near <= far, near
+
+
+def _push(st, lane, sp, ok, value, depth: int):
+    """Push ``value`` where ``ok`` at ``min(sp, depth - 1)`` (a full stack
+    overwrites its top entry, as the reference's clamped scatter does);
+    returns the new stack pointers."""
+    slot = torch.clamp(sp, max=depth - 1).long()
+    st[lane, slot] = torch.where(ok, value, st[lane, slot])
+    return torch.where(ok, torch.clamp(sp + 1, max=depth - 1), sp)
+
+
+def trace_flat_plain(bvh: FlatBVH, origins: torch.Tensor, directions: torch.Tensor,
+                     t_max=1e30, t_eps: float = 1e-4, any_hit: bool = False,
+                     max_steps: int = 512) -> Hit:
+    """The reference's flat lockstep walk (``trace_rays`` on a FlatBVH) in
+    torch ops: each step every ray pops one node, slab-tests it against its
+    best hit so far, tests a leaf's triangles in slot order (strict ``<``:
+    the first of equal hits wins) or pushes an internal node's hit children,
+    the far one first (the near one on top, the left where they tie). Pushes
+    past the 48-entry stack overwrite its top. Any-hit stops a ray at its
+    first accepted hit; ``max_steps`` cuts every ray after that many steps.
+    Each step works only on the rays still walking, which changes no ray's
+    result."""
+    rays = _walk_start(origins, directions, t_max, inv=_inv_dir(directions))
+    n_cap = bvh.node_min.shape[0] - 1
+    s_cap = bvh.tri_v0.shape[0] - 1
+    for _ in range(max_steps):
+        if not rays.walking():
+            break
+        live = rays.live
+        lane = torch.arange(rays.ids.numel(), device=origins.device)
+        st, s, o, d, inv = live["stack"], live["sp"], live["o"], live["d"], live["inv"]
+        bt, btri, bu, bv = live["t"], live["tri"], live["u"], live["v"]
+
+        node = st[lane, (s - 1).long()].long()
+        hit_box = _aabb_hit(bvh.node_min[node], bvh.node_max[node], o, inv, bt)[0]
+        cnt = bvh.count[node]
+        left = bvh.left[node]
+        right = bvh.right[node]
+        do_leaf = hit_box & (cnt > 0)
+        oc, dc = o.unbind(1), d.unbind(1)
+        for k in range(LEAF_SIZE):
+            slot = torch.clamp(left + k, 0, s_cap).long()
+            ok, t, u, v = _tri_hit(bvh.tri_v0[slot].unbind(1), bvh.tri_e1[slot].unbind(1),
+                                   bvh.tri_e2[slot].unbind(1), oc, dc, t_eps)
+            take = do_leaf & (k < cnt) & ok & (t < bt)
+            bt = torch.where(take, t, bt)
+            btri = torch.where(take, bvh.tri_order[slot], btri)
+            bu = torch.where(take, u, bu)
+            bv = torch.where(take, v, bv)
+
+        do_int = hit_box & (cnt <= 0)
+        lc = torch.clamp(left, 0, n_cap).long()
+        rc = torch.clamp(right, 0, n_cap).long()
+        hit_l, near_l = _aabb_hit(bvh.node_min[lc], bvh.node_max[lc], o, inv, bt)
+        hit_r, near_r = _aabb_hit(bvh.node_min[rc], bvh.node_max[rc], o, inv, bt)
+        l_first = near_l <= near_r
+        new_sp = _push(st, lane, s - 1, torch.where(l_first, hit_r, hit_l) & do_int,
+                       torch.where(l_first, right, left), STACK_DEPTH)
+        new_sp = _push(st, lane, new_sp, torch.where(l_first, hit_l, hit_r) & do_int,
+                       torch.where(l_first, left, right), STACK_DEPTH)
+        if any_hit:
+            new_sp = torch.where(btri >= 0, 0, new_sp)
+        live.update(sp=new_sp, t=bt, tri=btri, u=bu, v=bv)
+    return _hit_of(rays)
+
+
+def _trace_two_level_plain(bvh: TwoLevelBVH, origins: torch.Tensor, directions: torch.Tensor,
+                           t_max=1e30, t_eps: float = 1e-4, any_hit: bool = False,
+                           max_steps: int = 512) -> Hit:
+    """The reference's binary two-level walk (``_trace_two_level``) in
+    torch ops, over the packed binary records: each step a ray pops one node
+    in its current instance's space (row 0 of ``inst_w2o``, the identity, in
+    the TLAS); an internal node slab-tests both children from its own
+    ``node_cbounds`` row and pushes the hit ones, the far one first; a
+    triangle leaf tests its quad row's triangles in order; an instance leaf
+    pushes its BLAS root and enters the instance, remembering the stack
+    depth at entry (``base_sp``): popping below it returns the ray to the
+    TLAS. Directions are not renormalised, so ``t`` is in world units at both
+    levels. Stack overflow, any-hit and ``max_steps`` as in
+    ``trace_flat_plain``."""
+    dev, r = origins.device, origins.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    rays = _walk_start(origins, directions, t_max, ci=torch.full((r,), -1, **i32),
+                       bsp=torch.zeros((r,), **i32))
+    w2o = bvh.inst_w2o.reshape(-1, 12)
+    q_cap = bvh.tri_quad.shape[0] - 1
+    s_cap = bvh.tri_order.shape[0] - 1
+    for _ in range(max_steps):
+        if not rays.walking():
+            break
+        live = rays.live
+        lane = torch.arange(rays.ids.numel(), device=dev)
+        st, s, ci, bsp = live["stack"], live["sp"], live["ci"], live["bsp"]
+        bt, btri, bu, bv = live["t"], live["tri"], live["u"], live["v"]
+
+        top = s - 1
+        node = st[lane, top.long()].long()
+        left_blas = top < bsp
+        ci = torch.where(left_blas, -1, ci)
+        bsp = torch.where(left_blas, 0, bsp)
+        mm = w2o[(ci + 1).long()]
+        org, dr = live["o"], live["d"]
+        o = _apply34(mm, org[:, 0], org[:, 1], org[:, 2], True)
+        d = _apply34(mm, dr[:, 0], dr[:, 1], dr[:, 2], False)
+        o3 = torch.stack(o, dim=-1)
+        inv3 = torch.stack([_inv_dir(c) for c in d], dim=-1)
+
+        n_left, n_right, cnt, redirect = bvh.node_int[node].unbind(1)
+        cb = bvh.node_cbounds[node]
+        is_internal = cnt == 0
+        hit_l, near_l = _aabb_hit(cb[:, 0:3], cb[:, 3:6], o3, inv3, bt)
+        hit_r, near_r = _aabb_hit(cb[:, 6:9], cb[:, 9:12], o3, inv3, bt)
+        hit_l = hit_l & is_internal
+        hit_r = hit_r & is_internal
+
+        do_leaf = cnt > 0
+        quad = bvh.tri_quad[torch.clamp(n_left >> 2, 0, q_cap).long()]
+        g_base = bvh.inst_tri_base[torch.clamp(ci, min=0).long()]
+        for k in range(LEAF_SIZE):
+            ok, t, u, v = _tri_hit(quad[:, 9 * k:9 * k + 3].unbind(1),
+                                   quad[:, 9 * k + 3:9 * k + 6].unbind(1),
+                                   quad[:, 9 * k + 6:9 * k + 9].unbind(1), o, d, t_eps)
+            take = do_leaf & (k < cnt) & ok & (t < bt)
+            slot = torch.clamp(n_left + k, 0, s_cap).long()
+            bt = torch.where(take, t, bt)
+            btri = torch.where(take, g_base + bvh.tri_order[slot], btri)
+            bu = torch.where(take, u, bu)
+            bv = torch.where(take, v, bv)
+
+        l_first = near_l <= near_r
+        do_inst = cnt < 0
+        new_sp = _push(st, lane, s - 1, torch.where(l_first, hit_r, hit_l),
+                       torch.where(l_first, n_right, n_left), STACK_DEPTH)
+        push2 = torch.where(l_first, hit_l, hit_r) | do_inst
+        after = _push(st, lane, new_sp, push2,
+                      torch.where(do_inst, redirect, torch.where(l_first, n_left, n_right)),
+                      STACK_DEPTH)
+        # Entering a BLAS: the instance, and the depth of its pushed root.
+        ci = torch.where(do_inst, n_left, ci)
+        bsp = torch.where(do_inst, new_sp, bsp)
+        if any_hit:
+            after = torch.where(btri >= 0, 0, after)
+        live.update(sp=after, ci=ci, bsp=bsp, t=bt, tri=btri, u=bu, v=bv)
+    return _hit_of(rays)
+
+
+def trace_rays(bvh: TwoLevelBVH | FlatBVH, origins: torch.Tensor, directions: torch.Tensor,
                t_max=1e30, t_eps: float = 1e-4, any_hit: bool = False, max_steps: int = 512,
-               label: str | None = None) -> Hit:
+               chunk_size: int | None = None, label: str | None = None) -> Hit:
     """Closest-hit (or any-hit) traversal of (R, 3) rays; directions need
     not be normalised (``t`` is in their units). ``t_max`` is a float or a
-    tensor broadcastable to (R,). On CUDA tensors the hand-written kernel
-    runs (``ops/bvh_cuda.trace_rays_cuda``), on CPU tensors
-    ``trace_wide_plain``. ``label`` names the trace in the kernel's launch
-    counts (``trace_rays_cuda.launches_by_label``). ``bvh`` is None for a
-    scene built without one, which raises."""
-    if bvh is None:
-        raise ValueError("the scene has no BVH: build it with_bvh=True to trace rays")
+    tensor broadcastable to (R,).
+
+    The walk follows the BVH, as the reference's dispatch does: a FlatBVH
+    (a scene built without a BVH carries a one-leaf placeholder, which every
+    ray misses) takes ``trace_flat_plain``, a TwoLevelBVH without wide
+    records ``_trace_two_level_plain``, and any other the 8-wide walk: on
+    CUDA tensors the hand-written kernel (``ops/bvh_cuda.trace_rays_cuda``),
+    on CPU tensors ``trace_wide_plain``. ``label`` names the trace in the
+    kernel's launch counts (``trace_rays_cuda.launches_by_label``).
+
+    ``chunk_size`` traces the rays in sequential chunks of that many, which
+    bounds the walks' per-ray state to one chunk at a time; a per-ray
+    ``t_max`` goes along with its chunk (a broadcastable one is first made
+    per ray), a scalar to every chunk."""
+    r_total = origins.shape[0]
+    kw = dict(t_eps=t_eps, any_hit=any_hit, max_steps=max_steps, label=label)
+    if chunk_size is not None and r_total > chunk_size:
+        if isinstance(t_max, torch.Tensor) and t_max.ndim > 0 and t_max.shape != (r_total,):
+            t_max = torch.broadcast_to(t_max, (r_total,))
+        per_ray = isinstance(t_max, torch.Tensor) and t_max.ndim > 0
+        parts = [trace_rays(bvh, origins[s:s + chunk_size], directions[s:s + chunk_size],
+                            t_max=t_max[s:s + chunk_size] if per_ray else t_max, **kw)
+                 for s in range(0, r_total, chunk_size)]
+        return Hit(*(torch.cat(x) for x in zip(*parts)))
+    if isinstance(bvh, FlatBVH):
+        return trace_flat_plain(bvh, origins, directions, t_max=t_max, t_eps=t_eps,
+                                any_hit=any_hit, max_steps=max_steps)
+    if bvh.wide_meta is None:
+        return _trace_two_level_plain(bvh, origins, directions, t_max=t_max, t_eps=t_eps,
+                                      any_hit=any_hit, max_steps=max_steps)
     if origins.device.type == "cuda":
         from arkoserenderer_torch.ops.bvh_cuda import trace_rays_cuda
 
-        return trace_rays_cuda(bvh, origins, directions, t_max=t_max, t_eps=t_eps,
-                               any_hit=any_hit, max_steps=max_steps, label=label)
+        return trace_rays_cuda(bvh, origins, directions, t_max=t_max, **kw)
     return trace_wide_plain(bvh, origins, directions, t_max=t_max, t_eps=t_eps,
                             any_hit=any_hit, max_steps=max_steps)
+
+
+def trace_rays_brute(world_verts: np.ndarray, tris: np.ndarray, tri_valid: np.ndarray,
+                     origins: np.ndarray, directions: np.ndarray, t_max: float = 1e30,
+                     t_eps: float = 1e-4):
+    """The reference's numpy oracle, O(R x T): every valid triangle against
+    every ray (Moller-Trumbore without slack). Returns (t (R,) f32, t_max on
+    a miss; tri (R,) i32, -1 on a miss)."""
+    r = origins.shape[0]
+    best_t = np.full((r,), t_max, np.float32)
+    best_tri = np.full((r,), -1, np.int32)
+    for ti in np.nonzero(tri_valid)[0]:
+        v0, v1, v2 = world_verts[tris[ti]]
+        e1 = v1 - v0
+        e2 = v2 - v0
+        pvec = np.cross(directions, e2)
+        det = (e1[None] * pvec).sum(-1)
+        good = np.abs(det) > 1e-12
+        inv = np.where(good, 1.0 / np.where(det == 0, 1, det), 0.0)
+        tvec = origins - v0
+        u = (tvec * pvec).sum(-1) * inv
+        qvec = np.cross(tvec, e1)
+        v = (directions * qvec).sum(-1) * inv
+        t = (e2[None] * qvec).sum(-1) * inv
+        ok = good & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > t_eps) & (t < best_t)
+        best_t[ok] = t[ok]
+        best_tri[ok] = ti
+    return best_t, best_tri

@@ -18,6 +18,9 @@ tensors to ``rasterize_tiles_plain``, the plain torch version that tests
 and chip_smoke.py hold the kernel against. ``tile_rejects`` is the plain
 version of the kernel's exact tile-level rejection.
 Stages 1-3 are torch ops and never read a value back to the host.
+``rasterize`` runs the four stages over a clip-space soup, as the
+reference's entry point does; ``ops/raster_reference.rasterize_numpy`` is
+its per-pixel oracle.
 """
 
 from __future__ import annotations
@@ -510,3 +513,26 @@ def rasterize_tiles(
         return rasterize_tiles_plain(setup, bins, width, height, cfg, depth_only=depth_only,
                                      y_offset=y_offset, depth_limit=depth_limit)
     raise NotImplementedError(f"rasterize_tiles has no path for device {dev}")
+
+
+def rasterize(
+    clip: torch.Tensor,
+    indices: torch.Tensor,
+    tri_valid: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    cfg: RasterConfig = RasterConfig(),
+    cull_backfaces: bool = True,
+    depth_only: bool = False,
+    w_eps: float | torch.Tensor = 1e-4,
+):
+    """The whole raster, setup -> bin -> tiles, of (V, 4) clip-space
+    vertices through (T, 3) indices: (vis (H, W) i32, depth (H, W) f32,
+    setup, bins), the images in image layout. The tiles go through
+    ``rasterize_tiles``: the hand-written kernel on CUDA tensors."""
+    setup = setup_triangles(clip, indices, tri_valid, width, height,
+                            cull_backfaces=cull_backfaces, w_eps=w_eps)
+    bins = bin_triangles(setup, width, height, cfg)
+    vis, depth = rasterize_tiles(setup, bins, width, height, cfg, depth_only=depth_only)
+    return vis, depth, setup, bins

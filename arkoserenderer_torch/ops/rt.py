@@ -1,6 +1,6 @@
 """Ray-traced shading helpers of the screen-space RT passes (port of
-arkoserenderer_tpu/ops/rt.py: ``surface_at_hits``, ``shade_hits`` and
-``trace_shadow_mask``; ``shade_hits_simple`` has no caller there).
+arkoserenderer_tpu/ops/rt.py: ``surface_at_hits``, ``shade_hits_simple``,
+``shade_hits`` and ``trace_shadow_mask``).
 
 Given BVH hits, reconstruct the surface (position, normal, uv, material)
 and shade it as the reflection rays' closest-hit shader does: the packed
@@ -62,6 +62,35 @@ def surface_at_hits(scene, hit: Hit, with_uv_density: bool = False):
     e2u = t_uv[:, 2] - t_uv[:, 0]
     area_uv = 0.5 * torch.abs(e1u[:, 0] * e2u[:, 1] - e1u[:, 1] * e2u[:, 0])
     return world_pos, nrm, uv, mat_id, torch.sqrt(area_uv / torch.clamp(area_w, min=1e-12))
+
+
+def shade_hits_simple(scene, hit: Hit, ray_dirs: torch.Tensor, exposure,
+                      ddgi_sample=None) -> torch.Tensor:
+    """(R, 3) pre-exposed radiance, the reference's simple hit shader: at a
+    hit the material's base colour lit diffusely by the sun behind one
+    any-hit occlusion ray (through ``trace_rays``, labelled "simple
+    occlusion"), its emissive, and ``ddgi_sample(world_pos, normal)`` (an
+    irradiance) times the albedo when given; the environment on a miss."""
+    world_pos, nrm, _, mat_id = surface_at_hits(scene, hit)
+    nrm = nrm * torch.where(mx.vdot(nrm, -ray_dirs) < 0.0, -1.0, 1.0)
+    mat = mat_id.long()
+    albedo = scene.materials.base_color_factor[mat][:, :3]
+    emissive = scene.materials.emissive_factor[mat]
+
+    lights = scene.lights
+    sun_l = -lights.sun_direction
+    hit_col = hit.hit[:, None]
+    occl = trace_rays(scene.bvh, torch.where(hit_col, world_pos + nrm * 1e-2, PARK),
+                      sun_l.expand_as(world_pos).contiguous(), any_hit=True, t_max=1e4,
+                      label="simple occlusion")
+    n_dot_l = torch.clamp(mx.vdot(nrm, sun_l[None, :], keepdims=False), 0.0, 1.0)
+    color = (albedo / math.pi * (lights.sun_color * exposure)[None, :]
+             * (n_dot_l * (~occl.hit))[:, None] * lights.sun_valid) + emissive * exposure
+    if ddgi_sample is not None:
+        color = color + ddgi_sample(world_pos, nrm) * albedo / math.pi
+
+    env = sample_equirect(scene.env_map, ray_dirs) * scene.env_brightness * exposure
+    return torch.where(hit_col, color, env)
 
 
 def shade_hits(scene, hit: Hit, ray_dirs: torch.Tensor, exposure,

@@ -19,7 +19,8 @@ instance is one block of the vertex pool with its own weights
 (``assets/meshopt.build_meshlets``) and records their culling bounds.
 ``build(device, with_bvh=True)`` adds the two-level BVH over the LOD-0
 instances (``ops/bvh``), with the reference's parked TLAS slots for
-streamed instances; without it ``bvh`` is None. A skinned, morphed or
+streamed instances; without it ``bvh`` is the reference's one-leaf flat
+placeholder (``_dummy_bvh``), which every ray misses. A skinned, morphed or
 hair instance gets a BLAS of its own in world space, which the per-frame
 refit (``ops/bvh.refit_bvh``) re-reads from the deformed vertex pool.
 
@@ -225,8 +226,9 @@ class SceneArrays(NamedTuple):
     hair_points: torch.Tensor      # (Hp, 3)
     hair_tangents: torch.Tensor    # (Hp, 3)
     hair_radius: torch.Tensor      # (Hp,)
-    # Ray tracing: ops.bvh.TwoLevelBVH when built with_bvh, else None.
-    bvh: bvh_ops.TwoLevelBVH | None
+    # Ray tracing: ops.bvh.TwoLevelBVH when built with_bvh, else the
+    # one-leaf FlatBVH placeholder (_dummy_bvh) that every ray misses.
+    bvh: bvh_ops.TwoLevelBVH | bvh_ops.FlatBVH
 
 
 # The per-instance rows update_instance_transforms recomputes and uploads.
@@ -257,15 +259,15 @@ def scene_arrays_from_host(fields: dict[str, np.ndarray], device) -> SceneArrays
     """SceneArrays from host arrays keyed by field name, nested fields as
     ``"lights.sun_view_proj"`` and the like, tuple entries as
     ``"morph_pos.0"``. Extra keys are ignored. The BVH
-    comes from "bvh.*" keys holding a two-level BVH's fields; without them
-    (or with the reference's one-leaf placeholder, which has no
-    ``wide_rec``) it is None."""
+    comes from "bvh.*" keys holding a two-level or a flat BVH's fields
+    (``ops/bvh.bvh_from_host``); without them it is the no-BVH placeholder
+    (``_dummy_bvh``)."""
     out = {}
     for name in SceneArrays._fields:
         cls = NESTED_FIELDS.get(name)
         if name == "bvh":
             sub = {k[4:]: v for k, v in fields.items() if k.startswith("bvh.")}
-            out[name] = bvh_ops.bvh_from_host(sub, device) if "wide_rec" in sub else None
+            out[name] = bvh_ops.bvh_from_host(sub, device) if sub else _dummy_bvh(device)
         elif name in TUPLE_FIELDS:
             n = 0
             while f"{name}.{n}" in fields:
@@ -278,6 +280,19 @@ def scene_arrays_from_host(fields: dict[str, np.ndarray], device) -> SceneArrays
                 f: host_to_device(fields[f"{name}.{f}"], device) for f in cls._fields
             })
     return SceneArrays(**out)
+
+
+def _dummy_bvh(device) -> bvh_ops.FlatBVH:
+    """The reference's placeholder BVH of a scene built without one: one
+    leaf at the origin over a zero-area triangle, so every ray misses (its
+    ``t`` stays ``t_max``, its ``tri`` -1)."""
+    z3 = torch.zeros((1, 3), dtype=torch.float32, device=device)
+    zi = torch.zeros((1,), dtype=torch.int32, device=device)
+    one = torch.ones((1,), dtype=torch.int32, device=device)
+    return bvh_ops.FlatBVH(node_min=z3, node_max=z3.clone(), left=zi, right=zi.clone(),
+                           count=one, node_start=zi.clone(), node_end=one.clone(),
+                           tri_order=zi.clone(), tri_v0=z3.clone(), tri_e1=z3.clone(),
+                           tri_e2=z3.clone())
 
 
 def pool_of(arrays: SceneArrays, field: str) -> torch.Tensor:
@@ -757,7 +772,8 @@ class Scene:
     def build(self, device="cuda", with_bvh: bool = False,
               rt_stream_capacity: int = 64) -> SceneArrays:
         """The scene's SceneArrays on ``device``. ``with_bvh`` builds the
-        two-level BVH on the host and moves it once; ``rt_stream_capacity``
+        two-level BVH on the host and moves it once (without it the arrays
+        carry the no-BVH placeholder); ``rt_stream_capacity``
         parked TLAS slots are reserved as the reference reserves them for
         streaming (they shape the TLAS, so both packages trace the same
         tree)."""

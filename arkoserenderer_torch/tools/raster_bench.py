@@ -70,7 +70,8 @@ WRAPPER_CALLS = {"camera": 50, "sun": 10, "local": 50, "camera_stress": 20,
                  "sun_app": 50, "peel": 20, "peel_app": 20, "camera_hair": 20,
                  "sun_hair": 50, "camera_terrain_257": 20, "camera_terrain_1025": 10,
                  "camera_helmet_1024": 20, "camera_viewer": 20, "sun_viewer": 50,
-                 "camera_band": 20, "sun_band": 10, "camera_band4": 50}
+                 "camera_band": 20, "sun_band": 10, "camera_band4": 50,
+                 "rasterize": 20}
 # The adversarial case: viewport and numpy seed.
 ADVERSARIAL_SIZE, ADVERSARIAL_SEED = 64, 7
 

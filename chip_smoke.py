@@ -315,6 +315,32 @@ result line):
      on the CPU (tests/test_torch_reference_frames.py's bound: under 0.2 %
      of values off by > 2e-4, means within 1e-5), and VisibilityShading's
      ms at 1920x1080 (per-pass graphs and eager) against trilinear.
+ 24. the reference's last traversal and raster entry points and its offline
+     tools (run_slice19): (a) ``ops/raster.rasterize`` at 1920x1080, tile
+     8x128, over a seeded clip-space soup of 4,096 triangles, one raster
+     kernel launch, vis and depth bit for bit against the plain raster on
+     its setup and bins and timed as in phase 3; at 256x192 over 300
+     two-sided triangles against ``ops/raster_reference.rasterize_numpy``
+     (tests/test_raster.py's bounds: coverage equal, under 0.1 % of ids
+     differing, depth within 1e-5); (b) the rt scene's BVH and 16,384
+     seeded rays: closest and any hit through the traversal kernel against
+     ``trace_rays_brute`` (tests/test_bvh.py's bounds), measured as in
+     phase 10; the same BVH without its wide records through the binary
+     walk on the card (closest-hit hit and tri equal to the kernel's, t
+     within 1e-5; any-hit hit equal), the flat BVH of the same triangles
+     through the flat walk against brute force, and a chunked any-hit
+     trace with per-ray t_max equal to the unchunked one bit for bit; (c)
+     a scene built without a BVH: its placeholder misses every ray and
+     ``trace_shadow_mask`` is all lit; (d) ``shade_hits_simple`` on (b)'s
+     hits, its occlusion trace through the kernel, equal bit for bit to the
+     same call through the plain walk, measured as in phase 10; (e)
+     ``python -m arkoserenderer_torch.tools.cooker`` on a rules file with
+     gltf (the DamagedHelmet at max_texture 256), image, bc7, ies, hair and
+     copy rules in a temporary directory; a second run rebuilds nothing,
+     touching one input rebuilds its two outputs only; the baked helmet
+     (``assets/baked.load_baked``) renders one 512x512 frame on the card
+     through the raster kernel, finite and covered. Each part's kernel
+     counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
@@ -322,13 +348,14 @@ per-frame ddgi sun, helmet camera, the app's camera and sun, the translucent
 kind's and the app's peel layers, humandemo's camera with hair and its sun,
 the terrain cameras at both grids, meshviewer's 1024^2 helmet camera and
 the live viewer's camera and per-frame 512^2 sun, phase 20's 1920x540 and
-1920x256 camera bands and 8192x4096 sun band),
+1920x256 camera bands and 8192x4096 sun band, phase 24's rasterize soup),
 each with its launches in the runs of the frame kinds or apps that launch
 it, and one entry per trace the traversal kernel serves in the rt,
 showcase, flagship, ddgi, helmet and rt_soft frames, the pathtraced sample,
 the AO bake, the app's RT frame, the streamed rt frame, the last
-rank's band of phase 20 (b) and phase 21's half-rate rt and rt_soft
-frames, each with its launches by its label in that run;
+rank's band of phase 20 (b), phase 21's half-rate rt and rt_soft
+frames and phase 24's closest, any-hit and simple-occlusion traces, each
+with its launches by its label in that run;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2323,6 +2350,320 @@ def run_slice18(dev, card: str, small: bool = False) -> dict:
     return out
 
 
+SOUP_TRIS, SOUP_SEED = 4096, 19          # phase 24 (a): the 1080p soup (soup_case)
+ORACLE_SIZE, ORACLE_TRIS = (256, 192), 300  # phase 24 (a): against rasterize_numpy
+ORACLE_RAYS, ORACLE_SEED, CHUNK = 16384, 23, 4096  # phase 24 (b)
+COOK_TEXTURE = 256                         # phase 24 (e): the helmet's max_texture
+IES_TEXT = """IESNA:LM-63-2002
+[TEST] two planes
+TILT=NONE
+1 -1 1.5 5 2 1 2 0 0 0
+1.0 1.0 0
+0 22.5 45 67.5 90
+0 90
+1000 900 600 200 10
+1000 700 500 100 0
+"""
+
+
+def soup_case(rng, n: int, width: int, height: int):
+    """n seeded triangles of about 0.2 m in front of the camera, small
+    enough at 1920x1080 that every one fits the per-tile lists or the
+    global list (nothing dropped): (clip, idx) as ``random_case``'s."""
+    from arkoserenderer_torch.core import mathx as mx
+
+    centers = np.stack([rng.uniform(-5, 5, n), rng.uniform(-3, 3, n),
+                        rng.uniform(-10, -4, n)], -1)
+    verts = (centers[:, None] + rng.normal(size=(n, 3, 3)) * 0.2).reshape(-1, 3)
+    verts = verts.astype(np.float32)
+    proj = mx.perspective_reverse_z(np.radians(70.0), width / height, 0.1, 100.0)
+    clip = np.concatenate(
+        [verts @ proj[:3, :3].T + proj[:3, 3], (verts @ proj[3, :3] + proj[3, 3])[:, None]], -1
+    ).astype(np.float32)
+    idx = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+    return torch.from_numpy(clip), torch.from_numpy(idx)
+
+
+def oracle_rays(scene, n: int, seed: int):
+    """n seeded rays into the rt scene: origins over its box, 1-4 m above
+    the floor, directions downward-biased, unit length."""
+    rng = np.random.default_rng(seed)
+    mins, maxs = scene.bounding_box()
+    o = np.stack([rng.uniform(mins[0], maxs[0], n), rng.uniform(1.0, 4.0, n),
+                  rng.uniform(mins[2], maxs[2], n)], -1).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 1] = -np.abs(d[:, 1]) - 0.2
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d, rng.uniform(0.5, 8.0, n).astype(np.float32)
+
+
+def against_brute(label: str, hit, ref_t, ref_tri, t_tol: float, tri_share: float,
+                  any_hit=None) -> str:
+    """tests/test_bvh.py's bounds against trace_rays_brute: the same rays
+    hit, ``t`` within ``t_tol`` (rtol and atol) and ``tri`` the same on more
+    than ``tri_share`` of the hits; ``any_hit``'s hits equal the oracle's."""
+    tri, t = hit.tri.cpu().numpy(), hit.t.cpu().numpy()
+    h = ref_tri >= 0
+    if not np.array_equal(tri >= 0, h) or h.sum() < 100:
+        raise AssertionError(f"{label}: hits differ from brute force on "
+                             f"{int(((tri >= 0) != h).sum())} rays ({int(h.sum())} hit)")
+    if not np.allclose(t[h], ref_t[h], rtol=t_tol, atol=t_tol):
+        raise AssertionError(f"{label}: t off brute force by {np.abs(t[h] - ref_t[h]).max()}")
+    same = float((tri[h] == ref_tri[h]).mean())
+    if same <= tri_share:
+        raise AssertionError(f"{label}: tri equal to brute force on {same:.4%} of hits")
+    if any_hit is not None and not np.array_equal(any_hit.hit.cpu().numpy(), h):
+        raise AssertionError(f"{label}: any-hit hits differ from brute force")
+    return (f"{label}: {len(tri)} rays, {int(h.sum())} hit as brute force, t within "
+            f"{np.abs(t[h] - ref_t[h]).max():.3g}, tri equal on {same:.4%}")
+
+
+def run_slice19(dev, card: str, compare_and_time) -> dict:
+    """Phase 24 (see the module docstring). Returns the rasterize row's
+    launches and the measured traces with their launches."""
+    import dataclasses
+    import subprocess
+    import tempfile
+
+    from arkoserenderer_torch.assets.baked import load_baked
+    from arkoserenderer_torch.assets.procedural import gradient_env_map
+    from arkoserenderer_torch.core.types import RasterConfig
+    from arkoserenderer_torch.models.pathtracer import world_space_vertices
+    from arkoserenderer_torch.models.standard import Renderer
+    from arkoserenderer_torch.ops import bvh as bvh_ops
+    from arkoserenderer_torch.ops import raster
+    from arkoserenderer_torch.ops.raster_reference import rasterize_numpy
+    from arkoserenderer_torch.ops.rt import shade_hits_simple, trace_shadow_mask
+    from arkoserenderer_torch.rendering.capture import launch_counts, set_launch_counts
+    from arkoserenderer_torch.rendering.pipeline import PipelineConfig
+    from arkoserenderer_torch.scene.camera import Camera
+    from arkoserenderer_torch.scene.lights import DirectionalLight
+    from arkoserenderer_torch.tools import bench, cooker
+    from arkoserenderer_torch.tools import trace_bench as tb
+    from arkoserenderer_torch.utils.imageio import save_png
+
+    t_phase = time.perf_counter()
+    out = {"traces": []}
+
+    def counted(fn):
+        """fn() with every kernel count set to 0 just before it; returns
+        (result, raster launches, traversal launches by label)."""
+        set_launch_counts((0, {}, 0, {}))
+        res = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        return res, counts[0], dict(counts[3])
+
+    # (a) rasterize: the 1080p soup through the kernel, bit for bit against
+    # the plain raster on the same setup and bins, timed as in phase 3.
+    W, H = 1920, 1080
+    cfg = RasterConfig(tile_h=8, tile_w=128, max_tris_per_tile=256)
+    clip, idx = (x.to(dev) for x in soup_case(np.random.default_rng(SOUP_SEED), SOUP_TRIS, W, H))
+    valid = torch.ones(SOUP_TRIS, dtype=torch.bool, device=dev)
+    (vis, depth, setup, bins), n_raster, _ = counted(
+        lambda: raster.rasterize(clip, idx, valid, width=W, height=H, cfg=cfg))
+    if n_raster != 1 or int(bins.overflow) != 0:
+        raise AssertionError(f"phase 24 (a): rasterize launched the raster kernel {n_raster} "
+                             f"times (expected 1), dropped {int(bins.overflow)} entries")
+    pv, pd = raster.rasterize_tiles_plain(setup, bins, W, H, cfg)
+    if not (torch.equal(vis, pv) and torch.equal(depth, pd)) or vis.shape != (H, W):
+        raise AssertionError("phase 24 (a): rasterize's vis or depth differ from the plain "
+                             "raster's on its setup and bins")
+    cover = (depth > 0).float().mean().item()
+    if not 0.2 < cover < 1.0:
+        raise AssertionError(f"phase 24 (a): the soup covers {cover:.4f} of the frame")
+    compare_and_time("rasterize", f"rasterize {W}x{H} soup of {SOUP_TRIS} triangles, tile "
+                     "8x128", 5, setup, bins, W, H, False, rcfg=cfg)
+    out["raster_launches"] = {"rasterize": n_raster}
+    w2, h2 = ORACLE_SIZE
+    clip, idx = (x.numpy() for x in random_case(np.random.default_rng(SOUP_SEED + 1),
+                                                 ORACLE_TRIS, False, w2, h2))
+    valid = np.ones(ORACLE_TRIS, bool)
+    cfg2 = RasterConfig(tile_h=8, tile_w=16, max_tris_per_tile=256)
+    (v2, d2, _, b2), n2, _ = counted(lambda: raster.rasterize(
+        *(torch.from_numpy(x).to(dev) for x in (clip, idx, valid)), width=w2, height=h2,
+        cfg=cfg2, cull_backfaces=False))
+    ref_vis, ref_depth = rasterize_numpy(clip, idx, valid, w2, h2, cull_backfaces=False)
+    v2, d2 = v2.cpu().numpy(), d2.cpu().numpy()
+    ids_off = float((v2 != ref_vis).mean())
+    if not (n2 == 1 and int(b2.overflow) == 0 and np.array_equal(v2 == -1, ref_vis == -1)
+            and ids_off < 0.001 and np.allclose(d2, ref_depth, atol=1e-5)):
+        raise AssertionError(f"phase 24 (a): rasterize {w2}x{h2} against rasterize_numpy: "
+                             f"{ids_off:.4%} ids off, depth off by "
+                             f"{np.abs(d2 - ref_depth).max()}, overflow {int(b2.overflow)}")
+    print(f"phase 24 (a) rasterize {W}x{H}: one kernel launch, vis and depth bit for bit "
+          f"against the plain raster, coverage {cover:.4f}, {int(bins.global_count)} global, "
+          f"none dropped; {w2}x{h2}, {ORACLE_TRIS} two-sided "
+          f"triangles against rasterize_numpy: coverage equal, {ids_off:.4%} of ids off "
+          f"(< 0.1 %), depth within {np.abs(d2 - ref_depth).max():.3g} (1e-5)", flush=True)
+
+    # (b) the traversal against the oracles on the rt scene.
+    scene, _, _, _ = bench.build_scene("rt")
+    arrays = scene.build(dev, with_bvh=True)
+    wv = world_space_vertices(arrays).astype(np.float32)
+    tris, tri_valid = arrays.indices.cpu().numpy(), arrays.tri_valid.cpu().numpy()
+    o_np, d_np, tm_np = oracle_rays(scene, ORACLE_RAYS, ORACLE_SEED)
+    o, d, tm = (torch.from_numpy(x).to(dev) for x in (o_np, d_np, tm_np))
+    ref_t, ref_tri = bvh_ops.trace_rays_brute(wv, tris, tri_valid, o_np, d_np)
+    lines = []
+    hits = {}
+    for any_hit in (False, True):
+        name = f"phase24 {'any-hit' if any_hit else 'closest'}"
+        hits[any_hit], _, by_label = counted(lambda: bvh_ops.trace_rays(
+            arrays.bvh, o, d, any_hit=any_hit, label=name))
+        case = dict(label=name, origins=o, directions=d, t_max=1e30, any_hit=any_hit)
+        out["traces"].append((by_label.get(name, 0), tb.measure(arrays.bvh, case)))
+    lines.append(against_brute("kernel closest-hit", hits[False], ref_t, ref_tri, 1e-3, 0.99,
+                               any_hit=hits[True]))
+    binary = dataclasses.replace(arrays.bvh, **{f: None for f in (
+        "wide_meta", "wide_src", "wide_cbounds", "wide_root_blas", "wide_rec", "quad_rec",
+        "inst_rec")})
+    # Any-hit keeps the first hit its walk order meets: only ``hit`` is the
+    # same function of the rays in both walks.
+    for any_hit in (False, True):
+        (bh, n_r, by_label) = counted(lambda: bvh_ops.trace_rays(binary, o, d, any_hit=any_hit))
+        kh = hits[any_hit]
+        same = torch.equal(bh.hit, kh.hit) and (any_hit or (
+            torch.equal(bh.tri, kh.tri) and torch.allclose(bh.t, kh.t, rtol=1e-5, atol=1e-5)))
+        if n_r or by_label or not same:
+            raise AssertionError(f"phase 24 (b): the binary walk (any_hit={any_hit}) differs "
+                                 f"from the kernel on {int((bh.tri != kh.tri).sum())} tris, "
+                                 f"{int((bh.hit != kh.hit).sum())} hits, or launched a kernel")
+    lines.append("binary two-level walk on the card (wide_meta None): closest-hit hit and tri "
+                 "equal to the kernel's and t within 1e-5, any-hit hit equal; no kernel launched")
+    flat = bvh_ops.build_bvh(wv, tris, tri_valid, device=dev)
+    fh, n_r, by_label = counted(lambda: bvh_ops.trace_rays(flat, o, d))
+    if n_r or by_label:
+        raise AssertionError("phase 24 (b): the flat walk launched a kernel")
+    lines.append(against_brute("flat walk on the card", fh, ref_t, ref_tri, 1e-4, 0.995))
+    whole = bvh_ops.trace_rays(arrays.bvh, o, d, t_max=tm, any_hit=True)
+    chunked, _, by_label = counted(lambda: bvh_ops.trace_rays(
+        arrays.bvh, o, d, t_max=tm, any_hit=True, chunk_size=CHUNK, label="phase24 chunked"))
+    if by_label.get("phase24 chunked") != ORACLE_RAYS // CHUNK or any(
+            not torch.equal(x, y) for x, y in zip(chunked, whole)):
+        raise AssertionError(f"phase 24 (b): the chunked trace ({by_label}) differs from the "
+                             "unchunked one")
+    lines.append(f"chunk_size={CHUNK} with per-ray t_max: {ORACLE_RAYS // CHUNK} launches, "
+                 "equal to the unchunked trace bit for bit")
+    for line in lines:
+        print(f"phase 24 (b) {line}", flush=True)
+    for _, t in out["traces"]:
+        print(tb.describe(t, card), flush=True)
+
+    # (c) a scene built without a BVH: every ray misses, every receiver lit.
+    bare = scene.build(dev)
+    miss, n_r, by_label = counted(lambda: bvh_ops.trace_rays(bare.bvh, o, d, t_max=1e4))
+    lit = trace_shadow_mask(bare, o, -arrays.lights.sun_direction,
+                            torch.ones(ORACLE_RAYS, dtype=torch.bool, device=dev))
+    if not (isinstance(bare.bvh, bvh_ops.FlatBVH) and not bool(miss.hit.any())
+            and bool((miss.tri == -1).all()) and bool((miss.t == 1e4).all())
+            and bool((lit == 1.0).all()) and n_r == 0 and not by_label):
+        raise AssertionError("phase 24 (c): the no-BVH scene does not miss every ray")
+    print("phase 24 (c) no-BVH scene on the card: its placeholder FlatBVH misses every ray "
+          "(t = t_max, tri = -1), trace_shadow_mask all lit", flush=True)
+
+    # (d) shade_hits_simple on (b)'s closest hits, its occlusion rays through
+    # the kernel, against the same call through the plain walk.
+    shade_label = "simple occlusion"
+    shaded, _, by_label = counted(lambda: shade_hits_simple(arrays, hits[False], d, 0.5))
+    with tb.plain_traces():
+        shaded_plain = shade_hits_simple(arrays, hits[False], d, 0.5)
+    if by_label.get(shade_label) != 1 or not torch.equal(shaded, shaded_plain) or not bool(
+            torch.isfinite(shaded).all()):
+        raise AssertionError(f"phase 24 (d): shade_hits_simple ({by_label}) differs from its "
+                             "plain-walk twin")
+    case = tb.capture_calls(lambda: shade_hits_simple(arrays, hits[False], d, 0.5))[0]
+    case["label"] = "phase24 " + shade_label
+    out["traces"].append((by_label[shade_label], tb.measure(arrays.bvh, case)))
+    print(f"phase 24 (d) shade_hits_simple on {ORACLE_RAYS} hits: one occlusion trace through "
+          f"the kernel, equal bit for bit to the plain walk's; mean radiance "
+          f"{shaded.mean().item():.4f}", flush=True)
+    print(tb.describe(out["traces"][-1][1], card), flush=True)
+    del arrays, bare, flat, binary
+
+    # (e) the offline tools, then the cooked helmet on the card.
+    helmet = ROOT / "assets" / "sample" / "DamagedHelmet" / "DamagedHelmet.gltf"
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "models").mkdir()
+        for f in helmet.parent.glob("DamagedHelmet.*"):
+            if f.suffix in (".gltf", ".bin"):
+                shutil.copy(f, root / "models" / f.name)
+        for f in helmet.parent.glob("*.jpg"):
+            shutil.copy(f, root / "models" / f.name)
+        rng = np.random.default_rng(29)
+        (root / "textures").mkdir()
+        for name in ("a", "b"):
+            save_png(str(root / "textures" / f"{name}.png"),
+                     rng.integers(0, 256, (64, 64, 4), np.uint8))
+        (root / "lights").mkdir()
+        (root / "lights" / "p.ies").write_text(IES_TEXT)
+        (root / "hair").mkdir()
+        segs = np.array([2, 3, 1], np.uint16)
+        head = b"HAIR" + np.array([3, 9, 1, 2], np.uint32).tobytes() + np.array(
+            [0.1, 0.0, 0.5, 0.3, 0.1], np.float32).tobytes()
+        (root / "hair" / "h.hair").write_bytes(
+            head.ljust(128, b"\0") + segs.tobytes() + rng.normal(size=(9, 3)).astype(
+                np.float32).tobytes())
+        (root / "misc").mkdir()
+        (root / "misc" / "notes.txt").write_text("copied as is\n")
+        rules = [("gltf", "models/*.gltf", "baked/{stem}.arkscene.npz",
+                  f"max_texture = {COOK_TEXTURE}\n"),
+                 ("image", "textures/*.png", "baked/{stem}.mips.npz", ""),
+                 ("bc7", "textures/*.png", "baked/{stem}.dds", 'quality = "fast"\n'),
+                 ("ies", "lights/*.ies", "baked/{stem}.ies.npz", ""),
+                 ("hair", "hair/*.hair", "baked/{stem}.hair.npz", ""),
+                 ("copy", "misc/*.txt", "baked/{name}", "")]
+        (root / "rules.toml").write_text("".join(
+            f'[[rule]]\nname = "{t}"\ntool = "{t}"\ninput = "{i}"\noutput = "{o}"\n{x}\n'
+            for t, i, o, x in rules))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "arkoserenderer_torch.tools.cooker",
+                              str(root / "rules.toml")], cwd=ROOT, capture_output=True,
+                             text=True, timeout=300)
+        cook_s = time.perf_counter() - t0
+        built = sorted(Path(p).name for p in re.findall(r"built (\S+)", run.stdout))
+        want = sorted(["DamagedHelmet.arkscene.npz", "a.mips.npz", "b.mips.npz", "a.dds",
+                       "b.dds", "p.ies.npz", "h.hair.npz", "notes.txt"])
+        if run.returncode != 0 or built != want:
+            raise AssertionError(f"phase 24 (e): the cooker built {built} (rc "
+                                 f"{run.returncode}): {run.stdout[-2000:]}{run.stderr[-2000:]}")
+        again = cooker.Cooker(root / "rules.toml").cook()
+        save_png(str(root / "textures" / "a.png"), rng.integers(0, 256, (64, 64, 4), np.uint8))
+        touched = cooker.Cooker(root / "rules.toml").cook()
+        if again["built"] or sorted(Path(p).name for p in touched["built"]) != [
+                "a.dds", "a.mips.npz"]:
+            raise AssertionError(f"phase 24 (e): rebuilds {again['built']} then "
+                                 f"{touched['built']}")
+        print(f"phase 24 (e) python -m arkoserenderer_torch.tools.cooker built {len(built)} "
+              f"outputs in {cook_s:.1f} s (the helmet at max_texture {COOK_TEXTURE}); a second "
+              "run rebuilt nothing; touching a.png rebuilt a.dds and a.mips.npz only",
+              flush=True)
+        baked = load_baked(root / "baked" / "DamagedHelmet.arkscene.npz",
+                           limits=cooker.baking_limits())
+    baked.sun = DirectionalLight(direction=np.array([0.35, -1.0, -0.25], np.float32))
+    baked.set_env_map(gradient_env_map(32), brightness=8000.0)
+    baked.ambient_lx = 6000.0
+    cam = Camera(viewport=(512, 512))
+    center, radius = baked.bounding_sphere()
+    cam.look_at(center + np.array([radius * 1.2, radius * 0.5, radius * 1.2]), center)
+    r = Renderer(baked, cam, PipelineConfig(width=512, height=512, shadow_map_size=1024,
+                                            raster=RasterConfig(tile_h=8, tile_w=128,
+                                                                max_tris_per_tile=512)),
+                 device=dev, taa=False, bloom=False)
+    img, n_r, _ = counted(lambda: r.render_frame().clone())
+    cover = r.state["SceneCoverage"].float().mean().item()
+    if not (bool(torch.isfinite(img).all()) and 0.05 < cover < 1.0 and n_r >= 1
+            and img.std().item() > 0.01):
+        raise AssertionError(f"phase 24 (e): the baked helmet's 512^2 frame: coverage {cover}, "
+                             f"{n_r} raster launches")
+    print(f"phase 24 (e) the baked helmet (load_baked) at 512x512 on the card: finite, "
+          f"coverage {cover:.4f}, {n_r} raster kernel launches", flush=True)
+    del r
+    print(f"phase 24 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU")
@@ -2894,6 +3235,8 @@ def main() -> None:
     run_slice17(dev, card)
     print(f"[phase 23 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     run_slice18(dev, card)
+    print(f"[phase 24 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
+    slice19 = run_slice19(dev, card, compare_and_time)
 
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
@@ -2913,7 +3256,7 @@ def main() -> None:
     if not all(launches.values()):
         raise AssertionError(f"a raster of the frames' path was never launched: {launches}")
 
-    print(f"phases 1-23 took {time.perf_counter() - t_main:.1f} s", flush=True)
+    print(f"phases 1-24 took {time.perf_counter() - t_main:.1f} s", flush=True)
     print(card)
     rows = [{
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2943,6 +3286,10 @@ def main() -> None:
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches_20, **timed[name], "library_ms": None,
     } for name, launches_20 in slice15["raster_launches"].items()]
+    rows += [{
+        "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": launches_24, **timed[name], "library_ms": None,
+    } for name, launches_24 in slice19["raster_launches"].items()]
 
     def trace_row(t, launches):
         return {
@@ -2957,6 +3304,7 @@ def main() -> None:
     rows += [trace_row(t, by_label.get(t["trace"], 0)) for by_label, t in kind_traces]
     rows += [trace_row(t, launches) for launches, t in slice15["traces"]]
     rows += [trace_row(t, by_label.get(t["trace"], 0)) for by_label, t in slice16["traces"]]
+    rows += [trace_row(t, launches) for launches, t in slice19["traces"]]
     if not all(row["launches"] for row in rows):
         raise AssertionError("a kernel of the frames' path was never launched")
     print(json.dumps({"kernels": rows}))

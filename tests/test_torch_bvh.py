@@ -89,8 +89,8 @@ def rt_scene(mod_procedural, mod_lights, res: int = 96):
 def test_scene_bvh_matches_jax():
     """The rt golden's scene built with its BVH (64 parked TLAS slots) in
     both packages; the port's BVH lands on the device as built. A scene
-    built without one has None, and the reference's one-leaf placeholder
-    carries across as None."""
+    built without one carries the reference's one-leaf placeholder, field
+    for field, and the reference's carries across as the same."""
     from arkoserenderer_torch.bridge import scene_arrays_from_numpy
     import arkoserenderer_torch.assets.procedural as tproc
     import arkoserenderer_torch.scene.lights as tlights
@@ -106,8 +106,12 @@ def test_scene_bvh_matches_jax():
     on_device = ts.build("cpu", with_bvh=True).bvh
     assert isinstance(on_device, tb.TwoLevelBVH) and on_device.n_tlas == ref.n_tlas
     assert torch.equal(on_device.wide_rec, torch.from_numpy(host["wide_rec"]))
-    assert ts.build("cpu").bvh is None
-    assert scene_arrays_from_numpy(js.build()._asdict(), "cpu").bvh is None
+    ref_dummy = js.build().bvh
+    for ours in (ts.build("cpu").bvh, scene_arrays_from_numpy(js.build()._asdict(), "cpu").bvh):
+        assert isinstance(ours, tb.FlatBVH)
+        for f in tb.FlatBVH._fields:
+            a, b = np.asarray(getattr(ref_dummy, f)), getattr(ours, f).numpy()
+            assert a.dtype == b.dtype and np.array_equal(a, b), f
 
 
 def trace_cases():
@@ -220,8 +224,11 @@ def test_stack_overflow_and_step_cut_follow_the_reference(max_steps):
 
 
 def test_trace_rays_dispatch():
-    """trace_rays walks CPU tensors with the plain version, and raises on a
-    scene built without a BVH."""
+    """trace_rays walks CPU tensors with the plain version, and a scene
+    built without a BVH (its one-leaf placeholder) misses every ray, as the
+    reference's does: t = t_max, tri = -1, hit False, closest and any hit."""
+    from arkoserenderer_torch.scene.scene import _dummy_bvh
+
     rng = np.random.default_rng(9)
     geos, inst_blas, o2w, base = instanced_inputs(rng, 8, False)
     bvh = tb.build_two_level(geos, inst_blas, o2w, base, device="cpu")
@@ -229,5 +236,8 @@ def test_trace_rays_dispatch():
     d = torch.from_numpy(rng.normal(size=(300, 3)).astype(np.float32))
     for x, y in zip(tb.trace_rays(bvh, o, d), tb.trace_wide_plain(bvh, o, d)):
         assert torch.equal(x, y)
-    with pytest.raises(ValueError, match="with_bvh"):
-        tb.trace_rays(None, o, d)
+    o[0] = torch.tensor([-1.0, 0.0, 0.0])  # a ray through the placeholder's box
+    d[0] = torch.tensor([1.0, 0.0, 0.0])
+    for any_hit in (False, True):
+        h = tb.trace_rays(_dummy_bvh("cpu"), o, d, t_max=1e4, any_hit=any_hit)
+        assert not h.hit.any() and (h.tri == -1).all() and (h.t == 1e4).all()

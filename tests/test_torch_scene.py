@@ -382,6 +382,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import arkoserenderer_torch.scene.controllers, arkoserenderer_torch.scene.editor\n"
         "import arkoserenderer_torch.physics.backend, arkoserenderer_torch.utils.hotreload\n"
         "import arkoserenderer_torch.utils.profiling\n"
+        "import arkoserenderer_torch.tools.cooker, arkoserenderer_torch.tools.bake\n"
+        "import arkoserenderer_torch.tools.arkbake, arkoserenderer_torch.tools.gen_bluenoise\n"
+        "import arkoserenderer_torch.ops.raster_reference\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k.startswith('arkoserenderer_tpu') or k == 'PIL'\n"
         "             or k.startswith('PIL.'))\n"

@@ -73,6 +73,7 @@ from arkoserenderer_torch.rendering.pipeline import (
 )
 from arkoserenderer_torch.scene.camera import Camera
 from arkoserenderer_torch.scene.scene import Scene
+from arkoserenderer_torch.utils.profiling import zone
 
 
 def make_forward_pipeline(
@@ -267,35 +268,51 @@ class Renderer:
         which the next frame overwrites, so copy a frame to keep it.
         ``pass_events`` (a list) takes each pass's (name, start, end) CUDA
         events: the captured frame's chain of per-pass graphs, or the eager
-        frame's (within ``eager_frames()``)."""
-        if self.dynamic_transforms:
-            self.scene_arrays = self.scene.update_instance_transforms(self.scene_arrays)
-        if self.animated:
-            self.upload_animation()
-        persistent = self.pipeline.registry.persistent_names
-        inputs = {k: self.state[k] for k in persistent if k in self.state}
-        if "scene.version" in persistent:
-            inputs["scene.version"] = self._scene_version
-        cam_state = self.camera.state(self.frame_index, self.device)
-        self.state = self.pipeline.render_frame(
-            inputs, self.scene_arrays, cam_state, self.frame_index, delta_time,
-            pass_events=pass_events,
-        )
-        self.camera.post_render()
-        if self.auto_exposure and "Metering.avgLum" in self.state:
-            # Eye adaption: the metered pre-exposed luminance nudges the
-            # relative EV toward mid-grey (the reference's loop, R2: it
-            # reads the scalar back every frame, after the frame, outside
-            # the captured graph).
-            avg = float(self.state["Metering.avgLum"])
-            cam = self.camera
-            cam.exposure_compensation += float(
-                np.clip(np.log2(0.18 / max(avg, 1e-6)), -4, 4)
-            ) * min(cam.adaption_rate * 60.0 * delta_time * 20, 1.0)
-            cam.exposure_compensation = float(np.clip(cam.exposure_compensation, -8.0, 8.0))
-        self.frame_index += 1
-        self.time += delta_time
+        frame's (within ``eager_frames()``). The frame's host stages are
+        zones (``utils/profiling``: spans ``arkose.frame#<i>`` and its
+        children while a profiler records)."""
+        fi, record = self.frame_index, self.pipeline.record
+        with zone("arkose.frame", frame=fi, record=record):
+            if self.dynamic_transforms or self.animated:
+                with zone("arkose.frame.scene", frame=fi, record=record):
+                    if self.dynamic_transforms:
+                        self.scene_arrays = self.scene.update_instance_transforms(
+                            self.scene_arrays)
+                    if self.animated:
+                        self.upload_animation()
+            persistent = self.pipeline.registry.persistent_names
+            inputs = {k: self.state[k] for k in persistent if k in self.state}
+            if "scene.version" in persistent:
+                inputs["scene.version"] = self._scene_version
+            with zone("arkose.frame.camera", frame=fi, record=record):
+                cam_state = self.camera.state(self.frame_index, self.device)
+            self.state = self.pipeline.render_frame(
+                inputs, self.scene_arrays, cam_state, self.frame_index, delta_time,
+                pass_events=pass_events,
+            )
+            self.camera.post_render()
+            if self.auto_exposure and "Metering.avgLum" in self.state:
+                # Eye adaption: the metered pre-exposed luminance nudges the
+                # relative EV toward mid-grey (the reference's loop, R2: it
+                # reads the scalar back every frame, after the frame, outside
+                # the captured graph).
+                with zone("arkose.frame.exposure", frame=fi, record=record):
+                    avg = float(self.state["Metering.avgLum"])
+                cam = self.camera
+                cam.exposure_compensation += float(
+                    np.clip(np.log2(0.18 / max(avg, 1e-6)), -4, 4)
+                ) * min(cam.adaption_rate * 60.0 * delta_time * 20, 1.0)
+                cam.exposure_compensation = float(np.clip(cam.exposure_compensation, -8.0, 8.0))
+            self.frame_index += 1
+            self.time += delta_time
         return self.state.get("LDRDisplay", self.state["LDR"])
+
+    def frame_records(self) -> dict:
+        """A host copy of the pipeline's frame record
+        (``utils.profiling.FrameRecord.rows``): the rows of the frames it
+        holds, by frame index, with the pass and counter names. The only
+        readback of the record; it waits for the device."""
+        return self.pipeline.record.rows()
 
     def render_frame_safe(self, delta_time: float = 1 / 60, retries: int = 2) -> torch.Tensor:
         """``render_frame`` with recovery: when a frame raises, the pipeline

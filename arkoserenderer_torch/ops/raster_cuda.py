@@ -99,6 +99,10 @@ def build_kernels() -> ctypes.CDLL:
     lib.bvh_trace_launch.restype = i
     lib.bvh_trace_warps_per_sm.argtypes = [i]
     lib.bvh_trace_warps_per_sm.restype = i
+    lib.frame_stamp_launch.argtypes = [p, p] + [i] * 5 + [p]
+    lib.frame_stamp_launch.restype = i
+    lib.frame_count_launch.argtypes = [p, p] + [i] * 3 + [p, i, p]
+    lib.frame_count_launch.restype = i
     _lib = lib
     return lib
 

@@ -36,6 +36,19 @@ out: the counts are those of the frames rendered.
 The outputs are the graph's buffers, which the next replay overwrites: a
 caller that keeps a frame's image copies it.
 
+Every graph writes the pipeline's frame record (``utils/profiling``) by
+address: the timestamps before the first pass and after each pass and the
+passes' counters are kernels of the graph, and the row is the frame index
+(a graph input) modulo the ring's rows, chosen on the device. So each
+replay leaves its frame's pass times and counts in the ring with nothing
+read back.
+
+The host's share of a call is three zones (spans while a profiler records,
+and times in the frame's host row of the record):
+``arkose.frame.capture`` (a capture, labelled with the parts of the key
+that were new: ``new_parts``), ``arkose.frame.fill`` (the copies into the
+graph's buffers), ``arkose.frame.replay`` (the replay, or the chain's).
+
 A call with ``pass_events`` (a list) replays the frame as a chain of
 graphs, one a pass (the prologue in the first pass's, the donation's copies
 in the last's), with a CUDA event recorded between each two replays: the
@@ -55,8 +68,10 @@ import numpy as np
 import torch
 
 from arkoserenderer_torch.rendering.pipeline import tree_map_host
+from arkoserenderer_torch.utils.profiling import zone
 
 MAX_GRAPHS = 8  # graphs kept by one compiled frame; the least recently used goes
+KEY_PARTS = ("state", "scene", "camera", "inputs", "chain", "branches")  # a graph's key
 
 
 def tree_map(fn, tree):
@@ -232,23 +247,36 @@ class CompiledFrame:
                branches)
         g = self.graphs.get(key)
         if g is None:
-            g = self._capture(key, dev_state, host, scene, camera_state, inputs, fi, chain)
+            with zone("arkose.frame.capture", frame=fi, detail=self.new_parts(key),
+                      record=pipe.record):
+                g = self._capture(key, dev_state, host, scene, camera_state, inputs, fi, chain)
         else:
             self.graphs.move_to_end(key)
-        self._fill(g, dev_state, scene, camera_state, inputs, fi, delta_time)
-        if chain:
-            mark = torch.cuda.Event(enable_timing=True)
-            mark.record()
-            for name, graph in g.graph:
-                graph.replay()
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-                pass_events.append((name, mark, end))
-                mark = end
-        else:
-            g.graph.replay()
+        with zone("arkose.frame.fill", frame=fi, record=pipe.record):
+            self._fill(g, dev_state, scene, camera_state, inputs, fi, delta_time)
+        with zone("arkose.frame.replay", frame=fi, record=pipe.record):
+            if chain:
+                mark = torch.cuda.Event(enable_timing=True)
+                mark.record()
+                for name, graph in g.graph:
+                    graph.replay()
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    pass_events.append((name, mark, end))
+                    mark = end
+            else:
+                g.graph.replay()
         add_launch_counts(g.launches)
         return self._outputs(g, host_out)
+
+    def new_parts(self, key: tuple) -> str:
+        """Which parts of a graph's ``key`` (``KEY_PARTS``) no kept graph
+        has: why a capture happens, e.g. "new branches"."""
+        if not self.graphs:
+            return "first graph"
+        new = [name for k, name in enumerate(KEY_PARTS)
+               if all(kept[k] != key[k] for kept in self.graphs)]
+        return "new " + (",".join(new) if new else "combination")
 
     def _fill(self, g: _Graph, dev_state, scene, camera_state, inputs, fi, delta_time) -> None:
         for k, v in dev_state.items():
@@ -306,6 +334,7 @@ class CompiledFrame:
                 if i == 0:
                     out, ctx = pipe._prologue(frame_state, scene, s_camera, s_fi, s_dt, first)
                 out.update(execute(out, ctx) or {})
+                pipe.record.stamp(ctx.frame_index, i + 1)
                 if i == last:
                     self._donate(s_state, out)
             self._pool = self._pool or graph.pool()

@@ -16,6 +16,9 @@ Publishes:
   vis.setup     TriSetup
   vis.records   (T', rec_size) f32 shading records (packed mode only)
   vis.overflow  () i32 bin entries dropped
+
+Counts (the frame record, ``FrameContext.count``): geometry.triangles,
+geometry.kept, raster.camera_dropped and raster.camera_binned.
 """
 
 from __future__ import annotations
@@ -104,6 +107,13 @@ def camera_visible_triangles(scene, view_proj: torch.Tensor, cam_pos: torch.Tens
     return tri_visible & kept[scene.tri_meshlet.long()], kept
 
 
+def count_bins(ctx: FrameContext, raster_name: str, bins: raster.TileBins) -> None:
+    """The frame record's counters of one raster's binning: the entries the
+    caps dropped, and those kept (tile-list entries and global triangles)."""
+    ctx.count(f"raster.{raster_name}_dropped", bins.overflow)
+    ctx.count(f"raster.{raster_name}_binned", bins.counts.sum() + bins.global_count)
+
+
 class GeometryPass(RenderPass):
     name = "Geometry"
 
@@ -132,11 +142,14 @@ class GeometryPass(RenderPass):
             tri_visible, _ = camera_visible_triangles(s, view_proj, cam.position, has_meshlets)
             if has_translucent:
                 tri_visible = tri_visible & ~translucent_triangles(s)
+            ctx.count("geometry.triangles", s.tri_valid.sum())
+            ctx.count("geometry.kept", tri_visible.sum())
             # The screen mapping is the whole frame's; binning and the raster
             # cover this rank's band (h rows from ctx.row_offset).
             setup = raster.setup_triangles(clip, s.indices, tri_visible, w, full_h,
                                            w_eps=cam.near)
             bins = raster.bin_triangles(setup, w, h, rcfg, y_offset=ctx.row_offset)
+            count_bins(ctx, "camera", bins)
             vis, depth = raster.rasterize_tiles(setup, bins, w, h, rcfg,
                                                 y_offset=ctx.row_offset)
             out = {

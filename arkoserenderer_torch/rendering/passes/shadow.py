@@ -25,7 +25,8 @@ gathered into the whole map on every rank; the moments and the cache then
 run on the whole map as unsharded.
 
 Publishes: ShadowMap.sun (S, S) f32 reverse-Z depth and, packed,
-ShadowMoments.sun (S/2, S/2, 2) f32.
+ShadowMoments.sun (S/2, S/2, 2) f32. Counts raster.sun_dropped and
+raster.sun_binned in the frame record in a frame that rasters the map.
 
 LocalShadow
 -----------
@@ -46,6 +47,7 @@ from arkoserenderer_torch.core.types import DEPTH_FAR
 from arkoserenderer_torch.ops import raster
 from arkoserenderer_torch.ops.shadow import shadow_moments
 from arkoserenderer_torch.rendering.passes.geometry import (
+    count_bins,
     transform_vertices_clip,
     translucent_triangles,
     visible_triangles,
@@ -100,10 +102,12 @@ class SunShadowPass(RenderPass):
                                            cull_backfaces=False)
             if ctx.band is None:
                 bins = raster.bin_triangles(setup, s, s, rcfg)
+                count_bins(ctx, "sun", bins)
                 _, depth = raster.rasterize_tiles(setup, bins, s, s, rcfg, depth_only=True)
             else:
                 y0 = ctx.band.rank * band_s
                 bins = raster.bin_triangles(setup, s, band_s, rcfg, y_offset=y0)
+                count_bins(ctx, "sun", bins)
                 _, band_depth = raster.rasterize_tiles(setup, bins, s, band_s, rcfg,
                                                        depth_only=True, y_offset=y0)
                 depth = ctx.band.gather_rows(band_depth)

@@ -29,6 +29,12 @@ for the one branch the host takes: the cached sun map's); and, under
 pixel-band sharding (``parallel/sharded.py``), the band's first row in the
 frame and its band group.
 
+Every frame writes its row of the pipeline's frame record
+(``utils/profiling.FrameRecord``, made by ``construct_all``): its index, a
+timestamp before the first pass and after each pass, and the counters the
+passes add through ``FrameContext.count``; eager, captured or replayed as
+the per-pass chain alike.
+
 ``RenderPipeline.scene_animator``, when set, is the frame's prologue:
 ``fn(scene, frame_index, delta_time) -> scene`` runs before the first pass
 and the passes see the scene it returns (the stress grid's animation).
@@ -48,6 +54,7 @@ from arkoserenderer_torch.core.types import RasterConfig, SceneLimits
 from arkoserenderer_torch.rendering.registry import Registry
 from arkoserenderer_torch.scene.camera import CameraState
 from arkoserenderer_torch.scene.scene import SceneArrays, SceneStatic
+from arkoserenderer_torch.utils.profiling import FrameRecord
 
 
 class _FrameFields(NamedTuple):
@@ -61,6 +68,7 @@ class _FrameFields(NamedTuple):
     row_offset: int = 0
     band: object = None
     first_frame: bool = False  # host: this is frame 0
+    record: object = None  # the pipeline's FrameRecord (None: counts go nowhere)
 
 
 class FrameContext(_FrameFields):
@@ -73,7 +81,7 @@ class FrameContext(_FrameFields):
     __slots__ = ()
 
     def __new__(cls, scene, camera, frame_index, delta_time=1 / 60, row_offset=0, band=None,
-                first_frame=None):
+                first_frame=None, record=None):
         if not isinstance(frame_index, torch.Tensor):
             if first_frame is None:
                 first_frame = int(frame_index) == 0
@@ -83,7 +91,14 @@ class FrameContext(_FrameFields):
         if not isinstance(delta_time, torch.Tensor):
             delta_time = torch.tensor(float(delta_time), dtype=torch.float32)
         return super().__new__(cls, scene, camera, frame_index, delta_time, row_offset, band,
-                               bool(first_frame))
+                               bool(first_frame), record)
+
+    def count(self, name: str, value: torch.Tensor) -> None:
+        """Add the 0-d integer tensor ``value`` to this frame's counter
+        ``name`` (``utils.profiling.COUNTERS``) in the frame record, on the
+        device: nothing is read back."""
+        if self.record is not None:
+            self.record.count(self.frame_index, name, value)
 
 
 # The texture filters and sun-shadow taps the port takes; anisoN (N taps,
@@ -220,6 +235,7 @@ class RenderPipeline:
         self._executes: list[tuple[str, ExecuteFn]] | None = None
         self.scene_animator: Callable | None = None
         self._compiled: dict = {}  # compile()'s frames by donate_state
+        self.record: FrameRecord | None = None  # made by construct_all
         # The band group under pixel-band sharding (ShardedRenderer sets it).
         self.band = None
 
@@ -237,6 +253,7 @@ class RenderPipeline:
         self.registry.set_current_node(None)
         self._compiled = {}  # the captured frames ran the old callbacks
         self._frame_input_names = list(self.frame_inputs(0))
+        self.record = FrameRecord([p.name for p in self.passes], self.device)
         return self
 
     def _require_constructed(self):
@@ -260,13 +277,14 @@ class RenderPipeline:
         """The frame's state (a copy, with the per-frame inputs it lacks
         uploaded) and context: the frame index and delta time as 0-d tensors
         on the pipeline's device (a host value is uploaded), the scene
-        animated."""
+        animated. It writes the frame record's first timestamp."""
         self._require_constructed()
         dev = self.device
         if not isinstance(frame_index, torch.Tensor):
             if first_frame is None:
                 first_frame = int(frame_index) == 0
             frame_index = torch.tensor(int(frame_index), dtype=torch.int32, device=dev)
+        self.record.stamp(frame_index, 0)
         if not isinstance(delta_time, torch.Tensor):
             delta_time = torch.tensor(float(delta_time), dtype=torch.float32, device=dev)
         state = dict(state)
@@ -278,7 +296,7 @@ class RenderPipeline:
             scene = self.scene_animator(scene, frame_index, delta_time)
         ctx = FrameContext(scene=scene, camera=camera, frame_index=frame_index,
                            delta_time=delta_time, row_offset=self.row_offset, band=self.band,
-                           first_frame=first_frame)
+                           first_frame=first_frame, record=self.record)
         return state, ctx
 
     def frame_fn(self, state: dict, scene: SceneArrays, camera: CameraState,
@@ -292,9 +310,10 @@ class RenderPipeline:
         lacks are formed for the frame index and uploaded.
 
         ``pass_events``: when a list, each pass appends (name, start, end)
-        CUDA events recorded around it, for a per-pass time table."""
+        CUDA events recorded around it, for a per-pass time table. The
+        frame record takes a timestamp after each pass."""
         state, ctx = self._prologue(state, scene, camera, frame_index, delta_time, first_frame)
-        for name, execute in self._executes:
+        for i, (name, execute) in enumerate(self._executes):
             if pass_events is not None:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -303,6 +322,7 @@ class RenderPipeline:
             if pass_events is not None:
                 end.record()
                 pass_events.append((name, start, end))
+            self.record.stamp(ctx.frame_index, i + 1)
             if updates:
                 state.update(updates)
         return state
@@ -427,8 +447,9 @@ def validate_frame(pipeline: RenderPipeline, state: dict, scene: SceneArrays,
     harness; an empty list is a clean frame."""
     state, ctx = pipeline._prologue(state, scene, camera_state, frame_index, delta_time, None)
     findings = []
-    for name, execute in pipeline._executes:
+    for i, (name, execute) in enumerate(pipeline._executes):
         updates = execute(state, ctx) or {}
+        pipeline.record.stamp(ctx.frame_index, i + 1)
         for key, value in updates.items():
             for path, leaf in _float_leaves(value):
                 bad = int((~torch.isfinite(leaf)).sum())

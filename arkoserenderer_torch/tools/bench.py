@@ -70,7 +70,7 @@ blur do real work; in ``stress`` and ``meshlet`` it stands still and the
 motion is the grid's.
 
     python -m arkoserenderer_torch.tools.bench [--config forward,full_post,pathtraced] [--small]
-                                               [--warmup 4] [--iters 16] [--profile]
+                                               [--warmup 4] [--iters 16]
                                                [--rt-scale 2] [--ddgi-sample-scale 2]
                                                [--sky-fetch-scale k]
 
@@ -99,14 +99,8 @@ coverage, how far the history (TAA's, or the upscaler's) moved in
 one frame, and for the last STATS_FRAMES frames the triangles left after
 culling, the meshlets kept and the triangles the camera's and the sun's
 bins dropped, with each of those frames' checks (finite LDR, coverage and,
-with DDGI, how far each atlas moved in the frame). With ``--profile`` it
-then runs 4 more captured and 4 more eager frames of each kind under
-``torch.profiler`` and prints a JSON line for each: the device's kernel ms
-per frame, its busy share of the frame, launches per frame, the operators
-and kernels that take the most device time, and each pass's span on the
-device (eager frames only; for the path tracer, which runs eagerly: 4
-samples, no passes). Needs a
-GPU; run from the root of a checkout.
+with DDGI, how far each atlas moved in the frame). Needs a GPU; run from
+the root of a checkout.
 """
 
 from __future__ import annotations
@@ -662,94 +656,6 @@ def turns_line(name: str, result: dict, unit: str = "frame") -> str:
             f"[{result['card']}]")
 
 
-def profile_config(name: str, renderer, frames: int = 4, top: int = 12,
-                   eager: bool = False) -> dict:
-    """``frames`` more frames of ``renderer`` under torch.profiler: kernel
-    time and launches per frame, the device's busy share of the frame's
-    wall clock, the ``top`` operators and kernels by device time, and each
-    pass's span on the device (every pass of an eager frame runs inside a
-    ``record_function`` range of its name; a replayed graph has none). The
-    frames are the captured ones where the pipeline captures, unless
-    ``eager``. For a ``PathTracer`` a frame is one sample, and there are no
-    passes."""
-    import time
-
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    if isinstance(renderer, PathTracer):
-        def step():
-            renderer.render_sample(1)
-        pipeline = None
-    else:
-        move = None if CONFIGS[name][0] in ANIMATED else camera_mover(renderer)
-
-        def step():
-            if move is not None:
-                move(renderer.frame_index)
-            renderer.render_frame()
-        pipeline = renderer.pipeline
-        plain = pipeline._executes
-
-        def ranged(pass_name, execute):
-            def run(state, ctx):
-                with record_function(f"pass::{pass_name}"):
-                    return execute(state, ctx)
-            return run
-
-        pipeline._executes = [(n, ranged(n, e)) for n, e in plain]
-    mode = eager_frames() if eager else contextlib.nullcontext()
-    try:
-        step()  # a frame outside the profile: a capture the mode needs happens here
-        torch.cuda.synchronize()
-        with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(frames):
-                step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    finally:
-        if pipeline is not None:
-            pipeline._executes = plain
-
-    def self_ms(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-    # key_averages() lists each kernel (a device event), apart from it the
-    # operator that launched it with the same time against its name, and
-    # each pass's range twice: on the host and as its span on the device.
-    events = prof.key_averages()
-    on_device = torch.autograd.DeviceType.CUDA
-
-    def is_pass(e):
-        return e.key.startswith("pass::")
-
-    kernels = sorted((e for e in events if e.device_type == on_device and not is_pass(e)),
-                     key=self_ms, reverse=True)
-    ops = sorted((e for e in events if e.device_type != on_device and self_ms(e) > 0
-                  and not is_pass(e)), key=self_ms, reverse=True)
-    kernel_ms = sum(self_ms(e) for e in kernels) / frames
-    by_name: dict = {}  # kernels by the first 60 characters of their names
-    for e in kernels:
-        ms_count = by_name.setdefault(e.key[:60], [0.0, 0.0])
-        ms_count[0] += self_ms(e) / frames
-        ms_count[1] += e.count / frames
-    return {
-        "config": name, "profiled_frames": frames,
-        "captured": (not eager and not isinstance(renderer, PathTracer)
-                     and renderer.pipeline.captured),
-        "wall_ms_per_frame_profiled": wall_ms,
-        "kernel_ms_per_frame": kernel_ms,
-        "busy_share": kernel_ms / wall_ms,
-        "launches_per_frame": sum(e.count for e in kernels) / frames,
-        "top_ops_ms_per_frame": {e.key: [self_ms(e) / frames, e.count / frames]
-                                 for e in ops[:top]},
-        "top_kernels_ms_per_frame": dict(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]),
-        "pass_device_span_ms_per_frame": {e.key[6:]: self_ms(e) / frames for e in events
-                                          if is_pass(e) and e.device_type == on_device},
-        "device": torch.cuda.get_device_name(0), "card": card_line(),
-    }
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default=",".join(KINDS),
@@ -757,8 +663,6 @@ def main(argv=None) -> None:
     ap.add_argument("--small", action="store_true", help="256x256 frames")
     ap.add_argument("--warmup", type=int, default=4)
     ap.add_argument("--iters", type=int, default=16)
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile 4 frames (samples) of each kind with torch.profiler")
     ap.add_argument("--rt-scale", type=int, default=1, help="RT rate: 1 or 2 (half rate)")
     ap.add_argument("--ddgi-sample-scale", type=int, default=1,
                     help="DDGI sampling rate: 1 or 2 (a quarter of the pixels)")
@@ -778,8 +682,6 @@ def main(argv=None) -> None:
             print(build_line(name, result), flush=True)
             print(turns_line(name, result, "sample"), flush=True)
             print(json.dumps(result), flush=True)
-            if args.profile:
-                print(json.dumps(profile_config(name, tracer)), flush=True)
             del tracer
             continue
         textures = texture_times(args.small) if name == "helmet" else None
@@ -788,9 +690,6 @@ def main(argv=None) -> None:
         print(build_line(name, result, textures), flush=True)
         print(turns_line(name, result), flush=True)
         print(json.dumps(result), flush=True)
-        if args.profile:
-            for eager in (False, True):
-                print(json.dumps(profile_config(name, renderer, eager=eager)), flush=True)
         del renderer
 
 

@@ -28,6 +28,7 @@ Prints the card line and one JSON line. Needs a GPU.
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib.util
 import json
 import subprocess
@@ -294,6 +295,9 @@ def graph_ms(fn) -> float:
     CUDA graph, replayed once to warm up and once under CUDA events."""
     fn()
     torch.cuda.synchronize()
+    # A dead renderer's graphs are freed here: one the collector frees inside
+    # the capture invalidates it.
+    gc.collect()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(GRAPH_LAUNCHES):

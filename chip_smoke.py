@@ -232,7 +232,10 @@ result line):
      renderer keeping TAAHistory bit for bit, ops/raster_cuda reloaded and
      the next frame's rasters through the kernel with build/kernels
      unchanged; (e) profiling.trace around two frames with a zone each: the
-     trace names the zones and raster_tiles_kernel; (f) meshviewer
+     trace names the zones and raster_tiles_kernel, the renderer's
+     arkose.frame#<i> spans (camera, fill, replay within) nest inside them,
+     and the frame record's timestamps pair with the trace's
+     frame_stamp_kernel launches (the clock fit's residual); (f) meshviewer
      --interactive on the DamagedHelmet at 1024^2 over HTTP, 4 frames.
  20. pixel-band sharding (parallel/sharded.py) through ``run_bands``, the
      ranks sharing this card over gloo (CUDA tensors; and over NCCL, one
@@ -1295,6 +1298,7 @@ def run_slice14(dev, card: str, compare_and_time, width: int = 1920, height: int
     )
     from arkoserenderer_torch.system.webviewer import WebSystem
     from arkoserenderer_torch.tools import bench
+    from perfbench.lib.records import clock_fit
     from arkoserenderer_torch.tools import raster_bench as rb
     from arkoserenderer_torch.utils import profiling
     from arkoserenderer_torch.utils.hotreload import ModuleWatcher
@@ -1481,10 +1485,16 @@ def run_slice14(dev, card: str, compare_and_time, width: int = 1920, height: int
           f"rasters {after} through the CUDA kernel loading {Path(lib_name).name}; build/kernels "
           f"unchanged ({len(now)} files) [{card}]", flush=True)
 
-    # (e) profiling: a trace of two frames with a zone each.
+    # (e) profiling: a trace of two frames with a zone each. The renderer's
+    # own zones (arkose.frame#<i> and its children) nest inside them, and
+    # the frames' record timestamps map onto the trace's clock.
+    for _ in range(2):  # the graphs of the steady frames captured outside the trace
+        r.render_frame()
+    torch.cuda.synchronize()
     profiling.reset_zones()
     log_dir = out_dir / "trace"
     shutil.rmtree(log_dir, ignore_errors=True)
+    first = r.frame_index
     with profiling.trace(str(log_dir), device=dev):
         for i in range(2):
             with profiling.zone(f"viewer frame {i}"):
@@ -1494,12 +1504,41 @@ def run_slice14(dev, card: str, compare_and_time, width: int = 1920, height: int
     text = traces[0].read_text() if traces else ""
     zones = profiling.zone_averages()
     if len(traces) != 1 or "viewer frame 0" not in text or "viewer frame 1" not in text \
-            or "raster_tiles_kernel" not in text or set(zones) != {"viewer frame 0",
-                                                                  "viewer frame 1"}:
+            or "raster_tiles_kernel" not in text \
+            or not {"viewer frame 0", "viewer frame 1", "arkose.frame"} <= set(zones):
         raise AssertionError(f"profiling: traces {traces}, zones {zones}, raster_tiles_kernel "
                              f"named {'raster_tiles_kernel' in text}")
+    events = [e for e in json.loads(text)["traceEvents"] if e.get("ph") == "X"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+
+    def inside(a, b) -> bool:
+        return b["ts"] <= a["ts"] and a["ts"] + a["dur"] <= b["ts"] + b["dur"]
+
+    nested = []
+    for i in range(2):
+        outer, frame = spans.get(f"viewer frame {i}"), spans.get(f"arkose.frame#{first + i}")
+        kids = [spans.get(f"arkose.frame.{k}#{first + i}") for k in ("camera", "fill", "replay")]
+        if outer is None or frame is None or None in kids or not inside(frame, outer) \
+                or not all(inside(k, frame) for k in kids):
+            raise AssertionError(f"profiling: frame {first + i}'s arkose.frame spans missing or "
+                                 f"not nested: {sorted(n for n in spans if 'arkose' in n)}")
+        nested.append(f"arkose.frame#{first + i}")
+    rows = r.frame_records()
+    keep = (rows["frame_index"] >= first) & (rows["frame_index"] < first + 2)
+    stamps = rows["stamps_ns"][keep].reshape(-1).astype(np.float64)
+    starts = sorted(e["ts"] for e in events
+                    if e.get("cat") == "kernel" and "frame_stamp_kernel" in e.get("name", ""))
+    if len(starts) != len(stamps) or (np.diff(stamps) < 0).any():
+        raise AssertionError(f"profiling: {len(starts)} frame_stamp_kernel launches in the trace "
+                             f"against {len(stamps)} record timestamps {stamps}")
+    residual = np.abs(clock_fit(starts, stamps)[1])
+    drift = (np.polyfit(stamps * 1e-3, starts, 1)[0] - 1.0) * 1e6  # trace us per record us
     print(f"profiling.trace: {traces[0].name} ({len(text)} bytes) names both zones and "
-          f"raster_tiles_kernel; zone_averages {zones} ms [{card}]", flush=True)
+          f"raster_tiles_kernel; {nested} nest inside them with their camera, fill and replay "
+          f"spans; zone_averages {zones} ms; the record's {len(stamps)} timestamps of the two "
+          f"frames on the trace's clock: |residual| median {np.median(residual):.3f} us, max "
+          f"{residual.max():.3f} us, the clocks' rates {drift:+.1f} ppm apart [{card}]",
+          flush=True)
     del r, holder
 
     # (b) the scripted session through the viewer loop, the card against the CPU.

@@ -262,3 +262,50 @@ def test_trace_wrapper_checks_its_inputs():
     bvh, o, d = overflow_case("cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         trace_rays_cuda(bvh, o, d)
+
+
+# -- the frame record's kernels (csrc/frame_record.cu) ---------------------------
+
+
+@pytest.mark.cuda
+def test_frame_record_kernels_match_the_host_path(cuda_device, monkeypatch):
+    """The record's timestamp and counter kernels write what its CPU path
+    writes: the frame index in row index % R, the counters reset at the
+    frame's first stamp and summed from int32 and int64 values, the stamps in
+    order. A CUDA graph of one frame's writes, replayed with two frame-index
+    inputs, writes both rows: the row is chosen on the device."""
+    from arkoserenderer_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "RECORD_FRAMES", 4)
+    rows = {}
+    for dev in ("cpu", cuda_device):
+        rec = profiling.FrameRecord(["A", "B"], dev)
+        for frame in (2, 9, 6):
+            fi = torch.tensor(frame, dtype=torch.int32, device=dev)
+            rec.stamp(fi, 0)
+            rec.count(fi, "geometry.kept", torch.tensor(frame, device=dev))
+            rec.count(fi, "geometry.kept", torch.tensor(5, dtype=torch.int32, device=dev))
+            rec.stamp(fi, 1)
+            rec.stamp(fi, 2)
+        rows[str(dev)] = rec.rows()
+    host, card = rows["cpu"], rows[str(cuda_device)]
+    assert card["frame_index"].tolist() == host["frame_index"].tolist() == [6, 9]
+    assert card["counters"]["geometry.kept"].tolist() == [11, 14]
+    assert card["clock"] == "globaltimer" and (np.diff(card["stamps_ns"], axis=1) >= 0).all()
+
+    rec = profiling.FrameRecord(["A"], cuda_device)
+    fi = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    value = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    rec.stamp(fi, 0)  # the launches' first run outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rec.stamp(fi, 0)
+        rec.count(fi, "raster.sun_binned", value * 3)
+        rec.stamp(fi, 1)
+    for frame in (1, 2):
+        fi.fill_(frame)
+        value.fill_(frame)
+        graph.replay()
+    got = rec.rows()
+    assert got["frame_index"].tolist() == [0, 1, 2]
+    assert got["counters"]["raster.sun_binned"].tolist() == [0, 3, 6]

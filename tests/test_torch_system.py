@@ -466,7 +466,8 @@ def test_reloaded_kernel_wrapper_loads_the_built_library(tmp_path, monkeypatch):
         def __init__(self, name):
             self._name = name
             calls["loaded"].append(name)
-            for fn in ("raster_tiles_launch", "bvh_trace_launch", "bvh_trace_warps_per_sm"):
+            for fn in ("raster_tiles_launch", "bvh_trace_launch", "bvh_trace_warps_per_sm",
+                       "frame_stamp_launch", "frame_count_launch"):
                 setattr(self, fn, type("Fn", (), {})())
 
     monkeypatch.setattr(subprocess, "Popen", FakeProc)

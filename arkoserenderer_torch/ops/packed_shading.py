@@ -6,6 +6,12 @@ geometry time, so shading does one record gather per pixel, the texel taps
 (ops/mattex), one sun shadow tap (ops/shadow VSM) and, per shadow-casting
 spot light, one PCF disc.
 
+``shade_packed`` sends CUDA tensors to the hand-written kernel
+(csrc/packed_shading.cu, wrapped by ops/packed_shading_cuda.py), which does
+all of it in one launch, and CPU tensors to ``shade_packed_plain``, the
+plain torch version that the tests and chip_smoke.py hold the kernel
+against.
+
 Record layout (``rec_size`` f32 lanes per raster setup row, permuted per
 scene by ``RecLayout``):
   [0:6)   screen xy of the 3 corners
@@ -72,7 +78,12 @@ def record_layout(scene_static, any_tex: bool) -> RecLayout:
         scene_static.dynamic or scene_static.has_skin
         or scene_static.has_morphs or scene_static.has_hair
     )
-    has_tan = bool(any_tex and scene_static.uses_normal_tex)
+    return layout_of(has_prev, bool(any_tex and scene_static.uses_normal_tex))
+
+
+def layout_of(has_prev: bool, has_tan: bool) -> RecLayout:
+    """The record layout with (or without) the prev-position and tangent
+    lanes."""
     o = 3                                   # wpos
     o_prev = o if has_prev else -1
     o += 3 if has_prev else 0
@@ -151,7 +162,23 @@ def build_records(
     )
 
 
-def shade_packed(
+def shade_packed(scene, cam, vis_flat: torch.Tensor, *args, **kwargs) -> GBuffer:
+    """Deferred shading of the visibility buffer (``shade_packed_plain``'s
+    arguments and contract): CUDA tensors go to the hand-written kernel
+    (``ops.packed_shading_cuda.shade_packed_cuda``, which raises on what it
+    does not take), CPU tensors to ``shade_packed_plain``; any other device
+    raises."""
+    dev = vis_flat.device
+    if dev.type == "cuda":
+        from arkoserenderer_torch.ops.packed_shading_cuda import shade_packed_cuda
+
+        return shade_packed_cuda(scene, cam, vis_flat, *args, **kwargs)
+    if dev.type == "cpu":
+        return shade_packed_plain(scene, cam, vis_flat, *args, **kwargs)
+    raise NotImplementedError(f"shade_packed has no path for device {dev}")
+
+
+def shade_packed_plain(
     scene,
     cam,
     vis_flat: torch.Tensor,     # (N,) setup-row ids (VIS_NONE background)

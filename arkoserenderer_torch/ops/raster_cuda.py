@@ -103,6 +103,10 @@ def build_kernels() -> ctypes.CDLL:
     lib.frame_stamp_launch.restype = i
     lib.frame_count_launch.argtypes = [p, p] + [i] * 3 + [p, i, p]
     lib.frame_count_launch.restype = i
+    lib.packed_shading_launch.argtypes = [p, p]
+    lib.packed_shading_launch.restype = i
+    lib.packed_shading_args_size.argtypes = []
+    lib.packed_shading_args_size.restype = i
     _lib = lib
     return lib
 

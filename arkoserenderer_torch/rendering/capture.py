@@ -142,17 +142,17 @@ def _fill(dst: list, src: list, always: bool = False) -> None:
 
 def launch_counts() -> tuple:
     """The kernels' launch counters: (raster launches, by shape, traversal
-    launches, by label), read through their modules (a reloaded wrapper
-    has its own)."""
-    from arkoserenderer_torch.ops import bvh_cuda, raster_cuda
+    launches, by label, shading launches), read through their modules (a
+    reloaded wrapper has its own)."""
+    from arkoserenderer_torch.ops import bvh_cuda, packed_shading_cuda, raster_cuda
 
     r, t = raster_cuda.rasterize_tiles_cuda, bvh_cuda.trace_rays_cuda
     return (r.launches, collections.Counter(r.launches_by_shape), t.launches,
-            collections.Counter(t.launches_by_label))
+            collections.Counter(t.launches_by_label), packed_shading_cuda.shade_packed_cuda.launches)
 
 
 def set_launch_counts(counts: tuple) -> None:
-    from arkoserenderer_torch.ops import bvh_cuda, raster_cuda
+    from arkoserenderer_torch.ops import bvh_cuda, packed_shading_cuda, raster_cuda
 
     r, t = raster_cuda.rasterize_tiles_cuda, bvh_cuda.trace_rays_cuda
     r.launches = counts[0]
@@ -161,17 +161,19 @@ def set_launch_counts(counts: tuple) -> None:
     t.launches = counts[2]
     t.launches_by_label.clear()
     t.launches_by_label.update(counts[3])
+    packed_shading_cuda.shade_packed_cuda.launches = counts[4]
 
 
 def add_launch_counts(delta: tuple) -> None:
     """Add a graph's launches (``launch_counts``' layout) to the counters."""
-    from arkoserenderer_torch.ops import bvh_cuda, raster_cuda
+    from arkoserenderer_torch.ops import bvh_cuda, packed_shading_cuda, raster_cuda
 
     r, t = raster_cuda.rasterize_tiles_cuda, bvh_cuda.trace_rays_cuda
     r.launches += delta[0]
     r.launches_by_shape.update(delta[1])
     t.launches += delta[2]
     t.launches_by_label.update(delta[3])
+    packed_shading_cuda.shade_packed_cuda.launches += delta[4]
 
 
 def count_delta(after: tuple, before: tuple) -> tuple:

@@ -298,6 +298,13 @@ def expected_launches_by_shape(renderer: Renderer, frames: int) -> dict:
     return out
 
 
+def expected_shading_launches(renderer: Renderer, frames: int) -> int:
+    """Packed-shading kernel launches of ``frames`` frames: one a frame
+    where VisibilityShading shades in the packed mode, else none."""
+    packed = renderer.cfg.shading_mode == "packed"
+    return frames if packed and "VisibilityShading" in _pass_names(renderer) else 0
+
+
 def expected_trace_launches_by_label(renderer, frames: int) -> dict:
     """Traversal launches of ``frames`` frames by trace, one a frame each:
     with RTShadow the sun mask and a mask per shadow-casting spot and point

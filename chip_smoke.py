@@ -344,6 +344,20 @@ result line):
      (``assets/baked.load_baked``) renders one 512x512 frame on the card
      through the raster kernel, finite and covered. Each part's kernel
      counts are set to 0 just before it and read just after.
+ 25. the packed-shading kernel (csrc/packed_shading.cu, ``run_shading``):
+     ptxas's registers and spills for each of its instances; then on the
+     last shading call of two eager frames of the stress frame (trilinear,
+     the bilinear VSM tap), the showcase app with the overlay's spot and
+     points under ray-traced shadows (aniso4 and the three masks), the
+     test_spot frame (PCF) and the app's stochastic frame (stochastic1 and
+     the jittered VSM tap), all at 1920x1080: the kernel against the plain
+     version (``tools/shading_bench``'s tolerances: coverage bit for bit,
+     mean |difference| within 1e-5 of the mean, under 0.1 % of the pixels
+     off by 1e-3) and timed: device ms (a CUDA graph of calls), the
+     wrapper's ms, the plain version's, the bound (65 bytes a pixel over
+     the peak bandwidth) and the share. Phase 22 checks one shading launch
+     a frame in every kind that shades in the packed mode, eager and
+     captured.
 The line before the last is the kernels' JSON: one entry per raster the
 raster kernel serves (1080p camera, cached sun, local shadow, stress
 camera, per-frame stress sun, 720p camera, flagship camera, ddgi camera,
@@ -358,7 +372,8 @@ showcase, flagship, ddgi, helmet and rt_soft frames, the pathtraced sample,
 the AO bake, the app's RT frame, the streamed rt frame, the last
 rank's band of phase 20 (b), phase 21's half-rate rt and rt_soft
 frames and phase 24's closest, any-hit and simple-occlusion traces, each
-with its launches by its label in that run;
+with its launches by its label in that run, and one entry per path of
+phase 25 for the packed-shading kernel;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1973,7 +1988,7 @@ def capture_run(renderer, camera_position, move, eager: bool, frames: int | None
 
     frames = frames or CAPTURE_FRAMES
     restart(renderer, camera_position)
-    set_launch_counts((0, {}, 0, {}))
+    set_launch_counts((0, {}, 0, {}, 0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     events, passes = [], []
@@ -2006,6 +2021,7 @@ def capture_run(renderer, camera_position, move, eager: bool, frames: int | None
             per_pass.setdefault(name, []).append(s.elapsed_time(e))
     return {"ms": float(np.median(frame_ms[CAPTURE_TIMED_FROM:])), "frame_ms": frame_ms,
             "wall_ms": wall, "rasters": dict(counts[1]), "traces": dict(counts[3]),
+            "shading": counts[4],
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "keep": keep,
             "pass_ms": {k: float(np.median(v)) for k, v in per_pass.items()}}
 
@@ -2086,11 +2102,13 @@ def run_slice17(dev, card: str, kinds=None) -> dict:
         want_r = {k: v for k, v in bench.expected_launches_by_shape(
             renderer, CAPTURE_FRAMES).items()}
         want_t = bench.expected_trace_launches_by_label(renderer, CAPTURE_FRAMES)
+        want_s = bench.expected_shading_launches(renderer, CAPTURE_FRAMES)
         for tag, run in (("eager", e1), ("captured", c), ("per-pass chain", ch)):
-            if run["rasters"] != want_r or run["traces"] != want_t:
+            if run["rasters"] != want_r or run["traces"] != want_t or run["shading"] != want_s:
                 raise AssertionError(f"{name} {tag}: rasters {run['rasters']} (expected "
-                                     f"{want_r}), traces {run['traces']} (expected {want_t}) "
-                                     f"in {CAPTURE_FRAMES} frames")
+                                     f"{want_r}), traces {run['traces']} (expected {want_t}), "
+                                     f"shading {run['shading']} (expected {want_s}) in "
+                                     f"{CAPTURE_FRAMES} frames")
         capture_agreement(name, c, e1)
         if not bool(torch.isfinite(c["keep"]["display"]).all()):
             raise AssertionError(f"{name}: the captured display image is not finite")
@@ -2120,7 +2138,8 @@ def run_slice17(dev, card: str, kinds=None) -> dict:
         print(f"phase 22 {name} {renderer.cfg.width}x{renderer.cfg.height}: {mode}; "
               f"{CAPTURE_FRAMES} frames from frame 0, eager then captured: display image "
               f"and {n_state} persistent tensors bit for bit; launches as expected in each run "
-              f"(rasters {want_r}, traces {want_t}); ms/frame (median of frames "
+              f"(rasters {want_r}, traces {want_t}, packed shading {want_s}); ms/frame "
+              f"(median of frames "
               f"{CAPTURE_TIMED_FROM}-{CAPTURE_FRAMES - 1}, CUDA events; min-max) captured "
               f"{c['ms']:.4f} ({span(c)}), eager {e1['ms']:.4f} ({span(e1)}); host wall "
               f"ms/frame captured {c['wall_ms']:.4f}, eager {e1['wall_ms']:.4f}; "
@@ -2179,7 +2198,7 @@ def run_slice18(dev, card: str, small: bool = False) -> dict:
 
     def samples(eager: bool) -> dict:
         tracer.reset()
-        set_launch_counts((0, {}, 0, {}))
+        set_launch_counts((0, {}, 0, {}, 0))
         run = bench.time_samples(tracer, SLICE18_SAMPLES, eager)
         run.update(accum=tracer.accum.clone(), ldr=tracer.ldr().clone(),
                    traces=dict(launch_counts()[3]))
@@ -2487,7 +2506,7 @@ def run_slice19(dev, card: str, compare_and_time) -> dict:
     def counted(fn):
         """fn() with every kernel count set to 0 just before it; returns
         (result, raster launches, traversal launches by label)."""
-        set_launch_counts((0, {}, 0, {}))
+        set_launch_counts((0, {}, 0, {}, 0))
         res = fn()
         torch.cuda.synchronize()
         counts = launch_counts()
@@ -2701,6 +2720,112 @@ def run_slice19(dev, card: str, compare_and_time) -> dict:
     del r
     print(f"phase 24 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return out
+
+
+# Phase 25: the packed-shading kernel on the shading calls of real frames.
+SHADING_SOURCE = "arkoserenderer_torch/csrc/packed_shading.cu"
+# The kernel replaces no Pallas kernel: the reference's shading is XLA-fused.
+SHADING_REPLACES = "none (arkoserenderer_tpu/ops/packed_shading.py:226, XLA-fused)"
+SHADING_FRAMES = 2
+
+
+def shading_ptxas(lib) -> list[str]:
+    """ptxas's lines for each instance of ``packed_shading_kernel``."""
+    from arkoserenderer_torch.ops.raster_cuda import ptxas_report
+
+    out, inside = [], False
+    for line in ptxas_report(lib):
+        if "Compiling entry function" in line:
+            inside = "packed_shading_kernel" in line
+        if inside:
+            out.append(line)
+    return out
+
+
+def run_shading(dev, card: str) -> list:
+    """Phase 25: the packed-shading kernel against its plain version and
+    timed, on the last shading call of SHADING_FRAMES eager frames of each
+    path at 1920x1080: the stress cell's frame (trilinear, the bilinear VSM
+    tap, moving geometry), the showcase app with the overlay's spot and two
+    point lights under ray-traced shadows (aniso4, the sun's, the spot's and
+    the points' masks), the test_spot frame (PCF of the spot's map) and the
+    app's stochastic frame (stochastic1, the jittered VSM tap). Prints
+    ptxas's registers and spills for the kernel, and per path the device
+    ms, the wrapper's ms, the bound (65 bytes a pixel), the share, the
+    launches and the plain version's ms; raises where the kernel leaves
+    ``tools.shading_bench``'s tolerances or a path does not take its
+    branch. Returns the kernels' JSON rows."""
+    import gc
+
+    from arkoserenderer_torch.apps import showcase
+    from arkoserenderer_torch.ops.raster_cuda import build_kernels
+    from arkoserenderer_torch.tools import bench
+    from arkoserenderer_torch.tools import shading_bench as sb
+
+    t_phase = time.perf_counter()
+    for line in shading_ptxas(build_kernels()):
+        print(f"  {line}", flush=True)
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def app_renderer(argv, lights: bool, **cfg_kw):
+        args = showcase.build_arg_parser().parse_args(
+            APP_SIZE + argv + ["--out", str(out_dir / "shading.png")])
+        scene, cam = showcase.build_scene(args)
+        if lights:
+            overlay_lights(scene)
+        return showcase.make_renderer(args, scene, cam, dev, **cfg_kw)
+
+    paths = {
+        "stress": (lambda: bench.build_renderer("stress", device=dev),
+                   lambda kw: kw["shadow_moments"] is not None and kw["layout"].has_prev),
+        "app_rt_lights": (
+            lambda: app_renderer(["--texture-quality", "aniso4", "--rt-shadows"], True),
+            lambda kw: (kw["shadow_mask"] is not None and kw["rt_spot_masks"] is not None
+                        and kw["rt_point_masks"] is not None and kw["n_spots"] >= 1
+                        and kw["n_points"] >= 2)),
+        "test_spot": (lambda: bench.build_renderer("test_spot", device=dev),
+                      lambda kw: kw["local_shadow_maps"] is not None
+                      and any(kw["spot_shadow_flags"])),
+        "app_stochastic": (
+            lambda: app_renderer(["--texture-quality", "stochastic1"], False,
+                                 shadow_filter="stochastic"),
+            lambda kw: kw["texture_quality"] == "stochastic1"
+            and kw["shadow_filter"] == "stochastic"),
+    }
+    rows = []
+    for name, (make, takes_branch) in paths.items():
+        renderer = make()
+        calls, _ = sb.capture_shading_calls(
+            lambda: [renderer.render_frame() for _ in range(SHADING_FRAMES)])
+        if len(calls) != SHADING_FRAMES or not takes_branch(calls[-1][1]):
+            raise AssertionError(f"shading {name}: {len(calls)} calls in {SHADING_FRAMES} "
+                                 f"frames, or the path's branch not taken")
+        m = sb.measure(calls[-1])
+        agree = m["agreement"]
+        print(f"shading {name} {renderer.cfg.width}x{renderer.cfg.height} "
+              f"({calls[-1][1]['texture_quality']}, sun filter {calls[-1][1]['shadow_filter']}, "
+              f"{calls[-1][1]['n_spots']} spots, {calls[-1][1]['n_points']} points): "
+              f"device_ms {m['device_ms']:.4f}, ms {m['ms']:.4f} (wrapper), plain_ms "
+              f"{m['plain_ms']:.3f}, bound_ms {m['bound_ms']:.4f} (bytes), share "
+              f"{m['share']:.4f}, launches {len(calls)} in {SHADING_FRAMES} frames, library none; "
+              f"against the plain version: coverage equal {agree['coverage_equal']} "
+              f"({agree['covered']} of {agree['pixels']} covered), "
+              + ", ".join(f"{k} exact {agree[k]['exact']:.6f} mean_rel {agree[k]['mean_rel']:.3g} "
+                          f"off {agree[k]['off']:.3g}" for k in sb.OUTPUTS)
+              + f" [{card}]", flush=True)
+        if not m["ok"]:
+            raise AssertionError(f"shading {name}: the kernel leaves the tolerances: {agree}")
+        rows.append({"name": f"packed_shading ({name})", "route": "cuda",
+                     "source": SHADING_SOURCE, "replaces": SHADING_REPLACES,
+                     "launches": len(calls), "ms": m["ms"], "device_ms": m["device_ms"],
+                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": "bytes",
+                     "share": m["share"], "library_ms": None})
+        del renderer, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 25 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return rows
 
 
 def main() -> None:
@@ -3276,6 +3401,8 @@ def main() -> None:
     run_slice18(dev, card)
     print(f"[phase 24 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
     slice19 = run_slice19(dev, card, compare_and_time)
+    print(f"[phase 25 starts {time.perf_counter() - t_main:.1f} s into the script]", flush=True)
+    shading_rows = run_shading(dev, card)
 
     # Each raster of the kernels line: the kinds whose runs launch it, and its shape.
     entries = {
@@ -3295,7 +3422,7 @@ def main() -> None:
     if not all(launches.values()):
         raise AssertionError(f"a raster of the frames' path was never launched: {launches}")
 
-    print(f"phases 1-24 took {time.perf_counter() - t_main:.1f} s", flush=True)
+    print(f"phases 1-25 took {time.perf_counter() - t_main:.1f} s", flush=True)
     print(card)
     rows = [{
         "name": f"raster_tiles ({name})", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3344,6 +3471,7 @@ def main() -> None:
     rows += [trace_row(t, launches) for launches, t in slice15["traces"]]
     rows += [trace_row(t, by_label.get(t["trace"], 0)) for by_label, t in slice16["traces"]]
     rows += [trace_row(t, launches) for launches, t in slice19["traces"]]
+    rows += shading_rows
     if not all(row["launches"] for row in rows):
         raise AssertionError("a kernel of the frames' path was never launched")
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,7 @@
 """What decides ``correct``: the program's frames against the plain reference
-of the configuration (``perfbench/reference/<name>.py``), rendered from the
-same authored inputs (``lib/inputs.py``) and the same camera path.
+of the configuration (``reference/<name>.py``, found through ``Spec``),
+rendered from the same authored inputs (``lib/inputs.py``) and the same
+camera path.
 
 Two frames are compared, both rendered through the program's
 ``render_frame`` at the cell's sizes:
@@ -13,8 +14,11 @@ Two frames are compared, both rendered through the program's
     ``--trace 1`` run), a graph replay of the timed path. The reference
     cannot follow the window's hundreds of frames in the time a run has, so
     it renders this frame from a copy of the program's persistent state
-    taken just before it (the TAA history: the one thing it takes from the
-    program), and the history the frame writes is compared too.
+    taken just before it (every floating-point entry of the program's
+    registry: TAA and upscaler histories, the RT denoisers' histories,
+    moments and depths, the DDGI probes; the one thing it takes from the
+    program), and the state it carries on (``state.<name>``, each entry the
+    reference returns, which holds every entry it read) is compared too.
 
 The numbers, each named ``<frame>.<resource>[.<statistic>]``:
 
@@ -32,22 +36,9 @@ The numbers, each named ``<frame>.<resource>[.<statistic>]``:
 
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
-
 import torch
 
 START_FRAME = 2
-REFERENCE_DIR = Path(__file__).resolve().parents[1] / "reference"
-
-
-def reference_module(name: str):
-    """``reference/<name>.py``, the plain reference a configuration names."""
-    spec = importlib.util.spec_from_file_location(f"perfbench_reference_{name}",
-                                                  REFERENCE_DIR / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def grab(renderer, names: list[str], state: bool = True) -> dict:
@@ -63,41 +54,95 @@ def grab(renderer, names: list[str], state: bool = True) -> dict:
             out[n] = torch.where(ok, orig[vis.clamp(0, max(orig.numel() - 1, 0))], -1).cpu()
         else:
             out[n] = st[n].detach().float().cpu().clone()
-    for k in renderer.pipeline.registry.persistent_names if state else ():
-        v = st.get(k)
-        if isinstance(v, torch.Tensor) and v.is_floating_point():
-            out["state." + k] = v.detach().float().cpu().clone()
+    for k, v in (persistent(renderer) if state else {}).items():
+        out["state." + k] = v.detach().float().cpu().clone()
     return out
 
 
+def persistent(renderer) -> dict:
+    """The floating-point entries of the program's persistent state, by
+    name: the tensors themselves."""
+    st = renderer.state
+    return {k: st[k] for k in renderer.pipeline.registry.persistent_names
+            if isinstance(st.get(k), torch.Tensor) and st[k].is_floating_point()}
+
+
 def reference_frames(module, inputs: dict, config: dict, device, step_frame: int,
-                     step_history: torch.Tensor | None, tf32: bool = False) -> tuple[dict, dict]:
+                     step_state: dict, tf32: bool = False) -> tuple[dict, dict]:
     """The reference's frame ``START_FRAME`` (from frame 0 on its own state)
-    and its frame ``step_frame`` from ``step_history``; ``tf32`` computes its
-    float32 matrix products in TF32 (the control)."""
+    and its frame ``step_frame`` from ``step_state`` (the program's
+    persistent state, by name); ``tf32`` computes its float32 matrix
+    products in TF32 (the control)."""
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     try:
         frame = module.Frame(inputs, config, device)
-        hist, earlier = None, []
+        state, earlier = {}, []
         for f in range(START_FRAME + 1):
-            out, hist = frame.render(f, hist)
-            earlier.append(out["Visibility"].cpu())
-        start = host(out, hist)
-        start["Visibility.earlier"] = torch.stack(earlier[:-1])
-        if step_history is not None:
-            step_history = step_history.to(device)
-        out, hist = frame.render(step_frame, step_history)
-        return start, host(out, hist)
+            out, state = render(frame, f, state)
+            if "Visibility" in out:
+                earlier.append(out["Visibility"].cpu())
+        start = host(out, state)
+        if earlier:
+            start["Visibility.earlier"] = torch.stack(earlier[:-1])
+        handed = {k: v.to(device, copy=True) for k, v in step_state.items()}
+        out, state = render(frame, step_frame, handed)
+        return start, host(out, state)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
-def host(out: dict, history) -> dict:
+class Handed(dict):
+    """The state handed to a reference's ``render``, noting each entry whose
+    value it reads."""
+
+    def __init__(self, state: dict):
+        super().__init__(state)
+        self.read: set = set()
+
+    def __getitem__(self, k):
+        self.read.add(k)
+        return super().__getitem__(k)
+
+    def __iter__(self):  # so that dict(handed) and {**handed} go through __getitem__
+        return super().__iter__()
+
+    def get(self, k, default=None):
+        if k in self:
+            self.read.add(k)
+        return super().get(k, default)
+
+    def pop(self, k, *default):
+        if k in self:
+            self.read.add(k)
+        return super().pop(k, *default)
+
+    def items(self):
+        self.read.update(self.keys())
+        return super().items()
+
+    def values(self):
+        self.read.update(self.keys())
+        return super().values()
+
+
+def render(frame, f: int, state: dict) -> tuple[dict, dict]:
+    """``frame.render(f, state)``, refusing a reference that reads an entry
+    of the state it is handed and does not return it: ``render`` returns the
+    whole state it carries into the next frame, so each entry it builds on
+    is compared (``state.<name>``)."""
+    handed = Handed(state)
+    out, written = frame.render(f, handed)
+    dropped = sorted(handed.read - set(written))
+    if dropped:
+        raise ValueError(f"the reference read {dropped} of its state and did not return it")
+    return out, written
+
+
+def host(out: dict, state: dict) -> dict:
     res = {k: v.detach().cpu() for k, v in out.items()}
-    if history is not None:
-        res["state.TAAHistory"] = history.detach().float().cpu()
+    res.update({"state." + k: v.detach().float().cpu() for k, v in state.items()})
     return res
 
 

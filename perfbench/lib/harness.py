@@ -78,6 +78,35 @@ def sized(config: dict, small: bool) -> dict:
     return {**config, **config.get("test_size", {})} if small else dict(config)
 
 
+NOT_IN_PIPELINE = {"width", "height", "shadow_map_size", "raster", "scene"}
+
+
+def pipeline_config(prog, config: dict, viewport: tuple[int, int]):
+    """``PipelineConfig`` of the four fields the harness sets, with the
+    configuration's ``pipeline`` entries laid over the defaults."""
+    extra = config.get("pipeline", {})
+    clash = set(extra) & NOT_IN_PIPELINE
+    if clash:
+        raise ValueError(f"'pipeline' sets {sorted(clash)}: the harness sets the first four "
+                         "from the configuration's top, and the renderer sets 'scene'")
+    return prog.PipelineConfig(width=viewport[0], height=viewport[1],
+                               shadow_map_size=int(config["shadow_map_size"]),
+                               raster=prog.RasterConfig(**config["raster"]), **extra)
+
+
+def renderer_flags(prog, config: dict, scene) -> dict:
+    """The configuration's ``renderer`` flags, a ``ddgi`` grid given as a
+    dict turned into the program's ``ProbeGridConfig`` fitted to the
+    scene's bounds."""
+    flags = dict(config.get("renderer", {}))
+    grid = flags.get("ddgi")
+    if isinstance(grid, dict):
+        grid = {k: tuple(v) if isinstance(v, list) else v for k, v in grid.items()}
+        center, radius = scene.bounding_sphere()
+        flags["ddgi"] = prog.ProbeGridConfig.fit_bounds(center, radius, **grid)
+    return flags
+
+
 def make_renderer(spec: Spec, config: dict, mix: dict, seed: int, device):
     """(renderer, traffic, compared resource names, the reference's inputs)
     of ``config``, built through the program's entry points, the camera path
@@ -92,10 +121,8 @@ def make_renderer(spec: Spec, config: dict, mix: dict, seed: int, device):
     inputs["animation"] = builder.animation(scene, traffic)
     base = np.array(camera.position, np.float32)
     inputs["camera_path"] = lambda k: (base + traffic.offset(k)).astype(np.float32)
-    cfg = prog.PipelineConfig(width=viewport[0], height=viewport[1],
-                              shadow_map_size=int(config["shadow_map_size"]),
-                              raster=prog.RasterConfig(**config["raster"]))
-    kw.update(config.get("renderer", {}))
+    cfg = pipeline_config(prog, config, viewport)
+    kw.update(renderer_flags(prog, config, scene))
     renderer = prog.Renderer(scene, camera, cfg, device=device, **kw)
     traffic.bind(renderer.camera)
     return renderer, traffic, list(config["compare"]), inputs
@@ -204,8 +231,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t0: float,
 
     # The check frame: the timed path's next frame from a copy of its state.
     step_frame = r.frame_index
-    history = r.state.get("TAAHistory")
-    history = history.detach().clone() if isinstance(history, torch.Tensor) else None
+    step_state = {k: v.detach().to("cpu", copy=True)
+                  for k, v in check.persistent(r).items()}
     submit()
     marks.sync()
     prog_step = check.grab(r, names)
@@ -216,15 +243,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t0: float,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    ref = check.reference_module(config["reference"])
+    ref = spec.reference(config["reference"])
     t_ref = time.perf_counter()
-    ref_start, ref_step = check.reference_frames(ref, inputs, config, device, step_frame, history)
+    ref_start, ref_step = check.reference_frames(ref, inputs, config, device, step_frame,
+                                                 step_state)
     ref_s = time.perf_counter() - t_ref
     values = check.numbers(prog_start, prog_step, ref_start, ref_step)
     log = {"reference_s": ref_s, "numbers": values}
     if control:
         c_start, c_step = check.reference_frames(ref, inputs, config, device, step_frame,
-                                                 history, tf32=True)
+                                                 step_state, tf32=True)
         log["program_checks"] = check.verdict(values, config.get("limits", {}))[1]
         values = log["control"] = check.numbers(c_start, c_step, ref_start, ref_step)
     correct, table = check.verdict(values, config.get("limits", {}))

@@ -38,11 +38,39 @@ A frame, in order:
               3x3 neighbourhood, blended 0.1 (1 on frame 0 or off screen)
   output      AgX, vignette 0.18, sRGB
 
-All of it float32, as the configuration states."""
+All of it float32, as the configuration states.
+
+``Frame.__init__`` raises ``ValueError`` on a scene or configuration that
+uses what this frame does not render: local lights, a sun that casts no
+shadow or none, a finite far plane, authored previous transforms, skins,
+morphs and clips, materials with more than a base colour (normal,
+metal-roughness, emissive or occlusion textures, emissive, double-sided,
+clearcoat, subsurface, a blend mode other than opaque), a linear base
+colour image, any renderer flag but ``taa`` and ``bloom``, any ``pipeline``
+setting. A configuration that uses more names a reference of its own.
+
+Another reference imports these pieces from this file (``from .forward
+import ...``: the references load as one package, ``lib/spec.py``), each a
+function of tensors with no state:
+
+  the camera  ``CameraModel`` (exposure, jittered reverse-Z projection),
+              ``apply``, ``to_screen``
+  the scene   ``Scene`` (pool, materials, sun matrix, SH of the environment),
+              ``refuse_unrendered``
+  raster      ``near_clip``, ``Setup``, ``raster``, ``edge``
+  textures    ``MaterialTexture``, ``srgb_to_linear``, ``linear_to_srgb``
+  lighting    ``brdf``, ``sun_map`` (with ``vsm_moments``), ``sun_light``
+              (with ``vsm_visibility``), ``sh_ambient`` (with ``sh9``,
+              ``env_irradiance_sh``), ``sky`` (with ``sample_equirect``)
+  post        ``bloom``, ``taa`` (with ``catmull_rom``, ``neighbourhood``),
+              ``display`` (AgX, vignette, sRGB)
+
+and ``Frame``'s steps: ``geometry``, ``visibility``, ``surface``."""
 
 from __future__ import annotations
 
 import math
+import types
 
 import numpy as np
 import torch
@@ -55,6 +83,9 @@ BLOOM_LEVELS = 5
 BLOOM_STRENGTH = 0.04
 VIGNETTE = 0.18
 PAIR_CHUNK = 8192      # raster fragments are evaluated this many (tile, row) pairs at a time
+DEFAULT_TEXTURES = 4   # texture ids 0-3 are the pool's default white, black, flat normal, grey
+FLAT_NORMAL = 2
+BLEND_OPAQUE = 0
 
 
 # -- camera and matrices (float64 on the host, rounded to float32) ------------------------
@@ -123,6 +154,13 @@ def apply(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 def normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.sqrt((v * v).sum(-1, keepdim=True) + 1e-20)
+
+
+def to_screen(m: torch.Tensor, p: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """(N,2) pixel positions of world points ``p`` under matrix ``m``."""
+    c = apply(m, p)
+    inv = torch.where(c[:, 3].abs() > 1e-8, 1.0 / c[:, 3], torch.zeros_like(c[:, 3]))
+    return torch.stack([(c[:, 0] * inv * 0.5 + 0.5) * w, (0.5 - c[:, 1] * inv * 0.5) * h], -1)
 
 
 # -- triangles: clip, set up, bin, raster ---------------------------------------------------
@@ -423,6 +461,24 @@ def vsm_visibility(mom, sun_vp, wpos, ndl):
     return torch.where(inside, lit, torch.ones_like(lit))
 
 
+def sun_map(sun_vp, wpos, tri, tri_ok, size: int, rc: dict):
+    """(depth (S,S), VSM moments) of the sun's depth-only raster of the
+    triangles ``tri`` over world vertices ``wpos``, both faces kept."""
+    sclip = apply(sun_vp, wpos)[tri]
+    sset = Setup(sclip, tri_ok, size, size, cull_back=False)
+    depth, _ = raster(sset, size, size, rc, want_vis=False)
+    return depth, vsm_moments(depth)
+
+
+def sun_light(sun_dir, sun_rgb, sun_vp, moments, pos, n, view_dir, base, rough, metal,
+              exposure: float):
+    """(N,3) the sun's pre-exposed light at surface points, VSM-shadowed."""
+    sun_l = -sun_dir[None].expand_as(pos)
+    ndl = (n * sun_l).sum(-1).clamp(0, 1)
+    shadow = vsm_visibility(moments, sun_vp, pos, ndl)
+    return brdf(sun_l, view_dir, n, base, rough, metal) * (sun_rgb * exposure) * shadow[:, None]
+
+
 def sh9(x, y, z):
     return [torch.full_like(x, 0.282095), 0.488603 * y, 0.488603 * z, 0.488603 * x,
             1.092548 * x * y, 1.092548 * y * z, 0.315392 * (3 * z * z - 1), 1.092548 * x * z,
@@ -447,6 +503,15 @@ def env_irradiance_sh(env: torch.Tensor) -> torch.Tensor:
     return coeffs * band[:, None]
 
 
+def sh_ambient(n, sh, env_gain: float, ambient_lx: float, exposure: float):
+    """(N,3) pre-exposed irradiance over pi at normals ``n``: the
+    environment's SH-2 (clamped at 0) times its brightness, plus the flat
+    ambient."""
+    x, y, z = n[:, 0:1], n[:, 1:2], n[:, 2:3]
+    irr = sum(bs * sh[i][None] for i, bs in enumerate(sh9(x, y, z))).clamp_min(0)
+    return (irr * (env_gain / math.pi) + ambient_lx / math.pi) * exposure
+
+
 def sample_equirect(env, d):
     h, w = env.shape[:2]
     u = torch.atan2(d[:, 0], -d[:, 2]) / (2 * math.pi) + 0.5
@@ -459,6 +524,22 @@ def sample_equirect(env, d):
     ya, yb = y0.clamp(0, h - 1), (y0 + 1).clamp(0, h - 1)
     return ((env[ya, xa] * (1 - fx) + env[ya, xb] * fx) * (1 - fy)
             + (env[yb, xa] * (1 - fx) + env[yb, xb] * fx) * fy)
+
+
+def sky(env, env_gain: float, exposure: float, j, w: int, h: int, uvp64, pvp, cam_t):
+    """(colour (N,3), velocity (N,2)) of the pixels ``j`` (flat indices) that
+    no triangle covers: the environment along the unjittered view ray, moved
+    as a point 1e4 away."""
+    qx = (j % w).to(F32) + 0.5
+    qy = (j // w).to(F32) + 0.5
+    inv_vp = t4(np.linalg.inv(uvp64), j.device)
+    ndc = torch.stack([qx / w * 2 - 1, (0.5 - qy / h) * 2, torch.full_like(qx, 0.5),
+                       torch.ones_like(qx)], -1)
+    wp = ndc @ inv_vp.T
+    dirs = normalize(wp[:, :3] / wp[:, 3:4] - cam_t[None])
+    color = sample_equirect(env, dirs) * (env_gain * exposure)
+    prev = to_screen(pvp, cam_t[None] + dirs * 1e4, w, h)
+    return color, torch.stack([qx, qy], -1) - prev
 
 
 # -- image post ------------------------------------------------------------------------------
@@ -524,6 +605,26 @@ def neighbourhood(img):
     return lo[0].permute(1, 2, 0), hi[0].permute(1, 2, 0)
 
 
+def taa(color, history, velocity, frame: int):
+    """(H,W,3) the resolved colour, which is the new history: ``history``
+    (None: zeros) by Catmull-Rom at the reprojected position, clamped to
+    the 3x3 neighbourhood, blended 0.1 (1 on frame 0 or off screen)."""
+    h, w = color.shape[:2]
+    dev = color.device
+    if history is None:
+        history = torch.zeros_like(color)
+    gx = (torch.arange(w * h, device=dev) % w).to(F32) + 0.5
+    gy = (torch.arange(w * h, device=dev) // w).to(F32) + 0.5
+    prx, pry = gx - velocity[:, 0], gy - velocity[:, 1]
+    hist = catmull_rom(history, prx, pry).view(h, w, 3)
+    lo, hi = neighbourhood(color)
+    hist = torch.minimum(torch.maximum(hist, lo), hi)
+    onscr = ((prx >= 0) & (prx < w) & (pry >= 0) & (pry < h)).view(h, w, 1)
+    alpha = torch.where((frame == 0) | ~onscr, torch.ones_like(hist[..., :1]),
+                        torch.full_like(hist[..., :1], TAA_BLEND))
+    return hist + (color - hist) * alpha
+
+
 AGX_IN = [[0.842479062253094, 0.0423282422610123, 0.0423756549057051],
           [0.0784335999999992, 0.878468636469772, 0.0784336],
           [0.0792237451477643, 0.0791661274605434, 0.879142973793104]]
@@ -550,7 +651,51 @@ def agx(c):
     return v ** 2.2
 
 
+def display(color):
+    """(H,W,3) the displayed image of linear ``color``: AgX, vignette, sRGB."""
+    h, w = color.shape[:2]
+    dev = color.device
+    ldr = agx(color.clamp_min(0))
+    uvx = (torch.arange(w, device=dev, dtype=F32) + 0.5) / w
+    uvy = (torch.arange(h, device=dev, dtype=F32) + 0.5) / h
+    r2 = ((uvx[None] - 0.5) ** 2 + (uvy[:, None] - 0.5) ** 2) * 4.0
+    ldr = ldr * (1 - VIGNETTE * r2 * r2).clamp(0, 1)[..., None]
+    return linear_to_srgb(ldr).clamp(0, 1)
+
+
 # -- the scene ---------------------------------------------------------------------------------
+
+def refuse_unrendered(inp: dict, config: dict) -> None:
+    """``ValueError`` on what this frame does not render (see the module)."""
+    flags = set(config.get("renderer", {})) - {"taa", "bloom"}
+    if flags:
+        raise ValueError(f"the forward reference has no {sorted(flags)}")
+    if config.get("pipeline"):
+        raise ValueError("the forward reference renders the default pipeline settings")
+    if inp["spots"] or inp["points"]:
+        raise ValueError("the reference renders a sun alone")
+    if inp["sun"] is None or not inp["sun"]["cast_shadows"]:
+        raise ValueError("the reference renders a shadow-casting sun")
+    if inp["camera"]["far"] is not None:
+        raise ValueError("the reference's projection has an infinite far plane")
+    for it in inp["instances"]:
+        if it["prev_world"] is not None or it["clip"] is not None:
+            raise ValueError("the reference takes instance motion from the animation alone")
+    for s in inp["segments"]:
+        if s["skeleton"] >= 0 or s["morph_pos"] is not None:
+            raise ValueError("the reference has no skinning or morph targets")
+    images = inp["images"]
+    for m in inp["materials"]:
+        if (m["normal_tex"] != FLAT_NORMAL or m["mr_tex"] != 0 or m["emissive_tex"] != 0
+                or m["occlusion_tex"] != 0 or m["double_sided"] or m["clearcoat"]
+                or m["subsurface"] or np.any(m["emissive_factor"])):
+            raise ValueError("the reference's materials have a base colour texture alone")
+        if m["blend_mode"] != BLEND_OPAQUE:
+            raise ValueError("the reference's materials are opaque")
+        tex = m["base_color_tex"]
+        if DEFAULT_TEXTURES <= tex < len(images) and not images[tex]["srgb"]:
+            raise ValueError("the reference decodes base colour images as sRGB")
+
 
 class Scene:
     """The pool as the authored instance list lays it out: instance by
@@ -597,6 +742,7 @@ class Scene:
         self.mats = []
         for m in mats:
             tex = m["base_color_tex"]
+            tex = tex if DEFAULT_TEXTURES <= tex < len(images) else None
             img = images[tex]["rgba"] if tex is not None else None
             repeat = images[tex]["repeat"] if tex is not None else True
             self.mats.append({
@@ -673,16 +819,17 @@ class Scene:
 
 class Frame:
     """The configuration's frame from the authored inputs. ``render(frame,
-    history)`` returns the compared resources and the new TAA history."""
+    state)`` takes and returns the persistent state, ``{"TAAHistory":
+    (H,W,3)}`` (empty before frame 0, and without TAA), with the compared
+    resources."""
 
     def __init__(self, inp: dict, config: dict, device):
+        refuse_unrendered(inp, config)
         self.dev = torch.device(device)
         self.w, self.h = int(config["width"]), int(config["height"])
         self.smap = int(config["shadow_map_size"])
         self.rc = config["raster"]
         flags = config.get("renderer", {})
-        if set(flags) - {"taa", "bloom"}:
-            raise ValueError(f"the forward reference has no {sorted(set(flags) - {'taa', 'bloom'})}")
         self.taa, self.bloom = flags.get("taa", True), flags.get("bloom", True)
         self.scene = Scene(inp, self.dev)
         self.cam = CameraModel(inp["camera"], self.w, self.h)
@@ -698,42 +845,50 @@ class Frame:
         return (t4(vp, self.dev), t4(uvp, self.dev), t4(pvp, self.dev),
                 np.asarray(self.path(frame), np.float32), uvp)
 
-    def render(self, frame: int, history: torch.Tensor | None) -> tuple[dict, torch.Tensor]:
-        sc, dev, w, h = self.scene, self.dev, self.w, self.h
+    def geometry(self, frame: int) -> types.SimpleNamespace:
+        """The frame's matrices, the instances drawn (LOD) and the world
+        vertices now and a frame ago, with their normals."""
+        sc, dev = self.scene, self.dev
         vp, uvp, pvp, cam_pos, uvp64 = self.matrices(frame)
         world, pworld, nmat, centre = sc.transforms(frame)
         cam_t = torch.as_tensor(cam_pos, device=dev)
         dist = torch.linalg.norm(centre - cam_t[None], dim=-1)
         drawn = (dist >= sc.band[:, 0]) & (dist < sc.band[:, 1])
-        tri_ok = drawn[sc.tri_inst]
-
         wm = world[sc.vtx_inst]
         wpos = (wm[:, :3, :3] @ sc.pos[:, :, None])[..., 0] + wm[:, :3, 3]
         ppos = (pworld[sc.vtx_inst][:, :3, :3] @ sc.pos[:, :, None])[..., 0] \
             + pworld[sc.vtx_inst][:, :3, 3]
         wnrm = normalize((nmat[sc.vtx_inst] @ sc.nrm[:, :, None])[..., 0])
+        return types.SimpleNamespace(frame=frame, vp=vp, uvp=uvp, pvp=pvp, uvp64=uvp64,
+                                     cam_t=cam_t, tri_ok=drawn[sc.tri_inst], wpos=wpos,
+                                     ppos=ppos, wnrm=wnrm)
 
-        # the sun's depth map and its moments
-        sclip = apply(sc.sun_vp, wpos)[sc.tri]
-        sset = Setup(sclip, tri_ok, self.smap, self.smap, cull_back=False)
-        sun_depth, _ = raster(sset, self.smap, self.smap, self.rc, want_vis=False)
-        moments = vsm_moments(sun_depth)
-
-        # the camera's visibility buffer
-        cclip = apply(vp, wpos)[sc.tri]
+    def visibility(self, g) -> types.SimpleNamespace:
+        """The camera's raster: depth, each pixel's setup row and scene
+        triangle (-1 uncovered), the near-clipped setup and its corners'
+        barycentrics in the original triangles."""
+        w, h = self.w, self.h
+        cclip = apply(g.vp, g.wpos)[self.scene.tri]
         near = float(self.cam.c["near"])
-        cclip, cbary, orig, ok = near_clip(cclip, tri_ok, near)
+        cclip, cbary, orig, ok = near_clip(cclip, g.tri_ok, near)
         cset = Setup(cclip, ok, w, h, cull_back=True)
         depth, row = raster(cset, w, h, self.rc, want_vis=True)
         row = row.reshape(-1)
         cov = row >= 0
-        rws = row[cov]
         vis = torch.where(cov, orig[row.clamp_min(0)], torch.full_like(row, -1))
+        return types.SimpleNamespace(depth=depth, row=row, cov=cov, vis=vis, orig=orig,
+                                     cset=cset, cbary=cbary)
 
-        # shading at covered pixels
-        idx = torch.arange(w * h, device=dev)[cov]
+    def surface(self, g, v) -> types.SimpleNamespace:
+        """At each covered pixel: world position now and a frame ago, the
+        normal, uv and its screen gradients, base colour, roughness and
+        metalness from the material."""
+        sc, dev, w = self.scene, self.dev, self.w
+        rws = v.row[v.cov]
+        idx = torch.arange(w * self.h, device=dev)[v.cov]
         px = (idx % w).to(F32) + 0.5
         py = (idx // w).to(F32) + 0.5
+        cset = v.cset
         sx, sy, iw = cset.sx[rws], cset.sy[rws], cset.inv_w[rws]
 
         def bary(qx, qy):
@@ -749,14 +904,14 @@ class Frame:
         b = bary(px, py)
         bxd = bary(px + 1, py)
         byd = bary(px, py + 1)
-        corners = sc.tri[orig[rws]]                               # (N,3) vertices
-        sub = cbary[rws]                                          # (N,3,3)
+        corners = sc.tri[v.orig[rws]]                             # (N,3) vertices
+        sub = v.cbary[rws]                                        # (N,3,3)
 
         def attr(a):
             at = a[corners]                                       # (N,3,C) original corners
             return sub @ at                                       # the cut triangle's corners
 
-        cw, cp, cn, cu = attr(wpos), attr(ppos), attr(wnrm), attr(sc.uv)
+        cw, cp, cn, cu = attr(g.wpos), attr(g.ppos), attr(g.wnrm), attr(sc.uv)
 
         def interp(c, bb):
             return (bb[:, :, None] * c).sum(1)
@@ -765,7 +920,7 @@ class Frame:
         n_geo = normalize(interp(cn, b))
         uv = interp(cu, b)
         duv_dx, duv_dy = interp(cu, bxd) - uv, interp(cu, byd) - uv
-        mat = sc.material[sc.tri_inst[orig[rws]]]
+        mat = sc.material[sc.tri_inst[v.orig[rws]]]
         base = torch.zeros_like(pos)
         rough = torch.zeros_like(pos[:, :1])
         metal = torch.zeros_like(rough)
@@ -775,67 +930,42 @@ class Frame:
                 base[sel] = m["tex"].sample(uv[sel], duv_dx[sel], duv_dy[sel]) * m["factor"]
                 rough[sel] = min(max(m["rough"], 0.0), 1.0)
                 metal[sel] = min(max(m["metal"], 0.0), 1.0)
+        return types.SimpleNamespace(pos=pos, prev_pos=prev_pos, n=n_geo, uv=uv, duv_dx=duv_dx,
+                                     duv_dy=duv_dy, material=mat, base=base, rough=rough,
+                                     metal=metal)
+
+    def render(self, frame: int, state: dict) -> tuple[dict, dict]:
+        sc, dev, w, h = self.scene, self.dev, self.w, self.h
+        g = self.geometry(frame)
+        sun_depth, moments = sun_map(sc.sun_vp, g.wpos, sc.tri, g.tri_ok, self.smap, self.rc)
+        v = self.visibility(g)
+        s = self.surface(g, v)
+
+        # shading at covered pixels: the sun, then the environment and the flat ambient
         exposure = self.cam.exposure
-        view_dir = normalize(cam_t[None] - pos)
-        sun_l = -sc.sun_dir[None].expand_as(pos)
-        ndl = (n_geo * sun_l).sum(-1).clamp(0, 1)
-        shadow = vsm_visibility(moments, sc.sun_vp, pos, ndl)
-        col = brdf(sun_l, view_dir, n_geo, base, rough, metal) * (sc.sun_rgb * exposure) \
-            * shadow[:, None]
-
-        def screen(m, p):
-            c = apply(m, p)
-            inv = torch.where(c[:, 3].abs() > 1e-8, 1.0 / c[:, 3], torch.zeros_like(c[:, 3]))
-            return torch.stack([(c[:, 0] * inv * 0.5 + 0.5) * w, (0.5 - c[:, 1] * inv * 0.5) * h], -1)
-
-        vel = screen(uvp, pos) - screen(pvp, prev_pos)
-
-        # compose: diffuse under the environment's irradiance and the flat ambient
-        x, y, z = n_geo[:, 0:1], n_geo[:, 1:2], n_geo[:, 2:3]
-        irr = sum(bs * sc.sh[i][None] for i, bs in enumerate(sh9(x, y, z))).clamp_min(0)
-        ambient = (irr * (sc.env_gain / math.pi) + sc.ambient_lx / math.pi) * exposure
-        col = col + base * (1 - metal) * ambient
+        view_dir = normalize(g.cam_t[None] - s.pos)
+        col = sun_light(sc.sun_dir, sc.sun_rgb, sc.sun_vp, moments, s.pos, s.n, view_dir, s.base,
+                        s.rough, s.metal, exposure)
+        vel = to_screen(g.uvp, s.pos, w, h) - to_screen(g.pvp, s.prev_pos, w, h)
+        col = col + s.base * (1 - s.metal) * sh_ambient(s.n, sc.sh, sc.env_gain, sc.ambient_lx,
+                                                        exposure)
 
         # the sky and its motion where nothing covers
         color = torch.zeros(w * h, 3, dtype=F32, device=dev)
         velocity = torch.zeros(w * h, 2, dtype=F32, device=dev)
-        color[cov], velocity[cov] = col, vel
-        bg = ~cov
+        color[v.cov], velocity[v.cov] = col, vel
+        bg = ~v.cov
         if bg.any():
             j = torch.arange(w * h, device=dev)[bg]
-            qx = (j % w).to(F32) + 0.5
-            qy = (j // w).to(F32) + 0.5
-            inv_vp = t4(np.linalg.inv(uvp64), dev)
-            ndc = torch.stack([qx / w * 2 - 1, (0.5 - qy / h) * 2, torch.full_like(qx, 0.5),
-                               torch.ones_like(qx)], -1)
-            wp = ndc @ inv_vp.T
-            dirs = normalize(wp[:, :3] / wp[:, 3:4] - cam_t[None])
-            color[bg] = sample_equirect(sc.env, dirs) * (sc.env_gain * exposure)
-            prev = screen(pvp, cam_t[None] + dirs * 1e4)
-            velocity[bg] = torch.stack([qx, qy], -1) - prev
+            color[bg], velocity[bg] = sky(sc.env, sc.env_gain, exposure, j, w, h, g.uvp64, g.pvp,
+                                          g.cam_t)
         color = color.view(h, w, 3)
         if self.bloom:
             color = bloom(color)
+        written = {}
         if self.taa:
-            if history is None:
-                history = torch.zeros_like(color)
-            gx = (torch.arange(w * h, device=dev) % w).to(F32) + 0.5
-            gy = (torch.arange(w * h, device=dev) // w).to(F32) + 0.5
-            prx, pry = gx - velocity[:, 0], gy - velocity[:, 1]
-            hist = catmull_rom(history, prx, pry).view(h, w, 3)
-            lo, hi = neighbourhood(color)
-            hist = torch.minimum(torch.maximum(hist, lo), hi)
-            onscr = ((prx >= 0) & (prx < w) & (pry >= 0) & (pry < h)).view(h, w, 1)
-            alpha = torch.where((frame == 0) | ~onscr, torch.ones_like(hist[..., :1]),
-                                torch.full_like(hist[..., :1], TAA_BLEND))
-            color = hist + (color - hist) * alpha
-            history = color
-        ldr = agx(color.clamp_min(0))
-        uvx = (torch.arange(w, device=dev, dtype=F32) + 0.5) / w
-        uvy = (torch.arange(h, device=dev, dtype=F32) + 0.5) / h
-        r2 = ((uvx[None] - 0.5) ** 2 + (uvy[:, None] - 0.5) ** 2) * 4.0
-        ldr = ldr * (1 - VIGNETTE * r2 * r2).clamp(0, 1)[..., None]
-        ldr = linear_to_srgb(ldr).clamp(0, 1)
-        out = {"Visibility": vis.view(h, w), "SceneDepth": depth, "ShadowMap.sun": sun_depth,
-               "SceneColor": color, "LDR": ldr}
-        return out, history
+            color = taa(color, state.get("TAAHistory"), velocity, frame)
+            written["TAAHistory"] = color
+        out = {"Visibility": v.vis.view(h, w), "SceneDepth": v.depth, "ShadowMap.sun": sun_depth,
+               "SceneColor": color, "LDR": display(color)}
+        return out, written

@@ -8,7 +8,8 @@ the card only, so this runs there::
 
 Each case prints one JSON line: the control's numbers (the upper readings
 the limits are set from) and the program's (lower readings), each beside
-the configuration's limits."""
+the configuration's limits. The cells are ``BENCHMARK.json``'s
+``workloads``."""
 
 import json
 import sys
@@ -24,11 +25,12 @@ sys.path.insert(0, str(ROOT))
 from perfbench.lib.harness import run_cell  # noqa: E402
 
 SEEDS = [2**31 + 1, 2**32 + 5, 91, 7_000_003]
+CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("cell", ["stress.animated"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell, seed):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: TF32 exists on the card only")

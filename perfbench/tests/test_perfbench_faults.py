@@ -1,10 +1,12 @@
 """A run of each cell, with the look for a card skipped and the timed path
 broken underneath, comes out not correct; the same run unbroken comes out
-correct. Each fault a one-chip frame can have: a frame that returns its
+correct. The cells are ``BENCHMARK.json``'s ``workloads``, so a cell added
+there gets its cases. Each fault a one-chip frame can have: a frame that returns its
 persistent state unchanged, half the frame left out, and one pixel of the
 frame altered where it is produced. (No cell spans chips, so there is no
 exchange to leave out.) CPU, at the configurations' test sizes."""
 
+import json
 import sys
 import time
 from pathlib import Path
@@ -17,7 +19,7 @@ sys.path.insert(0, str(ROOT))
 
 from perfbench.lib.harness import run_cell  # noqa: E402
 
-CELLS = ["stress.animated"]
+CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
 
 
 def wrap(renderer, change):

@@ -13,13 +13,13 @@ LOAD_ALL = """
 import json, runpy, sys
 sys.path.insert(0, {root!r})
 runpy.run_path({root!r} + "/perfbench/run.py", run_name="perfbench_run")
-from perfbench.lib import check, harness
+from perfbench.lib import harness
 from perfbench.lib.spec import Spec
 spec = Spec()
 for w in spec.data["workloads"]:
     config = spec.config(w["config"])
     spec.scene_builder(config["scene"]["builder"])
-    check.reference_module(config["reference"])
+    spec.reference(config["reference"])
     for m in spec.per_layer(w["name"]):
         spec.metric_reader(m["name"])
 harness.package(harness.PROGRAM)
@@ -27,13 +27,14 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 LOAD_REFERENCE = """
-import importlib.util, json, sys
-for path in {paths!r}:
-    spec = importlib.util.spec_from_file_location("ref", path)
-    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import json, sys
+sys.path.insert(0, {root!r})
+from perfbench.lib.spec import Spec
+for name in {names!r}:
+    Spec().reference(name)
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
-REFERENCES = sorted(str(p) for p in (ROOT / "perfbench" / "reference").rglob("*.py"))
+REFERENCES = sorted(p.stem for p in (ROOT / "perfbench" / "reference").glob("*.py"))
 
 
 def top_level(code: str) -> set:
@@ -50,7 +51,7 @@ def test_benchmark_loads_no_jax():
 
 def test_reference_loads_nothing_of_the_program():
     assert REFERENCES
-    names = top_level(LOAD_REFERENCE.format(paths=REFERENCES))
+    names = top_level(LOAD_REFERENCE.format(root=str(ROOT), names=REFERENCES))
     assert "torch" in names
     assert not names & {"arkoserenderer_torch", "jax", "jaxlib", "flax", "arkoserenderer_tpu"}
 
